@@ -1,0 +1,582 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (dllama_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card. It imports
+nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
+
+0. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
+   build of the port's CUDA kernels from ``dllama_tpu_torch/csrc``.
+1. Each kernel against its plain PyTorch version on the card, at the main
+   path's shapes (Llama-3-8B widths), with its stated tolerance, and timed
+   with CUDA events (median of 30 launches queued behind a GPU sleep, so
+   host launch overhead is not counted; weights rotate through enough copies
+   to defeat the 50 MB L2, as a decode step finds them cold) beside its
+   bound — the larger of bytes over 3.35 TB/s and operations over the
+   card's peak for their type — its plain version and, where one PyTorch
+   call computes the same function, that call.
+2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
+   the card from a seeded generator, seq_len 1024): a 100-token prompt
+   (bucket 128) and 32 greedy decode tokens. Launch counters show every
+   decode token went through the Q40 matmul (4 per layer + the classifier),
+   rope + cache write and flash decode (one each per layer); the first
+   decode step's logits are held against the same step with every kernel
+   swapped for its plain version.
+3. ``python -m dllama_tpu_torch.cli generate`` as a subprocess on a small
+   Q40 `.m`/`.t` pair written by the port's own writers; with f32
+   activations it must print the token ids the CPU run (plain versions)
+   prints.
+
+The last lines are the card's name and power limit, one JSON object with
+each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
+``build/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12  # tensor-core bf16 peak: the least time for bf16 products
+F32_FLOPS = 67e12  # CUDA-core float32 peak
+SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin ahead of each timed series
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, iters: int = 30) -> float:
+    """Median device time of one call of ``fn``, in ms: a GPU sleep lets the
+    host queue every launch first, so each event pair brackets device work
+    only."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    events = []
+    for _ in range(iters):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        events.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
+    """(least time in ms, what bounds it) for ``nbytes`` moved and ``flops``."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / peak_flops * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: Llama-3-8B projection widths (K -> O) and launches per decode token
+Q40_SHAPES = [("wqkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),
+              ("w13", 4096, 28672, 32), ("w2", 14336, 4096, 32),
+              ("wcls", 4096, 128256, 1)]
+
+
+def dequant_bf16(torch, w, s_lo, s_hi):
+    """The dense bf16 [K, O] matrix a packed Q40 plane holds."""
+    K2, O = w.shape
+    lo = (((w & 0xF).float() - 8) * s_lo.repeat_interleave(32, 0)).reshape(K2 // 32, 32, O)
+    hi = (((w >> 4).float() - 8) * s_hi.repeat_interleave(32, 0)).reshape(K2 // 32, 32, O)
+    return torch.stack([lo, hi], dim=1).reshape(2 * K2, O).to(torch.bfloat16)
+
+
+def phase1_q40(torch, dev, gen) -> list:
+    from dllama_tpu_torch.ops import qmatmul
+
+    rows = []
+    for name, K, O, per_token in Q40_SHAPES:
+        nbytes_w = K // 2 * O + 2 * (K // 64) * O * 4
+        copies = max(1, math.ceil(200e6 / nbytes_w))
+        planes = [(torch.randint(0, 256, (K // 2, O), dtype=torch.uint8, device=dev, generator=gen),
+                   torch.rand((K // 64, O), device=dev, generator=gen) * 0.004,
+                   torch.rand((K // 64, O), device=dev, generator=gen) * 0.004)
+                  for _ in range(copies)]
+        for T in (1, 128):
+            x = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
+            for nosub in (True, False):
+                w, s_lo, s_hi = planes[0]
+                got = qmatmul.q40_matmul(x, w, s_lo, s_hi, nosub=nosub)
+                torch.cuda.synchronize()
+                ref = qmatmul.q40_matmul_ref(x, w, s_lo, s_hi, nosub=nosub)
+                err = (got - ref).abs().max().item()
+                scale = ref.abs().max().item()
+                tol = 1e-5 * scale
+                row = {"matrix": name, "K": K, "O": O, "T": T, "nosub": nosub,
+                       "max_abs_err": err, "tol": tol}
+                log(f"  q40_matmul {name:5s} {K:5d}->{O:6d} T={T:3d} nosub={int(nosub)} "
+                    f"max_abs_err {err:.3e} (tol 1e-5*max|ref| = {tol:.3e})")
+                if not err <= tol:
+                    fail(f"q40_matmul {name} T={T} nosub={nosub}: {err} > {tol}")
+                if nosub == qmatmul.Q40_NOSUB:
+                    it = itertools.count()
+
+                    def kern():
+                        w_, a_, b_ = planes[next(it) % copies]
+                        qmatmul.q40_matmul(x, w_, a_, b_, nosub=nosub)
+
+                    row["ms"] = time_ms(torch, kern)
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: qmatmul.q40_matmul_ref(x, w, s_lo, s_hi, nosub=nosub), 20)
+                    # the yardstick: bf16 torch.matmul on a pre-dequantized weight
+                    # (as many copies as the Q40 planes, so L2 helps neither)
+                    lib_copies = max(1, math.ceil(200e6 / (K * O * 2)))
+                    wds = [dequant_bf16(torch, *planes[i % copies]) for i in range(lib_copies)]
+                    it2 = itertools.count()
+                    row["library_ms"] = time_ms(
+                        torch, lambda: torch.matmul(x, wds[next(it2) % lib_copies]))
+                    del wds
+                    b, by = bound_ms(nbytes_w + T * K * 2 + T * O * 4, 2.0 * T * K * O,
+                                     BF16_FLOPS)
+                    row["bound_ms"], row["bound_by"] = b, by
+                    row["launches_per_token"] = per_token if T == 1 else None
+                    log(f"    time {row['ms']:.4f} ms  bound {b:.4f} ms ({by})  plain "
+                        f"{row['plain_ms']:.4f} ms  bf16 torch.matmul {row['library_ms']:.4f} ms")
+                rows.append(row)
+        del planes
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase1_flash(torch, dev, gen) -> list:
+    from dllama_tpu_torch.ops import flash_decode
+
+    rows = []
+    L, S, kv, group, hd, pos, T = 64, 1024, 8, 4, 128, 1000, 1  # 256 MB: cold in L2
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        kc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
+        vc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
+        q = torch.randn((T, kv * group, hd), device=dev, generator=gen).to(torch.bfloat16)
+        got = flash_decode.flash_decode_attention(q, kc, vc, pos, 2).float()
+        torch.cuda.synchronize()
+        ref = flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 2).float()
+        ref32 = flash_decode.flash_decode_attention_ref(q.float(), kc, vc, pos, 2)
+        got32 = flash_decode.flash_decode_attention(q.float(), kc, vc, pos, 2)
+        err = (got - ref).abs().max().item()
+        err32 = (got32 - ref32).abs().max().item()
+        scale = ref32.abs().max().item()
+        # bf16 output: one bf16 ulp at the output's magnitude; f32: 1e-5
+        tol, tol32 = 2.0 ** -7 * scale, 1e-5 * scale
+        log(f"  flash_decode cache={str(dtype).split('.')[-1]} S={S} kv={kv} group={group} "
+            f"hd={hd} pos={pos}: bf16 out max_abs_err {err:.3e} (tol 2^-7*max = {tol:.3e}), "
+            f"f32 out {err32:.3e} (tol 1e-5*max = {tol32:.3e})")
+        if not (err <= tol and err32 <= tol32):
+            fail(f"flash_decode {dtype}: {err} > {tol} or {err32} > {tol32}")
+        row = {"cache": str(dtype), "S": S, "pos": pos, "max_abs_err": err, "tol": tol,
+               "max_abs_err_f32": err32}
+        if dtype == torch.bfloat16:
+            layers = itertools.count()
+            row["ms"] = time_ms(torch, lambda: flash_decode.flash_decode_attention(
+                q, kc, vc, pos, next(layers) % L))
+            row["plain_ms"] = time_ms(
+                torch, lambda: flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 2))
+            live = pos + T
+            kl = kc[2, :live].permute(1, 0, 2).unsqueeze(0).contiguous()  # [1, kv, live, hd]
+            vl = vc[2, :live].permute(1, 0, 2).unsqueeze(0).contiguous()
+            ql = q.permute(1, 0, 2).unsqueeze(0).contiguous()  # [1, H, T, hd]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            row["library_ms"] = time_ms(torch, lambda: sdpa(ql, kl, vl, enable_gqa=True))
+            nbytes = 2 * live * kv * hd * kc.element_size() + 2 * q.numel() * 2
+            b, by = bound_ms(nbytes, 4.0 * T * kv * group * live * hd, BF16_FLOPS)
+            row["bound_ms"], row["bound_by"] = b, by
+            log(f"    time {row['ms']:.4f} ms  bound {b:.5f} ms ({by})  plain "
+                f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def phase1_rope(torch, dev, gen) -> list:
+    from dllama_tpu_torch.ops import fused_rope_cache
+    from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
+
+    rows = []
+    L, S, kv, hd = 4, 1024, 8, 128
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
+    for style in (INTERLEAVED, HALF):
+        for T, pos in ((1, 700), (4, 1022)):  # pos 1022 + 4 > S: start clamps to 1020
+            for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+                k = torch.randn((T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+                v = torch.randn((T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+                r0 = min(pos, S - T)
+                c, s = cos[r0:r0 + T, None], sin[r0:r0 + T, None]
+                kc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
+                vc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
+                kr, vr = kc.clone(), vc.clone()
+                fused_rope_cache.rope_cache_update(k, v, c, s, kc, vc, pos, 1, style)
+                torch.cuda.synchronize()
+                fused_rope_cache.rope_cache_update_ref(k, v, c, s, kr, vr, pos, 1, style)
+                diff = int((kc.view(torch.uint8) != kr.view(torch.uint8)).sum()
+                           + (vc.view(torch.uint8) != vr.view(torch.uint8)).sum())
+                err = max((kc.float() - kr.float()).abs().max().item(),
+                          (vc.float() - vr.float()).abs().max().item())
+                log(f"  rope_cache_update {style:11s} T={T} pos={pos} "
+                    f"cache={str(dtype).split('.')[-1]}: {diff} cache bytes differ "
+                    f"(tol 0: bit-equal)")
+                if diff:
+                    fail(f"rope_cache_update {style} T={T} pos={pos} {dtype}: {diff} bytes differ")
+                row = {"style": style, "T": T, "pos": pos, "cache": str(dtype),
+                       "bytes_differ": diff, "max_abs_err": err}
+                if style == INTERLEAVED and T == 1 and dtype == torch.bfloat16:
+                    row["ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update(
+                        k, v, c, s, kc, vc, pos, 1, style))
+                    row["plain_ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update_ref(
+                        k, v, c, s, kr, vr, pos, 1, style))
+                    nbytes = 2 * (2 * T * kv * hd * 2) + 2 * T * hd // 2 * 4
+                    b, by = bound_ms(nbytes, 6.0 * T * kv * hd // 2, F32_FLOPS)
+                    row["bound_ms"], row["bound_by"] = b, by
+                    row["library_ms"] = None
+                    log(f"    time {row['ms']:.4f} ms  bound {b:.6f} ms ({by})  plain "
+                        f"{row['plain_ms']:.4f} ms  (no single PyTorch call)")
+                rows.append(row)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: full-width decode through Engine.generate
+# ---------------------------------------------------------------------------
+
+LLAMA3_8B = dict(arch="llama", dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
+                 n_kv_heads=8, vocab_size=128256, seq_len=1024, head_size=128,
+                 kv_dim=1024, rope_theta=500000.0, dtype="bfloat16")
+
+
+class plain_versions:
+    """Within the block, the model's kernel wrappers run their plain PyTorch
+    versions instead (for the end-to-end reference step)."""
+
+    def __enter__(self):
+        from dllama_tpu_torch.models import llama
+        from dllama_tpu_torch.ops import flash_decode, fused_rope_cache, qmatmul
+
+        self.saved = [(qmatmul, "q40_matmul", qmatmul.q40_matmul),
+                      (llama, "rope_cache_update", llama.rope_cache_update),
+                      (flash_decode, "flash_decode_attention",
+                       flash_decode.flash_decode_attention)]
+        qmatmul.q40_matmul = qmatmul.q40_matmul_ref
+        llama.rope_cache_update = fused_rope_cache.rope_cache_update_ref
+        flash_decode.flash_decode_attention = flash_decode.flash_decode_attention_ref
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def phase2(torch, dev) -> dict:
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.ops.qmatmul import QuantTensor
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    cfg = ModelConfig(**LLAMA3_8B)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = llama.random_quant_params(cfg, dev, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q40_bytes = 0
+    for leaf in [params["wcls"], *params["layers"].values()]:
+        if isinstance(leaf, QuantTensor):
+            q40_bytes += leaf.w.numel() + 4 * (leaf.s.numel() + leaf.s2.numel())
+    bound = q40_bytes / HBM_BYTES_PER_S * 1e3
+    engine = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
+                    cache_dtype=torch.bfloat16, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (100,), generator=torch.Generator().manual_seed(1))
+    prompt = prompt.tolist()
+    log(f"  Llama-3-8B shape, random Q40 params built on the card in {build_s:.2f} s; "
+        f"Q40 planes {q40_bytes / 1e9:.3f} GB; peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+
+    logits, _ = engine.prefill(engine.new_cache(), prompt)
+    if logits.shape != (cfg.vocab_size,) or not bool(torch.isfinite(logits).all()):
+        fail(f"prefill logits: shape {tuple(logits.shape)}, finite "
+             f"{bool(torch.isfinite(logits).all())}")
+
+    # one warm run (allocator, first launches), then the counted run
+    for _ in engine.generate(prompt, 4):
+        pass
+    steps = 33  # the first token comes from the prefill logits
+    kernels.reset_launches()
+    seen = dict(kernels.launches)
+    per_token, stats, tokens = [], [], []
+    for tok, st in engine.generate(prompt, steps):
+        now = dict(kernels.launches)
+        per_token.append({k: now[k] - seen[k] for k in now})
+        seen = now
+        stats.append(st)
+        tokens.append(tok)
+    totals = dict(kernels.launches)
+    if len(tokens) != steps:
+        fail(f"generated {len(tokens)} tokens, wanted {steps}")
+    want = {"q40_matmul": 4 * cfg.n_layers + 1, "flash_decode": cfg.n_layers,
+            "rope_cache_update": cfg.n_layers}
+    for i, d in enumerate(per_token[1:], 1):
+        if d != want:
+            fail(f"decode token {i} launched {d}, want {want}")
+    log(f"  launches over the run (prefill + 32 decode tokens): {totals}; "
+        f"every decode token: {want}")
+
+    decode_ms = [s.generation_ms for s in stats[1:]]
+    device_wait_ms = [s.inference_ms for s in stats[1:]]
+    out = {
+        "prefill_ms": engine.prefill_ms,
+        "prompt_tokens": len(prompt),
+        "decode_ms_median": statistics.median(decode_ms),
+        "decode_ms_min": min(decode_ms),
+        "decode_device_wait_ms_median": statistics.median(device_wait_ms),
+        "q40_bytes_per_token": q40_bytes,
+        "q40_bound_ms": bound,
+        "launches": totals,
+        "tokens": tokens,
+    }
+    log(f"  prefill {engine.prefill_ms:.2f} ms ({len(prompt)} tokens, bucket 128); decode "
+        f"{out['decode_ms_median']:.3f} ms/token median (min {out['decode_ms_min']:.3f}, "
+        f"device wait {out['decode_device_wait_ms_median']:.3f}); Q40 weight-byte bound "
+        f"{bound:.3f} ms/token")
+
+    # where a decode token's device time goes
+    from torch.profiler import ProfilerActivity, profile
+
+    session = engine.final_session
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in engine.generate([], 3, session=session):
+            pass
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / 3
+    by_name = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0)
+        if dt and str(ev.device_type).endswith("CUDA"):
+            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.split("(")[0][:80]
+            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / 3  # ms per token
+    busy = sum(by_name.values())
+    if busy > 0:
+        out["profile_ms_per_token"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+        out["profile_device_busy_ms_per_token"] = busy
+        out["profile_wall_ms_per_token"] = wall
+        out["profile_idle_share"] = max(0.0, 1.0 - busy / wall)
+        log(f"  profiler, 3 decode tokens: device busy {busy:.3f} ms/token of {wall:.3f} ms "
+            f"wall (idle share {out['profile_idle_share']:.3f}); top kernels:")
+        for k, v in list(out["profile_ms_per_token"].items())[:6]:
+            log(f"    {v:.4f} ms  {k}")
+    else:
+        out["profile_idle_share"] = "not measured"
+        log("  profiler showed no device time: idle share not measured")
+
+    # the first decode step against the same step through the plain versions
+    cache, pos = engine.new_cache(), 0
+    last, cache = engine.prefill(cache, prompt)
+    nxt = torch.argmax(last).reshape(1)
+    pos = len(prompt)
+    k0, v0 = cache["k"].clone(), cache["v"].clone()
+    lk, _ = llama.forward(cfg, engine.params, engine.rope, nxt, cache, pos)
+    with plain_versions():
+        lr, _ = llama.forward(cfg, engine.params, engine.rope, nxt, {"k": k0, "v": v0}, pos)
+    err = (lk - lr).abs().max().item()
+    scale = lr.abs().max().item()
+    tol = 5e-2 * scale
+    log(f"  decode step vs plain versions: max |dlogit| {err:.4e} (tol 5e-2*max|logit| = "
+        f"{tol:.4e}; bf16 activations through 32 layers), argmax {int(lk.argmax())} vs "
+        f"{int(lr.argmax())}")
+    if not (bool(torch.isfinite(lk).all()) and err <= tol):
+        fail(f"decode step vs plain versions: {err} > {tol}")
+    out["decode_vs_plain_max_abs_err"] = err
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the CLI on a small model written by the port's writers
+# ---------------------------------------------------------------------------
+
+def write_small_model(workdir: Path) -> tuple:
+    import numpy as np
+
+    from dllama_tpu_torch.formats.spec import ArchType, ModelSpec
+    from dllama_tpu_torch.formats.tokenizer_file import TokenizerData, write_tokenizer
+    from dllama_tpu_torch.formats.weights import tensor_plan, write_model
+    from dllama_tpu_torch.quants import blocks
+
+    vocab = [b"<unk>", b"<s>", b"</s>"] + [f"<0x{b:02X}>".encode() for b in range(256)]
+    words = [b" ", b"He", b"ll", b"o", b" w", b"or", b"ld", b"Hello", b" world", b"!"]
+    vocab += words
+    vocab += [f"tok{i}".encode() for i in range(512 - len(vocab))]
+    scores = [0.0] * 259 + [float(i) for i in range(len(vocab) - 259)]
+    tok_path = workdir / "small.t"
+    write_tokenizer(str(tok_path), TokenizerData(vocab=vocab, scores=scores, bos_id=1, eos_id=2))
+    spec = ModelSpec(arch=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2, n_heads=8,
+                     n_kv_heads=4, vocab_size=len(vocab), seq_len=256,
+                     weights_float_type=blocks.Q40, rope_theta=10000.0)
+    rng = np.random.default_rng(0)
+    tensors = {}
+    for e in tensor_plan(spec):
+        if e.name.startswith("rms") or ".rms" in e.name:
+            tensors[e.name] = np.ones(e.d * e.n, np.float32)
+        else:
+            tensors[e.name] = 0.08 * rng.standard_normal(e.d * e.n).astype(np.float32)
+    model_path = workdir / "small.m"
+    write_model(str(model_path), spec, tensors)
+    return model_path, tok_path
+
+
+def run_cli(model: Path, tok: Path, extra: list) -> list:
+    cmd = [sys.executable, "-m", "dllama_tpu_torch.cli", "generate", "--model", str(model),
+           "--tokenizer", str(tok), "--steps", "8", "--temperature", "0", "--seed", "0",
+           "--prompt", "Hello world", *extra]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"{' '.join(cmd[2:])} exited {proc.returncode}:\n{proc.stdout[-2000:]}"
+             f"\n{proc.stderr[-3000:]}")
+    ids = [ln for ln in proc.stdout.splitlines() if ln.startswith("Token ids:")]
+    if not ids or not ids[0].split(":", 1)[1].split():
+        fail(f"{' '.join(cmd[2:])} printed no tokens:\n{proc.stdout[-2000:]}")
+    return [int(t) for t in ids[0].split(":", 1)[1].split()]
+
+
+def phase3() -> dict:
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        model, tok = write_small_model(Path(d))
+        card = run_cli(model, tok, [])
+        card32 = run_cli(model, tok, ["--dtype", "float32"])
+        cpu32 = run_cli(model, tok, ["--dtype", "float32", "--device", "cpu",
+                                     "--weights-float-type", "q40"])
+    log(f"  cli generate on the card (bf16): {card}")
+    log(f"  cli generate on the card (f32):  {card32}")
+    log(f"  cli generate on the CPU  (f32):  {cpu32}")
+    if card32 != cpu32:
+        fail(f"card tokens {card32} differ from the CPU's {cpu32}")
+    return {"card_bf16": card, "card_f32": card32, "cpu_f32": cpu32}
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's smoke run needs one NVIDIA GPU")
+    if not (ROOT / "dllama_tpu_torch" / "__init__.py").exists():
+        fail(f"{ROOT} is not a checkout of the repository (no dllama_tpu_torch/)")
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    log("== phase 0: card, versions, kernel build")
+    card = gpu_line()
+    log(f"  {card}")
+    log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}"
+        f"  device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from dllama_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    so = kernels.build()
+    kernels.lib()
+    build_s = time.perf_counter() - t0
+    log(f"  kernels built and loaded in {build_s:.1f} s: {so.relative_to(ROOT)}")
+
+    log("== phase 1: kernels vs plain versions (Llama-3-8B shapes)")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q40 = phase1_q40(torch, dev, gen)
+    flash = phase1_flash(torch, dev, gen)
+    rope = phase1_rope(torch, dev, gen)
+
+    log("== phase 2: Engine.generate, Llama-3-8B shape, random Q40, 100 + 32 tokens")
+    e2e = phase2(torch, dev)
+
+    log("== phase 3: python -m dllama_tpu_torch.cli generate on a small Q40 model")
+    cli = phase3()
+
+    # one entry per kernel; the Q40 matmul's numbers are for one decode
+    # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
+    dec = [r for r in q40 if r["T"] == 1 and "ms" in r]
+
+    def per_token(key):
+        return sum(r[key] * r["launches_per_token"] for r in dec)
+
+    fl = next(r for r in flash if "ms" in r)
+    rp = next(r for r in rope if "ms" in r)
+    launches = e2e["launches"]
+    summary = {"kernels": [
+        {"name": "q40_matmul", "route": "cuda", "source": "dllama_tpu_torch/csrc/q40_matmul.cu",
+         "replaces": "dllama_tpu/ops/qmatmul.py:361 (_q40_kernel) + :412 (_q40_corr_kernel)",
+         "launches": launches["q40_matmul"],
+         "max_abs_err": max(r["max_abs_err"] for r in q40),
+         "ms": per_token("ms"), "kernel_ms": per_token("ms"), "plain_ms": per_token("plain_ms"),
+         "bound_ms": per_token("bound_ms"),
+         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in dec) else "operations",
+         "library_ms": per_token("library_ms"),
+         "per": "one decode token: 32 x (wqkv, wo, w13, w2) + wcls, T=1"},
+        {"name": "flash_decode", "route": "cuda", "source": "dllama_tpu_torch/csrc/flash_decode.cu",
+         "replaces": "dllama_tpu/ops/flash_decode.py:102 (_kernel)",
+         "launches": launches["flash_decode"],
+         "max_abs_err": max(r["max_abs_err"] for r in flash),
+         "ms": fl["ms"], "kernel_ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
+         "per": "one launch: S=1024 bf16 cache, kv=8, group 4, hd=128, pos 1000"},
+        {"name": "rope_cache_update", "route": "cuda",
+         "source": "dllama_tpu_torch/csrc/rope_cache.cu",
+         "replaces": "dllama_tpu/ops/fused_rope_cache.py:86 (_kernel)",
+         "launches": launches["rope_cache_update"],
+         "max_abs_err": max(r["max_abs_err"] for r in rope),
+         "ms": rp["ms"], "kernel_ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
+         "bound_by": rp["bound_by"], "library_ms": None,
+         "per": "one launch: T=1, kv=8, hd=128, bf16 activations and cache"},
+    ]}
+    details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+               "build_s": build_s, "q40": q40, "flash_decode": flash, "rope_cache": rope,
+               "e2e": e2e, "cli": cli, "summary": summary,
+               "seconds": time.perf_counter() - t_start}
+    (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
+    log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")
+    print(card)
+    print(json.dumps(summary))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,47 @@
+// Shared element conversions for the port's kernels.
+//
+// Activations are bf16 or f32; caches are f32, bf16 or float8_e4m3fn (kind
+// codes 0, 1, 2, matching ops.fused_rope_cache.CACHE_KINDS). The float8 cast
+// follows the JAX package: a value that rounds past 448 (|x| > 464, or inf)
+// becomes NaN — e4m3fn has no infinity — never a saturated +-448.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dllama {
+
+struct F8 {  // float8_e4m3fn storage
+  uint8_t bits;
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(F8 v) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(v.bits, __NV_E4M3)));
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ F8 from_f32<F8>(float v) {
+  F8 out;
+  out.bits = (fabsf(v) <= 464.f)
+                 ? (uint8_t)__nv_cvt_float_to_fp8(v, __NV_SATFINITE, __NV_E4M3)
+                 : (uint8_t)0x7F;  // NaN (also for NaN and inf inputs)
+  return out;
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+}  // namespace dllama

@@ -1,0 +1,144 @@
+"""Builder and loader of the port's hand-written CUDA kernels.
+
+The sources are ``csrc/*.cu``, each with a plain C interface. At first use
+every source is compiled by its own ``nvcc`` (all started together) for
+``sm_90a``, the objects are linked into ONE shared library, and the library
+is loaded with ``ctypes``. The library lands in ``build/torch_kernels/`` at
+the repository root, named by a hash of the sources and flags: a changed
+source rebuilds, an unchanged one loads what is there. A failed build raises;
+nothing falls back.
+
+Every C entry point takes its pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launches; :func:`check` turns a
+non-zero code into an exception. Each wrapper in ``ops`` adds one to its
+entry in :data:`launches` where it launches its kernel, and nowhere else, so a
+run can show which kernels the main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+#: kernel launches per wrapper since the last :func:`reset_launches`
+launches = {"q40_matmul": 0, "flash_decode": 0, "rope_cache_update": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C entry points and their argument types (every pointer and the stream
+#: as c_void_p, so ctypes never truncates one to 32 bits)
+_SIGNATURES = {
+    # x, T, K, w, s_lo, s_hi, O, nosub, ksplit, sb_per_split, partials, out, stream
+    "dllama_q40_matmul": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, cache_kind, stream
+    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # k, v, cos, sin, k_cache, v_cache, T, kv, hd, S, start, layer, half_style,
+    # act_kind, cache_kind, stream
+    "dllama_rope_cache_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _P),
+}
+
+_lib = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdllama_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernels unless the library for these sources
+    exists. Returns its path; raises with nvcc's output on failure."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
+    try:
+        sources = sorted(CSRC.glob("*.cu"))
+        objs = [tmp / (src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(sources, objs)]
+        failed = []
+        for src, proc in zip(sources, procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"--- {src.name} (exit {proc.returncode}) ---\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = tmp / so.name
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
+                               "-o", str(lib_tmp)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}")
+        os.replace(lib_tmp, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            handle.dllama_error_string.argtypes = [ctypes.c_int]
+            handle.dllama_error_string.restype = ctypes.c_char_p
+            _lib = handle
+    return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = lib().dllama_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as a pointer-sized int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,363 @@
+"""Dense Llama-family transformer — the solo forward pass.
+
+The JAX package scans a jitted layer step over stacked parameters; here the
+forward is a Python loop over a layer index, with stacked parameter leaves
+(``[L, ...]`` tensors, or QuantTensors whose planes carry a leading L axis)
+indexed as views — the TPU's scalar-prefetched layer selection becomes a
+pointer offset. The KV cache ``[L, S, kv, hd]`` is written in place where the
+JAX forward returns an updated (donated) cache.
+
+Math parity notes:
+* rmsnorm eps semantics: `distributed-llama/src/funcs.cpp:94-123`.
+* attention: `distributed-llama/src/llama2-tasks.cpp:54-94` (see ops.attention).
+* SwiGLU: ``w2( act(w1 x) * (w3 x) )`` — `distributed-llama/src/llama2-tasks.cpp:158-189`.
+* logits: final rmsnorm then ``wcls`` matmul — `distributed-llama/src/llama2-tasks.cpp:222-241`.
+
+Weights use kernel layout ``[in_features, out_features]`` (transposed from the
+file's ``[out, in]`` rows). Decode steps (T <= 16) take the rope + cache-write
+kernel and flash-decode attention; prefill (T > 16) takes ``apply_rope``, a
+slice assignment and ``gqa_attention`` — the split the JAX package's kernel
+gates make.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dllama_tpu_torch.formats.weights import WeightFileReader
+from dllama_tpu_torch.models.config import ModelConfig
+from dllama_tpu_torch.ops import flash_decode
+from dllama_tpu_torch.ops.activations import ACTIVATIONS
+from dllama_tpu_torch.ops.attention import gqa_attention
+from dllama_tpu_torch.ops.fused_rope_cache import cast_cache, rope_cache_update
+from dllama_tpu_torch.ops.norms import rmsnorm
+from dllama_tpu_torch.ops.qmatmul import (
+    K_MULTIPLE, QuantTensor, _pad_up, matmul_any, quantize_tensor, repack_q40, repack_q80,
+)
+from dllama_tpu_torch.ops.rope import apply_rope, rope_table
+from dllama_tpu_torch.quants import blocks
+
+#: per-layer matrices eligible for quantized storage
+QUANTIZABLE = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+#: decode-sized steps take the kernels (the JAX flash/rope-cache gates' bound)
+DECODE_MAX_T = 16
+
+
+def _check_dense_arch(cfg: ModelConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.arch}: MoE models are not ported yet (dense Llama only)")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def params_to(params: dict, device) -> dict:
+    """Every leaf (numpy array, tensor or QuantTensor) placed on ``device``."""
+    def put(leaf):
+        if isinstance(leaf, QuantTensor):
+            return leaf.to(device)
+        if isinstance(leaf, np.ndarray):
+            leaf = np.ascontiguousarray(leaf)
+            leaf = torch.from_numpy(leaf if leaf.flags.writeable else leaf.copy())
+        return leaf.to(device)
+
+    out = {k: put(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = {k: put(v) for k, v in params["layers"].items()}
+    return out
+
+
+def params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
+                       dtype=None) -> dict:
+    """Load `.m` tensors into the stacked-layer dict, dense, on ``device``.
+    Matrices take ``dtype`` (default the compute dtype); the embedding and
+    norms stay f32, as in the reference."""
+    _check_dense_arch(cfg)
+    dtype = dtype or cfg.torch_dtype
+
+    def mat(name):
+        t = torch.from_numpy(reader.read_tensor(name, np.float32).T.copy())
+        return t.to(device=device, dtype=dtype)
+
+    def vec(name):
+        return torch.from_numpy(reader.read_tensor(name, np.float32)).to(device)
+
+    p = {
+        "embedding": vec("token_embedding"),
+        "rms_final": vec("rms_final"),
+        "wcls": mat("wcls"),
+        "layers": {},
+    }
+    for n in QUANTIZABLE:
+        p["layers"][n] = torch.stack([mat(f"layers.{i}.{n}") for i in range(cfg.n_layers)])
+    for n in ("rms_att", "rms_ffn"):
+        p["layers"][n] = torch.stack([vec(f"layers.{i}.{n}") for i in range(cfg.n_layers)])
+    return p
+
+
+def quantize_params(params: dict, kind: str) -> dict:
+    """Dense layer matrices (and wcls) -> stacked QuantTensors with the
+    reference's block math. Embedding and norms stay dense f32. Leaves stay on
+    the device they came from."""
+    def quant(w: torch.Tensor) -> QuantTensor:
+        return quantize_tensor(w.float().cpu().numpy(), kind, w.device)
+
+    out = dict(params)
+    out["layers"] = dict(params["layers"])
+    for name in QUANTIZABLE:
+        if name in out["layers"]:
+            stacked = out["layers"][name]
+            out["layers"][name] = _stack([quant(stacked[i]) for i in range(stacked.shape[0])])
+    out["wcls"] = quant(params["wcls"])
+    return out
+
+
+def _stack(qts: list) -> QuantTensor:
+    """Stack per-layer QuantTensors along a new leading axis."""
+    def st(xs):
+        return torch.stack(xs) if isinstance(xs[0], torch.Tensor) else np.stack(xs)
+
+    q0 = qts[0]
+    return QuantTensor(st([q.w for q in qts]), st([q.s for q in qts]),
+                       st([q.s2 for q in qts]), q0.kind, q0.k_logical)
+
+
+def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
+                             kind: str = "q40") -> dict:
+    """Load a `.m` file with the big matrices block-quantized for the
+    kernels. When the file's own float type matches ``kind`` the file bits
+    are repacked losslessly. Planes are staged and fused on the host, then
+    placed, so the unfused originals never reach the device. Single device
+    only."""
+    _check_dense_arch(cfg)
+    file_ft = reader.spec.weights_float_type
+    lossless = (kind == "q40" and file_ft == blocks.Q40) or (
+        kind == "q80" and file_ft == blocks.Q80)
+    repack = repack_q40 if kind == "q40" else repack_q80
+    kernel_multiple = 64 if kind == "q40" else 32
+
+    def load_matrix(name: str):
+        e = reader.entry(name)
+        if e.n % kernel_multiple != 0:
+            # valid in the file format but not packable: keep it dense
+            dense = reader.read_tensor(name, np.float32).T.copy()
+            return torch.from_numpy(dense).to(cfg.torch_dtype)
+        if lossless:
+            return repack(reader.read_raw(name), e.d, e.n)
+        return quantize_tensor(reader.read_tensor(name, np.float32).T, kind)
+
+    p = {
+        "embedding": reader.read_tensor("token_embedding", np.float32),
+        "rms_final": reader.read_tensor("rms_final", np.float32),
+        "wcls": load_matrix("wcls"),
+        "layers": {},
+    }
+    for n in QUANTIZABLE:
+        leaves = [load_matrix(f"layers.{i}.{n}") for i in range(cfg.n_layers)]
+        p["layers"][n] = (_stack(leaves) if isinstance(leaves[0], QuantTensor)
+                          else torch.stack(leaves))
+    for n in ("rms_att", "rms_ffn"):
+        p["layers"][n] = np.stack([reader.read_tensor(f"layers.{i}.{n}", np.float32)
+                                   for i in range(cfg.n_layers)])
+    return params_to(fuse_qkv_ffn(p), device)
+
+
+def fuse_qkv_ffn(params: dict) -> dict:
+    """Concatenate quantized projections that share an input into one kernel
+    call each: wq|wk|wv -> ``wqkv`` [D, D+2KV], w1|w3 -> ``w13`` [D, 2H].
+    Exact: planes concatenate along the output axis, scales travel with
+    their columns."""
+    out = dict(params)
+    out["layers"] = layers = dict(params["layers"])
+
+    def cat(*qts):
+        def c(xs):
+            return (torch.cat(xs, dim=-1) if isinstance(xs[0], torch.Tensor)
+                    else np.concatenate(xs, axis=-1))
+
+        return QuantTensor(c([q.w for q in qts]), c([q.s for q in qts]),
+                           c([q.s2 for q in qts]), qts[0].kind, qts[0].k_logical)
+
+    if all(isinstance(layers.get(n), QuantTensor) for n in ("wq", "wk", "wv")):
+        layers["wqkv"] = cat(layers.pop("wq"), layers.pop("wk"), layers.pop("wv"))
+    if all(isinstance(layers.get(n), QuantTensor) for n in ("w1", "w3")):
+        layers["w13"] = cat(layers.pop("w1"), layers.pop("w3"))
+    return out
+
+
+def has_quant_leaves(params: dict) -> bool:
+    return isinstance(params.get("wcls"), QuantTensor) or any(
+        isinstance(v, QuantTensor) for v in params["layers"].values())
+
+
+def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator) -> dict:
+    """Random Q40 params built directly on ``device`` from ``generator`` —
+    the benchmark-shape model with Q40 residency and no host-side copy (the
+    counterpart of the JAX package's ``device_random_quant_params``). Packed
+    bits are random valid nibbles with small scales; the model is
+    numerically plausible but meaningless. The projections are made already
+    fused (``wqkv``, ``w13``), which is how ``fuse_qkv_ffn`` would lay out
+    independent random parts."""
+    _check_dense_arch(cfg)
+    L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
+
+    def qrand(K_, O_, prefix=(L,)):
+        kp = _pad_up(K_, K_MULTIPLE["q40"])
+        w = torch.randint(0, 256, (*prefix, kp // 2, O_), dtype=torch.uint8,
+                          device=device, generator=generator)
+        s = torch.rand((*prefix, kp // 64, O_), device=device, generator=generator) * 0.004
+        s2 = torch.rand((*prefix, kp // 64, O_), device=device, generator=generator) * 0.004
+        return QuantTensor(w=w, s=s, s2=s2, kind="q40", k_logical=K_)
+
+    layers = {
+        "wqkv": qrand(D, D + 2 * KV),
+        "wo": qrand(D, D),
+        "w13": qrand(D, 2 * H),
+        "w2": qrand(H, D),
+        "rms_att": torch.ones((L, D), device=device),
+        "rms_ffn": torch.ones((L, D), device=device),
+    }
+    return {
+        "embedding": torch.randn((cfg.vocab_size, D), device=device, generator=generator) * 0.02,
+        "rms_final": torch.ones(D, device=device),
+        "wcls": qrand(D, cfg.vocab_size, prefix=()),
+        "layers": layers,
+    }
+
+
+def random_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+    """Seeded synthetic weights in the compute dtype: the same numpy draws,
+    in the same order, as the JAX package's ``random_params``, so one seed
+    gives both packages the same model."""
+    _check_dense_arch(cfg)
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        a = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+        return torch.from_numpy(a).to(device=device, dtype=cfg.torch_dtype)
+
+    L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
+    layers = {
+        "wq": w(L, D, D),
+        "wk": w(L, D, KV),
+        "wv": w(L, D, KV),
+        "wo": w(L, D, D),
+        "rms_att": torch.ones((L, D), device=device),
+        "rms_ffn": torch.ones((L, D), device=device),
+    }
+    layers.update({"w1": w(L, D, H), "w2": w(L, H, D), "w3": w(L, D, H)})
+    return {
+        "embedding": w(cfg.vocab_size, D).float(),
+        "rms_final": torch.ones(D, device=device),
+        "wcls": w(D, cfg.vocab_size),
+        "layers": layers,
+    }
+
+
+def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device="cpu") -> dict:
+    """Fixed-size per-layer KV cache [L, seq_len, n_kv_heads, head_size]."""
+    shape = (cfg.n_layers, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
+    return {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
+
+
+def rope_tables(cfg: ModelConfig, device="cpu") -> dict:
+    cos, sin = rope_table(cfg.seq_len, cfg.head_size, cfg.rope_theta)
+    return {"cos": torch.from_numpy(cos).to(device), "sin": torch.from_numpy(sin).to(device)}
+
+
+# ---------------------------------------------------------------------------
+# Forward pass
+# ---------------------------------------------------------------------------
+
+def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embedding lookup (+ Grok's input scale) in the compute dtype."""
+    x = params["embedding"][tokens].to(cfg.torch_dtype)
+    if cfg.embedding_scale != 1.0:
+        x = x * torch.tensor(cfg.embedding_scale, dtype=cfg.torch_dtype, device=x.device)
+    return x
+
+
+def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w) -> torch.Tensor:
+    """FFN half on the RAW (pre-norm) residual ``x``."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    xn = rmsnorm(x, norm_w, cfg.norm_eps)
+    if "w13" in lp:  # fused single-kernel up|gate projection (fuse_qkv_ffn)
+        u = matmul_any(xn, lp["w13"])
+        half = u.shape[-1] // 2
+        h = act(u[..., :half]) * u[..., half:]
+    else:
+        h = act(matmul_any(xn, lp["w1"])) * matmul_any(xn, lp["w3"])
+    return matmul_any(h, lp["w2"])
+
+
+def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor,
+                  att_out: torch.Tensor) -> torch.Tensor:
+    """Post-attention half of a dense Llama layer:
+    ``x += att; x += dense_ffn(rmsnorm(x, rms_ffn))``
+    (`distributed-llama/src/llama2-tasks.cpp:125-212`)."""
+    x = x + att_out
+    return x + _dense_ffn(cfg, lp, x, lp["rms_ffn"])
+
+
+def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                layer: int) -> torch.Tensor:
+    """One attention sub-block of layer ``layer``; writes this step's K/V
+    into the stacked caches in place and returns the output [T, dim]."""
+    T = x.shape[0]
+    xn = rmsnorm(x, lp["rms_att"], cfg.norm_eps)
+    if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
+        qkv = matmul_any(xn, lp["wqkv"])
+        d, kv = cfg.dim, cfg.kv_dim
+        q, k, v = qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
+    else:
+        q, k, v = (matmul_any(xn, lp[n]) for n in ("wq", "wk", "wv"))
+    q = q.reshape(T, -1, cfg.head_size)
+    k = k.reshape(T, -1, cfg.head_size)
+    v = v.reshape(T, -1, cfg.head_size)
+
+    # the table slice start clamps like the JAX dynamic_slice
+    r0 = min(max(pos, 0), cfg.seq_len - T)
+    cos = rope["cos"][r0:r0 + T, None, :]
+    sin = rope["sin"][r0:r0 + T, None, :]
+    q = apply_rope(q, cos, sin, cfg.rope_style)
+
+    if T <= DECODE_MAX_T:
+        rope_cache_update(k, v, cos, sin, k_cache, v_cache, pos, layer, cfg.rope_style)
+        out = flash_decode.flash_decode_attention(q, k_cache, v_cache, pos, layer)
+    else:
+        k = apply_rope(k, cos, sin, cfg.rope_style)
+        k_cache[layer, pos:pos + T] = cast_cache(k, k_cache.dtype)
+        v_cache[layer, pos:pos + T] = cast_cache(v, v_cache.dtype)
+        out = gqa_attention(q, k_cache[layer], v_cache[layer], pos)
+    return matmul_any(out.reshape(T, -1), lp["wo"])
+
+
+def _layer_params(layers: dict, i: int) -> dict:
+    return {name: (leaf.layer(i) if isinstance(leaf, QuantTensor) else leaf[i])
+            for name, leaf in layers.items()}
+
+
+def forward(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
+            cache: dict, pos: int, last_pos: int | None = None) -> tuple:
+    """Process T tokens starting at ``pos``. Returns (logits [T, vocab] f32,
+    cache), the cache updated in place.
+
+    ``last_pos``: compute the classifier only at that row — logits come back
+    [1, vocab]; every layer still processes (and caches) all T positions."""
+    x = embed(cfg, params, tokens)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer_params(layers, i)
+        att_out = _attn_block(cfg, lp, rope, x, cache["k"], cache["v"], pos, i)
+        x = _ffn_residual(cfg, lp, x, att_out)
+    if last_pos is not None:
+        x = x[last_pos:last_pos + 1]
+    x = rmsnorm(x, params["rms_final"], cfg.norm_eps)
+    logits = matmul_any(x, params["wcls"]).float()
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
+    return logits, cache

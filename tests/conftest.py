@@ -25,3 +25,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "faults: fault-injection chaos tests (CI smoke job: -m faults)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips without one")

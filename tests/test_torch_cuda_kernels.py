@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: without an NVIDIA GPU every test here skips (the kernels
+cannot run on the CPU). On a machine with one:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -q
+
+Tolerances: the Q40 matmul and flash decode sum in another order than their
+plain versions (f32 accumulation of exact bf16 products; online softmax), so
+they are held to 1e-5 of the output's magnitude in f32; the rope + cache
+write does the same single-rounding arithmetic as its plain version, so the
+caches must be bit-equal.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dllama_tpu_torch import kernels
+from dllama_tpu_torch.ops import flash_decode, fused_rope_cache, qmatmul
+from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _q40(rng, K, O, dev):
+    w = rng.standard_normal((K, O)).astype(np.float32) * 0.05
+    return qmatmul.quantize_tensor(w, "q40", dev)
+
+
+@pytest.mark.parametrize("nosub", [True, False])
+@pytest.mark.parametrize("T,K,O", [(1, 4096, 4096), (3, 192, 100), (17, 1024, 1536),
+                                   (8, 640, 516)])
+def test_q40_matmul_kernel_matches_ref(cuda, nosub, T, K, O):
+    rng = np.random.default_rng(T * 1000 + K + O)
+    qt = _q40(rng, K, O, cuda)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    before = kernels.launches["q40_matmul"]
+    got = qmatmul.q40_matmul(x, qt.w, qt.s, qt.s2, nosub=nosub)
+    torch.cuda.synchronize()
+    assert kernels.launches["q40_matmul"] == before + 1
+    ref = qmatmul.q40_matmul_ref(x, qt.w, qt.s, qt.s2, nosub=nosub)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("T,pos,S,hd", [(1, 0, 64, 64), (1, 300, 333, 128), (4, 254, 512, 128),
+                                        (16, 40, 100, 32)])
+def test_flash_decode_kernel_matches_ref(cuda, cache_dtype, T, pos, S, hd):
+    rng = np.random.default_rng(pos + S + hd)
+    L, kv, group = 2, 3, 4
+    q = torch.from_numpy(rng.standard_normal((T, kv * group, hd)).astype(np.float32)).to(cuda)
+    kc = torch.from_numpy(rng.standard_normal((L, S, kv, hd)).astype(np.float32)).to(cuda)
+    vc = torch.from_numpy(rng.standard_normal((L, S, kv, hd)).astype(np.float32)).to(cuda)
+    kc, vc = kc.to(cache_dtype), vc.to(cache_dtype)
+    got = flash_decode.flash_decode_attention(q, kc, vc, pos, 1)
+    torch.cuda.synchronize()
+    ref = flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 1)
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("style", [INTERLEAVED, HALF])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("T,pos", [(1, 7), (3, 30)])  # pos 30 of S 32: start clamps to 29
+def test_rope_cache_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype, T, pos):
+    rng = np.random.default_rng(T + pos)
+    L, S, kv, hd = 2, 32, 2, 64
+    k = torch.from_numpy(rng.standard_normal((T, kv, hd)).astype(np.float32)).to(cuda, act)
+    v = torch.from_numpy(rng.standard_normal((T, kv, hd)).astype(np.float32)).to(cuda, act)
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
+    r0 = min(pos, S - T)
+    c, s = cos[r0:r0 + T, None], sin[r0:r0 + T, None]
+    base = torch.from_numpy(rng.standard_normal((L, S, kv, hd)).astype(np.float32))
+    kc, vc = (base.to(cuda).to(cache_dtype) for _ in range(2))
+    kr, vr = kc.clone(), vc.clone()
+    fused_rope_cache.rope_cache_update(k, v, c, s, kc, vc, pos, 1, style)
+    torch.cuda.synchronize()
+    fused_rope_cache.rope_cache_update_ref(k, v, c, s, kr, vr, pos, 1, style)
+    assert torch.equal(kc.view(torch.uint8), kr.view(torch.uint8))
+    assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
+
+
+def test_wrappers_raise_on_unsupported_cuda_input(cuda):
+    q = torch.zeros((17, 4, 64), device=cuda)
+    kc = torch.zeros((1, 64, 1, 64), device=cuda)
+    with pytest.raises(ValueError):
+        flash_decode.flash_decode_attention(q, kc, kc, 0, 0)  # T > 16: no plain fallback
