@@ -9,24 +9,33 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
 0. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of the port's CUDA kernels from ``dllama_tpu_torch/csrc``.
 1. Each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (Llama-3-8B widths), with its stated tolerance, and timed
+   paths' shapes (Llama-3-8B widths), with its stated tolerance, and timed
    with CUDA events (median of 30 launches queued behind a GPU sleep, so
    host launch overhead is not counted; weights rotate through enough copies
    to defeat the 50 MB L2, as a decode step finds them cold) beside its
    bound — the larger of bytes over 3.35 TB/s and operations over the
    card's peak for their type — its plain version and, where one PyTorch
-   call computes the same function, that call.
+   call computes the same function, that call. The Q40 (K1+K2) and Q80 (K3)
+   dequant-matmuls also run with the fused-norm epilogue, which must equal
+   the unfused kernel bit for bit; the experiment kernels K6 and K7 run at
+   the variant shootout's matrix and the Llama-3-8B widths.
 2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
    decode token went through the Q40 matmul (4 per layer + the classifier),
    rope + cache write and flash decode (one each per layer); the first
    decode step's logits are held against the same step with every kernel
-   swapped for its plain version.
-3. ``python -m dllama_tpu_torch.cli generate`` as a subprocess on a small
-   Q40 `.m`/`.t` pair written by the port's own writers; with f32
-   activations it must print the token ids the CPU run (plain versions)
-   prints.
+   swapped for its plain version. Then the same with random Q80 params (the
+   Q40 model freed first): 129 Q80 matmuls per token.
+   2b. For each model, one decode step with ``DLLAMA_FUSE_NORM=1`` against
+   ``=0``: the logits must be bit-equal.
+   2c. ``python -m dllama_tpu_torch.qkernel_experiments all`` as its entry
+   point runs it (every variant checked and timed at K 4096, O 11008); the
+   launch counters show it went through K1, K6 and K7.
+3. ``python -m dllama_tpu_torch.cli generate`` as a subprocess on small Q40
+   and Q80 `.m`/`.t` pairs written by the port's own writers; with no
+   weight flag the card keeps the file's format, and with f32 activations
+   it must print the token ids the CPU run (plain versions) prints.
 
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
@@ -38,6 +47,7 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -49,6 +59,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # tensor-core bf16 peak: the least time for bf16 products
 F32_FLOPS = 67e12  # CUDA-core float32 peak
+INT8_OPS = 1979e12  # tensor-core int8 peak: the least time for int8 products
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin ahead of each timed series
 
 
@@ -101,71 +112,183 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
 # ---------------------------------------------------------------------------
 
 #: Llama-3-8B projection widths (K -> O) and launches per decode token
-Q40_SHAPES = [("wqkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),
-              ("w13", 4096, 28672, 32), ("w2", 14336, 4096, 32),
-              ("wcls", 4096, 128256, 1)]
+SHAPES = [("wqkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),
+          ("w13", 4096, 28672, 32), ("w2", 14336, 4096, 32),
+          ("wcls", 4096, 128256, 1)]
+#: the shapes whose input is an rmsnorm's output: the fused-norm epilogue's
+FUSED = ("wqkv", "w13")
 
 
-def dequant_bf16(torch, w, s_lo, s_hi):
-    """The dense bf16 [K, O] matrix a packed Q40 plane holds."""
+def quant_planes(torch, dev, gen, kind: str, K: int, O: int) -> tuple:
+    """Random planes of a ``kind`` matrix [K, O], as random_quant_params
+    makes them."""
+    if kind == "q40":
+        return (torch.randint(0, 256, (K // 2, O), dtype=torch.uint8, device=dev, generator=gen),
+                torch.rand((K // 64, O), device=dev, generator=gen) * 0.004,
+                torch.rand((K // 64, O), device=dev, generator=gen) * 0.004)
+    return (torch.randint(-127, 128, (K, O), dtype=torch.int8, device=dev, generator=gen),
+            torch.rand((K // 32, O), device=dev, generator=gen) * 0.0003)
+
+
+def plane_bytes(planes) -> int:
+    return sum(p.numel() * p.element_size() for p in planes)
+
+
+def dequant_bf16(torch, kind, planes, sub=8.0):
+    """The dense bf16 [K, O] matrix the planes hold (``sub`` 0: the nosub
+    dot's weight)."""
+    if kind == "q80":
+        w, s = planes
+        return (w.float() * s.repeat_interleave(32, 0)).to(torch.bfloat16)
+    w, s_lo, s_hi = planes
     K2, O = w.shape
-    lo = (((w & 0xF).float() - 8) * s_lo.repeat_interleave(32, 0)).reshape(K2 // 32, 32, O)
-    hi = (((w >> 4).float() - 8) * s_hi.repeat_interleave(32, 0)).reshape(K2 // 32, 32, O)
+    lo = (((w & 0xF).float() - sub) * s_lo.repeat_interleave(32, 0)).reshape(K2 // 32, 32, O)
+    hi = (((w >> 4).float() - sub) * s_hi.repeat_interleave(32, 0)).reshape(K2 // 32, 32, O)
     return torch.stack([lo, hi], dim=1).reshape(2 * K2, O).to(torch.bfloat16)
 
 
-def phase1_q40(torch, dev, gen) -> list:
+def rotating(planes: list):
+    """A counter over weight copies: each call takes the next, so L2 helps
+    no launch."""
+    it = itertools.count()
+    return lambda: planes[next(it) % len(planes)]
+
+
+def library_ms(torch, kind, planes: list, x, sub=8.0) -> float:
+    """The yardstick: bf16 torch.matmul on a pre-dequantized weight (as many
+    copies as the quantized planes need to defeat L2)."""
+    K, O = x.shape[1], planes[0][0].shape[1]
+    n = max(1, math.ceil(200e6 / (K * O * 2)))
+    wds = [dequant_bf16(torch, kind, planes[i % len(planes)], sub) for i in range(n)]
+    nxt = rotating(wds)
+    ms = time_ms(torch, lambda: torch.matmul(x, nxt()))
+    del wds
+    return ms
+
+
+def phase1_matmul(torch, dev, gen, kind: str) -> list:
+    """K1+K2 (q40) or K3 (q80) at every Llama-3-8B width, T in {1, 128}, plain
+    and with the fused-norm epilogue: each against its plain version within
+    1e-5 * max|ref|, the fused form bit-equal to the unfused one."""
     from dllama_tpu_torch.ops import qmatmul
+    from dllama_tpu_torch.ops.norms import rmsnorm
+
+    def kern(x, p, nosub, **kw):
+        if kind == "q40":
+            return qmatmul.q40_matmul(x, *p, nosub=nosub, **kw)
+        return qmatmul.q80_matmul(x, *p, **kw)
+
+    def plain(x, p, nosub, **kw):
+        if kind == "q40":
+            return qmatmul.q40_matmul_ref(x, *p, nosub=nosub, **kw)
+        return qmatmul.q80_matmul_ref(x, *p, **kw)
 
     rows = []
-    for name, K, O, per_token in Q40_SHAPES:
-        nbytes_w = K // 2 * O + 2 * (K // 64) * O * 4
-        copies = max(1, math.ceil(200e6 / nbytes_w))
-        planes = [(torch.randint(0, 256, (K // 2, O), dtype=torch.uint8, device=dev, generator=gen),
-                   torch.rand((K // 64, O), device=dev, generator=gen) * 0.004,
-                   torch.rand((K // 64, O), device=dev, generator=gen) * 0.004)
-                  for _ in range(copies)]
+    for name, K, O, per_token in SHAPES:
+        planes = [quant_planes(torch, dev, gen, kind, K, O)]
+        planes += [quant_planes(torch, dev, gen, kind, K, O)
+                   for _ in range(math.ceil(200e6 / plane_bytes(planes[0])) - 1)]
+        nw = 1.0 + 0.1 * torch.randn(K, device=dev, generator=gen)
         for T in (1, 128):
             x = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
-            for nosub in (True, False):
-                w, s_lo, s_hi = planes[0]
-                got = qmatmul.q40_matmul(x, w, s_lo, s_hi, nosub=nosub)
+            inv = qmatmul.rmsnorm_inv(x)
+            for nosub in ((True, False) if kind == "q40" else (None,)):
+                p = planes[0]
+                got = kern(x, p, nosub)
+                fused = kern(x, p, nosub, norm_w=nw, norm_inv=inv)
+                unfused = kern(rmsnorm(x, nw), p, nosub)
                 torch.cuda.synchronize()
-                ref = qmatmul.q40_matmul_ref(x, w, s_lo, s_hi, nosub=nosub)
+                ref = plain(x, p, nosub)
+                ref_n = plain(x, p, nosub, norm_w=nw, norm_inv=inv)
                 err = (got - ref).abs().max().item()
-                scale = ref.abs().max().item()
-                tol = 1e-5 * scale
+                err_n = (fused - ref_n).abs().max().item()
+                tol, tol_n = 1e-5 * ref.abs().max().item(), 1e-5 * ref_n.abs().max().item()
+                bit_equal = bool(torch.equal(fused, unfused))
                 row = {"matrix": name, "K": K, "O": O, "T": T, "nosub": nosub,
-                       "max_abs_err": err, "tol": tol}
-                log(f"  q40_matmul {name:5s} {K:5d}->{O:6d} T={T:3d} nosub={int(nosub)} "
-                    f"max_abs_err {err:.3e} (tol 1e-5*max|ref| = {tol:.3e})")
-                if not err <= tol:
-                    fail(f"q40_matmul {name} T={T} nosub={nosub}: {err} > {tol}")
-                if nosub == qmatmul.Q40_NOSUB:
-                    it = itertools.count()
-
-                    def kern():
-                        w_, a_, b_ = planes[next(it) % copies]
-                        qmatmul.q40_matmul(x, w_, a_, b_, nosub=nosub)
-
-                    row["ms"] = time_ms(torch, kern)
-                    row["plain_ms"] = time_ms(
-                        torch, lambda: qmatmul.q40_matmul_ref(x, w, s_lo, s_hi, nosub=nosub), 20)
-                    # the yardstick: bf16 torch.matmul on a pre-dequantized weight
-                    # (as many copies as the Q40 planes, so L2 helps neither)
-                    lib_copies = max(1, math.ceil(200e6 / (K * O * 2)))
-                    wds = [dequant_bf16(torch, *planes[i % copies]) for i in range(lib_copies)]
-                    it2 = itertools.count()
-                    row["library_ms"] = time_ms(
-                        torch, lambda: torch.matmul(x, wds[next(it2) % lib_copies]))
-                    del wds
-                    b, by = bound_ms(nbytes_w + T * K * 2 + T * O * 4, 2.0 * T * K * O,
-                                     BF16_FLOPS)
-                    row["bound_ms"], row["bound_by"] = b, by
-                    row["launches_per_token"] = per_token if T == 1 else None
-                    log(f"    time {row['ms']:.4f} ms  bound {b:.4f} ms ({by})  plain "
-                        f"{row['plain_ms']:.4f} ms  bf16 torch.matmul {row['library_ms']:.4f} ms")
+                       "max_abs_err": err, "tol": tol, "fused_max_abs_err": err_n,
+                       "fused_tol": tol_n, "fused_bit_equal_unfused": bit_equal}
+                tag = f" nosub={int(nosub)}" if kind == "q40" else ""
+                log(f"  {kind}_matmul {name:5s} {K:5d}->{O:6d} T={T:3d}{tag} max_abs_err "
+                    f"{err:.3e} (tol 1e-5*max|ref| = {tol:.3e}); fused norm {err_n:.3e} "
+                    f"(tol {tol_n:.3e}), bit-equal to unfused: {bit_equal}")
+                if not (err <= tol and err_n <= tol_n and bit_equal):
+                    fail(f"{kind}_matmul {name} T={T}{tag}: {err} > {tol}, {err_n} > {tol_n} "
+                         f"or fused != unfused")
+                if kind == "q40" and nosub != qmatmul.Q40_NOSUB:
+                    rows.append(row)
+                    continue
+                nxt = rotating(planes)
+                row["ms"] = time_ms(torch, lambda: kern(x, nxt(), nosub))
+                row["fused_ms"] = time_ms(torch, lambda: kern(x, nxt(), nosub, norm_w=nw,
+                                                            norm_inv=inv))
+                row["plain_ms"] = time_ms(torch, lambda: plain(x, p, nosub), 20)
+                row["fused_plain_ms"] = time_ms(
+                    torch, lambda: plain(x, p, nosub, norm_w=nw, norm_inv=inv), 20)
+                row["library_ms"] = library_ms(torch, kind, planes, x)
+                b, by = bound_ms(plane_bytes(p) + T * K * 2 + T * O * 4, 2.0 * T * K * O, BF16_FLOPS)
+                row["bound_ms"], row["bound_by"] = b, by
+                row["launches_per_token"] = per_token if T == 1 else None
+                log(f"    time {row['ms']:.4f} ms (fused norm {row['fused_ms']:.4f})  bound "
+                    f"{b:.4f} ms ({by})  plain {row['plain_ms']:.4f} ms  bf16 torch.matmul "
+                    f"{row['library_ms']:.4f} ms")
                 rows.append(row)
+        del planes
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: K6/K7 shapes: the experiment's default matrix and the Llama-3-8B widths
+VARIANT_SHAPES = [("exp", 4096, 11008), ("wqkv", 4096, 6144), ("w13", 4096, 28672),
+                  ("w2", 14336, 4096)]
+
+
+def phase1_variants(torch, dev, gen) -> list:
+    """K6 (the nosub dot without correction, 512- and 1024-column blocks) and
+    K7 (the Q40 x Q80 integer dot) against their plain versions at T = 1."""
+    from dllama_tpu_torch import qkernel_experiments as qe
+
+    rows = []
+    for name, K, O in VARIANT_SHAPES:
+        planes = [quant_planes(torch, dev, gen, "q40", K, O)]
+        planes += [quant_planes(torch, dev, gen, "q40", K, O)
+                   for _ in range(math.ceil(200e6 / plane_bytes(planes[0])) - 1)]
+        p = planes[0]
+        x = torch.randn((1, K), device=dev, generator=gen).to(torch.bfloat16)
+        xq, sx = qe.quantize_q80_rows(x, K)
+        got = qe.q40_nosub_matmul(x, *p)
+        wide = qe.q40_nosub_matmul(x, *p, wide=True)
+        got7 = qe.q40_int8_matmul(xq, sx, *p)
+        torch.cuda.synchronize()
+        ref = qe.q40_nosub_matmul_ref(x, *p)
+        ref7 = qe.q40_int8_matmul_ref(xq, sx, *p)
+        err = max((got - ref).abs().max().item(), (wide - ref).abs().max().item())
+        err7 = (got7 - ref7).abs().max().item()
+        tol, tol7 = 1e-5 * ref.abs().max().item(), 1e-5 * ref7.abs().max().item()
+        log(f"  q40_nosub_matmul {name:4s} {K:5d}->{O:6d} T=1 (512 and 1024 columns a block) "
+            f"max_abs_err {err:.3e} (tol 1e-5*max|ref| = {tol:.3e}); q40_int8_matmul "
+            f"{err7:.3e} (tol {tol7:.3e})")
+        if not (err <= tol and err7 <= tol7):
+            fail(f"K6/K7 at {name}: {err} > {tol} or {err7} > {tol7}")
+        nxt = rotating(planes)
+        k6 = {"name": "q40_nosub_matmul", "matrix": name, "K": K, "O": O, "max_abs_err": err,
+              "tol": tol,
+              "ms": time_ms(torch, lambda: qe.q40_nosub_matmul(x, *nxt())),
+              "wide_ms": time_ms(torch, lambda: qe.q40_nosub_matmul(x, *nxt(), wide=True)),
+              "plain_ms": time_ms(torch, lambda: qe.q40_nosub_matmul_ref(x, *p), 20),
+              "library_ms": library_ms(torch, "q40", planes, x, sub=0.0)}
+        k6["bound_ms"], k6["bound_by"] = bound_ms(plane_bytes(p) + K * 2 + O * 4, 2.0 * K * O,
+                                                  BF16_FLOPS)
+        k7 = {"name": "q40_int8_matmul", "matrix": name, "K": K, "O": O, "max_abs_err": err7,
+              "tol": tol7,
+              "ms": time_ms(torch, lambda: qe.q40_int8_matmul(xq, sx, *nxt())),
+              "plain_ms": time_ms(torch, lambda: qe.q40_int8_matmul_ref(xq, sx, *p), 20),
+              "library_ms": None}
+        k7["bound_ms"], k7["bound_by"] = bound_ms(
+            plane_bytes(p) + K + K // 32 * 4 + O * 4, 2.0 * K * O, INT8_OPS)
+        for r in (k6, k7):
+            log(f"    {r['name']}: time {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})  plain {r['plain_ms']:.4f} ms  library {r['library_ms']}")
+        rows += [k6, k7]
         del planes
         torch.cuda.empty_cache()
     return rows
@@ -282,10 +405,12 @@ class plain_versions:
         from dllama_tpu_torch.ops import flash_decode, fused_rope_cache, qmatmul
 
         self.saved = [(qmatmul, "q40_matmul", qmatmul.q40_matmul),
+                      (qmatmul, "q80_matmul", qmatmul.q80_matmul),
                       (llama, "rope_cache_update", llama.rope_cache_update),
                       (flash_decode, "flash_decode_attention",
                        flash_decode.flash_decode_attention)]
         qmatmul.q40_matmul = qmatmul.q40_matmul_ref
+        qmatmul.q80_matmul = qmatmul.q80_matmul_ref
         llama.rope_cache_update = fused_rope_cache.rope_cache_update_ref
         flash_decode.flash_decode_attention = flash_decode.flash_decode_attention_ref
         return self
@@ -295,31 +420,53 @@ class plain_versions:
             setattr(mod, name, fn)
 
 
-def phase2(torch, dev) -> dict:
+class fuse_norm:
+    """Within the block, DLLAMA_FUSE_NORM is ``value``."""
+
+    def __init__(self, value: str):
+        self.value = value
+
+    def __enter__(self):
+        self.saved = os.environ.get("DLLAMA_FUSE_NORM")
+        os.environ["DLLAMA_FUSE_NORM"] = self.value
+        return self
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            os.environ.pop("DLLAMA_FUSE_NORM", None)
+        else:
+            os.environ["DLLAMA_FUSE_NORM"] = self.saved
+
+
+def phase2(torch, dev, kind: str) -> dict:
+    """Engine.generate on the Llama-3-8B shape with random ``kind`` weights,
+    then (phase 2b) one decode step with DLLAMA_FUSE_NORM=1 against =0."""
     from dllama_tpu_torch import kernels
     from dllama_tpu_torch.models import llama
     from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.ops import qmatmul
     from dllama_tpu_torch.ops.qmatmul import QuantTensor
     from dllama_tpu_torch.runtime.generate import Engine
     from dllama_tpu_torch.runtime.sampler import SamplerConfig
 
     cfg = ModelConfig(**LLAMA3_8B)
     gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = llama.random_quant_params(cfg, dev, gen)
+    params = llama.random_quant_params(cfg, dev, gen, kind)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    q40_bytes = 0
+    q_bytes = 0
     for leaf in [params["wcls"], *params["layers"].values()]:
         if isinstance(leaf, QuantTensor):
-            q40_bytes += leaf.w.numel() + 4 * (leaf.s.numel() + leaf.s2.numel())
-    bound = q40_bytes / HBM_BYTES_PER_S * 1e3
+            q_bytes += plane_bytes((leaf.w, leaf.s, leaf.s2))
+    bound = q_bytes / HBM_BYTES_PER_S * 1e3
     engine = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
                     cache_dtype=torch.bfloat16, device=dev)
     prompt = torch.randint(0, cfg.vocab_size, (100,), generator=torch.Generator().manual_seed(1))
     prompt = prompt.tolist()
-    log(f"  Llama-3-8B shape, random Q40 params built on the card in {build_s:.2f} s; "
-        f"Q40 planes {q40_bytes / 1e9:.3f} GB; peak memory "
+    log(f"  Llama-3-8B shape, random {kind.upper()} params built on the card in {build_s:.2f} s; "
+        f"{kind.upper()} planes {q_bytes / 1e9:.3f} GB; peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
 
     logits, _ = engine.prefill(engine.new_cache(), prompt)
@@ -343,31 +490,34 @@ def phase2(torch, dev) -> dict:
     totals = dict(kernels.launches)
     if len(tokens) != steps:
         fail(f"generated {len(tokens)} tokens, wanted {steps}")
-    want = {"q40_matmul": 4 * cfg.n_layers + 1, "flash_decode": cfg.n_layers,
-            "rope_cache_update": cfg.n_layers}
+    want = {k: 0 for k in totals}
+    want.update({f"{kind}_matmul": 4 * cfg.n_layers + 1, "flash_decode": cfg.n_layers,
+                 "rope_cache_update": cfg.n_layers})
     for i, d in enumerate(per_token[1:], 1):
         if d != want:
             fail(f"decode token {i} launched {d}, want {want}")
-    log(f"  launches over the run (prefill + 32 decode tokens): {totals}; "
-        f"every decode token: {want}")
+    log(f"  launches over the run (prefill + 32 decode tokens): {totals}; every decode token: "
+        f"{ {k: v for k, v in want.items() if v} }")
 
     decode_ms = [s.generation_ms for s in stats[1:]]
     device_wait_ms = [s.inference_ms for s in stats[1:]]
     out = {
+        "kind": kind,
         "prefill_ms": engine.prefill_ms,
         "prompt_tokens": len(prompt),
         "decode_ms_median": statistics.median(decode_ms),
         "decode_ms_min": min(decode_ms),
         "decode_device_wait_ms_median": statistics.median(device_wait_ms),
-        "q40_bytes_per_token": q40_bytes,
-        "q40_bound_ms": bound,
+        "weight_bytes_per_token": q_bytes,
+        "weight_bound_ms": bound,
         "launches": totals,
+        "launches_per_decode_token": {k: v for k, v in want.items() if v},
         "tokens": tokens,
     }
     log(f"  prefill {engine.prefill_ms:.2f} ms ({len(prompt)} tokens, bucket 128); decode "
         f"{out['decode_ms_median']:.3f} ms/token median (min {out['decode_ms_min']:.3f}, "
-        f"device wait {out['decode_device_wait_ms_median']:.3f}); Q40 weight-byte bound "
-        f"{bound:.3f} ms/token")
+        f"device wait {out['decode_device_wait_ms_median']:.3f}); {kind.upper()} weight-byte "
+        f"bound {bound:.3f} ms/token")
 
     # where a decode token's device time goes
     from torch.profiler import ProfilerActivity, profile
@@ -403,33 +553,67 @@ def phase2(torch, dev) -> dict:
         log("  profiler showed no device time: idle share not measured")
 
     # the first decode step against the same step through the plain versions
-    cache, pos = engine.new_cache(), 0
+    cache = engine.new_cache()
     last, cache = engine.prefill(cache, prompt)
     nxt = torch.argmax(last).reshape(1)
     pos = len(prompt)
-    k0, v0 = cache["k"].clone(), cache["v"].clone()
-    lk, _ = llama.forward(cfg, engine.params, engine.rope, nxt, cache, pos)
+    snapshot = (cache["k"].clone(), cache["v"].clone())
+
+    def step(fuse: str):
+        c = {"k": snapshot[0].clone(), "v": snapshot[1].clone()}
+        with fuse_norm(fuse):
+            return llama.forward(cfg, engine.params, engine.rope, nxt, c, pos)[0]
+
+    lk = step("0")
     with plain_versions():
-        lr, _ = llama.forward(cfg, engine.params, engine.rope, nxt, {"k": k0, "v": v0}, pos)
+        lr = step("0")
     err = (lk - lr).abs().max().item()
     scale = lr.abs().max().item()
     tol = 5e-2 * scale
     log(f"  decode step vs plain versions: max |dlogit| {err:.4e} (tol 5e-2*max|logit| = "
         f"{tol:.4e}; bf16 activations through 32 layers), argmax {int(lk.argmax())} vs "
         f"{int(lr.argmax())}")
-    if not (bool(torch.isfinite(lk).all()) and err <= tol):
-        fail(f"decode step vs plain versions: {err} > {tol}")
+    if not (bool(torch.isfinite(lk).all()) and err <= tol and int(lk.argmax()) == int(lr.argmax())):
+        fail(f"{kind} decode step vs plain versions: {err} > {tol} or argmax differs")
     out["decode_vs_plain_max_abs_err"] = err
+
+    log(f"== phase 2b: {kind.upper()} decode step, DLLAMA_FUSE_NORM=1 against =0")
+    with fuse_norm("1"):
+        engaged = qmatmul.norm_fusion_engages(engine.params["layers"]["wqkv"])
+    kernels.reset_launches()
+    lf = step("1")
+    fused_launches = dict(kernels.launches)
+    equal = bool(torch.equal(lf, lk))
+    log(f"  fused norm engaged: {engaged}; launches {fused_launches}; logits bit-equal to the "
+        f"unfused step: {equal}")
+    if not (engaged and equal and fused_launches[f"{kind}_matmul"] == 4 * cfg.n_layers + 1):
+        fail(f"{kind} fused-norm decode step: engaged {engaged}, bit-equal {equal}")
+    out["fused_norm_bit_equal"] = equal
     del engine, params
     torch.cuda.empty_cache()
     return out
 
 
+def phase_experiments(torch) -> dict:
+    """The kernel-variant entry point as a user runs it (all variants at the
+    default K = 4096, O = 11008), counting the launches it makes."""
+    from dllama_tpu_torch import kernels, qkernel_experiments
+
+    kernels.reset_launches()
+    rows = qkernel_experiments.main(["all"])
+    counts = dict(kernels.launches)
+    log(f"  launches: {counts}")
+    for name in ("q40_matmul", "q40_nosub_matmul", "q40_int8_matmul"):
+        if counts[name] == 0:
+            fail(f"the variant run never launched {name}")
+    return {"rows": rows, "launches": counts}
+
+
 # ---------------------------------------------------------------------------
-# Phase 3: the CLI on a small model written by the port's writers
+# Phase 3: the CLI on small models written by the port's writers
 # ---------------------------------------------------------------------------
 
-def write_small_model(workdir: Path) -> tuple:
+def write_small_model(workdir: Path, kind: str) -> tuple:
     import numpy as np
 
     from dllama_tpu_torch.formats.spec import ArchType, ModelSpec
@@ -446,7 +630,8 @@ def write_small_model(workdir: Path) -> tuple:
     write_tokenizer(str(tok_path), TokenizerData(vocab=vocab, scores=scores, bos_id=1, eos_id=2))
     spec = ModelSpec(arch=ArchType.LLAMA, dim=256, hidden_dim=512, n_layers=2, n_heads=8,
                      n_kv_heads=4, vocab_size=len(vocab), seq_len=256,
-                     weights_float_type=blocks.Q40, rope_theta=10000.0)
+                     weights_float_type={"q40": blocks.Q40, "q80": blocks.Q80}[kind],
+                     rope_theta=10000.0)
     rng = np.random.default_rng(0)
     tensors = {}
     for e in tensor_plan(spec):
@@ -454,12 +639,13 @@ def write_small_model(workdir: Path) -> tuple:
             tensors[e.name] = np.ones(e.d * e.n, np.float32)
         else:
             tensors[e.name] = 0.08 * rng.standard_normal(e.d * e.n).astype(np.float32)
-    model_path = workdir / "small.m"
+    model_path = workdir / f"small_{kind}.m"
     write_model(str(model_path), spec, tensors)
     return model_path, tok_path
 
 
-def run_cli(model: Path, tok: Path, extra: list) -> list:
+def run_cli(model: Path, tok: Path, extra: list) -> tuple:
+    """(token ids, stdout) of ``cli generate`` on ``model``."""
     cmd = [sys.executable, "-m", "dllama_tpu_torch.cli", "generate", "--model", str(model),
            "--tokenizer", str(tok), "--steps", "8", "--temperature", "0", "--seed", "0",
            "--prompt", "Hello world", *extra]
@@ -470,23 +656,33 @@ def run_cli(model: Path, tok: Path, extra: list) -> list:
     ids = [ln for ln in proc.stdout.splitlines() if ln.startswith("Token ids:")]
     if not ids or not ids[0].split(":", 1)[1].split():
         fail(f"{' '.join(cmd[2:])} printed no tokens:\n{proc.stdout[-2000:]}")
-    return [int(t) for t in ids[0].split(":", 1)[1].split()]
+    return [int(t) for t in ids[0].split(":", 1)[1].split()], proc.stdout
 
 
 def phase3() -> dict:
     (ROOT / "build").mkdir(exist_ok=True)
+    out = {}
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        model, tok = write_small_model(Path(d))
-        card = run_cli(model, tok, [])
-        card32 = run_cli(model, tok, ["--dtype", "float32"])
-        cpu32 = run_cli(model, tok, ["--dtype", "float32", "--device", "cpu",
-                                     "--weights-float-type", "q40"])
-    log(f"  cli generate on the card (bf16): {card}")
-    log(f"  cli generate on the card (f32):  {card32}")
-    log(f"  cli generate on the CPU  (f32):  {cpu32}")
-    if card32 != cpu32:
-        fail(f"card tokens {card32} differ from the CPU's {cpu32}")
-    return {"card_bf16": card, "card_f32": card32, "cpu_f32": cpu32}
+        for kind in ("q40", "q80"):
+            model, tok = write_small_model(Path(d), kind)
+            card, card_out = run_cli(model, tok, [])
+            card32, _ = run_cli(model, tok, ["--dtype", "float32"])
+            cpu32, _ = run_cli(model, tok, ["--dtype", "float32", "--device", "cpu",
+                                            "--weights-float-type", kind])
+            log(f"  {kind.upper()} model: cli generate on the card (bf16): {card}")
+            log(f"  {kind.upper()} model: cli generate on the card (f32):  {card32}")
+            log(f"  {kind.upper()} model: cli generate on the CPU  (f32):  {cpu32}")
+            if f"weights resident as {kind}" not in card_out:
+                fail(f"the card run of the {kind} model did not keep {kind} weights")
+            if card32 != cpu32:
+                fail(f"{kind} model: card tokens {card32} differ from the CPU's {cpu32}")
+            out[kind] = {"card_bf16": card, "card_f32": card32, "cpu_f32": cpu32}
+    return out
+
+
+def per_token(rows: list, key: str) -> float:
+    """A per-launch number summed over one decode token's launches."""
+    return sum(r[key] * r["launches_per_token"] for r in rows)
 
 
 def main() -> None:
@@ -519,55 +715,87 @@ def main() -> None:
 
     log("== phase 1: kernels vs plain versions (Llama-3-8B shapes)")
     gen = torch.Generator(device=dev).manual_seed(0)
-    q40 = phase1_q40(torch, dev, gen)
+    q40 = phase1_matmul(torch, dev, gen, "q40")
+    q80 = phase1_matmul(torch, dev, gen, "q80")
+    variants = phase1_variants(torch, dev, gen)
     flash = phase1_flash(torch, dev, gen)
     rope = phase1_rope(torch, dev, gen)
 
     log("== phase 2: Engine.generate, Llama-3-8B shape, random Q40, 100 + 32 tokens")
-    e2e = phase2(torch, dev)
+    e2e = phase2(torch, dev, "q40")
+    log("== phase 2: Engine.generate, Llama-3-8B shape, random Q80, 100 + 32 tokens")
+    e2e80 = phase2(torch, dev, "q80")
 
-    log("== phase 3: python -m dllama_tpu_torch.cli generate on a small Q40 model")
+    log("== phase 2c: python -m dllama_tpu_torch.qkernel_experiments all (K 4096, O 11008)")
+    exp = phase_experiments(torch)
+
+    log("== phase 3: python -m dllama_tpu_torch.cli generate on small Q40 and Q80 models")
     cli = phase3()
 
-    # one entry per kernel; the Q40 matmul's numbers are for one decode
+    # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
-    dec = [r for r in q40 if r["T"] == 1 and "ms" in r]
+    def matmul_entry(name, rows, source, replaces, tpu, launches):
+        dec = [r for r in rows if r["T"] == 1 and "ms" in r]
+        fused = [r for r in dec if r["matrix"] in FUSED]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "tpu_kernels": tpu, "launches": launches,
+                "max_abs_err": max(max(r["max_abs_err"], r["fused_max_abs_err"]) for r in rows),
+                "ms": per_token(dec, "ms"), "plain_ms": per_token(dec, "plain_ms"),
+                "bound_ms": per_token(dec, "bound_ms"),
+                "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in dec)
+                             else "operations"),
+                "library_ms": per_token(dec, "library_ms"),
+                "fused_norm": {"ms": per_token(fused, "fused_ms"),
+                               "unfused_ms": per_token(fused, "ms"),
+                               "plain_ms": per_token(fused, "fused_plain_ms"),
+                               "per": "one decode token's wqkv + w13 launches (64)"},
+                "per": "one decode token: 32 x (wqkv, wo, w13, w2) + wcls, T=1"}
 
-    def per_token(key):
-        return sum(r[key] * r["launches_per_token"] for r in dec)
+    def variant_entry(name, source, replaces, tpu):
+        r = next(v for v in variants if v["name"] == name and v["matrix"] == "exp")
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "tpu_kernels": tpu, "launches": exp["launches"][name],
+                "max_abs_err": max(v["max_abs_err"] for v in variants if v["name"] == name),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "per": "one launch: K=4096, O=11008, T=1"}
 
     fl = next(r for r in flash if "ms" in r)
     rp = next(r for r in rope if "ms" in r)
-    launches = e2e["launches"]
+    launches, launches80 = e2e["launches"], e2e80["launches"]
     summary = {"kernels": [
-        {"name": "q40_matmul", "route": "cuda", "source": "dllama_tpu_torch/csrc/q40_matmul.cu",
-         "replaces": "dllama_tpu/ops/qmatmul.py:361 (_q40_kernel) + :412 (_q40_corr_kernel)",
-         "launches": launches["q40_matmul"],
-         "max_abs_err": max(r["max_abs_err"] for r in q40),
-         "ms": per_token("ms"), "kernel_ms": per_token("ms"), "plain_ms": per_token("plain_ms"),
-         "bound_ms": per_token("bound_ms"),
-         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in dec) else "operations",
-         "library_ms": per_token("library_ms"),
-         "per": "one decode token: 32 x (wqkv, wo, w13, w2) + wcls, T=1"},
+        matmul_entry("q40_matmul", q40, "dllama_tpu_torch/csrc/q40_matmul.cu",
+                     "dllama_tpu/ops/qmatmul.py:361 (_q40_kernel) + :412 (_q40_corr_kernel)",
+                     ["K1", "K2"], launches["q40_matmul"]),
+        matmul_entry("q80_matmul", q80, "dllama_tpu_torch/csrc/q80_matmul.cu",
+                     "dllama_tpu/ops/qmatmul.py:179 (_q80_kernel)", ["K3"],
+                     launches80["q80_matmul"]),
         {"name": "flash_decode", "route": "cuda", "source": "dllama_tpu_torch/csrc/flash_decode.cu",
-         "replaces": "dllama_tpu/ops/flash_decode.py:102 (_kernel)",
+         "replaces": "dllama_tpu/ops/flash_decode.py:102 (_kernel)", "tpu_kernels": ["K4"],
          "launches": launches["flash_decode"],
+         "launches_q80_decode": launches80["flash_decode"],
          "max_abs_err": max(r["max_abs_err"] for r in flash),
-         "ms": fl["ms"], "kernel_ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
+         "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
          "per": "one launch: S=1024 bf16 cache, kv=8, group 4, hd=128, pos 1000"},
         {"name": "rope_cache_update", "route": "cuda",
          "source": "dllama_tpu_torch/csrc/rope_cache.cu",
-         "replaces": "dllama_tpu/ops/fused_rope_cache.py:86 (_kernel)",
+         "replaces": "dllama_tpu/ops/fused_rope_cache.py:86 (_kernel)", "tpu_kernels": ["K5"],
          "launches": launches["rope_cache_update"],
+         "launches_q80_decode": launches80["rope_cache_update"],
          "max_abs_err": max(r["max_abs_err"] for r in rope),
-         "ms": rp["ms"], "kernel_ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
+         "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
          "bound_by": rp["bound_by"], "library_ms": None,
          "per": "one launch: T=1, kv=8, hd=128, bf16 activations and cache"},
+        variant_entry("q40_nosub_matmul", "dllama_tpu_torch/csrc/q40_matmul.cu",
+                      "scripts/qkernel_experiments.py:60 (_q40_nosub_kernel)", ["K6"]),
+        variant_entry("q40_int8_matmul", "dllama_tpu_torch/csrc/q40_int8_matmul.cu",
+                      "scripts/qkernel_experiments.py:138 (_q40_int8_kernel)", ["K7"]),
     ]}
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s, "q40": q40, "flash_decode": flash, "rope_cache": rope,
-               "e2e": e2e, "cli": cli, "summary": summary,
+               "build_s": build_s, "q40": q40, "q80": q80, "variants": variants,
+               "flash_decode": flash, "rope_cache": rope, "e2e": e2e, "e2e_q80": e2e80,
+               "experiments": exp, "cli": cli, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")

@@ -3,9 +3,9 @@
 Same modules, same names, same numerics as the JAX package, written in
 PyTorch's idiom: plain functions on tensors, an explicit ``device`` at every
 entry point, explicit ``torch.Generator``s, and in-place KV-cache writes where
-JAX donates the buffer. Every Pallas kernel on the solo Q40 decode path has a
-hand-written CUDA counterpart under ``csrc/`` (built and bound by
-``kernels``); each sits beside a plain PyTorch version of the same function,
+JAX donates the buffer. Every Pallas kernel of the JAX package and of its Q40
+kernel experiments has a hand-written CUDA counterpart under ``csrc/`` (built
+and bound by ``kernels``); each sits beside a plain PyTorch version of the same function,
 which runs only for CPU tensors.
 
 Nothing here imports ``jax`` or ``dllama_tpu``: the jax-free pieces the port

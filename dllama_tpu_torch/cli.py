@@ -5,10 +5,11 @@
     python -m dllama_tpu_torch.cli generate --model m.m --tokenizer t.t \\
         --prompt "Hello" --steps 64 --temperature 0
 
-On the card the weights stay in the file's own Q40 format and every
-projection runs through the Q40 dequant-matmul kernel (pass
-``--weights-float-type`` to choose otherwise); Q80 weights are refused until
-the Q80 kernel is ported.
+On the card the weights stay in the file's own Q40 or Q80 format and every
+projection runs through that format's dequant-matmul kernel (pass
+``--weights-float-type`` to choose otherwise; q80 on a Q40 file requantizes
+the dequantized values). ``DLLAMA_FUSE_NORM=1`` folds each rmsnorm into the
+projection kernels that follow it.
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--chat-template", default="llama2", choices=["llama2", "llama3"])
         sp.add_argument(
             "--weights-float-type", default=None, choices=["q40", "q80", "bf16", "f16", "f32"],
-            help="on-device weight storage: q40 keeps weights block-quantized and "
-            "runs the Q40 dequant-matmul kernel (default on the card when the model "
-            "file is q40); bf16/f16/f32 dequantize at load")
+            help="on-device weight storage: q40/q80 keep weights block-quantized and "
+            "run that format's dequant-matmul kernel (default on the card: the model "
+            "file's own q40/q80); bf16/f16/f32 dequantize at load")
         sp.add_argument(
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
@@ -74,13 +75,9 @@ def load_engine(args):
             # the file's own quantized format: the dequant-matmul kernel reads
             # ~4x fewer bytes per token than bf16 weights
             wft = {blocks.Q40: "q40", blocks.Q80: "q80"}.get(reader.spec.weights_float_type)
-        if wft == "q80":
-            raise SystemExit(
-                "q80 weights need the Q80 dequant-matmul kernel, which this port "
-                "does not have yet; use a q40 model or --weights-float-type bf16|f16|f32")
-        if wft == "q40":
-            print("🧮 weights resident as q40 (Q40 dequant-matmul kernel)")
-            params = llama.quant_params_from_reader(reader, cfg, device, "q40")
+        if wft in ("q40", "q80"):
+            print(f"🧮 weights resident as {wft} (fused dequant-matmul kernels)")
+            params = llama.quant_params_from_reader(reader, cfg, device, wft)
         else:
             dense = {"bf16": torch.bfloat16, "f16": torch.float16,
                      "f32": torch.float32}.get(wft)

@@ -44,4 +44,20 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The dequant-matmul kernels' activation element: x[t, k] rounded to bf16
+// or, with the fused-norm epilogue (inv != nullptr), bf16(nw[k] * (x[t, k] *
+// inv[t])) — ops/norms.py's f32 order, written with __fmul_rn so nvcc cannot
+// contract it into an FMA: fused equals unfused bit for bit.
+template <typename XT>
+__device__ __forceinline__ float act_bf16(const XT* x, int K, int t, size_t k,
+                                          const float* inv, const float* nw) {
+  float v = to_f32(x[(size_t)t * K + k]);
+  if (inv != nullptr) v = __fmul_rn(nw[k], __fmul_rn(v, inv[t]));
+  return round_bf16(v);
+}
+
+// out[i] = sum over splits of partials[split][i], in split order (defined in
+// common.cu): the split-K kernels' fixed-order second pass.
+void sum_splits(const float* partials, int ksplit, size_t n, float* out, cudaStream_t st);
+
 }  // namespace dllama

@@ -1,9 +1,11 @@
 // Q40 dequant-matmul for Hopper (sm_90a).
 //
 // Replaces the TPU kernels dllama_tpu/ops/qmatmul.py::_q40_kernel (K1, the
-// dequant-matmul) and ::_q40_corr_kernel (K2, the nosub correction), with the
-// layer-stacked launchers reduced to a pointer offset (the caller passes the
-// view w[layer]).
+// dequant-matmul, with its fused-rmsnorm epilogue) and ::_q40_corr_kernel
+// (K2, the nosub correction), with the layer-stacked launchers reduced to a
+// pointer offset (the caller passes the view w[layer]); and, as a launch
+// mode, scripts/qkernel_experiments.py::_q40_nosub_kernel (K6: the nosub
+// dot with no correction at all, which the experiment applies outside).
 //
 // Function: out[t, o] (f32) = sum_k bf16(x[t, k]) * bf16(dequant(W)[k, o]),
 // accumulated in f32. W is the packed layout of ops/qmatmul.py: uint8
@@ -13,7 +15,10 @@
 // 8 * sum_s (blocksum_lo_s(x) * s_lo[s, o] + blocksum_hi_s(x) * s_hi[s, o])
 // is accumulated beside the product and subtracted at the end, from the
 // scale values already in registers — K2 re-read the scale planes from
-// device memory on the TPU.
+// device memory on the TPU. With the fused-norm epilogue (inv != nullptr) x
+// arrives raw (bf16 or f32) and each staged element is bf16(nw * (x * inv))
+// (common.cuh act_bf16); the correction's block sums then sum that
+// normalized tile, as the JAX package's _q40_normed does.
 //
 // What bounds it on the H100: bytes. Decode (T = 1) reads 0.625 B per
 // weight (0.5 B of nibbles + 0.125 B of f32 scales) and does ~4 operations
@@ -23,29 +28,31 @@
 //
 // Design: one thread per 4 adjacent output columns, so a warp reads 128
 // contiguous bytes of a packed row (uchar4 per thread) and the scales as
-// float4. A block of 128 threads covers 512 columns; the bf16 x rows of the
-// block's K range are staged in shared memory as f32 (8 superblocks per
-// pass) and read as warp-wide broadcasts. K is split across blocks
-// (grid.y) until about four blocks per SM are in flight — decode of wo has
-// only 8 column blocks — and the splits' partial sums are added in a fixed
-// order by a second small kernel, so results do not depend on scheduling.
-// T is tiled in blocks of up to 8 rows (grid.z), each re-reading the
-// weights: simple, not fast, for prefill.
+// float4. A block of 128 threads covers 512 columns (256 threads and 1024
+// columns in K6's wide mode, the experiment's stand-in for a 2048-lane TPU
+// tile); the bf16 x rows of the block's K range are staged in shared memory
+// as f32 (8 superblocks per pass) and read as warp-wide broadcasts. K is
+// split across blocks (grid.y) until about four blocks per SM are in flight
+// — decode of wo has only 8 column blocks — and the splits' partial sums
+// are added in a fixed order by a second small kernel, so results do not
+// depend on scheduling. T is tiled in blocks of up to 8 rows (grid.z), each
+// re-reading the weights: simple, not fast, for prefill.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCols = 4;                       // output columns per thread
-constexpr int kBlockCols = kThreads * kCols;   // 512 (ops/qmatmul.py _BLOCK_COLS)
-constexpr int kChunkSb = 8;                    // 64-row superblocks staged per pass
+constexpr int kCols = 4;     // output columns per thread
+constexpr int kChunkSb = 8;  // 64-row superblocks staged per pass
 
-template <int TT, bool kVec>
+enum Mode { kSub = 0, kNosubCorrect = 1, kNosubRaw = 2 };
+
+template <typename XT, int TT, bool kVec, int kThreads>
 __global__ void __launch_bounds__(kThreads)
-q40_matmul_kernel(const __nv_bfloat16* __restrict__ x, int T, int K,
-                  const uint8_t* __restrict__ w, const float* __restrict__ s_lo,
-                  const float* __restrict__ s_hi, int O, int sb_per_split,
-                  int nosub, float* __restrict__ out) {
+q40_matmul_kernel(const XT* __restrict__ x, int T, int K, const uint8_t* __restrict__ w,
+                  const float* __restrict__ s_lo, const float* __restrict__ s_hi, int O,
+                  int sb_per_split, int mode, const float* __restrict__ inv,
+                  const float* __restrict__ nw, float* __restrict__ out) {
+  constexpr int kBlockCols = kThreads * kCols;
   __shared__ float xs[TT][kChunkSb * 64];
   __shared__ float bsum[TT][kChunkSb * 2];
 
@@ -54,7 +61,8 @@ q40_matmul_kernel(const __nv_bfloat16* __restrict__ x, int T, int K,
   const int sb_begin = blockIdx.y * sb_per_split;
   const int sb_end = min(nsb, sb_begin + sb_per_split);
   const int o0 = blockIdx.x * kBlockCols + threadIdx.x * kCols;
-  const float sub = nosub ? 0.f : 8.f;
+  const float sub = mode == kSub ? 8.f : 0.f;
+  const bool correct = mode == kNosubCorrect;
 
   float acc[TT][kCols];
   float corr[TT][kCols];
@@ -73,12 +81,11 @@ q40_matmul_kernel(const __nv_bfloat16* __restrict__ x, int T, int K,
     for (int i = threadIdx.x; i < TT * width; i += kThreads) {
       const int t = i / width;
       const int k = i - t * width;
-      xs[t][k] = (t0 + t < T)
-                     ? __bfloat162float(x[(size_t)(t0 + t) * K + (size_t)c0 * 64 + k])
-                     : 0.f;
+      xs[t][k] = (t0 + t < T) ? dllama::act_bf16(x, K, t0 + t, (size_t)c0 * 64 + k, inv, nw)
+                              : 0.f;
     }
     __syncthreads();
-    if (nosub) {
+    if (correct) {
       for (int i = threadIdx.x; i < TT * nc * 2; i += kThreads) {
         const int t = i / (nc * 2);
         const int b = i - t * (nc * 2);
@@ -128,7 +135,7 @@ q40_matmul_kernel(const __nv_bfloat16* __restrict__ x, int T, int K,
             }
           }
         }
-        if (nosub) {
+        if (correct) {
 #pragma unroll
           for (int t = 0; t < TT; ++t) {
 #pragma unroll
@@ -154,65 +161,82 @@ q40_matmul_kernel(const __nv_bfloat16* __restrict__ x, int T, int K,
   }
 }
 
-// out[i] = sum over splits of partials[split][i], in split order.
-__global__ void sum_splits_kernel(const float* __restrict__ partials, int ksplit, size_t n,
-                                  float* __restrict__ out) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < ksplit; ++k) s += partials[(size_t)k * n + i];
-  out[i] = s;
+struct Args {
+  int T, K, O, sb_per_split, mode;
+  const uint8_t* w;
+  const float *s_lo, *s_hi, *inv, *nw;
+  float* dst;
+};
+
+template <typename XT, int TT, bool kVec, int kThreads>
+void launch(dim3 grid, cudaStream_t st, const XT* x, const Args& a) {
+  q40_matmul_kernel<XT, TT, kVec, kThreads><<<grid, kThreads, 0, st>>>(
+      x, a.T, a.K, a.w, a.s_lo, a.s_hi, a.O, a.sb_per_split, a.mode, a.inv, a.nw, a.dst);
 }
 
-template <int TT, bool kVec>
-void launch(dim3 grid, cudaStream_t st, const __nv_bfloat16* x, int T, int K, const uint8_t* w,
-            const float* s_lo, const float* s_hi, int O, int sb_per_split, int nosub,
-            float* dst) {
-  q40_matmul_kernel<TT, kVec><<<grid, kThreads, 0, st>>>(x, T, K, w, s_lo, s_hi, O,
-                                                         sb_per_split, nosub, dst);
+template <typename XT, int kThreads>
+void launch_tt(int tt, bool vec, dim3 grid, cudaStream_t st, const XT* x, const Args& a) {
+  switch (tt) {
+    case 1: vec ? launch<XT, 1, true, kThreads>(grid, st, x, a)
+                : launch<XT, 1, false, kThreads>(grid, st, x, a); break;
+    case 2: vec ? launch<XT, 2, true, kThreads>(grid, st, x, a)
+                : launch<XT, 2, false, kThreads>(grid, st, x, a); break;
+    case 4: vec ? launch<XT, 4, true, kThreads>(grid, st, x, a)
+                : launch<XT, 4, false, kThreads>(grid, st, x, a); break;
+    default: vec ? launch<XT, 8, true, kThreads>(grid, st, x, a)
+                 : launch<XT, 8, false, kThreads>(grid, st, x, a); break;
+  }
 }
 
-template <int TT>
-void launch_tt(bool vec, dim3 grid, cudaStream_t st, const __nv_bfloat16* x, int T, int K,
-               const uint8_t* w, const float* s_lo, const float* s_hi, int O,
-               int sb_per_split, int nosub, float* dst) {
-  if (vec)
-    launch<TT, true>(grid, st, x, T, K, w, s_lo, s_hi, O, sb_per_split, nosub, dst);
-  else
-    launch<TT, false>(grid, st, x, T, K, w, s_lo, s_hi, O, sb_per_split, nosub, dst);
-}
-
-}  // namespace
-
-// x: bf16 [T, K] (K = the packed K, zero-padded); w: uint8 [K/2, O];
-// s_lo, s_hi: f32 [K/64, O]; out: f32 [T, O]; partials: f32 [ksplit, T, O]
-// (unused when ksplit == 1). ksplit and sb_per_split come from
-// ops/qmatmul.py split_plan.
-extern "C" int dllama_q40_matmul(const void* x, int T, int K, const void* w, const void* s_lo,
-                                 const void* s_hi, int O, int nosub, int ksplit,
-                                 int sb_per_split, void* partials, void* out, void* stream) {
+// Validated by the Python wrappers; ksplit and sb_per_split come from
+// ops/qmatmul.py split_plan with the block's column count.
+int run(const void* x, int x_f32, int T, int K, const void* w, const void* s_lo,
+        const void* s_hi, int O, int mode, const void* inv, const void* nw, int wide,
+        int ksplit, int sb_per_split, void* partials, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = wide ? 256 : 128;
   const int tt = T > 4 ? 8 : T > 2 ? 4 : T;
   const bool vec = (O % kCols) == 0 && (reinterpret_cast<uintptr_t>(w) % 4) == 0 &&
                    ((reinterpret_cast<uintptr_t>(s_lo) | reinterpret_cast<uintptr_t>(s_hi)) %
                     16) == 0;
-  const dim3 grid((O + kBlockCols - 1) / kBlockCols, ksplit, (T + tt - 1) / tt);
-  float* dst = static_cast<float*>(ksplit > 1 ? partials : out);
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  const auto* wb = static_cast<const uint8_t*>(w);
-  const auto* lo = static_cast<const float*>(s_lo);
-  const auto* hi = static_cast<const float*>(s_hi);
-  switch (tt) {
-    case 1: launch_tt<1>(vec, grid, st, xb, T, K, wb, lo, hi, O, sb_per_split, nosub, dst); break;
-    case 2: launch_tt<2>(vec, grid, st, xb, T, K, wb, lo, hi, O, sb_per_split, nosub, dst); break;
-    case 4: launch_tt<4>(vec, grid, st, xb, T, K, wb, lo, hi, O, sb_per_split, nosub, dst); break;
-    default: launch_tt<8>(vec, grid, st, xb, T, K, wb, lo, hi, O, sb_per_split, nosub, dst); break;
-  }
-  if (ksplit > 1) {
-    const size_t n = (size_t)T * O;
-    const unsigned blocks = (unsigned)((n + 255) / 256);
-    sum_splits_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(partials), ksplit, n,
-                                              static_cast<float*>(out));
-  }
+  const dim3 grid((O + threads * kCols - 1) / (threads * kCols), ksplit, (T + tt - 1) / tt);
+  const Args a{T, K, O, sb_per_split, mode, static_cast<const uint8_t*>(w),
+               static_cast<const float*>(s_lo), static_cast<const float*>(s_hi),
+               static_cast<const float*>(inv), static_cast<const float*>(nw),
+               static_cast<float*>(ksplit > 1 ? partials : out)};
+  if (x_f32)
+    launch_tt<float, 128>(tt, vec, grid, st, static_cast<const float*>(x), a);
+  else if (wide)
+    launch_tt<__nv_bfloat16, 256>(tt, vec, grid, st, static_cast<const __nv_bfloat16*>(x), a);
+  else
+    launch_tt<__nv_bfloat16, 128>(tt, vec, grid, st, static_cast<const __nv_bfloat16*>(x), a);
+  if (ksplit > 1)
+    dllama::sum_splits(static_cast<const float*>(partials), ksplit, (size_t)T * O,
+                       static_cast<float*>(out), st);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1 (+K2). x: [T, K] (K = the packed K, zero-padded), bf16 (x_f32 = 0) or
+// f32 (x_f32 = 1, only with the epilogue); w: uint8 [K/2, O]; s_lo, s_hi: f32
+// [K/64, O]; inv: f32 [T] and norm_w: f32 [K] for the fused-norm epilogue,
+// both null without it; out: f32 [T, O]; partials: f32 [ksplit, T, O]
+// (unused when ksplit == 1).
+extern "C" int dllama_q40_matmul(const void* x, int x_f32, int T, int K, const void* w,
+                                 const void* s_lo, const void* s_hi, int O, int nosub,
+                                 const void* inv, const void* norm_w, int ksplit,
+                                 int sb_per_split, void* partials, void* out, void* stream) {
+  return run(x, x_f32, T, K, w, s_lo, s_hi, O, nosub ? kNosubCorrect : kSub, inv, norm_w, 0,
+             ksplit, sb_per_split, partials, out, stream);
+}
+
+// K6: the nosub dot with no correction; x bf16 [T, K]. wide = 1: 1024
+// columns per block.
+extern "C" int dllama_q40_nosub_matmul(const void* x, int T, int K, const void* w,
+                                       const void* s_lo, const void* s_hi, int O, int wide,
+                                       int ksplit, int sb_per_split, void* partials, void* out,
+                                       void* stream) {
+  return run(x, 0, T, K, w, s_lo, s_hi, O, kNosubRaw, nullptr, nullptr, wide, ksplit,
+             sb_per_split, partials, out, stream);
 }

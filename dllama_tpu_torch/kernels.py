@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"q40_matmul": 0, "flash_decode": 0, "rope_cache_update": 0}
+launches = {"q40_matmul": 0, "q80_matmul": 0, "flash_decode": 0, "rope_cache_update": 0,
+            "q40_nosub_matmul": 0, "q40_int8_matmul": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,8 +43,16 @@ _F = ctypes.c_float
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so ctypes never truncates one to 32 bits)
 _SIGNATURES = {
-    # x, T, K, w, s_lo, s_hi, O, nosub, ksplit, sb_per_split, partials, out, stream
-    "dllama_q40_matmul": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # x, x_f32, T, K, w, s_lo, s_hi, O, nosub, inv, norm_w, ksplit, sb_per_split,
+    # partials, out, stream
+    "dllama_q40_matmul": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    # x, T, K, w, s_lo, s_hi, O, wide, ksplit, sb_per_split, partials, out, stream
+    "dllama_q40_nosub_matmul": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
+    # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, sb_per_split, partials, out,
+    # stream
+    "dllama_q80_matmul": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P),
+    # xq, sx, T, K, w, s_lo, s_hi, O, ksplit, sb_per_split, partials, out, stream
+    "dllama_q40_int8_matmul": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, cache_kind, stream
     "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     # k, v, cos, sin, k_cache, v_cache, T, kv, hd, S, start, layer, half_style,

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dllama_tpu_torch import resolve_device
 from dllama_tpu_torch.formats.weights import WeightFileReader
 from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.ops import flash_decode
@@ -33,7 +34,8 @@ from dllama_tpu_torch.ops.attention import gqa_attention
 from dllama_tpu_torch.ops.fused_rope_cache import cast_cache, rope_cache_update
 from dllama_tpu_torch.ops.norms import rmsnorm
 from dllama_tpu_torch.ops.qmatmul import (
-    K_MULTIPLE, QuantTensor, _pad_up, matmul_any, quantize_tensor, repack_q40, repack_q80,
+    K_MULTIPLE, QuantTensor, _pad_up, matmul_any, norm_fusion_engages, qmatmul_norm,
+    quantize_tensor, repack_q40, repack_q80,
 )
 from dllama_tpu_torch.ops.rope import apply_rope, rope_table
 from dllama_tpu_torch.quants import blocks
@@ -192,23 +194,37 @@ def has_quant_leaves(params: dict) -> bool:
         isinstance(v, QuantTensor) for v in params["layers"].values())
 
 
-def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator) -> dict:
-    """Random Q40 params built directly on ``device`` from ``generator`` —
-    the benchmark-shape model with Q40 residency and no host-side copy (the
-    counterpart of the JAX package's ``device_random_quant_params``). Packed
-    bits are random valid nibbles with small scales; the model is
-    numerically plausible but meaningless. The projections are made already
-    fused (``wqkv``, ``w13``), which is how ``fuse_qkv_ffn`` would lay out
-    independent random parts."""
+def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
+                        kind: str = "q40") -> dict:
+    """Random ``kind`` (q40 or q80) params built directly on ``device`` from
+    ``generator`` — the benchmark-shape model with quantized residency and
+    no host-side copy (the counterpart of the JAX package's
+    ``device_random_quant_params``). Q40 planes are random valid nibbles
+    with scales ``U[0,1) * 0.004``; Q80 planes are int8 in [-127, 127] with
+    scales ``U[0,1) * 0.0003``. The model is numerically plausible but
+    meaningless. The projections are made already fused (``wqkv``,
+    ``w13``), which is how ``fuse_qkv_ffn`` would lay out independent random
+    parts."""
     _check_dense_arch(cfg)
+    if kind not in K_MULTIPLE:
+        raise ValueError(f"unknown quant kind {kind!r}")
     L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
 
+    def rand(*shape, scale):
+        return torch.rand(shape, device=device, generator=generator) * scale
+
     def qrand(K_, O_, prefix=(L,)):
-        kp = _pad_up(K_, K_MULTIPLE["q40"])
+        kp = _pad_up(K_, K_MULTIPLE[kind])
+        if kind == "q80":
+            w = torch.randint(-127, 128, (*prefix, kp, O_), dtype=torch.int8,
+                              device=device, generator=generator)
+            return QuantTensor(w=w, s=rand(*prefix, kp // 32, O_, scale=0.0003),
+                               s2=torch.zeros((*prefix, 0), device=device),
+                               kind="q80", k_logical=K_)
         w = torch.randint(0, 256, (*prefix, kp // 2, O_), dtype=torch.uint8,
                           device=device, generator=generator)
-        s = torch.rand((*prefix, kp // 64, O_), device=device, generator=generator) * 0.004
-        s2 = torch.rand((*prefix, kp // 64, O_), device=device, generator=generator) * 0.004
+        s = rand(*prefix, kp // 64, O_, scale=0.004)
+        s2 = rand(*prefix, kp // 64, O_, scale=0.004)
         return QuantTensor(w=w, s=s, s2=s2, kind="q40", k_logical=K_)
 
     layers = {
@@ -227,11 +243,13 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator) ->
     }
 
 
-def random_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Seeded synthetic weights in the compute dtype: the same numpy draws,
     in the same order, as the JAX package's ``random_params``, so one seed
-    gives both packages the same model."""
+    gives both packages the same model. On the card unless ``device`` says
+    otherwise."""
     _check_dense_arch(cfg)
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
     def w(*shape):
@@ -256,14 +274,19 @@ def random_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
     }
 
 
-def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device="cpu") -> dict:
-    """Fixed-size per-layer KV cache [L, seq_len, n_kv_heads, head_size]."""
+def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device=None) -> dict:
+    """Fixed-size per-layer KV cache [L, seq_len, n_kv_heads, head_size], on
+    the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
     return {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
 
-def rope_tables(cfg: ModelConfig, device="cpu") -> dict:
+def rope_tables(cfg: ModelConfig, device=None) -> dict:
+    """The rope cos/sin tables [seq_len, head_size/2] f32, on the card unless
+    ``device`` says otherwise."""
+    device = resolve_device(device)
     cos, sin = rope_table(cfg.seq_len, cfg.head_size, cfg.rope_theta)
     return {"cos": torch.from_numpy(cos).to(device), "sin": torch.from_numpy(sin).to(device)}
 
@@ -280,16 +303,27 @@ def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _norm_proj(x: torch.Tensor, norm_w: torch.Tensor, w, eps: float) -> torch.Tensor:
+    """``rmsnorm(x, norm_w) @ w``. With DLLAMA_FUSE_NORM and a quantized
+    ``w`` the norm rides inside the matmul kernel as an epilogue on each
+    activation tile (``qmatmul_norm``: bit-equal, one fewer pass over the
+    activation)."""
+    if norm_fusion_engages(w):
+        return qmatmul_norm(x, norm_w, w, eps)
+    return matmul_any(rmsnorm(x, norm_w, eps), w)
+
+
 def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w) -> torch.Tensor:
-    """FFN half on the RAW (pre-norm) residual ``x``."""
+    """FFN half on the RAW (pre-norm) residual ``x``: the ``rms_ffn`` norm is
+    applied through ``_norm_proj`` so it can fuse into the up/gate kernels."""
     act = ACTIVATIONS[cfg.hidden_act]
-    xn = rmsnorm(x, norm_w, cfg.norm_eps)
+    eps = cfg.norm_eps
     if "w13" in lp:  # fused single-kernel up|gate projection (fuse_qkv_ffn)
-        u = matmul_any(xn, lp["w13"])
+        u = _norm_proj(x, norm_w, lp["w13"], eps)
         half = u.shape[-1] // 2
         h = act(u[..., :half]) * u[..., half:]
     else:
-        h = act(matmul_any(xn, lp["w1"])) * matmul_any(xn, lp["w3"])
+        h = act(_norm_proj(x, norm_w, lp["w1"], eps)) * _norm_proj(x, norm_w, lp["w3"], eps)
     return matmul_any(h, lp["w2"])
 
 
@@ -308,13 +342,13 @@ def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
     """One attention sub-block of layer ``layer``; writes this step's K/V
     into the stacked caches in place and returns the output [T, dim]."""
     T = x.shape[0]
-    xn = rmsnorm(x, lp["rms_att"], cfg.norm_eps)
     if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
-        qkv = matmul_any(xn, lp["wqkv"])
+        qkv = _norm_proj(x, lp["rms_att"], lp["wqkv"], cfg.norm_eps)
         d, kv = cfg.dim, cfg.kv_dim
         q, k, v = qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
     else:
-        q, k, v = (matmul_any(xn, lp[n]) for n in ("wq", "wk", "wv"))
+        q, k, v = (_norm_proj(x, lp["rms_att"], lp[n], cfg.norm_eps)
+                   for n in ("wq", "wk", "wv"))
     q = q.reshape(T, -1, cfg.head_size)
     k = k.reshape(T, -1, cfg.head_size)
     v = v.reshape(T, -1, cfg.head_size)

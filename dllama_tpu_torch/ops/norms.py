@@ -13,8 +13,15 @@ import torch
 RMS_EPS = 1e-5
 
 
+def rmsnorm_inv(x: torch.Tensor, eps: float = RMS_EPS) -> torch.Tensor:
+    """The per-row normalizer ``1/sqrt(mean(x^2) + eps)`` as [..., 1] f32.
+    :func:`rmsnorm` and the fused-norm matmul epilogues
+    (``ops.qmatmul.qmatmul_norm``) both take it from here, so the two agree
+    bit for bit."""
+    xf = x.float()
+    return torch.reciprocal(torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps))
+
+
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = RMS_EPS) -> torch.Tensor:
     """RMS-normalize the last axis. x: [..., dim], weight: [dim]."""
-    xf = x.float()
-    inv = torch.reciprocal(torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps))
-    return (weight.float() * (xf * inv)).to(x.dtype)
+    return (weight.float() * (x.float() * rmsnorm_inv(x, eps))).to(x.dtype)

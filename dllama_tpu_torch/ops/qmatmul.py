@@ -1,27 +1,35 @@
-"""Q40 dequant-matmul: the hand-written CUDA kernel, its plain version, and
-the packed weight layout it reads.
+"""Q40 and Q80 dequant-matmuls: the hand-written CUDA kernels' wrappers, their
+plain versions, the fused-rmsnorm epilogue, and the packed weight layouts.
 
-Layout — the JAX package's, byte for byte, so carrying weights across is a
-copy: a Q40 matrix ``[K, O]`` is a ``uint8 [K/2, O]`` plane (O contiguous)
+Layouts — the JAX package's, byte for byte, so carrying weights across is a
+copy. A Q40 matrix ``[K, O]`` is a ``uint8 [K/2, O]`` plane (O contiguous)
 plus two ``f32 [K/64, O]`` scale planes. Byte ``32s + j`` holds input row
 ``64s + j`` in its low nibble (scale ``s_lo[s]``) and row ``64s + 32 + j`` in
 its high nibble (``s_hi[s]``). Nibbles store ``q + 8``; dequant is
 ``(q - 8) * delta``, the reference's own Q40 math
 (`distributed-llama/src/quants.cpp:166-180`), so repacking a published Q40 file
-is lossless. K is padded up to ``K_MULTIPLE['q40']`` with zero quants and zero
-scales; the padded rows multiply zero-padded activation columns and add
-exactly nothing.
+is lossless. A Q80 matrix is ``int8 [K, O]`` plus one ``f32 [K/32, O]`` scale
+plane (the reference's 32-value blocks along K). K is padded up to
+``K_MULTIPLE[kind]`` with zero quants and zero scales; the padded rows
+multiply zero-padded activation columns and add exactly nothing.
 
 The product (both routes): ``out[T, O] f32 = sum_k bf16(x) * bf16(dequant(W))``
-accumulated in f32. Under ``nosub`` (the default, ``DLLAMA_Q40_NOSUB``) the
-dequant drops the ``- 8`` and the exact recentering term
+accumulated in f32. Under ``nosub`` (the Q40 default, ``DLLAMA_Q40_NOSUB``)
+the dequant drops the ``- 8`` and the exact recentering term
 ``8 * (blocksum_lo(x) @ s_lo + blocksum_hi(x) @ s_hi)`` — f32 sums of the
 bf16-rounded activation over each 32-row block — is subtracted at the end;
 ``nosub`` rounds ``q * delta`` to bf16, not ``(q - 8) * delta``, so the two
 settings differ in their last bits.
 
-``q40_matmul`` launches the CUDA kernel (``csrc/q40_matmul.cu``) for a CUDA
-tensor and runs ``q40_matmul_ref`` for a CPU tensor; there is no other route.
+The fused-norm epilogue (``DLLAMA_FUSE_NORM``, :func:`qmatmul_norm`): the
+kernel takes the raw activation, the per-row ``rmsnorm_inv`` and the norm
+weight, and normalizes each staged element as ``bf16(w * (x * inv))`` —
+ops.norms.rmsnorm's own f32 order — so the result is bit-equal to rmsnorm
+followed by the plain product.
+
+``q40_matmul``/``q80_matmul`` launch the CUDA kernels (``csrc/q40_matmul.cu``,
+``csrc/q80_matmul.cu``) for CUDA tensors and run ``q40_matmul_ref``/
+``q80_matmul_ref`` for CPU tensors; there is no other route.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import numpy as np
 import torch
 
 from dllama_tpu_torch import kernels
+from dllama_tpu_torch.ops.norms import RMS_EPS, rmsnorm_inv
 from dllama_tpu_torch.quants import blocks
 
 QK = blocks.QK  # 32 values per quantization block
@@ -111,7 +120,35 @@ class QuantTensor:
 
 
 # ---------------------------------------------------------------------------
-# The kernel's plain version
+# The fused-rmsnorm epilogue (DLLAMA_FUSE_NORM)
+# ---------------------------------------------------------------------------
+
+def norm_fusion_enabled() -> bool:
+    """DLLAMA_FUSE_NORM=1: the projections that follow an rmsnorm take the
+    raw activation and normalize each tile in the kernel (:func:`qmatmul_norm`)
+    instead of reading a normalized copy. Read per call, so a run can flip
+    it; off by default, as in the JAX package."""
+    return os.environ.get("DLLAMA_FUSE_NORM", "0") == "1"
+
+
+def norm_fusion_engages(w) -> bool:
+    """The gate at one call site: the flag is on and the matrix is quantized
+    (a dense matmul has no kernel to fuse into)."""
+    return norm_fusion_enabled() and isinstance(w, QuantTensor)
+
+
+def _bf16_activation(x: torch.Tensor, K: int, norm_w=None, norm_inv=None) -> torch.Tensor:
+    """The kernels' activation tile as f32 values of bf16 [T, K]: ``x``
+    rounded to bf16 or, with the fused-norm epilogue, ``bf16(nw * (x *
+    inv))`` — ops.norms.rmsnorm's f32 tail, so fused equals unfused bit for
+    bit — zero-padded to the packed K."""
+    if norm_w is not None:
+        x = norm_w.float() * (x.float() * norm_inv.float().reshape(-1, 1))
+    return _pad_cols(x.to(torch.bfloat16), K).float()
+
+
+# ---------------------------------------------------------------------------
+# The kernels' plain versions
 # ---------------------------------------------------------------------------
 
 def _q40_split(xp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -130,103 +167,202 @@ def _q40_block_sums(xp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return xs[:, 0::2], xs[:, 1::2]
 
 
-def q40_matmul_ref(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
-                   s_hi: torch.Tensor, nosub: bool | None = None) -> torch.Tensor:
-    """The kernel's function step by step in plain PyTorch: ``x [T, K] @
-    dequant(packed uint8 [K/2, O]) -> [T, O]`` f32. Both dot operands are
-    rounded to bf16 and the products summed in f32 (a product of two bf16
-    values is exact in f32, so only the summation order differs from the
+def q40_dot_ref(xb: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
+                s_hi: torch.Tensor, sub: float) -> torch.Tensor:
+    """``xb [T, K] @ bf16((nibble - sub) * delta)`` in f32, where ``xb``
+    holds bf16 values: the dot both Q40 kernels share (a product of two bf16
+    values is exact in f32, so only the summation order differs from a
     kernel)."""
-    if nosub is None:
-        nosub = Q40_NOSUB
-    K = packed.shape[0] * 2
-    xb = _pad_cols(x.to(torch.bfloat16), K).float()
-    lo = (packed & 0xF).float()
-    hi = (packed >> 4).float()
-    if not nosub:
-        lo = lo - 8.0
-        hi = hi - 8.0
+    lo = (packed & 0xF).float() - sub
+    hi = (packed >> 4).float() - sub
     w_lo = (lo * s_lo.repeat_interleave(QK, dim=0)).to(torch.bfloat16).float()
     w_hi = (hi * s_hi.repeat_interleave(QK, dim=0)).to(torch.bfloat16).float()
     x_lo, x_hi = _q40_split(xb)
-    out = x_lo @ w_lo + x_hi @ w_hi
+    return x_lo @ w_lo + x_hi @ w_hi
+
+
+def q40_matmul_ref(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
+                   s_hi: torch.Tensor, nosub: bool | None = None,
+                   norm_w: torch.Tensor | None = None,
+                   norm_inv: torch.Tensor | None = None) -> torch.Tensor:
+    """The Q40 kernel's function step by step in plain PyTorch: ``x [T, K] @
+    dequant(packed uint8 [K/2, O]) -> [T, O]`` f32, both dot operands rounded
+    to bf16 and the products summed in f32. ``norm_w [K]``/``norm_inv [T, 1]``
+    (both or neither) apply the fused-norm epilogue to ``x`` first; the nosub
+    correction then sums the normalized tile, as the JAX package's
+    ``_q40_normed`` does."""
+    if nosub is None:
+        nosub = Q40_NOSUB
+    xb = _bf16_activation(x, packed.shape[0] * 2, norm_w, norm_inv)
+    out = q40_dot_ref(xb, packed, s_lo, s_hi, 0.0 if nosub else 8.0)
     if nosub:
         xs_lo, xs_hi = _q40_block_sums(xb)
         out = out - 8.0 * (xs_lo @ s_lo + xs_hi @ s_hi)
     return out
 
 
+def q80_matmul_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+                   norm_w: torch.Tensor | None = None,
+                   norm_inv: torch.Tensor | None = None) -> torch.Tensor:
+    """The Q80 kernel's function step by step: ``bf16(x) @ bf16(f32(int8 w
+    [K, O]) * delta [K/32, O])`` accumulated in f32, x zero-padded to the
+    packed K; ``norm_w``/``norm_inv`` as in :func:`q40_matmul_ref`."""
+    xb = _bf16_activation(x, w.shape[0], norm_w, norm_inv)
+    wd = (w.float() * scales.repeat_interleave(QK, dim=0)).to(torch.bfloat16).float()
+    return xb @ wd
+
+
 # ---------------------------------------------------------------------------
-# The kernel's wrapper
+# The kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def split_plan(T: int, K: int, O: int, n_sm: int) -> tuple[int, int]:
-    """(ksplit, superblocks per split) for the CUDA kernel: split K across
-    blocks until about four blocks per SM are in flight, so a decode GEMV
-    with few output columns (wo: 8 column blocks) still fills the card."""
+def split_plan(T: int, K: int, O: int, n_sm: int,
+               block_cols: int = _BLOCK_COLS) -> tuple[int, int]:
+    """(ksplit, 64-row superblocks per split) for the CUDA kernels: split K
+    across blocks until about four blocks per SM are in flight, so a decode
+    GEMV with few output columns (wo: 8 column blocks) still fills the card."""
     nsb = K // 64
     tt = 8 if T > 8 else next(t for t in (1, 2, 4, 8) if t >= T)
-    blocks_ = math.ceil(O / _BLOCK_COLS) * math.ceil(T / tt)
+    blocks_ = math.ceil(O / block_cols) * math.ceil(T / tt)
     want = max(1, min(nsb, math.ceil(4 * n_sm / blocks_)))
     sb_per = math.ceil(nsb / want)
     return math.ceil(nsb / sb_per), sb_per
 
 
+def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int,
+                   planes: list) -> None:
+    """What every dequant-matmul kernel requires of its operands: one CUDA
+    device, contiguous weight planes, and an activation ``[T, <= K]``."""
+    if not all(p.is_contiguous() for p in (w, *planes)):
+        raise ValueError(f"{name}: weight planes must be contiguous")
+    if x.ndim != 2 or x.shape[1] > K or not 1 <= x.shape[0] <= 8 * 65535:
+        raise ValueError(f"{name}: activation {tuple(x.shape)} vs packed K {K}")
+    if x.device != w.device:
+        raise ValueError(f"{name}: x on {x.device}, weights on {w.device}")
+
+
+def launch_buffers(T: int, K: int, O: int, device,
+                   block_cols: int = _BLOCK_COLS) -> tuple:
+    """(out [T, O] f32, partials [ksplit, T, O] f32, ksplit, sb_per_split):
+    the outputs a split-K launch writes, per :func:`split_plan`."""
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    ksplit, sb_per = split_plan(T, K, O, n_sm, block_cols)
+    out = torch.empty((T, O), dtype=torch.float32, device=device)
+    partials = (torch.empty((ksplit, T, O), dtype=torch.float32, device=device)
+                if ksplit > 1 else out)
+    return out, partials, ksplit, sb_per
+
+
+def _kernel_activation(x: torch.Tensor, K: int, norm_w, norm_inv) -> tuple:
+    """(x zero-padded to K as the kernel reads it, inv [T] f32 or None,
+    norm weight [K] f32 or None). Unfused, x goes to the kernel as bf16;
+    fused, it stays raw (bf16 or f32) and the kernel normalizes each tile."""
+    if (norm_w is None) != (norm_inv is None):
+        raise ValueError("norm_w and norm_inv come together")
+    if norm_w is None:
+        return _pad_cols(x.to(torch.bfloat16), K).contiguous(), None, None
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"fused-norm activation must be bf16 or f32, got {x.dtype}")
+    if norm_w.shape != (x.shape[1],) or norm_inv.numel() != x.shape[0]:
+        raise ValueError(f"norm operands {tuple(norm_w.shape)}, {tuple(norm_inv.shape)} "
+                         f"vs activation {tuple(x.shape)}")
+    inv = norm_inv.float().reshape(-1).contiguous()
+    nw = _pad_cols(norm_w.float().reshape(1, -1), K).reshape(K).contiguous()
+    return _pad_cols(x, K).contiguous(), inv, nw
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 def q40_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
-               s_hi: torch.Tensor, nosub: bool | None = None) -> torch.Tensor:
+               s_hi: torch.Tensor, nosub: bool | None = None,
+               norm_w: torch.Tensor | None = None,
+               norm_inv: torch.Tensor | None = None) -> torch.Tensor:
     """``x [T, K] @ dequant(packed uint8 [K/2, O]) -> [T, O]`` f32.
 
     A CUDA ``packed`` launches ``csrc/q40_matmul.cu``; a CPU one runs
     :func:`q40_matmul_ref`. K2's correction term is computed inside the same
-    kernel under ``nosub``."""
+    kernel under ``nosub``. ``norm_w``/``norm_inv``: the fused-norm epilogue
+    (see :func:`qmatmul_norm`)."""
     if nosub is None:
         nosub = Q40_NOSUB
     if packed.device.type == "cpu":
-        return q40_matmul_ref(x, packed, s_lo, s_hi, nosub)
+        return q40_matmul_ref(x, packed, s_lo, s_hi, nosub, norm_w, norm_inv)
     if packed.device.type != "cuda":
         raise ValueError(f"q40_matmul: unsupported device {packed.device}")
     K2, O = packed.shape
     K = 2 * K2
-    T = x.shape[0]
     if packed.dtype != torch.uint8 or s_lo.dtype != torch.float32 or s_hi.dtype != torch.float32:
         raise TypeError("q40_matmul: want uint8 packed and f32 scale planes")
     if s_lo.shape != (K // 64, O) or s_hi.shape != (K // 64, O) or K % 64:
         raise ValueError(f"q40_matmul: planes {tuple(packed.shape)}, "
                          f"{tuple(s_lo.shape)}, {tuple(s_hi.shape)} disagree")
-    if x.ndim != 2 or x.shape[1] > K or not 1 <= T <= 8 * 65535:
-        raise ValueError(f"q40_matmul: activation {tuple(x.shape)} vs packed K {K}")
-    if not (packed.is_contiguous() and s_lo.is_contiguous() and s_hi.is_contiguous()):
-        raise ValueError("q40_matmul: weight planes must be contiguous")
-    if x.device != packed.device:
-        raise ValueError(f"q40_matmul: x on {x.device}, weights on {packed.device}")
-    xb = _pad_cols(x.to(torch.bfloat16), K).contiguous()
-    n_sm = torch.cuda.get_device_properties(packed.device).multi_processor_count
-    ksplit, sb_per = split_plan(T, K, O, n_sm)
-    out = torch.empty((T, O), dtype=torch.float32, device=packed.device)
-    partials = (torch.empty((ksplit, T, O), dtype=torch.float32, device=packed.device)
-                if ksplit > 1 else out)
+    check_operands("q40_matmul", x, packed, K, [s_lo, s_hi])
+    xk, inv, nw = _kernel_activation(x, K, norm_w, norm_inv)
+    T = xk.shape[0]
+    out, partials, ksplit, sb_per = launch_buffers(T, K, O, packed.device)
     with torch.cuda.device(packed.device):
         rc = kernels.lib().dllama_q40_matmul(
-            xb.data_ptr(), T, K, packed.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(),
-            O, int(bool(nosub)), ksplit, sb_per, partials.data_ptr(), out.data_ptr(),
-            kernels.stream_of(packed))
+            xk.data_ptr(), int(xk.dtype == torch.float32), T, K, packed.data_ptr(),
+            s_lo.data_ptr(), s_hi.data_ptr(), O, int(bool(nosub)), _ptr(inv), _ptr(nw),
+            ksplit, sb_per, partials.data_ptr(), out.data_ptr(), kernels.stream_of(packed))
     kernels.check(rc, "q40_matmul")
     kernels.launches["q40_matmul"] += 1
     return out
 
 
+def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+               norm_w: torch.Tensor | None = None,
+               norm_inv: torch.Tensor | None = None) -> torch.Tensor:
+    """``x [T, K] @ dequant(w int8 [K, O], scales f32 [K/32, O]) -> [T, O]``
+    f32. A CUDA ``w`` launches ``csrc/q80_matmul.cu``; a CPU one runs
+    :func:`q80_matmul_ref`. ``norm_w``/``norm_inv``: the fused-norm epilogue."""
+    if w.device.type == "cpu":
+        return q80_matmul_ref(x, w, scales, norm_w, norm_inv)
+    if w.device.type != "cuda":
+        raise ValueError(f"q80_matmul: unsupported device {w.device}")
+    K, O = w.shape
+    if w.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError("q80_matmul: want int8 quants and an f32 scale plane")
+    if scales.shape != (K // QK, O) or K % 64:
+        raise ValueError(f"q80_matmul: planes {tuple(w.shape)}, {tuple(scales.shape)} disagree")
+    check_operands("q80_matmul", x, w, K, [scales])
+    xk, inv, nw = _kernel_activation(x, K, norm_w, norm_inv)
+    T = xk.shape[0]
+    out, partials, ksplit, sb_per = launch_buffers(T, K, O, w.device)
+    with torch.cuda.device(w.device):
+        rc = kernels.lib().dllama_q80_matmul(
+            xk.data_ptr(), int(xk.dtype == torch.float32), T, K, w.data_ptr(),
+            scales.data_ptr(), O, _ptr(inv), _ptr(nw), ksplit, sb_per,
+            partials.data_ptr(), out.data_ptr(), kernels.stream_of(w))
+    kernels.check(rc, "q80_matmul")
+    kernels.launches["q80_matmul"] += 1
+    return out
+
+
+def _quant_matmul(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_inv=None):
+    if qt.kind == "q40":
+        return q40_matmul(x, qt.w, qt.s, qt.s2, norm_w=norm_w, norm_inv=norm_inv)
+    if qt.kind == "q80":
+        return q80_matmul(x, qt.w, qt.s, norm_w=norm_w, norm_inv=norm_inv)
+    raise ValueError(f"unknown QuantTensor kind {qt.kind!r}")
+
+
 def qmatmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """``x @ dequant(qt)`` through the kernel of ``qt.kind``; the output dtype
     follows ``x``, accumulation is f32."""
-    if qt.kind == "q40":
-        out = q40_matmul(x, qt.w, qt.s, qt.s2)
-    elif qt.kind == "q80":
-        raise NotImplementedError(
-            "q80 weights need the Q80 dequant-matmul kernel, which this port "
-            "does not have yet; use q40 weights or a dense --weights-float-type")
-    else:
-        raise ValueError(f"unknown QuantTensor kind {qt.kind!r}")
-    return out.to(x.dtype)
+    return _quant_matmul(x, qt).to(x.dtype)
+
+
+def qmatmul_norm(x: torch.Tensor, norm_w: torch.Tensor, qt: QuantTensor,
+                 eps: float = RMS_EPS) -> torch.Tensor:
+    """``rmsnorm(x, norm_w) @ dequant(qt)`` with the norm fused into the
+    kernel as an epilogue on each activation tile: the kernel reads the raw
+    activation and the per-row :func:`rmsnorm_inv`, never a normalized copy.
+    Bit-equal to the unfused composition — the same f32 products in the same
+    order, one bf16 rounding."""
+    return _quant_matmul(x, qt, norm_w, rmsnorm_inv(x, eps)).to(x.dtype)
 
 
 def matmul_any(x: torch.Tensor, w) -> torch.Tensor:

@@ -5,19 +5,22 @@ cannot run on the CPU). On a machine with one:
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 
-Tolerances: the Q40 matmul and flash decode sum in another order than their
-plain versions (f32 accumulation of exact bf16 products; online softmax), so
+Tolerances: the Q40/Q80 matmuls (K1, K3, K6), the Q40xQ80 integer dot
+(K7) and flash decode sum in another order than their plain versions (f32
+accumulation of exact bf16 products or exact block dots; online softmax), so
 they are held to 1e-5 of the output's magnitude in f32; the rope + cache
 write does the same single-rounding arithmetic as its plain version, so the
-caches must be bit-equal.
+caches must be bit-equal. The fused-norm epilogue (K1, K3) must equal the
+unfused composition bit for bit: the same bf16 tile, the same split plan.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dllama_tpu_torch import kernels
+from dllama_tpu_torch import kernels, qkernel_experiments
 from dllama_tpu_torch.ops import flash_decode, fused_rope_cache, qmatmul
+from dllama_tpu_torch.ops.norms import rmsnorm
 from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
 
 pytestmark = pytest.mark.cuda
@@ -51,6 +54,78 @@ def test_q40_matmul_kernel_matches_ref(cuda, nosub, T, K, O):
     ref = qmatmul.q40_matmul_ref(x, qt.w, qt.s, qt.s2, nosub=nosub)
     err = (got - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+def _close(got, ref):
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("T,K,O", [(1, 4096, 6144), (1, 14336, 4096), (128, 4096, 1024),
+                                   (3, 256, 102), (9, 1024, 516)])
+def test_q80_matmul_kernel_matches_ref(cuda, T, K, O):
+    rng = np.random.default_rng(T + K + O)
+    qt = qmatmul.quantize_tensor(rng.standard_normal((K, O)).astype(np.float32) * 0.05, "q80",
+                                 cuda)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    before = kernels.launches["q80_matmul"]
+    got = qmatmul.q80_matmul(x, qt.w, qt.s)
+    torch.cuda.synchronize()
+    assert kernels.launches["q80_matmul"] == before + 1
+    _close(got, qmatmul.q80_matmul_ref(x, qt.w, qt.s))
+
+
+@pytest.mark.parametrize("kind,nosub", [("q40", True), ("q40", False), ("q80", None)])
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,K,O", [(1, 4096, 6144), (5, 192, 40), (20, 1024, 1536)])
+def test_fused_norm_epilogue_matches_ref_and_unfused_bits(cuda, kind, nosub, act, T, K, O):
+    rng = np.random.default_rng(T + K + O + (nosub is True))
+    qt = qmatmul.quantize_tensor(rng.standard_normal((K, O)).astype(np.float32) * 0.05, kind,
+                                 cuda)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda, act)
+    nw = torch.from_numpy(rng.standard_normal(K).astype(np.float32)).to(cuda)
+    inv = qmatmul.rmsnorm_inv(x)
+    if kind == "q40":
+        got = qmatmul.q40_matmul(x, qt.w, qt.s, qt.s2, nosub=nosub, norm_w=nw, norm_inv=inv)
+        ref = qmatmul.q40_matmul_ref(x, qt.w, qt.s, qt.s2, nosub=nosub, norm_w=nw, norm_inv=inv)
+        unfused = qmatmul.q40_matmul(rmsnorm(x, nw), qt.w, qt.s, qt.s2, nosub=nosub)
+    else:
+        got = qmatmul.q80_matmul(x, qt.w, qt.s, norm_w=nw, norm_inv=inv)
+        ref = qmatmul.q80_matmul_ref(x, qt.w, qt.s, norm_w=nw, norm_inv=inv)
+        unfused = qmatmul.q80_matmul(rmsnorm(x, nw), qt.w, qt.s)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    assert torch.equal(got, unfused)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("T,K,O", [(1, 4096, 11008), (2, 512, 256), (7, 14336, 4096)])
+def test_q40_nosub_kernel_matches_ref(cuda, wide, T, K, O):
+    rng = np.random.default_rng(T + K + O)
+    qt = qmatmul.quantize_tensor(rng.standard_normal((K, O)).astype(np.float32) * 0.1, "q40",
+                                 cuda)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    got = qkernel_experiments.q40_nosub_matmul(x, qt.w, qt.s, qt.s2, wide=wide)
+    torch.cuda.synchronize()
+    _close(got, qkernel_experiments.q40_nosub_matmul_ref(x, qt.w, qt.s, qt.s2))
+
+
+@pytest.mark.parametrize("T,K,O", [(1, 4096, 11008), (2, 512, 256), (5, 14336, 4100)])
+def test_q40_int8_kernel_matches_ref(cuda, T, K, O):
+    rng = np.random.default_rng(T + K + O)
+    qt = qmatmul.quantize_tensor(rng.standard_normal((K, O)).astype(np.float32) * 0.1, "q40",
+                                 cuda)
+    x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
+    xq, sx = qkernel_experiments.quantize_q80_rows(x, qt.k_padded)
+    got = qkernel_experiments.q40_int8_matmul(xq, sx, qt.w, qt.s, qt.s2)
+    torch.cuda.synchronize()
+    _close(got, qkernel_experiments.q40_int8_matmul_ref(xq, sx, qt.w, qt.s, qt.s2))
+
+
+def test_every_variant_passes_its_check_on_the_card(cuda):
+    rows = qkernel_experiments.main(["all", "512", "256"], device=cuda)
+    assert [r["variant"] for r in rows] == ["S-sub", "S-nosub", *qkernel_experiments.VARIANTS]
+    assert all(r["ms"] > 0 for r in rows)
 
 
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])

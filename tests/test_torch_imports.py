@@ -33,7 +33,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dllama_tpu"))
 print(len(names), "modules;", "foreign:", bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+new = {"dllama_tpu_torch.qkernel_experiments", "dllama_tpu_torch.ops.qmatmul"}
+sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)
 """
 
 
@@ -55,9 +56,13 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path):
     from dllama_tpu_torch.runtime.generate import Engine
 
     cfg = _tiny_cfg()
-    params = llama.random_params(cfg, seed=0)
+    params = llama.random_params(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(cfg, params)
+    for default_on_card in (lambda: llama.random_params(cfg), lambda: llama.init_cache(cfg),
+                            lambda: llama.rope_tables(cfg)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            default_on_card()
     Engine(cfg, params, device="cpu")  # the CPU when asked for
     args = cli.build_parser().parse_args(
         ["generate", "--model", str(tmp_path / "absent.m"), "--tokenizer", "t.t"])
@@ -87,7 +92,7 @@ def test_kernel_wrappers_run_their_plain_versions_on_cpu_tensors():
     fused_rope_cache.rope_cache_update_ref(k, v, cos, sin, *b, 3, 0)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert not torch.equal(a[0], kc)  # it did write
-    assert kernels.launches == {"q40_matmul": 0, "flash_decode": 0, "rope_cache_update": 0}
+    assert set(kernels.launches.values()) == {0}
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -53,7 +53,7 @@ def test_from_jax_params_carries_dense_and_quantized_params():
     for k in jp["layers"]:
         _leaf_equal(jp["layers"][k], tp["layers"][k])
     # the port's own seeded params are the same numbers
-    own = tl.random_params(tc, seed=3)
+    own = tl.random_params(tc, seed=3, device="cpu")
     for k in own["layers"]:
         assert torch.equal(own["layers"][k], tp["layers"][k])
 
@@ -72,8 +72,8 @@ def test_from_jax_params_carries_dense_and_quantized_params():
 def _run_both(jc, tc, jp, tp, steps=3):
     """Prefill PROMPT then ``steps`` single-token decodes on both sides;
     yields (stage, jax logits, port logits, jax cache, port cache)."""
-    jrope, trope = jl.rope_tables(jc), tl.rope_tables(tc)
-    jcache, tcache = jl.init_cache(jc), tl.init_cache(tc)
+    jrope, trope = jl.rope_tables(jc), tl.rope_tables(tc, "cpu")
+    jcache, tcache = jl.init_cache(jc), tl.init_cache(tc, device="cpu")
     jlog, jcache = jl.forward(jc, jp, jrope, jnp.asarray(PROMPT), jcache, jnp.int32(0))
     tlog, tcache = tl.forward(tc, tp, trope, torch.from_numpy(PROMPT).long(), tcache, 0)
     yield "prefill", jlog, tlog, jcache, tcache
@@ -115,12 +115,13 @@ def test_q40_forward_matches_the_kernel_route(monkeypatch):
 
 def test_last_pos_and_moe_refusal():
     tc = TConfig(**SHAPE)
-    tp = tl.random_params(tc, seed=2)
+    tp = tl.random_params(tc, seed=2, device="cpu")
     toks = torch.from_numpy(PROMPT).long()
-    full, _ = tl.forward(tc, tp, tl.rope_tables(tc), toks, tl.init_cache(tc), 0)
-    last, _ = tl.forward(tc, tp, tl.rope_tables(tc), toks, tl.init_cache(tc), 0, last_pos=7)
+    rope = tl.rope_tables(tc, "cpu")
+    full, _ = tl.forward(tc, tp, rope, toks, tl.init_cache(tc, device="cpu"), 0)
+    last, _ = tl.forward(tc, tp, rope, toks, tl.init_cache(tc, device="cpu"), 0, last_pos=7)
     assert last.shape == (1, tc.vocab_size)
     torch.testing.assert_close(last[0], full[7], rtol=1e-5, atol=1e-6)
     moe = TConfig(**{**SHAPE, "arch": "mixtral", "n_experts": 4, "n_active_experts": 2})
     with pytest.raises(NotImplementedError, match="MoE"):
-        tl.random_params(moe)
+        tl.random_params(moe, device="cpu")

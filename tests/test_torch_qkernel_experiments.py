@@ -1,0 +1,93 @@
+"""The port's Q40 kernel-variant shootout against the JAX script (CPU).
+
+``scripts/qkernel_experiments.py`` is imported by path with
+``DLLAMA_PLATFORM=cpu`` (its Pallas kernels run in interpret mode). The
+port's variants B, E, F and G run their plain versions on CPU tensors and
+must agree with the script's functions on the same matrix and activation
+(K = 512, O = 256, T = 2): every dot operand is rounded alike (bf16, or the
+same int8 quantization of x for E), so the outputs differ only by summation
+order, within 1e-5 of their magnitude. ``check`` passes for every variant,
+and the entry point runs them all.
+"""
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dllama_tpu.ops import qmatmul as jq
+from dllama_tpu_torch import kernels, qkernel_experiments as qe
+from dllama_tpu_torch.ops import qmatmul as tq
+
+ROOT = Path(__file__).resolve().parent.parent
+K, O, T = 512, 256, 2
+
+
+@pytest.fixture(scope="module")
+def jax_script():
+    saved = list(sys.path)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DLLAMA_PLATFORM", "cpu")
+        spec = importlib.util.spec_from_file_location(
+            "jax_qkernel_experiments", ROOT / "scripts" / "qkernel_experiments.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    sys.path[:] = saved  # the script puts scripts/ first on the path
+    return mod
+
+
+@pytest.fixture(scope="module")
+def matrix():
+    rng = np.random.default_rng(3)
+    qt_j = jq.quantize_tensor((rng.standard_normal((K, O)) * 0.1).astype(np.float32), "q40")
+    qt_t = tq.QuantTensor(*(np.asarray(getattr(qt_j, n)) for n in ("w", "s", "s2")),
+                          kind="q40", k_logical=K).to("cpu")
+    x = rng.standard_normal((T, K)).astype(np.float32)
+    return qt_j, qt_t, x
+
+
+@pytest.mark.parametrize("name", ["B", "E", "F", "G"])
+def test_variant_plain_version_matches_the_jax_script(jax_script, matrix, name):
+    qt_j, qt_t, x = matrix
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    ref = np.asarray(jax_script.VARIANTS[name][0](xj, qt_j))
+    kernels.reset_launches()
+    got = qe.VARIANTS[name][0](xt, qt_t)
+    assert got.dtype == torch.float32 and got.shape == (T, O)
+    err = np.abs(got.numpy() - ref).max()
+    assert err <= 1e-5 * np.abs(ref).max(), err
+    assert set(kernels.launches.values()) == {0}  # CPU tensors: plain versions only
+
+
+def test_variant_tables_agree(jax_script):
+    assert list(qe.VARIANTS) == list(jax_script.VARIANTS)
+    assert {n: m for n, (_, m) in qe.VARIANTS.items()} == {
+        n: m for n, (_, m) in jax_script.VARIANTS.items()}
+
+
+def test_every_variant_passes_check_on_the_cpu(capsys):
+    rows = qe.main(["all", str(K), str(O)], device="cpu")
+    assert [r["variant"] for r in rows] == list(qe.VARIANTS)
+    assert all(r["ok"] and "ms" not in r for r in rows)  # no timing off the card
+    assert "stacked A/B skipped" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="unknown variant"):
+        qe.main(["Z"], device="cpu")
+
+
+def test_k7_activation_quantization_pads_and_scales_per_block():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 100)).astype(np.float32))
+    x[1, 64:96] = 0.0  # an all-zero block: scale 0, quants 0
+    xq, sx = qe.quantize_q80_rows(x, 128)
+    assert xq.dtype == torch.int8 and xq.shape == (3, 128) and sx.shape == (3, 4)
+    assert bool((xq[:, 100:] == 0).all()) and bool((xq[1, 64:96] == 0).all())
+    assert float(sx[1, 2]) == 0.0
+    padded = torch.nn.functional.pad(x, (0, 28)).reshape(3, 4, 32)
+    assert torch.equal(sx, padded.abs().amax(-1) / 127.0)
+    assert torch.equal(xq.abs().reshape(3, 4, 32).amax(-1)[sx > 0],
+                       torch.full_like(sx[sx > 0], 127, dtype=torch.int8))

@@ -83,7 +83,13 @@ def test_qmatmul_output_dtype_and_q80_refusal():
     got = tq.qmatmul(x, qt)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(j).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="Q80"):
-        tq.qmatmul(x, tq.quantize_tensor(w, "q80", "cpu"))
+    # q80 is no longer refused: it dispatches to the Q80 kernel's route
     q80_j = jq.quantize_tensor(w, "q80", to_device=False)
     _planes_equal(q80_j, tq.quantize_tensor(w, "q80"))
+    j80 = jq.qmatmul(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                     jq.quantize_tensor(w, "q80"))
+    got80 = tq.qmatmul(x, tq.quantize_tensor(w, "q80", "cpu"))
+    assert got80.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got80.float().numpy(), np.asarray(j80).astype(np.float32))
+    with pytest.raises(ValueError, match="kind"):
+        tq.qmatmul(x, tq.QuantTensor(qt.w, qt.s, qt.s2, kind="q50"))
