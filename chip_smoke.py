@@ -16,9 +16,12 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    bound — the larger of bytes over 3.35 TB/s and operations over the
    card's peak for their type — its plain version and, where one PyTorch
    call computes the same function, that call. The Q40 (K1+K2) and Q80 (K3)
-   dequant-matmuls also run with the fused-norm epilogue, which must equal
-   the unfused kernel bit for bit; the experiment kernels K6 and K7 run at
-   the variant shootout's matrix and the Llama-3-8B widths.
+   dequant-matmuls run at T = 1 (decode) and 128 (prefill), K3 also at its
+   GEMV's largest T, each with the fused-norm epilogue too, which must equal
+   the unfused kernel bit for bit; K3 and flash decode (K4: every cache
+   dtype, T in {1, 4, 16}, its grid logged, timed at pos 1000 and 116) must
+   repeat their bits on the same inputs; the experiment kernels K6 and K7
+   run at the variant shootout's matrix and the Llama-3-8B widths.
 2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
@@ -26,7 +29,9 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    rope + cache write and flash decode (one each per layer); the first
    decode step's logits are held against the same step with every kernel
    swapped for its plain version. Then the same with random Q80 params (the
-   Q40 model freed first): 129 Q80 matmuls per token.
+   Q40 model freed first): 129 Q80 matmuls per token. The profiler's device
+   time per token is split by kernel; each flash-decode call, and on the
+   Q80 decode each matmul, must be one CUDA launch.
    2b. For each model, one decode step with ``DLLAMA_FUSE_NORM=1`` against
    ``=0``: the logits must be bit-equal.
    2c. ``python -m dllama_tpu_torch.qkernel_experiments all`` as its entry
@@ -167,9 +172,14 @@ def library_ms(torch, kind, planes: list, x, sub=8.0) -> float:
 
 
 def phase1_matmul(torch, dev, gen, kind: str) -> list:
-    """K1+K2 (q40) or K3 (q80) at every Llama-3-8B width, T in {1, 128}, plain
-    and with the fused-norm epilogue: each against its plain version within
-    1e-5 * max|ref|, the fused form bit-equal to the unfused one."""
+    """K1+K2 (q40) or K3 (q80) at every Llama-3-8B width, plain and with the
+    fused-norm epilogue: each against its plain version within 1e-5 *
+    max|ref|, the fused form bit-equal to the unfused one. T = 1 and 128
+    for both; K3 also at the decode GEMV's largest T (``GEMV_MAX_T``), and
+    K3 twice on the same inputs must give the same bits. Timed at T = 1
+    (decode) and T = 128 (prefill), each beside bf16 ``torch.matmul`` on the
+    dequantized weight."""
+    from dllama_tpu_torch import kernels
     from dllama_tpu_torch.ops import qmatmul
     from dllama_tpu_torch.ops.norms import rmsnorm
 
@@ -183,13 +193,15 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
             return qmatmul.q40_matmul_ref(x, *p, nosub=nosub, **kw)
         return qmatmul.q80_matmul_ref(x, *p, **kw)
 
+    n_sm = kernels.sm_count(dev)
+    ts = (1, 128) if kind == "q40" else (1, qmatmul.GEMV_MAX_T, 128)
     rows = []
     for name, K, O, per_token in SHAPES:
         planes = [quant_planes(torch, dev, gen, kind, K, O)]
         planes += [quant_planes(torch, dev, gen, kind, K, O)
                    for _ in range(math.ceil(200e6 / plane_bytes(planes[0])) - 1)]
         nw = 1.0 + 0.1 * torch.randn(K, device=dev, generator=gen)
-        for T in (1, 128):
+        for T in ts:
             x = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
             inv = qmatmul.rmsnorm_inv(x)
             for nosub in ((True, False) if kind == "q40" else (None,)):
@@ -197,6 +209,7 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                 got = kern(x, p, nosub)
                 fused = kern(x, p, nosub, norm_w=nw, norm_inv=inv)
                 unfused = kern(rmsnorm(x, nw), p, nosub)
+                again = kern(x, p, nosub)
                 torch.cuda.synchronize()
                 ref = plain(x, p, nosub)
                 ref_n = plain(x, p, nosub, norm_w=nw, norm_inv=inv)
@@ -204,17 +217,28 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                 err_n = (fused - ref_n).abs().max().item()
                 tol, tol_n = 1e-5 * ref.abs().max().item(), 1e-5 * ref_n.abs().max().item()
                 bit_equal = bool(torch.equal(fused, unfused))
+                repeat = bool(torch.equal(got, again))
                 row = {"matrix": name, "K": K, "O": O, "T": T, "nosub": nosub,
                        "max_abs_err": err, "tol": tol, "fused_max_abs_err": err_n,
-                       "fused_tol": tol_n, "fused_bit_equal_unfused": bit_equal}
+                       "fused_tol": tol_n, "fused_bit_equal_unfused": bit_equal,
+                       "repeat_bit_equal": repeat}
                 tag = f" nosub={int(nosub)}" if kind == "q40" else ""
+                if kind == "q80":
+                    per_sm = qmatmul.gemv_blocks_per_sm(T, False) if T <= qmatmul.GEMV_MAX_T else 0
+                    route, ksplit, krows = qmatmul.q80_plan(T, K, O, n_sm, per_sm)
+                    row.update(route=route, ksplit=ksplit, rows_per_split=krows,
+                               gemv_blocks_per_sm=per_sm)
+                    tag = f" {route} ksplit={ksplit}"
                 log(f"  {kind}_matmul {name:5s} {K:5d}->{O:6d} T={T:3d}{tag} max_abs_err "
                     f"{err:.3e} (tol 1e-5*max|ref| = {tol:.3e}); fused norm {err_n:.3e} "
-                    f"(tol {tol_n:.3e}), bit-equal to unfused: {bit_equal}")
+                    f"(tol {tol_n:.3e}), bit-equal to unfused: {bit_equal}; repeat "
+                    f"bit-equal: {repeat}")
                 if not (err <= tol and err_n <= tol_n and bit_equal):
                     fail(f"{kind}_matmul {name} T={T}{tag}: {err} > {tol}, {err_n} > {tol_n} "
                          f"or fused != unfused")
-                if kind == "q40" and nosub != qmatmul.Q40_NOSUB:
+                if kind == "q80" and not repeat:
+                    fail(f"q80_matmul {name} T={T}: two launches on the same inputs differ")
+                if (kind == "q40" and nosub != qmatmul.Q40_NOSUB) or T not in (1, 128):
                     rows.append(row)
                     continue
                 nxt = rotating(planes)
@@ -295,49 +319,75 @@ def phase1_variants(torch, dev, gen) -> list:
 
 
 def phase1_flash(torch, dev, gen) -> list:
+    """K4 against its plain version for every cache dtype and T in {1, 4,
+    16} at pos 1000 (bf16 out within 2^-7 * max|ref|, f32 out within 1e-5 *
+    max|ref|); two launches on the same inputs must give the same bits.
+    Timed (T = 1, bf16 cache, cold) at pos 1000 and at the decode run's pos
+    116, beside its bound, its plain version and scaled_dot_product_attention
+    on the live prefix."""
+    from dllama_tpu_torch import kernels
     from dllama_tpu_torch.ops import flash_decode
 
     rows = []
-    L, S, kv, group, hd, pos, T = 64, 1024, 8, 4, 128, 1000, 1  # 256 MB: cold in L2
-    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+    L, S, kv, group, hd = 64, 1024, 8, 4, 128  # 256 MB: cold in L2
+    n_sm = kernels.sm_count(dev)
+    for dtype in (torch.bfloat16, torch.float32, torch.float8_e4m3fn):
         kc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
         vc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
-        q = torch.randn((T, kv * group, hd), device=dev, generator=gen).to(torch.bfloat16)
-        got = flash_decode.flash_decode_attention(q, kc, vc, pos, 2).float()
-        torch.cuda.synchronize()
-        ref = flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 2).float()
-        ref32 = flash_decode.flash_decode_attention_ref(q.float(), kc, vc, pos, 2)
-        got32 = flash_decode.flash_decode_attention(q.float(), kc, vc, pos, 2)
-        err = (got - ref).abs().max().item()
-        err32 = (got32 - ref32).abs().max().item()
-        scale = ref32.abs().max().item()
-        # bf16 output: one bf16 ulp at the output's magnitude; f32: 1e-5
-        tol, tol32 = 2.0 ** -7 * scale, 1e-5 * scale
-        log(f"  flash_decode cache={str(dtype).split('.')[-1]} S={S} kv={kv} group={group} "
-            f"hd={hd} pos={pos}: bf16 out max_abs_err {err:.3e} (tol 2^-7*max = {tol:.3e}), "
-            f"f32 out {err32:.3e} (tol 1e-5*max = {tol32:.3e})")
-        if not (err <= tol and err32 <= tol32):
-            fail(f"flash_decode {dtype}: {err} > {tol} or {err32} > {tol32}")
-        row = {"cache": str(dtype), "S": S, "pos": pos, "max_abs_err": err, "tol": tol,
-               "max_abs_err_f32": err32}
-        if dtype == torch.bfloat16:
-            layers = itertools.count()
-            row["ms"] = time_ms(torch, lambda: flash_decode.flash_decode_attention(
-                q, kc, vc, pos, next(layers) % L))
-            row["plain_ms"] = time_ms(
-                torch, lambda: flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 2))
-            live = pos + T
-            kl = kc[2, :live].permute(1, 0, 2).unsqueeze(0).contiguous()  # [1, kv, live, hd]
-            vl = vc[2, :live].permute(1, 0, 2).unsqueeze(0).contiguous()
-            ql = q.permute(1, 0, 2).unsqueeze(0).contiguous()  # [1, H, T, hd]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            row["library_ms"] = time_ms(torch, lambda: sdpa(ql, kl, vl, enable_gqa=True))
-            nbytes = 2 * live * kv * hd * kc.element_size() + 2 * q.numel() * 2
-            b, by = bound_ms(nbytes, 4.0 * T * kv * group * live * hd, BF16_FLOPS)
-            row["bound_ms"], row["bound_by"] = b, by
-            log(f"    time {row['ms']:.4f} ms  bound {b:.5f} ms ({by})  plain "
-                f"{row['plain_ms']:.4f} ms  sdpa {row['library_ms']:.4f} ms")
-        rows.append(row)
+        for T in (1, 4, 16):
+            pos = 1000
+            q = torch.randn((T, kv * group, hd), device=dev, generator=gen).to(torch.bfloat16)
+            got = flash_decode.flash_decode_attention(q, kc, vc, pos, 2).float()
+            got32 = flash_decode.flash_decode_attention(q.float(), kc, vc, pos, 2)
+            again32 = flash_decode.flash_decode_attention(q.float(), kc, vc, pos, 2)
+            torch.cuda.synchronize()
+            ref = flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 2).float()
+            ref32 = flash_decode.flash_decode_attention_ref(q.float(), kc, vc, pos, 2)
+            err = (got - ref).abs().max().item()
+            err32 = (got32 - ref32).abs().max().item()
+            scale = ref32.abs().max().item()
+            repeat = bool(torch.equal(got32, again32))
+            # bf16 output: one bf16 ulp at the output's magnitude; f32: 1e-5
+            tol, tol32 = 2.0 ** -7 * scale, 1e-5 * scale
+            n_split, chunk = flash_decode.split_plan(min(pos + T, S), kv, n_sm)
+            log(f"  flash_decode cache={str(dtype).split('.')[-1]} T={T} S={S} kv={kv} "
+                f"group={group} hd={hd} pos={pos}: grid ({kv}, {n_split}) = {kv * n_split} "
+                f"blocks, chunk {chunk}; bf16 out max_abs_err {err:.3e} (tol 2^-7*max = "
+                f"{tol:.3e}), f32 out {err32:.3e} (tol 1e-5*max = {tol32:.3e}); repeat "
+                f"bit-equal: {repeat}")
+            if not (err <= tol and err32 <= tol32 and repeat):
+                fail(f"flash_decode {dtype} T={T}: {err} > {tol}, {err32} > {tol32} or two "
+                     f"launches differ")
+            row = {"cache": str(dtype), "T": T, "S": S, "pos": pos, "max_abs_err": err,
+                   "tol": tol, "max_abs_err_f32": err32, "tol_f32": tol32,
+                   "repeat_bit_equal": repeat, "n_split": n_split, "chunk": chunk,
+                   "grid": [kv, n_split]}
+            rows.append(row)
+            if dtype != torch.bfloat16 or T != 1:
+                continue
+            for tpos in (1000, 116):
+                n_split, chunk = flash_decode.split_plan(tpos + T, kv, n_sm)
+                layers = itertools.count()
+                ms = time_ms(torch, lambda: flash_decode.flash_decode_attention(
+                    q, kc, vc, tpos, next(layers) % L))
+                plain = time_ms(
+                    torch, lambda: flash_decode.flash_decode_attention_ref(q, kc, vc, tpos, 2))
+                live = tpos + T
+                kl = kc[2, :live].permute(1, 0, 2).unsqueeze(0).contiguous()  # [1, kv, live, hd]
+                vl = vc[2, :live].permute(1, 0, 2).unsqueeze(0).contiguous()
+                ql = q.permute(1, 0, 2).unsqueeze(0).contiguous()  # [1, H, T, hd]
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                lib = time_ms(torch, lambda: sdpa(ql, kl, vl, enable_gqa=True))
+                nbytes = 2 * live * kv * hd * kc.element_size() + 2 * q.numel() * 2
+                b, by = bound_ms(nbytes, 4.0 * T * kv * group * live * hd, BF16_FLOPS)
+                timed = {"pos": tpos, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": b, "bound_by": by, "n_split": n_split, "chunk": chunk,
+                         "grid": [kv, n_split]}
+                row.setdefault("timed", []).append(timed)
+                log(f"    pos {tpos}: grid ({kv}, {n_split}): time {ms:.4f} ms  bound {b:.5f} "
+                    f"ms ({by})  plain {plain:.4f} ms  sdpa {lib:.4f} ms")
+        del kc, vc
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -390,6 +440,10 @@ def phase1_rope(torch, dev, gen) -> list:
 # ---------------------------------------------------------------------------
 # Phase 2: full-width decode through Engine.generate
 # ---------------------------------------------------------------------------
+
+#: the port's CUDA kernels, as the profiler's names begin (the rest is "other")
+KERNEL_FAMILIES = ("q40_matmul_kernel", "q80_gemv_kernel", "q80_matmul_kernel",
+                   "sum_splits_kernel", "flash_decode_kernel", "rope_cache_kernel")
 
 LLAMA3_8B = dict(arch="llama", dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
                  n_kv_heads=8, vocab_size=128256, seq_len=1024, head_size=128,
@@ -529,7 +583,7 @@ def phase2(torch, dev, kind: str) -> dict:
             pass
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3 / 3
-    by_name = {}
+    by_name, calls = {}, {}
     for ev in prof.key_averages():
         dt = getattr(ev, "device_time_total", None)
         if dt is None:
@@ -538,16 +592,35 @@ def phase2(torch, dev, kind: str) -> dict:
             name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
             name = name.split("(")[0][:80]
             by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / 3  # ms per token
+            calls[name] = calls.get(name, 0) + ev.count / 3
     busy = sum(by_name.values())
     if busy > 0:
+        families = {fam: {"ms": 0.0, "launches": 0.0} for fam in (*KERNEL_FAMILIES, "other")}
+        for name, ms in by_name.items():
+            fam = next((f for f in KERNEL_FAMILIES if name.startswith(f)), "other")
+            families[fam]["ms"] += ms
+            families[fam]["launches"] += calls[name]
         out["profile_ms_per_token"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+        out["profile_kernels_per_token"] = families
         out["profile_device_busy_ms_per_token"] = busy
         out["profile_wall_ms_per_token"] = wall
         out["profile_idle_share"] = max(0.0, 1.0 - busy / wall)
         log(f"  profiler, 3 decode tokens: device busy {busy:.3f} ms/token of {wall:.3f} ms "
-            f"wall (idle share {out['profile_idle_share']:.3f}); top kernels:")
+            f"wall (idle share {out['profile_idle_share']:.3f}); per token by kernel:")
+        for fam, v in families.items():
+            log(f"    {v['ms']:.4f} ms ({v['ms'] / busy:.3f} of busy) in {v['launches']:.0f} "
+                f"CUDA launches  {fam}")
         for k, v in list(out["profile_ms_per_token"].items())[:6]:
             log(f"    {v:.4f} ms  {k}")
+        # one CUDA launch per wrapper call on the Q80 decode: no split-sum pass
+        # after the GEMV, no merge kernel after flash decode
+        want = {"flash_decode_kernel": cfg.n_layers}
+        if kind == "q80":
+            want.update(q80_gemv_kernel=4 * cfg.n_layers + 1, sum_splits_kernel=0)
+        for fam, n in want.items():
+            if abs(families[fam]["launches"] - n) > 1e-6:
+                fail(f"{kind} decode token: {families[fam]['launches']} CUDA launches of "
+                     f"{fam}, want {n}")
     else:
         out["profile_idle_share"] = "not measured"
         log("  profiler showed no device time: idle share not measured")
@@ -749,6 +822,9 @@ def main() -> None:
                                "unfused_ms": per_token(fused, "ms"),
                                "plain_ms": per_token(fused, "fused_plain_ms"),
                                "per": "one decode token's wqkv + w13 launches (64)"},
+                "per_width_ms": {r["matrix"]: r["ms"] for r in dec},
+                "prefill_T128": {r["matrix"]: {k: r[k] for k in ("ms", "library_ms", "bound_ms")}
+                                 for r in rows if r["T"] == 128 and "ms" in r},
                 "per": "one decode token: 32 x (wqkv, wo, w13, w2) + wcls, T=1"}
 
     def variant_entry(name, source, replaces, tpu):
@@ -760,7 +836,8 @@ def main() -> None:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "per": "one launch: K=4096, O=11008, T=1"}
 
-    fl = next(r for r in flash if "ms" in r)
+    fl_row = next(r for r in flash if "timed" in r)
+    fl = next(t for t in fl_row["timed"] if t["pos"] == 1000)
     rp = next(r for r in rope if "ms" in r)
     launches, launches80 = e2e["launches"], e2e80["launches"]
     summary = {"kernels": [
@@ -776,8 +853,9 @@ def main() -> None:
          "launches_q80_decode": launches80["flash_decode"],
          "max_abs_err": max(r["max_abs_err"] for r in flash),
          "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
-         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"],
-         "per": "one launch: S=1024 bf16 cache, kv=8, group 4, hd=128, pos 1000"},
+         "bound_by": fl["bound_by"], "library_ms": fl["library_ms"], "grid": fl["grid"],
+         "at_pos_116": next(t for t in fl_row["timed"] if t["pos"] == 116),
+         "per": "one launch: S=1024 bf16 cache, kv=8, group 4, hd=128, pos 1000, T=1"},
         {"name": "rope_cache_update", "route": "cuda",
          "source": "dllama_tpu_torch/csrc/rope_cache.cu",
          "replaces": "dllama_tpu/ops/fused_rope_cache.py:86 (_kernel)", "tpu_kernels": ["K5"],

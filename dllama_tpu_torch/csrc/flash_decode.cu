@@ -1,4 +1,4 @@
-// Flash-decode attention for Hopper (sm_90a).
+// Flash-decode attention for Hopper (sm_90a), split over the sequence.
 //
 // Replaces the TPU kernel dllama_tpu/ops/flash_decode.py::_kernel (K4), solo
 // form: online-softmax GQA decode attention over the live cache prefix only,
@@ -12,29 +12,40 @@
 //
 // What bounds it on the H100: bytes — 2 * (pos + T) * kv * hd cache elements
 // per layer and token (4.1 MB for a bf16 Llama-3-8B layer at pos 1000, about
-// 1.2 us at 3.35 TB/s), with ~4 flops per cache element.
+// 1.2 us at 3.35 TB/s, below the card's launch latency), with ~4 flops per
+// cache element.
 //
-// Design: one block per kv head (the TPU grid's (row, head) program; solo
-// decode has one row), 8 warps. The TPU walks 256-position blocks in
-// order with a double-buffered DMA; here the 8 warps take interleaved
-// 32-position tiles of the live prefix at once, so 8 tiles' loads are in
-// flight, and each warp keeps its own online-softmax state (m, l, acc) for up
-// to 8 query rows in registers: lane n scores position n of the tile (its
-// K row read with 16-byte loads), the probabilities go to the lanes by
-// shuffle, and each lane accumulates hd/32 output dims from coalesced V
-// rows. The warps' states are merged in shared memory at the end. Positions
-// past pos + T — including a ragged last tile when S is not a multiple of
-// the tile — are masked in the kernel, never read. Only kv blocks run per
-// layer (8 for Llama-3-8B), so the card is mostly idle: splitting the
-// sequence across blocks is the first thing to make this fast.
+// Design: flash-decoding. The TPU walks 256-position blocks in order on one
+// core; here the live prefix is cut into n_split chunks of `chunk`
+// positions (ops/flash_decode.py split_plan: enough chunks that kv * n_split
+// blocks fill the card) and the grid is (kv, n_split). A block of 4 warps
+// streams its chunk through shared memory in 32-position tiles of K and V
+// with cp.async (3 stages; neighbouring threads copy neighbouring 16 bytes
+// of one cache row; rows past the live prefix are zero-filled, never read).
+// All T * group query rows of the kv head share each tile: warp w owns rows
+// w, w + 4, ... (1, 2 or 4 per warp, as few as cover the rows, up to 16 a
+// pass; more rows take more passes over the chunk) and keeps their
+// online-softmax state (m, l, acc) in registers. Scores: lane n scores position n of the tile from its K row in
+// shared memory (rows padded by 16 bytes, so the lanes' 16-byte reads hit
+// distinct banks). Values: the probabilities go to the lanes by shuffle and
+// each lane accumulates the dims lane, lane + 32, ... of the V rows.
+// With one chunk the block writes acc / l. Otherwise each block writes its
+// partial (m, l, acc) to f32 scratch, and the last block of a kv head to
+// arrive (arrival counter + __threadfence) merges the head's partials in
+// split order 0..n_split-1 and resets its counter to 0: the result does
+// not depend on the order the blocks ran in. A chunk whose positions all lie
+// past pos + t gives row t the partial (-1e30, 0, 0), which the merge
+// weighs by exp(-1e30 - M) = 0.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;     // query rows per pass held in registers
-constexpr int kMaxDpl = 8;   // output dims per lane: hd <= 256
+constexpr int kMaxRowsPerPass = kWarps * 4;       // query rows staged at once (4 a warp)
+constexpr int kTile = 32;                         // positions per shared-memory tile
+constexpr int kStages = 3;
+constexpr int kPad = 16;                          // bytes after each cache row in smem
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -86,163 +97,331 @@ struct Vec16<dllama::F8> {
   }
 };
 
-template <typename CacheT>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const float* __restrict__ q, const CacheT* __restrict__ kc,
-                    const CacheT* __restrict__ vc, float* __restrict__ out, int T, int H,
-                    int hd, int S, int kv, int pos, int layer, float scale) {
-  extern __shared__ float smem[];
-  const int group = H / kv;
-  const int R = T * group;
-  const int h = blockIdx.x;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* qs = smem;                              // [kRows, hd]
-  float* accs = qs + kRows * hd;                 // [kWarps, kRows, hd]
-  float* ms = accs + kWarps * kRows * hd;        // [kWarps, kRows]
-  float* ls = ms + kWarps * kRows;               // [kWarps, kRows]
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const int live = min(pos + T, S);
-  const size_t row_stride = (size_t)kv * hd;
-  const CacheT* kbase = kc + (size_t)layer * S * row_stride + (size_t)h * hd;
-  const CacheT* vbase = vc + (size_t)layer * S * row_stride + (size_t)h * hd;
+struct Args {
+  const void* q;    // [T, H, hd] f32 or bf16 (act_bf16)
+  const void* kc;
+  const void* vc;
+  void* out;        // [T, H, hd] in q's dtype
+  float* part_acc;  // [kv, n_split, R, hd]
+  float* part_ml;   // [kv, n_split, R, 2]
+  int* counters;    // [kv], zero between launches
+  int T, H, hd, S, kv, pos, layer, n_split, chunk, act_bf16;
+  float scale;
+};
+
+__device__ __forceinline__ float load_act(const Args& a, size_t i) {
+  return a.act_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.q)[i])
+                    : static_cast<const float*>(a.q)[i];
+}
+
+// out[i] = v in q's dtype (bf16: round to nearest even, as torch's cast)
+__device__ __forceinline__ void store_out(const Args& a, size_t i, float v) {
+  if (a.act_bf16)
+    static_cast<__nv_bfloat16*>(a.out)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<float*>(a.out)[i] = v;
+}
+
+// RPW: query rows a warp holds in registers (1, 2 or 4: the fewest that
+// cover T * group rows, up to 16 a pass); DPL: output dims a lane owns
+// (hd <= 32 * DPL). Fitting both to the launch keeps dead rows and dims out
+// of the unrolled loops.
+template <typename CacheT, int RPW, int DPL>
+__global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
+  constexpr int kRowsPerPass = kWarps * RPW;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int hd = a.hd, group = a.H / a.kv, R = a.T * group;
+  const int h = blockIdx.x, split = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row_bytes = hd * (int)sizeof(CacheT);
+  const int srow = row_bytes + kPad;               // smem bytes per cache row
+  const int tile_bytes = kTile * srow;
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kRowsPerPass, hd]
+  unsigned char* ring = smem_raw + (size_t)kMaxRowsPerPass * hd * sizeof(float);
+
+  const int live = min(a.pos + a.T, a.S);
+  const int c0 = split * a.chunk;
+  const int c1 = min(live, c0 + a.chunk);
+  const int ntile = (c1 - c0 + kTile - 1) / kTile;
+  const size_t gstride = (size_t)a.kv * hd;  // cache elements per position
+  const CacheT* kbase =
+      static_cast<const CacheT*>(a.kc) + (size_t)a.layer * a.S * gstride + (size_t)h * hd;
+  const CacheT* vbase =
+      static_cast<const CacheT*>(a.vc) + (size_t)a.layer * a.S * gstride + (size_t)h * hd;
   constexpr int kVec = Vec16<CacheT>::n;
+  const int row_chunks = row_bytes / 16;
 
-  for (int r0 = 0; r0 < R; r0 += kRows) {
-    const int rp = min(kRows, R - r0);
-    for (int i = threadIdx.x; i < kRows * hd; i += kThreads) {
+  // tile i of the chunk -> stage: K rows then V rows, 16 bytes a thread
+  auto issue = [&](int i) {
+    unsigned char* ks = ring + (size_t)(i % kStages) * 2 * tile_bytes;
+    unsigned char* vs = ks + tile_bytes;
+    const int n0 = c0 + i * kTile;
+    for (int c = threadIdx.x; c < kTile * row_chunks; c += kThreads) {
+      const int n = c / row_chunks, part = c - n * row_chunks;
+      const bool ok = n0 + n < c1;
+      const size_t off = ok ? (size_t)(n0 + n) * gstride : 0;
+      const int src = ok ? 16 : 0;
+      cp_async16(ks + n * srow + part * 16,
+                 reinterpret_cast<const unsigned char*>(kbase + off) + part * 16, src);
+      cp_async16(vs + n * srow + part * 16,
+                 reinterpret_cast<const unsigned char*>(vbase + off) + part * 16, src);
+    }
+  };
+
+  for (int r0 = 0; r0 < R; r0 += kRowsPerPass) {
+    const int rp = min(kRowsPerPass, R - r0);
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) {  // the first tiles' loads fly while q is staged
+      if (i < ntile) issue(i);
+      cp_async_commit();
+    }
+    for (int i = threadIdx.x; i < kRowsPerPass * hd; i += kThreads) {
       const int r = i / hd, d = i - r * hd;
       float v = 0.f;
       if (r < rp) {
         const int row = r0 + r, t = row / group, g = row - t * group;
-        v = q[((size_t)t * H + (size_t)h * group + g) * hd + d];
+        v = load_act(a, ((size_t)t * a.H + (size_t)h * group + g) * hd + d);
       }
       qs[i] = v;
     }
-    __syncthreads();
+    // this warp's rows: r0 + warp + kWarps * j, j < nr
+    const int nr = rp > warp ? (rp - warp + kWarps - 1) / kWarps : 0;
+    int qpos[RPW];  // the last position each row attends to
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) qpos[j] = a.pos + (r0 + warp + kWarps * j) / group;
 
-    float m[kRows], l[kRows], acc[kRows][kMaxDpl];
+    float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      m[r] = -1e30f;
-      l[r] = 0.f;
+    for (int j = 0; j < RPW; ++j) {
+      m[j] = -1e30f;
+      l[j] = 0.f;
 #pragma unroll
-      for (int j = 0; j < kMaxDpl; ++j) acc[r][j] = 0.f;
+      for (int e = 0; e < DPL; ++e) acc[j][e] = 0.f;
     }
 
-    for (int n0 = warp * 32; n0 < live; n0 += kWarps * 32) {
+    for (int i = 0; i < ntile; ++i) {
+      if (i + kStages - 1 < ntile) issue(i + kStages - 1);
+      cp_async_commit();
+      cp_async_wait<kStages - 1>();
+      __syncthreads();  // tile i (and, on the first pass, qs) visible to all
+      const unsigned char* ks = ring + (size_t)(i % kStages) * 2 * tile_bytes;
+      const unsigned char* vs = ks + tile_bytes;
+      const int n0 = c0 + i * kTile;
+      const int nk = min(kTile, c1 - n0);
       const int key = n0 + lane;
-      float s[kRows];
+
+      // four independent partial sums per row: one warp per row has no
+      // other warp on its scheduler to hide an FMA chain's latency
+      float s4[RPW][4];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-      if (key < live) {
-        const CacheT* krow = kbase + (size_t)key * row_stride;
-        for (int d0 = 0; d0 < hd; d0 += kVec) {
-          float kf[kVec];
-          Vec16<CacheT>::unpack(*reinterpret_cast<const uint4*>(krow + d0), kf);
+      for (int j = 0; j < RPW; ++j) {
 #pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            if (r < rp) {
+        for (int e = 0; e < 4; ++e) s4[j][e] = 0.f;
+      }
+      const unsigned char* krow = ks + lane * srow;
+#pragma unroll 2
+      for (int d0 = 0; d0 < hd; d0 += kVec) {
+        float kf[kVec];
+        Vec16<CacheT>::unpack(*reinterpret_cast<const uint4*>(krow + d0 * sizeof(CacheT)), kf);
 #pragma unroll
-              for (int e = 0; e < kVec; ++e) s[r] = fmaf(qs[r * hd + d0 + e], kf[e], s[r]);
+        for (int j = 0; j < RPW; ++j) {
+          if (j < nr) {
+            const float* qr = qs + (warp + kWarps * j) * hd + d0;
+#pragma unroll
+            for (int e = 0; e < kVec; e += 4) {
+              const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+              s4[j][0] = fmaf(qv.x, kf[e], s4[j][0]);
+              s4[j][1] = fmaf(qv.y, kf[e + 1], s4[j][1]);
+              s4[j][2] = fmaf(qv.z, kf[e + 2], s4[j][2]);
+              s4[j][3] = fmaf(qv.w, kf[e + 3], s4[j][3]);
             }
           }
         }
       }
-      float p[kRows];
+      float s[RPW];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r >= rp) break;
-        const bool valid = key < live && key <= pos + (r0 + r) / group;
-        const float sc = valid ? s[r] * scale : -1e30f;
-        const float m_new = fmaxf(m[r], warp_max(sc));
-        p[r] = valid ? expf(sc - m_new) : 0.f;
-        const float alpha = expf(m[r] - m_new);
-        l[r] = l[r] * alpha + warp_sum(p[r]);
-        m[r] = m_new;
+      for (int j = 0; j < RPW; ++j) s[j] = (s4[j][0] + s4[j][1]) + (s4[j][2] + s4[j][3]);
+      float p[RPW];
 #pragma unroll
-        for (int j = 0; j < kMaxDpl; ++j) acc[r][j] *= alpha;
+      for (int j = 0; j < RPW; ++j) {
+        p[j] = 0.f;
+        if (j >= nr) continue;
+        const bool valid = lane < nk && key <= qpos[j];
+        const float sc = valid ? s[j] * a.scale : -1e30f;
+        const float m_new = fmaxf(m[j], warp_max(sc));
+        p[j] = valid ? expf(sc - m_new) : 0.f;
+        const float alpha = expf(m[j] - m_new);
+        l[j] = l[j] * alpha + warp_sum(p[j]);
+        m[j] = m_new;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[j][e] *= alpha;
       }
-      const int nk = min(32, live - n0);
+#pragma unroll 4
       for (int n = 0; n < nk; ++n) {
-        const CacheT* vrow = vbase + (size_t)(n0 + n) * row_stride;
-        float vv[kMaxDpl];
+        const CacheT* vrow = reinterpret_cast<const CacheT*>(vs + n * srow);
+        float vv[DPL];
 #pragma unroll
-        for (int j = 0; j < kMaxDpl; ++j) {
-          const int d = lane + 32 * j;
-          vv[j] = d < hd ? dllama::to_f32(vrow[d]) : 0.f;
+        for (int e = 0; e < DPL; ++e) {
+          const int d = lane + 32 * e;
+          vv[e] = d < hd ? dllama::to_f32(vrow[d]) : 0.f;
         }
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r >= rp) break;
-          const float pn = __shfl_sync(kFull, p[r], n);
+        for (int j = 0; j < RPW; ++j) {
+          const float pn = __shfl_sync(kFull, p[j], n);
+          if (j < nr) {
 #pragma unroll
-          for (int j = 0; j < kMaxDpl; ++j) acc[r][j] = fmaf(pn, vv[j], acc[r][j]);
+            for (int e = 0; e < DPL; ++e) acc[j][e] = fmaf(pn, vv[e], acc[j][e]);
+          }
+        }
+      }
+      __syncthreads();  // stage i % kStages is refilled next
+    }
+
+    // this pass's rows: the answer (one chunk) or the block's partial
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      if (j >= nr) continue;
+      const int row = r0 + warp + kWarps * j;
+      if (a.n_split == 1) {
+        const int t = row / group, g = row - t * group;
+        const size_t o = ((size_t)t * a.H + (size_t)h * group + g) * hd;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          const int d = lane + 32 * e;
+          if (d < hd) store_out(a, o + d, acc[j][e] / l[j]);
+        }
+      } else {
+        const size_t pr = ((size_t)h * a.n_split + split) * R + row;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          const int d = lane + 32 * e;
+          if (d < hd) a.part_acc[pr * hd + d] = acc[j][e];
+        }
+        if (lane == 0) {
+          a.part_ml[pr * 2] = m[j];
+          a.part_ml[pr * 2 + 1] = l[j];
         }
       }
     }
+    __syncthreads();  // qs is rewritten by the next pass
+  }
+  if (a.n_split == 1) return;
 
-    // merge the warps' online-softmax states
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (lane == 0) {
-        ms[warp * kRows + r] = m[r];
-        ls[warp * kRows + r] = l[r];
+  // the last block of this kv head to arrive merges the partials
+  __shared__ int is_last;
+  __syncthreads();  // every partial of this block written
+  if (threadIdx.x == 0) {
+    __threadfence();
+    is_last = atomicAdd(a.counters + h, 1) == a.n_split - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!is_last) return;
+  constexpr int kMergeRows = kMaxRowsPerPass;
+  float* fs = reinterpret_cast<float*>(ring);         // [n_split, kMergeRows]: m, then weights
+  float* lsm = fs + (size_t)a.n_split * kMergeRows;   // [n_split, kMergeRows]: l
+  float* ls = lsm + (size_t)a.n_split * kMergeRows;   // [kMergeRows]: sum of weighted l
+  const size_t hbase = (size_t)h * a.n_split * R;
+  for (int r0 = 0; r0 < R; r0 += kMergeRows) {
+    const int rp = min(kMergeRows, R - r0);
+    for (int i = threadIdx.x; i < a.n_split * rp; i += kThreads) {
+      const int sp = i / rp, r = i - sp * rp;
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml) +
+                               hbase + (size_t)sp * R + r0 + r);
+      fs[sp * kMergeRows + r] = ml.x;
+      lsm[sp * kMergeRows + r] = ml.y;
+    }
+    __syncthreads();
+    if (threadIdx.x < rp) {
+      const int r = threadIdx.x;
+      float mx = -1e30f;
+      for (int sp = 0; sp < a.n_split; ++sp) mx = fmaxf(mx, fs[sp * kMergeRows + r]);
+      float lsum = 0.f;
+      for (int sp = 0; sp < a.n_split; ++sp) {
+        const float f = expf(fs[sp * kMergeRows + r] - mx);
+        fs[sp * kMergeRows + r] = f;
+        lsum = fmaf(lsm[sp * kMergeRows + r], f, lsum);
       }
-#pragma unroll
-      for (int j = 0; j < kMaxDpl; ++j) {
-        const int d = lane + 32 * j;
-        if (d < hd) accs[((size_t)warp * kRows + r) * hd + d] = acc[r][j];
-      }
+      ls[r] = lsum;
     }
     __syncthreads();
     for (int i = threadIdx.x; i < rp * hd; i += kThreads) {
-      const int r = i / hd, d = i - r * hd;
-      float mx = -1e30f;
-      for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w * kRows + r]);
-      float lsum = 0.f, a = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(ms[w * kRows + r] - mx);
-        lsum = fmaf(ls[w * kRows + r], f, lsum);
-        a = fmaf(accs[((size_t)w * kRows + r) * hd + d], f, a);
-      }
-      const int row = r0 + r, t = row / group, g = row - t * group;
-      out[((size_t)t * H + (size_t)h * group + g) * hd + d] = a / lsum;
+      const int r = i / hd, d = i - r * hd, row = r0 + r;
+      float v = 0.f;
+#pragma unroll 16
+      for (int sp = 0; sp < a.n_split; ++sp)
+        v = fmaf(__ldcg(a.part_acc + (hbase + (size_t)sp * R + row) * hd + d),
+                 fs[sp * kMergeRows + r], v);
+      const int t = row / group, g = row - t * group;
+      store_out(a, ((size_t)t * a.H + (size_t)h * group + g) * hd + d, v / ls[r]);
     }
     __syncthreads();
   }
+  if (threadIdx.x == 0) a.counters[h] = 0;  // ready for the next launch
+}
+
+template <typename CacheT, int RPW, int DPL>
+int launch(const Args& a, cudaStream_t st) {
+  const size_t ring = (size_t)kStages * 2 * kTile * (a.hd * sizeof(CacheT) + kPad);
+  const size_t merge = sizeof(float) * (2 * (size_t)a.n_split * kMaxRowsPerPass + kMaxRowsPerPass);
+  const size_t smem = sizeof(float) * kMaxRowsPerPass * a.hd + (ring > merge ? ring : merge);
+  auto kernel = flash_decode_kernel<CacheT, RPW, DPL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.kv, a.n_split), kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename CacheT, int RPW>
+int launch_dpl(const Args& a, cudaStream_t st) {
+  if (a.hd <= 64) return launch<CacheT, RPW, 2>(a, st);
+  if (a.hd <= 128) return launch<CacheT, RPW, 4>(a, st);
+  return launch<CacheT, RPW, 8>(a, st);
 }
 
 template <typename CacheT>
-int launch(const void* q, const void* kc, const void* vc, void* out, int T, int H, int hd,
-           int S, int kv, int pos, int layer, float scale, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)kRows * hd + (size_t)kWarps * kRows * hd +
-                                       2 * kWarps * kRows);
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<CacheT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_kernel<CacheT><<<kv, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const CacheT*>(kc),
-      static_cast<const CacheT*>(vc), static_cast<float*>(out), T, H, hd, S, kv, pos, layer,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+int launch_rows(const Args& a, cudaStream_t st) {
+  const int R = a.T * (a.H / a.kv);
+  if (R <= kWarps) return launch_dpl<CacheT, 1>(a, st);
+  if (R <= 2 * kWarps) return launch_dpl<CacheT, 2>(a, st);
+  return launch_dpl<CacheT, 4>(a, st);
 }
 
 }  // namespace
 
-// q: f32 [T, H, hd]; caches [L, S, kv, hd] of kind 0 f32 / 1 bf16 / 2 f8;
-// out: f32 [T, H, hd]. hd % 16 == 0 and hd <= 256 (checked by the wrapper).
+// q: [T, H, hd], f32 (act_kind 0) or bf16 (1); caches [L, S, kv, hd] of kind
+// 0 f32 / 1 bf16 / 2 f8; out: [T, H, hd] in q's dtype. hd % 16 == 0 and
+// hd <= 256 (checked by the wrapper).
+// The live prefix min(pos + T, S) is cut into n_split chunks of `chunk`
+// positions (ops/flash_decode.py split_plan); with n_split > 1, part_acc
+// (f32 [kv, n_split, T * H / kv, hd]) and part_ml (f32 [kv, n_split,
+// T * H / kv, 2]) are scratch and counters (int32 [>= kv]) must be zero,
+// and are left zero; launches that share the counters must not overlap.
 extern "C" int dllama_flash_decode(const void* q, const void* k_cache, const void* v_cache,
                                    void* out, int T, int H, int hd, int S, int kv, int pos,
-                                   int layer, float scale, int cache_kind, void* stream) {
+                                   int layer, float scale, int act_kind, int cache_kind,
+                                   int n_split, int chunk, void* part_acc, void* part_ml,
+                                   void* counters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k_cache, v_cache, out, static_cast<float*>(part_acc),
+               static_cast<float*>(part_ml), static_cast<int*>(counters), T, H, hd, S, kv, pos,
+               layer, n_split, chunk, act_kind, scale};
   switch (cache_kind) {
-    case 0: return launch<float>(q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale,
-                                   st);
-    case 2:
-      return launch<dllama::F8>(q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, st);
+    case 0: return launch_rows<float>(a, st);
+    case 1: return launch_rows<__nv_bfloat16>(a, st);
+    case 2: return launch_rows<dllama::F8>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -13,6 +13,12 @@ returns ``cudaGetLastError()`` after its launches; :func:`check` turns a
 non-zero code into an exception. Each wrapper in ``ops`` adds one to its
 entry in :data:`launches` where it launches its kernel, and nowhere else, so a
 run can show which kernels the main path went through.
+
+Kernels that split work across blocks and merge it in the last block to
+arrive share one buffer of arrival counters per device (:func:`counters`):
+it starts zeroed, each such kernel leaves every counter it used at 0 again,
+and so launches that use it must not overlap — the port issues them on one
+stream.
 """
 
 from __future__ import annotations
@@ -53,16 +59,28 @@ _SIGNATURES = {
     "dllama_q80_matmul": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P),
     # xq, sx, T, K, w, s_lo, s_hi, O, ksplit, sb_per_split, partials, out, stream
     "dllama_q40_int8_matmul": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
-    # q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, cache_kind, stream
-    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, rows_per_split, partials,
+    # counters, out, stream
+    "dllama_q80_gemv": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
+    # T, x_f32 -> resident GEMV blocks per SM
+    "dllama_q80_gemv_blocks_per_sm": (_I, _I),
+    # q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, act_kind, cache_kind,
+    # n_split, chunk, part_acc, part_ml, counters, stream
+    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+                            _P, _P, _P, _P),
     # k, v, cos, sin, k_cache, v_cache, T, kv, hd, S, start, layer, half_style,
     # act_kind, cache_kind, stream
     "dllama_rope_cache_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _I, _P),
 }
 
+#: arrival counters per device (see the module docstring)
+N_COUNTERS = 4096
+
 _lib = None
 _lock = threading.Lock()
+_counters: dict = {}
+_sm_counts: dict = {}
 
 
 def reset_launches() -> None:
@@ -146,6 +164,26 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = lib().dllama_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's zeroed int32 arrival counters, allocated once; raises
+    if a launch needs more than :data:`N_COUNTERS`."""
+    if n > N_COUNTERS:
+        raise ValueError(f"a launch needs {n} arrival counters, the buffer has {N_COUNTERS}")
+    with _lock:
+        buf = _counters.get(device)
+        if buf is None:
+            buf = _counters[device] = torch.zeros(N_COUNTERS, dtype=torch.int32, device=device)
+    return buf
+
+
+def sm_count(device: torch.device) -> int:
+    """The device's streaming multiprocessors (cached)."""
+    n = _sm_counts.get(device)
+    if n is None:
+        n = _sm_counts[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def stream_of(t: torch.Tensor) -> int:

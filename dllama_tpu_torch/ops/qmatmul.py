@@ -57,6 +57,16 @@ K_MULTIPLE = {"q40": 512, "q80": 256}
 #: output columns one CUDA block covers (128 threads x 4 columns)
 _BLOCK_COLS = 512
 
+#: the most activation rows the Q80 decode GEMV takes; more go to the tile
+#: kernel (``DECODE_MAX_T`` is 16, the smallest prefill bucket 8)
+GEMV_MAX_T = 8
+#: output columns one GEMV block covers (32 lanes x 16 columns)
+_GEMV_COLS = 512
+#: input rows per GEMV split unit (8 warps x two 4-row groups)
+_GEMV_UNIT = 64
+#: the most staged activation values per GEMV block (64 KB of shared memory)
+_GEMV_X_FLOATS = 16384
+
 
 def _pad_up(n: int, multiple: int) -> int:
     return (n + multiple - 1) // multiple * multiple
@@ -229,6 +239,50 @@ def split_plan(T: int, K: int, O: int, n_sm: int,
     return math.ceil(nsb / sb_per), sb_per
 
 
+def gemv_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[int, int]:
+    """(ksplit, rows per split) for the Q80 decode GEMV: split K, in 64-row
+    units, as far as one wave of resident blocks (``n_sm * per_sm``) holds
+    the column tiles times the splits — a second wave would take as long as
+    the first — and at least far enough that a block's staged activation
+    (rows x T rounded up to a power of two) fits :data:`_GEMV_X_FLOATS`.
+    Split s takes rows ``[s * rows, min((s + 1) * rows, K))``, so each
+    32-row scale block lies in exactly one split."""
+    tt = next(t for t in (1, 2, 4, 8) if t >= T)
+    units = K // _GEMV_UNIT
+    tiles = math.ceil(O / _GEMV_COLS)
+    want = max(n_sm * per_sm // tiles, math.ceil(K * tt / _GEMV_X_FLOATS), 1)
+    per = math.ceil(units / min(units, want))
+    return math.ceil(units / per), per * _GEMV_UNIT
+
+
+def q80_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[str, int, int]:
+    """(kernel, ksplit, input rows per split) for a Q80 matmul of T rows:
+    the decode GEMV up to :data:`GEMV_MAX_T` rows (:func:`gemv_plan`, with
+    ``per_sm`` of its blocks resident on an SM), the prefill tile kernel
+    beyond (:func:`split_plan`)."""
+    if T <= GEMV_MAX_T:
+        return ("gemv", *gemv_plan(T, K, O, n_sm, per_sm))
+    ksplit, sb_per = split_plan(T, K, O, n_sm)
+    return "tile", ksplit, 64 * sb_per
+
+
+#: (T rounded up to a power of two, x is f32) -> the GEMV's blocks per SM
+_gemv_occupancy: dict = {}
+
+
+def gemv_blocks_per_sm(T: int, x_f32: bool) -> int:
+    """The GEMV's resident blocks per SM for T rows, from the CUDA occupancy
+    calculator (cached)."""
+    key = (next(t for t in (1, 2, 4, 8) if t >= T), int(x_f32))
+    n = _gemv_occupancy.get(key)
+    if n is None:
+        n = kernels.lib().dllama_q80_gemv_blocks_per_sm(*key)
+        if n <= 0:
+            kernels.check(-n, "q80 GEMV occupancy")
+        _gemv_occupancy[key] = n
+    return n
+
+
 def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int,
                    planes: list) -> None:
     """What every dequant-matmul kernel requires of its operands: one CUDA
@@ -316,7 +370,8 @@ def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
                norm_w: torch.Tensor | None = None,
                norm_inv: torch.Tensor | None = None) -> torch.Tensor:
     """``x [T, K] @ dequant(w int8 [K, O], scales f32 [K/32, O]) -> [T, O]``
-    f32. A CUDA ``w`` launches ``csrc/q80_matmul.cu``; a CPU one runs
+    f32. A CUDA ``w`` launches ``csrc/q80_matmul.cu`` — its decode GEMV or
+    its prefill tile kernel, by T (:func:`q80_plan`); a CPU one runs
     :func:`q80_matmul_ref`. ``norm_w``/``norm_inv``: the fused-norm epilogue."""
     if w.device.type == "cpu":
         return q80_matmul_ref(x, w, scales, norm_w, norm_inv)
@@ -330,12 +385,23 @@ def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     check_operands("q80_matmul", x, w, K, [scales])
     xk, inv, nw = _kernel_activation(x, K, norm_w, norm_inv)
     T = xk.shape[0]
-    out, partials, ksplit, sb_per = launch_buffers(T, K, O, w.device)
+    x_f32 = xk.dtype == torch.float32
+    per_sm = gemv_blocks_per_sm(T, x_f32) if T <= GEMV_MAX_T else 0
+    route, ksplit, rows = q80_plan(T, K, O, kernels.sm_count(w.device), per_sm)
+    out = torch.empty((T, O), dtype=torch.float32, device=w.device)
+    partials = (torch.empty((ksplit, T, O), dtype=torch.float32, device=w.device)
+                if ksplit > 1 else out)
+    args = (xk.data_ptr(), int(x_f32), T, K, w.data_ptr(),
+            scales.data_ptr(), O, _ptr(inv), _ptr(nw), ksplit)
     with torch.cuda.device(w.device):
-        rc = kernels.lib().dllama_q80_matmul(
-            xk.data_ptr(), int(xk.dtype == torch.float32), T, K, w.data_ptr(),
-            scales.data_ptr(), O, _ptr(inv), _ptr(nw), ksplit, sb_per,
-            partials.data_ptr(), out.data_ptr(), kernels.stream_of(w))
+        if route == "gemv":
+            counters = kernels.counters(w.device, math.ceil(O / _GEMV_COLS))
+            rc = kernels.lib().dllama_q80_gemv(*args, rows, partials.data_ptr(),
+                                               counters.data_ptr(), out.data_ptr(),
+                                               kernels.stream_of(w))
+        else:
+            rc = kernels.lib().dllama_q80_matmul(*args, rows // 64, partials.data_ptr(),
+                                                 out.data_ptr(), kernels.stream_of(w))
     kernels.check(rc, "q80_matmul")
     kernels.launches["q80_matmul"] += 1
     return out

@@ -12,6 +12,8 @@ they are held to 1e-5 of the output's magnitude in f32; the rope + cache
 write does the same single-rounding arithmetic as its plain version, so the
 caches must be bit-equal. The fused-norm epilogue (K1, K3) must equal the
 unfused composition bit for bit: the same bf16 tile, the same split plan.
+K3's decode GEMV and K4 merge their blocks' partials in a fixed order, so
+two launches on the same inputs must give the same bits.
 """
 
 import numpy as np
@@ -167,8 +169,101 @@ def test_rope_cache_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype, T, po
     assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
 
 
+#: Llama-3-8B projection widths (K, O)
+LLAMA3_8B_WIDTHS = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]
+
+
+def _q80_planes(K, O, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(-127, 128, (K, O), dtype=torch.int8, device=dev, generator=gen),
+            torch.rand((K // 32, O), device=dev, generator=gen) * 0.0003)
+
+
+@pytest.mark.parametrize("K,O", LLAMA3_8B_WIDTHS)
+def test_q80_gemv_matches_ref_and_repeats_its_bits(cuda, K, O):
+    w, s = _q80_planes(K, O, cuda, K + O)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for T in range(1, qmatmul.GEMV_MAX_T + 1):
+        per_sm = qmatmul.gemv_blocks_per_sm(T, False)
+        assert per_sm >= 1
+        assert qmatmul.q80_plan(T, K, O, kernels.sm_count(cuda), per_sm)[0] == "gemv"
+        x = torch.randn((T, K), device=cuda, generator=gen).to(torch.bfloat16)
+        got = qmatmul.q80_matmul(x, w, s)
+        again = qmatmul.q80_matmul(x, w, s)
+        torch.cuda.synchronize()
+        _close(got, qmatmul.q80_matmul_ref(x, w, s))
+        assert torch.equal(got, again), T
+
+
+@pytest.mark.parametrize("T", [1, 3, 8])
+@pytest.mark.parametrize("K,O", [(256, 102), (1024, 516), (4096, 4100), (512, 8)])
+def test_q80_gemv_ragged_columns(cuda, T, K, O):
+    w, s = _q80_planes(K, O, cuda, K * O)
+    x = torch.randn((T, K), device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
+    got = qmatmul.q80_matmul(x, w, s)
+    torch.cuda.synchronize()
+    _close(got, qmatmul.q80_matmul_ref(x, w, s))
+
+
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,O", [(4096, 6144), (4096, 28672), (1024, 516)])
+def test_q80_gemv_fused_norm_bit_equal_to_unfused(cuda, act, K, O):
+    w, s = _q80_planes(K, O, cuda, K + 7 * O)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    nw = 1.0 + 0.1 * torch.randn(K, device=cuda, generator=gen)
+    for T in range(1, qmatmul.GEMV_MAX_T + 1):
+        x = torch.randn((T, K), device=cuda, generator=gen).to(act)
+        inv = qmatmul.rmsnorm_inv(x)
+        fused = qmatmul.q80_matmul(x, w, s, norm_w=nw, norm_inv=inv)
+        unfused = qmatmul.q80_matmul(rmsnorm(x, nw), w, s)
+        torch.cuda.synchronize()
+        _close(fused, qmatmul.q80_matmul_ref(x, w, s, norm_w=nw, norm_inv=inv))
+        assert torch.equal(fused, unfused), T
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("group,hd", [(4, 128), (8, 64), (8, 256), (4, 256)])
+@pytest.mark.parametrize("T", [1, 4, 16])
+def test_flash_decode_split_kernel_matches_ref_and_repeats_its_bits(cuda, cache_dtype, group,
+                                                                     hd, T):
+    L, S, kv = 2, 1024, 8
+    gen = torch.Generator(device=cuda).manual_seed(group * hd + T)
+    kc = torch.randn((L, S, kv, hd), device=cuda, generator=gen).to(cache_dtype)
+    vc = torch.randn((L, S, kv, hd), device=cuda, generator=gen).to(cache_dtype)
+    n_sm = kernels.sm_count(cuda)
+    # split edges: live = pos + T on, just past and just short of a chunk edge
+    for pos in (0, 31 - T + 1, 32 - T + 1, 116, 1000, S - T):
+        pos = max(pos, 0)
+        q = torch.randn((T, kv * group, hd), device=cuda, generator=gen)
+        got = flash_decode.flash_decode_attention(q, kc, vc, pos, 1)
+        again = flash_decode.flash_decode_attention(q, kc, vc, pos, 1)
+        torch.cuda.synchronize()
+        ref = flash_decode.flash_decode_attention_ref(q, kc, vc, pos, 1)
+        split = flash_decode.flash_decode_split_ref(
+            q, kc, vc, pos, 1, flash_decode.split_plan(min(pos + T, S), kv, n_sm)[0])
+        tol = 1e-5 * ref.abs().max().item()
+        assert (got - ref).abs().max().item() <= tol, pos
+        assert (got - split).abs().max().item() <= tol, pos
+        assert torch.equal(got, again), pos
+
+
 def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     q = torch.zeros((17, 4, 64), device=cuda)
     kc = torch.zeros((1, 64, 1, 64), device=cuda)
     with pytest.raises(ValueError):
         flash_decode.flash_decode_attention(q, kc, kc, 0, 0)  # T > 16: no plain fallback
+    with pytest.raises(ValueError):  # pos past the cache
+        flash_decode.flash_decode_attention(q[:1], kc, kc, 64, 0)
+    with pytest.raises(ValueError):  # hd > 256
+        big = torch.zeros((1, 64, 1, 272), device=cuda)
+        flash_decode.flash_decode_attention(torch.zeros((1, 4, 272), device=cuda), big, big, 0, 0)
+    with pytest.raises(TypeError):  # K and V caches of different dtypes
+        flash_decode.flash_decode_attention(q[:1], kc, kc.bfloat16(), 0, 0)
+    w, s = _q80_planes(256, 64, cuda, 0)
+    with pytest.raises(ValueError):  # no activation rows
+        qmatmul.q80_matmul(torch.zeros((0, 256), device=cuda), w, s)
+    with pytest.raises(ValueError):  # scales that do not match the quants
+        qmatmul.q80_matmul(torch.zeros((1, 256), device=cuda), w, s[:4])
+    with pytest.raises(ValueError):  # the fused norm's operands come together
+        qmatmul.q80_matmul(torch.zeros((1, 256), device=cuda), w, s,
+                           norm_w=torch.ones(256, device=cuda))
