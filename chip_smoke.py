@@ -16,12 +16,15 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    bound — the larger of bytes over 3.35 TB/s and operations over the
    card's peak for their type — its plain version and, where one PyTorch
    call computes the same function, that call. The Q40 (K1+K2) and Q80 (K3)
-   dequant-matmuls run at T = 1 (decode) and 128 (prefill), K3 also at its
-   GEMV's largest T, each with the fused-norm epilogue too, which must equal
-   the unfused kernel bit for bit; K3 and flash decode (K4: every cache
-   dtype, T in {1, 4, 16}, its grid logged, timed at pos 1000 and 116) must
-   repeat their bits on the same inputs; the experiment kernels K6 and K7
-   run at the variant shootout's matrix and the Llama-3-8B widths.
+   dequant-matmuls run at T = 1 (decode), 128 (prefill) and 512 (the
+   tensor-core tile where bytes stop bounding; timed at the four layer
+   widths), K3 also at its GEMV's largest T, each with the fused-norm
+   epilogue too, which must equal the unfused kernel bit for bit; each
+   call's route (decode kernel or tile), its tile plan and its error over
+   the tolerance are logged; K1, K3 and flash decode (K4: every cache dtype,
+   T in {1, 4, 16}, its grid logged, timed at pos 1000 and 116) must repeat
+   their bits on the same inputs; the experiment kernels K6 and K7 run at
+   the variant shootout's matrix and the Llama-3-8B widths.
 2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
@@ -31,7 +34,8 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    swapped for its plain version. Then the same with random Q80 params (the
    Q40 model freed first): 129 Q80 matmuls per token. The profiler's device
    time per token is split by kernel; each flash-decode call, and on the
-   Q80 decode each matmul, must be one CUDA launch.
+   Q80 decode each matmul, must be one CUDA launch. One more prefill runs
+   under the profiler, its device time split by kernel the same way.
    2b. For each model, one decode step with ``DLLAMA_FUSE_NORM=1`` against
    ``=0``: the logits must be bit-equal.
    2c. ``python -m dllama_tpu_torch.qkernel_experiments all`` as its entry
@@ -174,11 +178,11 @@ def library_ms(torch, kind, planes: list, x, sub=8.0) -> float:
 def phase1_matmul(torch, dev, gen, kind: str) -> list:
     """K1+K2 (q40) or K3 (q80) at every Llama-3-8B width, plain and with the
     fused-norm epilogue: each against its plain version within 1e-5 *
-    max|ref|, the fused form bit-equal to the unfused one. T = 1 and 128
-    for both; K3 also at the decode GEMV's largest T (``GEMV_MAX_T``), and
-    K3 twice on the same inputs must give the same bits. Timed at T = 1
-    (decode) and T = 128 (prefill), each beside bf16 ``torch.matmul`` on the
-    dequantized weight."""
+    max|ref|, the fused form bit-equal to the unfused one, and two launches
+    on the same inputs bit-equal. T = 1, 128 and 512 for both; K3 also at
+    the decode GEMV's largest T (``GEMV_MAX_T``). Timed at T = 1 (decode),
+    T = 128 (prefill) and T = 512 (not wcls), each beside bf16
+    ``torch.matmul`` on the dequantized weight."""
     from dllama_tpu_torch import kernels
     from dllama_tpu_torch.ops import qmatmul
     from dllama_tpu_torch.ops.norms import rmsnorm
@@ -194,7 +198,7 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
         return qmatmul.q80_matmul_ref(x, *p, **kw)
 
     n_sm = kernels.sm_count(dev)
-    ts = (1, 128) if kind == "q40" else (1, qmatmul.GEMV_MAX_T, 128)
+    ts = (1, 128, 512) if kind == "q40" else (1, qmatmul.GEMV_MAX_T, 128, 512)
     rows = []
     for name, K, O, per_token in SHAPES:
         planes = [quant_planes(torch, dev, gen, kind, K, O)]
@@ -220,25 +224,31 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                 repeat = bool(torch.equal(got, again))
                 row = {"matrix": name, "K": K, "O": O, "T": T, "nosub": nosub,
                        "max_abs_err": err, "tol": tol, "fused_max_abs_err": err_n,
-                       "fused_tol": tol_n, "fused_bit_equal_unfused": bit_equal,
-                       "repeat_bit_equal": repeat}
+                       "fused_tol": tol_n, "err_over_tol": max(err / tol, err_n / tol_n),
+                       "fused_bit_equal_unfused": bit_equal, "repeat_bit_equal": repeat}
+                per_sm = (qmatmul.gemv_blocks_per_sm(T, False)
+                          if kind == "q80" and T <= qmatmul.GEMV_MAX_T else 0)
+                route, ksplit, per = (qmatmul.q40_plan(T, K, O, n_sm) if kind == "q40"
+                                      else qmatmul.q80_plan(T, K, O, n_sm, per_sm))
+                row.update(route=route, ksplit=ksplit)
                 tag = f" nosub={int(nosub)}" if kind == "q40" else ""
-                if kind == "q80":
-                    per_sm = qmatmul.gemv_blocks_per_sm(T, False) if T <= qmatmul.GEMV_MAX_T else 0
-                    route, ksplit, krows = qmatmul.q80_plan(T, K, O, n_sm, per_sm)
-                    row.update(route=route, ksplit=ksplit, rows_per_split=krows,
-                               gemv_blocks_per_sm=per_sm)
-                    tag = f" {route} ksplit={ksplit}"
+                tag += f" {route} ksplit={ksplit}"
+                if route == "tile":
+                    row["tile_plan"] = qmatmul.tile_plan(T, K, O, n_sm)
+                    tag += f" tile_plan(m, n, ksplit, per)={row['tile_plan']}"
+                elif kind == "q80":
+                    row.update(rows_per_split=per, gemv_blocks_per_sm=per_sm)
                 log(f"  {kind}_matmul {name:5s} {K:5d}->{O:6d} T={T:3d}{tag} max_abs_err "
                     f"{err:.3e} (tol 1e-5*max|ref| = {tol:.3e}); fused norm {err_n:.3e} "
-                    f"(tol {tol_n:.3e}), bit-equal to unfused: {bit_equal}; repeat "
-                    f"bit-equal: {repeat}")
+                    f"(tol {tol_n:.3e}); worst err/tol {row['err_over_tol']:.3f}; bit-equal to "
+                    f"unfused: {bit_equal}; repeat bit-equal: {repeat}")
                 if not (err <= tol and err_n <= tol_n and bit_equal):
                     fail(f"{kind}_matmul {name} T={T}{tag}: {err} > {tol}, {err_n} > {tol_n} "
                          f"or fused != unfused")
-                if kind == "q80" and not repeat:
-                    fail(f"q80_matmul {name} T={T}: two launches on the same inputs differ")
-                if (kind == "q40" and nosub != qmatmul.Q40_NOSUB) or T not in (1, 128):
+                if not repeat:
+                    fail(f"{kind}_matmul {name} T={T}: two launches on the same inputs differ")
+                if ((kind == "q40" and nosub != qmatmul.Q40_NOSUB) or T not in (1, 128, 512)
+                        or (T == 512 and name == "wcls")):
                     rows.append(row)
                     continue
                 nxt = rotating(planes)
@@ -442,7 +452,7 @@ def phase1_rope(torch, dev, gen) -> list:
 # ---------------------------------------------------------------------------
 
 #: the port's CUDA kernels, as the profiler's names begin (the rest is "other")
-KERNEL_FAMILIES = ("q40_matmul_kernel", "q80_gemv_kernel", "q80_matmul_kernel",
+KERNEL_FAMILIES = ("q40_matmul_kernel", "q80_gemv_kernel", "dq_tile_kernel",
                    "sum_splits_kernel", "flash_decode_kernel", "rope_cache_kernel")
 
 LLAMA3_8B = dict(arch="llama", dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
@@ -490,6 +500,28 @@ class fuse_norm:
             os.environ.pop("DLLAMA_FUSE_NORM", None)
         else:
             os.environ["DLLAMA_FUSE_NORM"] = self.saved
+
+
+def device_time(prof, n: int) -> tuple:
+    """(ms per kernel name, ms and launches per kernel family) of a profiler
+    run, divided by ``n`` (the tokens or calls it covered)."""
+    by_name, calls = {}, {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None)
+        if dt is None:
+            dt = getattr(ev, "cuda_time_total", 0)
+        if dt and str(ev.device_type).endswith("CUDA"):
+            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
+            name = name.replace("dllama::tile::", "")
+            name = name.split("(")[0][:80]
+            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / n
+            calls[name] = calls.get(name, 0) + ev.count / n
+    families = {fam: {"ms": 0.0, "launches": 0.0} for fam in (*KERNEL_FAMILIES, "other")}
+    for name, ms in by_name.items():
+        fam = next((f for f in KERNEL_FAMILIES if name.startswith(f)), "other")
+        families[fam]["ms"] += ms
+        families[fam]["launches"] += calls[name]
+    return by_name, families
 
 
 def phase2(torch, dev, kind: str) -> dict:
@@ -583,23 +615,9 @@ def phase2(torch, dev, kind: str) -> dict:
             pass
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3 / 3
-    by_name, calls = {}, {}
-    for ev in prof.key_averages():
-        dt = getattr(ev, "device_time_total", None)
-        if dt is None:
-            dt = getattr(ev, "cuda_time_total", 0)
-        if dt and str(ev.device_type).endswith("CUDA"):
-            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "")
-            name = name.split("(")[0][:80]
-            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / 3  # ms per token
-            calls[name] = calls.get(name, 0) + ev.count / 3
+    by_name, families = device_time(prof, 3)
     busy = sum(by_name.values())
     if busy > 0:
-        families = {fam: {"ms": 0.0, "launches": 0.0} for fam in (*KERNEL_FAMILIES, "other")}
-        for name, ms in by_name.items():
-            fam = next((f for f in KERNEL_FAMILIES if name.startswith(f)), "other")
-            families[fam]["ms"] += ms
-            families[fam]["launches"] += calls[name]
         out["profile_ms_per_token"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
         out["profile_kernels_per_token"] = families
         out["profile_device_busy_ms_per_token"] = busy
@@ -624,6 +642,29 @@ def phase2(torch, dev, kind: str) -> dict:
     else:
         out["profile_idle_share"] = "not measured"
         log("  profiler showed no device time: idle share not measured")
+
+    # where a prefill's device time goes (the 100-token prompt, bucket 128)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        engine.prefill(engine.new_cache(), prompt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3
+    by_name, families = device_time(prof, 1)
+    busy = sum(by_name.values())
+    if busy > 0:
+        out["prefill_profile"] = {"device_busy_ms": busy, "wall_ms": wall,
+                                  "kernels": families,
+                                  "top": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])}
+        log(f"  profiler, one prefill: device busy {busy:.3f} ms of {wall:.3f} ms wall (profiled); "
+            f"by kernel:")
+        for fam, v in families.items():
+            if v["launches"]:
+                log(f"    {v['ms']:.4f} ms ({v['ms'] / busy:.3f} of busy) in {v['launches']:.0f} "
+                    f"CUDA launches  {fam}")
+        for k, v in list(out["prefill_profile"]["top"].items())[:6]:
+            log(f"    {v:.4f} ms  {k}")
+    else:
+        out["prefill_profile"] = "not measured"
 
     # the first decode step against the same step through the plain versions
     cache = engine.new_cache()
@@ -807,7 +848,12 @@ def main() -> None:
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
-    def matmul_entry(name, rows, source, replaces, tpu, launches):
+    def at_t(rows, T):
+        return {r["matrix"]: {k: r[k] for k in ("ms", "fused_ms", "library_ms", "bound_ms",
+                                               "bound_by", "ksplit")}
+                for r in rows if r["T"] == T and "ms" in r}
+
+    def matmul_entry(name, rows, source, replaces, tpu, launches, tile_entry):
         dec = [r for r in rows if r["T"] == 1 and "ms" in r]
         fused = [r for r in dec if r["matrix"] in FUSED]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -823,8 +869,11 @@ def main() -> None:
                                "plain_ms": per_token(fused, "fused_plain_ms"),
                                "per": "one decode token's wqkv + w13 launches (64)"},
                 "per_width_ms": {r["matrix"]: r["ms"] for r in dec},
-                "prefill_T128": {r["matrix"]: {k: r[k] for k in ("ms", "library_ms", "bound_ms")}
-                                 for r in rows if r["T"] == 128 and "ms" in r},
+                "tile_entry": tile_entry, "tile_source": "dllama_tpu_torch/csrc/dq_tile.cuh",
+                "prefill_T128": at_t(rows, 128), "tile_T512": at_t(rows, 512),
+                "worst_err_over_tol": {r["matrix"]: max(v["err_over_tol"] for v in rows
+                                                        if v["matrix"] == r["matrix"])
+                                       for r in dec},
                 "per": "one decode token: 32 x (wqkv, wo, w13, w2) + wcls, T=1"}
 
     def variant_entry(name, source, replaces, tpu):
@@ -843,10 +892,10 @@ def main() -> None:
     summary = {"kernels": [
         matmul_entry("q40_matmul", q40, "dllama_tpu_torch/csrc/q40_matmul.cu",
                      "dllama_tpu/ops/qmatmul.py:361 (_q40_kernel) + :412 (_q40_corr_kernel)",
-                     ["K1", "K2"], launches["q40_matmul"]),
+                     ["K1", "K2"], launches["q40_matmul"], "dllama_q40_tile"),
         matmul_entry("q80_matmul", q80, "dllama_tpu_torch/csrc/q80_matmul.cu",
                      "dllama_tpu/ops/qmatmul.py:179 (_q80_kernel)", ["K3"],
-                     launches80["q80_matmul"]),
+                     launches80["q80_matmul"], "dllama_q80_tile"),
         {"name": "flash_decode", "route": "cuda", "source": "dllama_tpu_torch/csrc/flash_decode.cu",
          "replaces": "dllama_tpu/ops/flash_decode.py:102 (_kernel)", "tpu_kernels": ["K4"],
          "launches": launches["flash_decode"],

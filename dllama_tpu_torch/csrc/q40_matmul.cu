@@ -13,38 +13,43 @@
 // 64s+32+j (high nibble, s_hi[s, o]). Dequant is (q - 8) * delta; under nosub
 // it is q * delta and the exact correction
 // 8 * sum_s (blocksum_lo_s(x) * s_lo[s, o] + blocksum_hi_s(x) * s_hi[s, o])
-// is accumulated beside the product and subtracted at the end, from the
-// scale values already in registers — K2 re-read the scale planes from
-// device memory on the TPU. With the fused-norm epilogue (inv != nullptr) x
-// arrives raw (bf16 or f32) and each staged element is bf16(nw * (x * inv))
-// (common.cuh act_bf16); the correction's block sums then sum that
-// normalized tile, as the JAX package's _q40_normed does.
+// is subtracted, from the scale values already on chip — K2 re-read the
+// scale planes from device memory on the TPU. With the fused-norm epilogue
+// (inv != nullptr) x arrives raw (bf16 or f32) and each staged element is
+// bf16(nw * (x * inv)) (common.cuh act_bf16); the correction's block sums
+// then sum that normalized tile, as the JAX package's _q40_normed does.
 //
-// What bounds it on the H100: bytes. Decode (T = 1) reads 0.625 B per
-// weight (0.5 B of nibbles + 0.125 B of f32 scales) and does ~4 operations
-// per weight; at 3.35 TB/s the weights of a Llama-3-8B token (4.69 GB) take
-// 1.40 ms. Prefill at large T is bound by the dequant and the f32 FMAs on
-// the CUDA cores (no tensor cores yet).
+// Two kernels, dispatched by T in ops/qmatmul.py q40_plan.
 //
-// Design: one thread per 4 adjacent output columns, so a warp reads 128
-// contiguous bytes of a packed row (uchar4 per thread) and the scales as
-// float4. A block of 128 threads covers 512 columns (256 threads and 1024
-// columns in K6's wide mode, the experiment's stand-in for a 2048-lane TPU
-// tile); the bf16 x rows of the block's K range are staged in shared memory
-// as f32 (8 superblocks per pass) and read as warp-wide broadcasts. K is
-// split across blocks (grid.y) until about four blocks per SM are in flight
-// — decode of wo has only 8 column blocks — and the splits' partial sums
-// are added in a fixed order by a second small kernel, so results do not
-// depend on scheduling. T is tiled in blocks of up to 8 rows (grid.z), each
-// re-reading the weights: simple, not fast, for prefill.
+// Decode (T <= 8, ops/qmatmul.py GEMV_MAX_T): q40_matmul_kernel below, on
+// the CUDA cores. What bounds it on the H100: bytes — decode (T = 1) reads
+// 0.625 B per weight (0.5 B of nibbles + 0.125 B of f32 scales) and does ~4
+// operations per weight; at 3.35 TB/s the weights of a Llama-3-8B token
+// (4.69 GB) take 1.40 ms. One thread per 4 adjacent output columns, so a
+// warp reads 128 contiguous bytes of a packed row (uchar4 per thread) and
+// the scales as float4. A block of 128 threads covers 512 columns (256
+// threads and 1024 columns in K6's wide mode, the experiment's stand-in for
+// a 2048-lane TPU tile); the bf16 x rows of the block's K range are staged
+// in shared memory as f32 (8 superblocks per pass) and read as warp-wide
+// broadcasts. K is split across blocks (grid.y) until about four blocks per
+// SM are in flight — decode of wo has only 8 column blocks — and the
+// splits' partial sums are added in a fixed order by a second small kernel,
+// so results do not depend on scheduling.
+//
+// Prefill (T > 8): the tensor-core tile of dq_tile.cuh with the Q40 front
+// end (nibble dequant; the nosub correction added per superblock from the
+// staged block sums and scales), dllama_q40_tile below.
 #include "common.cuh"
+#include "dq_tile.cuh"
 
 namespace {
 
 constexpr int kCols = 4;     // output columns per thread
 constexpr int kChunkSb = 8;  // 64-row superblocks staged per pass
 
-enum Mode { kSub = 0, kNosubCorrect = 1, kNosubRaw = 2 };
+using dllama::tile::kNosubCorrect;
+using dllama::tile::kNosubRaw;
+using dllama::tile::kSub;
 
 template <typename XT, int TT, bool kVec, int kThreads>
 __global__ void __launch_bounds__(kThreads)
@@ -56,7 +61,6 @@ q40_matmul_kernel(const XT* __restrict__ x, int T, int K, const uint8_t* __restr
   __shared__ float xs[TT][kChunkSb * 64];
   __shared__ float bsum[TT][kChunkSb * 2];
 
-  const int t0 = blockIdx.z * TT;
   const int nsb = K / 64;
   const int sb_begin = blockIdx.y * sb_per_split;
   const int sb_end = min(nsb, sb_begin + sb_per_split);
@@ -81,8 +85,7 @@ q40_matmul_kernel(const XT* __restrict__ x, int T, int K, const uint8_t* __restr
     for (int i = threadIdx.x; i < TT * width; i += kThreads) {
       const int t = i / width;
       const int k = i - t * width;
-      xs[t][k] = (t0 + t < T) ? dllama::act_bf16(x, K, t0 + t, (size_t)c0 * 64 + k, inv, nw)
-                              : 0.f;
+      xs[t][k] = t < T ? dllama::act_bf16(x, K, t, (size_t)c0 * 64 + k, inv, nw) : 0.f;
     }
     __syncthreads();
     if (correct) {
@@ -154,10 +157,10 @@ q40_matmul_kernel(const XT* __restrict__ x, int T, int K, const uint8_t* __restr
   float* dst = out + (size_t)blockIdx.y * T * O;
 #pragma unroll
   for (int t = 0; t < TT; ++t) {
-    if (t0 + t >= T) break;
+    if (t >= T) break;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      if (o0 + c < O) dst[(size_t)(t0 + t) * O + o0 + c] = acc[t][c] - 8.f * corr[t][c];
+      if (o0 + c < O) dst[(size_t)t * O + o0 + c] = acc[t][c] - 8.f * corr[t][c];
   }
 }
 
@@ -188,18 +191,19 @@ void launch_tt(int tt, bool vec, dim3 grid, cudaStream_t st, const XT* x, const 
   }
 }
 
-// Validated by the Python wrappers; ksplit and sb_per_split come from
-// ops/qmatmul.py split_plan with the block's column count.
+// Validated by the Python wrappers (1 <= T <= 8); ksplit and sb_per_split
+// come from ops/qmatmul.py split_plan with the block's column count.
 int run(const void* x, int x_f32, int T, int K, const void* w, const void* s_lo,
         const void* s_hi, int O, int mode, const void* inv, const void* nw, int wide,
         int ksplit, int sb_per_split, void* partials, void* out, void* stream) {
+  if (T < 1 || T > 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int threads = wide ? 256 : 128;
   const int tt = T > 4 ? 8 : T > 2 ? 4 : T;
   const bool vec = (O % kCols) == 0 && (reinterpret_cast<uintptr_t>(w) % 4) == 0 &&
                    ((reinterpret_cast<uintptr_t>(s_lo) | reinterpret_cast<uintptr_t>(s_hi)) %
                     16) == 0;
-  const dim3 grid((O + threads * kCols - 1) / (threads * kCols), ksplit, (T + tt - 1) / tt);
+  const dim3 grid((O + threads * kCols - 1) / (threads * kCols), ksplit);
   const Args a{T, K, O, sb_per_split, mode, static_cast<const uint8_t*>(w),
                static_cast<const float*>(s_lo), static_cast<const float*>(s_hi),
                static_cast<const float*>(inv), static_cast<const float*>(nw),
@@ -218,11 +222,11 @@ int run(const void* x, int x_f32, int T, int K, const void* w, const void* s_lo,
 
 }  // namespace
 
-// K1 (+K2). x: [T, K] (K = the packed K, zero-padded), bf16 (x_f32 = 0) or
-// f32 (x_f32 = 1, only with the epilogue); w: uint8 [K/2, O]; s_lo, s_hi: f32
-// [K/64, O]; inv: f32 [T] and norm_w: f32 [K] for the fused-norm epilogue,
-// both null without it; out: f32 [T, O]; partials: f32 [ksplit, T, O]
-// (unused when ksplit == 1).
+// K1 (+K2), the decode kernel, 1 <= T <= 8. x: [T, K] (K = the packed K,
+// zero-padded), bf16 (x_f32 = 0) or f32 (x_f32 = 1, only with the epilogue);
+// w: uint8 [K/2, O]; s_lo, s_hi: f32 [K/64, O]; inv: f32 [T] and norm_w: f32
+// [K] for the fused-norm epilogue, both null without it; out: f32 [T, O];
+// partials: f32 [ksplit, T, O] (unused when ksplit == 1).
 extern "C" int dllama_q40_matmul(const void* x, int x_f32, int T, int K, const void* w,
                                  const void* s_lo, const void* s_hi, int O, int nosub,
                                  const void* inv, const void* norm_w, int ksplit,
@@ -231,12 +235,31 @@ extern "C" int dllama_q40_matmul(const void* x, int x_f32, int T, int K, const v
              ksplit, sb_per_split, partials, out, stream);
 }
 
-// K6: the nosub dot with no correction; x bf16 [T, K]. wide = 1: 1024
-// columns per block.
+// K6: the nosub dot with no correction, 1 <= T <= 8; x bf16 [T, K]. wide =
+// 1: 1024 columns per block.
 extern "C" int dllama_q40_nosub_matmul(const void* x, int T, int K, const void* w,
                                        const void* s_lo, const void* s_hi, int O, int wide,
                                        int ksplit, int sb_per_split, void* partials, void* out,
                                        void* stream) {
   return run(x, 0, T, K, w, s_lo, s_hi, O, kNosubRaw, nullptr, nullptr, wide, ksplit,
              sb_per_split, partials, out, stream);
+}
+
+// K1 (+K2) and K6, the prefill tile (dq_tile.cuh), any T >= 1. Operands as
+// for dllama_q40_matmul, except mode: 0 sub, 1 nosub with the correction,
+// 2 nosub without it (K6); x 16-byte aligned; ksplit and sb_per_split from
+// ops/qmatmul.py tile_plan.
+extern "C" int dllama_q40_tile(const void* x, int x_f32, int T, int K, const void* w,
+                               const void* s_lo, const void* s_hi, int O, int mode,
+                               const void* inv, const void* norm_w, int ksplit, int sb_per_split,
+                               void* partials, void* out, void* stream) {
+  if (mode < kSub || mode > kNosubRaw) return static_cast<int>(cudaErrorInvalidValue);
+  const dllama::tile::Params p{x, T, K, O, static_cast<const uint8_t*>(w),
+                               static_cast<const float*>(s_lo), static_cast<const float*>(s_hi),
+                               mode, static_cast<const float*>(inv),
+                               static_cast<const float*>(norm_w), sb_per_split, nullptr};
+  return dllama::tile::run<dllama::tile::Q40Front>(p, x_f32, ksplit,
+                                                   static_cast<float*>(partials),
+                                                   static_cast<float*>(out),
+                                                   static_cast<cudaStream_t>(stream));
 }

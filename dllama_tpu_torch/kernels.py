@@ -52,11 +52,14 @@ _SIGNATURES = {
     # x, x_f32, T, K, w, s_lo, s_hi, O, nosub, inv, norm_w, ksplit, sb_per_split,
     # partials, out, stream
     "dllama_q40_matmul": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    # x, x_f32, T, K, w, s_lo, s_hi, O, mode, inv, norm_w, ksplit, sb_per_split,
+    # partials, out, stream
+    "dllama_q40_tile": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
     # x, T, K, w, s_lo, s_hi, O, wide, ksplit, sb_per_split, partials, out, stream
     "dllama_q40_nosub_matmul": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, sb_per_split, partials, out,
     # stream
-    "dllama_q80_matmul": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P),
+    "dllama_q80_tile": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P),
     # xq, sx, T, K, w, s_lo, s_hi, O, ksplit, sb_per_split, partials, out, stream
     "dllama_q40_int8_matmul": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, rows_per_split, partials,

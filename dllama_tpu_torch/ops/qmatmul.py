@@ -29,11 +29,16 @@ followed by the plain product.
 
 ``q40_matmul``/``q80_matmul`` launch the CUDA kernels (``csrc/q40_matmul.cu``,
 ``csrc/q80_matmul.cu``) for CUDA tensors and run ``q40_matmul_ref``/
-``q80_matmul_ref`` for CPU tensors; there is no other route.
+``q80_matmul_ref`` for CPU tensors; there is no other route. On the card,
+up to :data:`GEMV_MAX_T` activation rows take each kind's decode kernel and
+more take the tensor-core prefill tile both share (``csrc/dq_tile.cuh``):
+:func:`q40_plan` and :func:`q80_plan` decide, :func:`tile_plan` cuts the
+tile's grid.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from dataclasses import dataclass
@@ -57,9 +62,19 @@ K_MULTIPLE = {"q40": 512, "q80": 256}
 #: output columns one CUDA block covers (128 threads x 4 columns)
 _BLOCK_COLS = 512
 
-#: the most activation rows the Q80 decode GEMV takes; more go to the tile
-#: kernel (``DECODE_MAX_T`` is 16, the smallest prefill bucket 8)
+#: the most activation rows the decode kernels (K1's, K3's GEMV) take; more
+#: go to the tensor-core tile (``DECODE_MAX_T`` is 16, the smallest prefill
+#: bucket 8)
 GEMV_MAX_T = 8
+#: the tile's output rows and columns per block, and input rows per k-tile
+TILE_M, TILE_N, TILE_K = 128, 128, 64
+#: tile blocks resident on one SM: 256 threads held to 128 registers each
+#: (``__launch_bounds__``) and 83-93 KB of shared memory with bf16 x
+TILE_BLOCKS_PER_SM = 2
+#: a block's fixed cost beyond its k-tiles, in k-tiles (pipeline fill, stores)
+_TILE_FILL = 2
+#: the tile's Q40 modes (``csrc/dq_tile.cuh`` Mode)
+Q40_SUB, Q40_NOSUB_CORRECT, Q40_NOSUB_RAW = 0, 1, 2
 #: output columns one GEMV block covers (32 lanes x 16 columns)
 _GEMV_COLS = 512
 #: input rows per GEMV split unit (8 warps x two 4-row groups)
@@ -228,9 +243,10 @@ def q80_matmul_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 
 def split_plan(T: int, K: int, O: int, n_sm: int,
                block_cols: int = _BLOCK_COLS) -> tuple[int, int]:
-    """(ksplit, 64-row superblocks per split) for the CUDA kernels: split K
-    across blocks until about four blocks per SM are in flight, so a decode
-    GEMV with few output columns (wo: 8 column blocks) still fills the card."""
+    """(ksplit, 64-row superblocks per split) for K1's decode kernel, K6 and
+    K7: split K across blocks until about four blocks per SM are in flight,
+    so a decode GEMV with few output columns (wo: 8 column blocks) still
+    fills the card."""
     nsb = K // 64
     tt = 8 if T > 8 else next(t for t in (1, 2, 4, 8) if t >= T)
     blocks_ = math.ceil(O / block_cols) * math.ceil(T / tt)
@@ -255,15 +271,54 @@ def gemv_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[int, int]
     return math.ceil(units / per), per * _GEMV_UNIT
 
 
+@functools.lru_cache(maxsize=None)
+def tile_plan(T: int, K: int, O: int, n_sm: int) -> tuple[int, int, int, int]:
+    """(m_tiles, n_tiles, ksplit, k-tiles per split) for the tensor-core
+    tile: a block per :data:`TILE_M` x :data:`TILE_N` output tile, times
+    ``ksplit`` splits of K in :data:`TILE_K`-row k-tiles. Output tiles that
+    fill a wave of resident blocks (:data:`TILE_BLOCKS_PER_SM` per SM) are
+    not split: each split adds a [T, O] f32 partial to write and sum. Fewer
+    (wo, wqkv and w2 at T = 128: 32-48 tiles for 132 SMs) are split, at most
+    until they fill that wave, so that the blocks finish soonest: the fewest
+    waves times (k-tiles per split + :data:`_TILE_FILL`), the fewest splits
+    on a tie. Split s takes k-tiles
+    ``[s * per, min((s + 1) * per, K / 64))``. A function of the shape
+    alone — never of x's dtype or the fused norm — so the fused and unfused
+    launches sum in the same order."""
+    m_tiles, n_tiles = math.ceil(T / TILE_M), math.ceil(O / TILE_N)
+    nsb = K // TILE_K
+    slots = n_sm * TILE_BLOCKS_PER_SM
+    if m_tiles * n_tiles >= slots:
+        return m_tiles, n_tiles, 1, nsb
+    best = None
+    for want in range(1, min(nsb, math.ceil(slots / (m_tiles * n_tiles))) + 1):
+        per = math.ceil(nsb / want)
+        ksplit = math.ceil(nsb / per)
+        waves = math.ceil(m_tiles * n_tiles * ksplit / slots)
+        cost = waves * (per + _TILE_FILL)
+        if best is None or cost < best[0]:
+            best = (cost, ksplit, per)
+    return m_tiles, n_tiles, best[1], best[2]
+
+
+def q40_plan(T: int, K: int, O: int, n_sm: int) -> tuple[str, int, int]:
+    """(kernel, ksplit, 64-row superblocks per split) for a Q40 matmul of T
+    rows: K1's decode kernel up to :data:`GEMV_MAX_T` rows
+    (:func:`split_plan`), the tensor-core tile beyond (:func:`tile_plan`)."""
+    if T <= GEMV_MAX_T:
+        return ("gemv", *split_plan(T, K, O, n_sm))
+    return ("tile", *tile_plan(T, K, O, n_sm)[2:])
+
+
 def q80_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[str, int, int]:
     """(kernel, ksplit, input rows per split) for a Q80 matmul of T rows:
     the decode GEMV up to :data:`GEMV_MAX_T` rows (:func:`gemv_plan`, with
-    ``per_sm`` of its blocks resident on an SM), the prefill tile kernel
-    beyond (:func:`split_plan`)."""
+    ``per_sm`` of its blocks resident on an SM), the tensor-core tile beyond
+    (:func:`tile_plan`)."""
     if T <= GEMV_MAX_T:
         return ("gemv", *gemv_plan(T, K, O, n_sm, per_sm))
-    ksplit, sb_per = split_plan(T, K, O, n_sm)
-    return "tile", ksplit, 64 * sb_per
+    ksplit, per = tile_plan(T, K, O, n_sm)[2:]
+    return "tile", ksplit, TILE_K * per
 
 
 #: (T rounded up to a power of two, x is f32) -> the GEMV's blocks per SM
@@ -299,12 +354,8 @@ def launch_buffers(T: int, K: int, O: int, device,
                    block_cols: int = _BLOCK_COLS) -> tuple:
     """(out [T, O] f32, partials [ksplit, T, O] f32, ksplit, sb_per_split):
     the outputs a split-K launch writes, per :func:`split_plan`."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-    ksplit, sb_per = split_plan(T, K, O, n_sm, block_cols)
-    out = torch.empty((T, O), dtype=torch.float32, device=device)
-    partials = (torch.empty((ksplit, T, O), dtype=torch.float32, device=device)
-                if ksplit > 1 else out)
-    return out, partials, ksplit, sb_per
+    ksplit, sb_per = split_plan(T, K, O, kernels.sm_count(device), block_cols)
+    return (*_split_outputs(T, O, ksplit, device), ksplit, sb_per)
 
 
 def _kernel_activation(x: torch.Tensor, K: int, norm_w, norm_inv) -> tuple:
@@ -329,13 +380,50 @@ def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _split_outputs(T: int, O: int, ksplit: int, device) -> tuple:
+    """(out [T, O] f32, partials [ksplit, T, O] f32 — ``out`` itself when
+    there is one split)."""
+    out = torch.empty((T, O), dtype=torch.float32, device=device)
+    partials = (torch.empty((ksplit, T, O), dtype=torch.float32, device=device)
+                if ksplit > 1 else out)
+    return out, partials
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` at a 16-byte aligned address (the tile reads it 16 bytes at a
+    time): a view at an odd offset is copied."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def q40_tile(xk: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor, s_hi: torch.Tensor,
+             mode: int, inv=None, nw=None) -> torch.Tensor:
+    """Launch the Q40 tensor-core tile (``dllama_q40_tile``) on operands the
+    wrapper has checked: ``xk`` as :func:`_kernel_activation` returns it,
+    ``mode`` one of :data:`Q40_SUB`, :data:`Q40_NOSUB_CORRECT`,
+    :data:`Q40_NOSUB_RAW` (K6). Counts no launch: its callers do."""
+    T, K = xk.shape
+    O = packed.shape[1]
+    ksplit, per = tile_plan(T, K, O, kernels.sm_count(packed.device))[2:]
+    xk = _aligned(xk)
+    out, partials = _split_outputs(T, O, ksplit, packed.device)
+    with torch.cuda.device(packed.device):
+        rc = kernels.lib().dllama_q40_tile(
+            xk.data_ptr(), int(xk.dtype == torch.float32), T, K, packed.data_ptr(),
+            s_lo.data_ptr(), s_hi.data_ptr(), O, mode, _ptr(inv), _ptr(nw), ksplit, per,
+            partials.data_ptr(), out.data_ptr(), kernels.stream_of(packed))
+    kernels.check(rc, "q40 tile")
+    return out
+
+
+
 def q40_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
                s_hi: torch.Tensor, nosub: bool | None = None,
                norm_w: torch.Tensor | None = None,
                norm_inv: torch.Tensor | None = None) -> torch.Tensor:
     """``x [T, K] @ dequant(packed uint8 [K/2, O]) -> [T, O]`` f32.
 
-    A CUDA ``packed`` launches ``csrc/q40_matmul.cu``; a CPU one runs
+    A CUDA ``packed`` launches ``csrc/q40_matmul.cu`` — its decode kernel or
+    the tensor-core prefill tile, by T (:func:`q40_plan`); a CPU one runs
     :func:`q40_matmul_ref`. K2's correction term is computed inside the same
     kernel under ``nosub``. ``norm_w``/``norm_inv``: the fused-norm epilogue
     (see :func:`qmatmul_norm`)."""
@@ -355,13 +443,18 @@ def q40_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
     check_operands("q40_matmul", x, packed, K, [s_lo, s_hi])
     xk, inv, nw = _kernel_activation(x, K, norm_w, norm_inv)
     T = xk.shape[0]
-    out, partials, ksplit, sb_per = launch_buffers(T, K, O, packed.device)
-    with torch.cuda.device(packed.device):
-        rc = kernels.lib().dllama_q40_matmul(
-            xk.data_ptr(), int(xk.dtype == torch.float32), T, K, packed.data_ptr(),
-            s_lo.data_ptr(), s_hi.data_ptr(), O, int(bool(nosub)), _ptr(inv), _ptr(nw),
-            ksplit, sb_per, partials.data_ptr(), out.data_ptr(), kernels.stream_of(packed))
-    kernels.check(rc, "q40_matmul")
+    route, ksplit, sb_per = q40_plan(T, K, O, kernels.sm_count(packed.device))
+    if route == "tile":
+        out = q40_tile(xk, packed, s_lo, s_hi, Q40_NOSUB_CORRECT if nosub else Q40_SUB,
+                       inv, nw)
+    else:
+        out, partials = _split_outputs(T, O, ksplit, packed.device)
+        with torch.cuda.device(packed.device):
+            rc = kernels.lib().dllama_q40_matmul(
+                xk.data_ptr(), int(xk.dtype == torch.float32), T, K, packed.data_ptr(),
+                s_lo.data_ptr(), s_hi.data_ptr(), O, int(bool(nosub)), _ptr(inv), _ptr(nw),
+                ksplit, sb_per, partials.data_ptr(), out.data_ptr(), kernels.stream_of(packed))
+        kernels.check(rc, "q40_matmul")
     kernels.launches["q40_matmul"] += 1
     return out
 
@@ -371,7 +464,7 @@ def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
                norm_inv: torch.Tensor | None = None) -> torch.Tensor:
     """``x [T, K] @ dequant(w int8 [K, O], scales f32 [K/32, O]) -> [T, O]``
     f32. A CUDA ``w`` launches ``csrc/q80_matmul.cu`` — its decode GEMV or
-    its prefill tile kernel, by T (:func:`q80_plan`); a CPU one runs
+    the tensor-core prefill tile, by T (:func:`q80_plan`); a CPU one runs
     :func:`q80_matmul_ref`. ``norm_w``/``norm_inv``: the fused-norm epilogue."""
     if w.device.type == "cpu":
         return q80_matmul_ref(x, w, scales, norm_w, norm_inv)
@@ -388,9 +481,9 @@ def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     x_f32 = xk.dtype == torch.float32
     per_sm = gemv_blocks_per_sm(T, x_f32) if T <= GEMV_MAX_T else 0
     route, ksplit, rows = q80_plan(T, K, O, kernels.sm_count(w.device), per_sm)
-    out = torch.empty((T, O), dtype=torch.float32, device=w.device)
-    partials = (torch.empty((ksplit, T, O), dtype=torch.float32, device=w.device)
-                if ksplit > 1 else out)
+    if route == "tile":
+        xk = _aligned(xk)
+    out, partials = _split_outputs(T, O, ksplit, w.device)
     args = (xk.data_ptr(), int(x_f32), T, K, w.data_ptr(),
             scales.data_ptr(), O, _ptr(inv), _ptr(nw), ksplit)
     with torch.cuda.device(w.device):
@@ -400,8 +493,8 @@ def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
                                                counters.data_ptr(), out.data_ptr(),
                                                kernels.stream_of(w))
         else:
-            rc = kernels.lib().dllama_q80_matmul(*args, rows // 64, partials.data_ptr(),
-                                                 out.data_ptr(), kernels.stream_of(w))
+            rc = kernels.lib().dllama_q80_tile(*args, rows // TILE_K, partials.data_ptr(),
+                                               out.data_ptr(), kernels.stream_of(w))
     kernels.check(rc, "q80_matmul")
     kernels.launches["q80_matmul"] += 1
     return out

@@ -12,7 +12,8 @@ they are held to 1e-5 of the output's magnitude in f32; the rope + cache
 write does the same single-rounding arithmetic as its plain version, so the
 caches must be bit-equal. The fused-norm epilogue (K1, K3) must equal the
 unfused composition bit for bit: the same bf16 tile, the same split plan.
-K3's decode GEMV and K4 merge their blocks' partials in a fixed order, so
+K3's decode GEMV, the K1/K3 prefill tile (T > 8, split-K partials summed
+in split order) and K4 merge their blocks' partials in a fixed order, so
 two launches on the same inputs must give the same bits.
 """
 
@@ -245,6 +246,77 @@ def test_flash_decode_split_kernel_matches_ref_and_repeats_its_bits(cuda, cache_
         assert (got - ref).abs().max().item() <= tol, pos
         assert (got - split).abs().max().item() <= tol, pos
         assert torch.equal(got, again), pos
+
+
+def _q40_planes(K, O, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randint(0, 256, (K // 2, O), dtype=torch.uint8, device=dev, generator=gen),
+            torch.rand((K // 64, O), device=dev, generator=gen) * 0.004,
+            torch.rand((K // 64, O), device=dev, generator=gen) * 0.004)
+
+
+def _tile_call(kind, nosub, x, planes, **kw):
+    if kind == "q40":
+        return qmatmul.q40_matmul(x, *planes, nosub=nosub, **kw)
+    return qmatmul.q80_matmul(x, *planes, **kw)
+
+
+def _tile_ref(kind, nosub, x, planes, **kw):
+    if kind == "q40":
+        return qmatmul.q40_matmul_ref(x, *planes, nosub=nosub, **kw)
+    return qmatmul.q80_matmul_ref(x, *planes, **kw)
+
+
+TILE_KINDS = [("q40", True), ("q40", False), ("q80", None)]
+
+
+@pytest.mark.parametrize("kind,nosub", TILE_KINDS)
+@pytest.mark.parametrize("T,K,O", [(9, 512, 136), (16, 1024, 100), (20, 4096, 4100),
+                                   (100, 14336, 1024), (128, 4096, 516), (128, 14336, 4096),
+                                   (200, 640, 384), (200, 1024, 40)])
+def test_tile_matches_ref_and_repeats_its_bits(cuda, kind, nosub, T, K, O):
+    planes = (_q40_planes if kind == "q40" else _q80_planes)(K, O, cuda, T + K + O)
+    n_sm = kernels.sm_count(cuda)
+    route = (qmatmul.q40_plan(T, K, O, n_sm) if kind == "q40"
+             else qmatmul.q80_plan(T, K, O, n_sm, 0))[0]
+    assert route == "tile"
+    x = torch.randn((T, K), device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
+    x = x.to(torch.bfloat16)
+    name = f"{kind}_matmul"
+    before = kernels.launches[name]
+    got = _tile_call(kind, nosub, x, planes)
+    again = _tile_call(kind, nosub, x, planes)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    _close(got, _tile_ref(kind, nosub, x, planes))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kind,nosub", TILE_KINDS)
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,K,O", [(9, 1024, 516), (128, 4096, 6144), (200, 4096, 136)])
+def test_tile_fused_norm_matches_ref_and_unfused_bits(cuda, kind, nosub, act, T, K, O):
+    planes = (_q40_planes if kind == "q40" else _q80_planes)(K, O, cuda, K + 3 * O)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    nw = 1.0 + 0.1 * torch.randn(K, device=cuda, generator=gen)
+    x = torch.randn((T, K), device=cuda, generator=gen).to(act)
+    inv = qmatmul.rmsnorm_inv(x)
+    fused = _tile_call(kind, nosub, x, planes, norm_w=nw, norm_inv=inv)
+    unfused = _tile_call(kind, nosub, rmsnorm(x, nw), planes)
+    torch.cuda.synchronize()
+    _close(fused, _tile_ref(kind, nosub, x, planes, norm_w=nw, norm_inv=inv))
+    assert torch.equal(fused, unfused)
+
+
+@pytest.mark.parametrize("T,K,O", [(20, 4096, 11008), (128, 512, 100)])
+def test_q40_nosub_kernel_takes_the_tile_past_the_decode_rows(cuda, T, K, O):
+    planes = _q40_planes(K, O, cuda, T + O)
+    x = torch.randn((T, K), device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
+    got = qkernel_experiments.q40_nosub_matmul(x, *planes)
+    torch.cuda.synchronize()
+    _close(got, qkernel_experiments.q40_nosub_matmul_ref(x, *planes))
+    with pytest.raises(ValueError):  # the wide mode is a decode-shape variant
+        qkernel_experiments.q40_nosub_matmul(x, *planes, wide=True)
 
 
 def test_wrappers_raise_on_unsupported_cuda_input(cuda):
