@@ -18,13 +18,21 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    call computes the same function, that call. The Q40 (K1+K2) and Q80 (K3)
    dequant-matmuls run at T = 1 (decode), 128 (prefill) and 512 (the
    tensor-core tile where bytes stop bounding; timed at the four layer
-   widths), K3 also at its GEMV's largest T, each with the fused-norm
+   widths), and at the batched step's T = 4 and 8, each with the fused-norm
    epilogue too, which must equal the unfused kernel bit for bit; each
    call's route (decode kernel or tile), its tile plan and its error over
    the tolerance are logged; K1, K3 and flash decode (K4: every cache dtype,
    T in {1, 4, 16}, its grid logged, timed at pos 1000 and 116) must repeat
    their bits on the same inputs; the experiment kernels K6 and K7 run at
-   the variant shootout's matrix and the Llama-3-8B widths.
+   the variant shootout's matrix and the Llama-3-8B widths. The solo K4 and
+   K5 are the one-row launches of the batched kernels; their times are
+   logged beside their times before that (``SOLO_MS_BEFORE``). The batched
+   forms (K4 for every cache dtype at B = 1, 4 and 8, rows at mixed
+   positions from 0 to S - 1, NaN past each row's prefix, two launches and a
+   tight grid bound giving the same bits, a too-small bound still right;
+   K5 bit-equal for bf16 and f8 caches in both rope styles, a row at S - 1)
+   are timed at B = 8 beside their bounds, plain versions and, for K4,
+   ``scaled_dot_product_attention`` with a per-row live mask.
 2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
@@ -45,6 +53,21 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    and Q80 `.m`/`.t` pairs written by the port's own writers; with no
    weight flag the card keeps the file's format, and with f32 activations
    it must print the token ids the CPU run (plain versions) prints.
+4. ``Engine.generate_batch`` on the Llama-3-8B shape (random Q40, bf16
+   batch cache [32, 8, 1024, 8, 128]), 8 seeded prompts of 20-100 tokens
+   and 32 greedy steps. Gates: (a) one batched step's logits, row by row,
+   against the same row's solo ``forward`` at T = 1 within phase 2's
+   decode-step tolerance; (b) row 0's tokens bit-identical across two
+   batches of 8 that differ in every other row; (c) in a
+   ``BatchSession(max_batch=4)`` a prompt admitted mid-flight gives the
+   tokens it gives admitted at the start, bit for bit; (d) every step
+   launches the batched K4 and K5 once per layer. Logged at B = 1, 4 and 8:
+   ms per batched step (median over chunks, one sync per chunk), aggregate
+   tokens/s against solo ``generate``'s, the profiler's device busy ms per
+   step by kernel family, launches per step, the idle share, and how many
+   greedy tokens of each row equal its solo stream; at B = 8 also the ms
+   per step sampled (temperature 0.8, top-p 0.9). Then Q80 at B = 8
+   (gates a and d).
 
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
@@ -70,6 +93,11 @@ BF16_FLOPS = 989e12  # tensor-core bf16 peak: the least time for bf16 products
 F32_FLOPS = 67e12  # CUDA-core float32 peak
 INT8_OPS = 1979e12  # tensor-core int8 peak: the least time for int8 products
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin ahead of each timed series
+#: per-launch times of the solo K4 (pos 1000, pos 116) and K5 on the NVIDIA
+#: H100 80GB HBM3 at 700 W (PERF.md) before they became the one-row launches
+#: of the batched kernels
+SOLO_MS_BEFORE = {"flash_decode@1000": 0.0194, "flash_decode@116": 0.0157,
+               "rope_cache_update": 0.0053}
 
 
 def fail(msg: str) -> None:
@@ -179,10 +207,10 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
     """K1+K2 (q40) or K3 (q80) at every Llama-3-8B width, plain and with the
     fused-norm epilogue: each against its plain version within 1e-5 *
     max|ref|, the fused form bit-equal to the unfused one, and two launches
-    on the same inputs bit-equal. T = 1, 128 and 512 for both; K3 also at
-    the decode GEMV's largest T (``GEMV_MAX_T``). Timed at T = 1 (decode),
-    T = 128 (prefill) and T = 512 (not wcls), each beside bf16
-    ``torch.matmul`` on the dequantized weight."""
+    on the same inputs bit-equal. T = 1, 128 and 512, and the batched
+    decode step's T = B = 4 and the GEMV's largest T (``GEMV_MAX_T``).
+    Timed at T = 1 (decode), T = 128 (prefill) and T = 512 (not wcls), each
+    beside bf16 ``torch.matmul`` on the dequantized weight."""
     from dllama_tpu_torch import kernels
     from dllama_tpu_torch.ops import qmatmul
     from dllama_tpu_torch.ops.norms import rmsnorm
@@ -198,7 +226,7 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
         return qmatmul.q80_matmul_ref(x, *p, **kw)
 
     n_sm = kernels.sm_count(dev)
-    ts = (1, 128, 512) if kind == "q40" else (1, qmatmul.GEMV_MAX_T, 128, 512)
+    ts = (1, 4, qmatmul.GEMV_MAX_T, 128, 512)
     rows = []
     for name, K, O, per_token in SHAPES:
         planes = [quant_planes(torch, dev, gen, kind, K, O)]
@@ -390,12 +418,14 @@ def phase1_flash(torch, dev, gen) -> list:
                 lib = time_ms(torch, lambda: sdpa(ql, kl, vl, enable_gqa=True))
                 nbytes = 2 * live * kv * hd * kc.element_size() + 2 * q.numel() * 2
                 b, by = bound_ms(nbytes, 4.0 * T * kv * group * live * hd, BF16_FLOPS)
+                was = SOLO_MS_BEFORE[f"flash_decode@{tpos}"]
                 timed = {"pos": tpos, "ms": ms, "plain_ms": plain, "library_ms": lib,
                          "bound_ms": b, "bound_by": by, "n_split": n_split, "chunk": chunk,
-                         "grid": [kv, n_split]}
+                         "grid": [kv, n_split, 1], "before_ms": was, "change": ms / was - 1.0}
                 row.setdefault("timed", []).append(timed)
-                log(f"    pos {tpos}: grid ({kv}, {n_split}): time {ms:.4f} ms  bound {b:.5f} "
-                    f"ms ({by})  plain {plain:.4f} ms  sdpa {lib:.4f} ms")
+                log(f"    pos {tpos}: grid ({kv}, {n_split}, 1): time {ms:.4f} ms (before {was} ms: "
+                    f"{100 * (ms / was - 1):+.1f}%)  bound {b:.5f} ms ({by})  plain {plain:.4f} ms"
+                    f"  sdpa {lib:.4f} ms")
         del kc, vc
         torch.cuda.empty_cache()
     return rows
@@ -441,9 +471,168 @@ def phase1_rope(torch, dev, gen) -> list:
                     b, by = bound_ms(nbytes, 6.0 * T * kv * hd // 2, F32_FLOPS)
                     row["bound_ms"], row["bound_by"] = b, by
                     row["library_ms"] = None
-                    log(f"    time {row['ms']:.4f} ms  bound {b:.6f} ms ({by})  plain "
+                    was = SOLO_MS_BEFORE["rope_cache_update"]
+                    row["before_ms"], row["change"] = was, row["ms"] / was - 1.0
+                    log(f"    time {row['ms']:.4f} ms (before {was} ms: "
+                        f"{100 * row['change']:+.1f}%)  bound {b:.6f} ms ({by})  plain "
                         f"{row['plain_ms']:.4f} ms  (no single PyTorch call)")
                 rows.append(row)
+    return rows
+
+
+#: mixed row positions of S = 1024 for the batched forms (first slot, the
+#: decode run's 116, long, last slot, a tile edge, ...)
+BATCH_POS = [0, 116, 1000, 1023, 31, 32, 500, 7]
+#: (L, S, kv, group, hd) of the batched K4 checks: 268 MB of bf16 cache at
+#: B = 8, cold in L2
+BATCH_SHAPE = (8, 1024, 8, 4, 128)
+
+
+def phase1_flash_batched(torch, dev, gen) -> list:
+    """Batched K4 against its plain version for every cache dtype at B = 1,
+    4 and 8 (kv 8, group 4, hd 128, S 1024), rows at mixed positions: bf16
+    out within 2^-7 * max|ref|, f32 out within 1e-5 * max|ref|; two launches
+    and a launch with the tight host bound (max pos + 1) give the same bits;
+    NaN past each row's prefix leaves the bits as they are. Timed at B = 8
+    (bf16 cache, cold, the tight bound the engine passes) beside the bytes
+    of the rows' live prefixes over 3.35 TB/s, the plain version, and one
+    ``scaled_dot_product_attention`` over [B, H, 1, hd] against the row
+    slabs with a per-row live mask."""
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.ops import flash_decode
+
+    rows = []
+    L, S, kv, group, hd = BATCH_SHAPE
+    n_sm = kernels.sm_count(dev)
+    for dtype in (torch.bfloat16, torch.float32, torch.float8_e4m3fn):
+        kc8 = torch.randn((L, 8, S, kv, hd), device=dev, generator=gen).to(dtype)
+        vc8 = torch.randn((L, 8, S, kv, hd), device=dev, generator=gen).to(dtype)
+        for B in (1, 4, 8):
+            kc, vc = (kc8, vc8) if B == 8 else (kc8[:, :B].contiguous(), vc8[:, :B].contiguous())
+            pos_l = [1000] if B == 1 else BATCH_POS[:B]
+            pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+            tight = max(pos_l) + 1
+            q = torch.randn((B, kv * group, hd), device=dev, generator=gen).to(torch.bfloat16)
+            got = flash_decode.flash_decode_attention_batched(q, kc, vc, pos, 2).float()
+            got32 = flash_decode.flash_decode_attention_batched(q.float(), kc, vc, pos, 2)
+            again32 = flash_decode.flash_decode_attention_batched(q.float(), kc, vc, pos, 2)
+            tight32 = flash_decode.flash_decode_attention_batched(q.float(), kc, vc, pos, 2, tight)
+            # a bound below the rows' pos + 1: fewer chunks, every prefix still read
+            short = max(1, tight // 4)
+            short32 = flash_decode.flash_decode_attention_batched(q.float(), kc, vc, pos, 2, short)
+            torch.cuda.synchronize()
+            ref = flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, 2).float()
+            ref32 = flash_decode.flash_decode_attention_batched_ref(q.float(), kc, vc, pos, 2)
+            err = (got - ref).abs().max().item()
+            err32 = (got32 - ref32).abs().max().item()
+            err_short = (short32 - ref32).abs().max().item()
+            scale = ref32.abs().max().item()
+            repeat = bool(torch.equal(got32, again32) and torch.equal(got32, tight32))
+            tol, tol32 = 2.0 ** -7 * scale, 1e-5 * scale
+            max_split = flash_decode.max_splits(B * kv, n_sm)
+            grid = [kv, flash_decode.n_chunks(S, max_split), B]
+            grid_tight = [kv, flash_decode.n_chunks(tight, max_split), B]
+            log(f"  flash_decode_batched cache={str(dtype).split('.')[-1]} B={B} pos={pos_l}: grid "
+                f"{tuple(grid)} (tight bound {tight}: {tuple(grid_tight)}), at most {max_split} "
+                f"chunks a row; bf16 out max_abs_err {err:.3e} (tol 2^-7*max = {tol:.3e}), f32 "
+                f"out {err32:.3e} (tol 1e-5*max = {tol32:.3e}); repeat and tight-bound "
+                f"bit-equal: {repeat}; too-small bound {short} (grid "
+                f"{flash_decode.n_chunks(short, max_split)} chunks) f32 out {err_short:.3e}")
+            if not (err <= tol and err32 <= tol32 and err_short <= tol32 and repeat):
+                fail(f"flash_decode_batched {dtype} B={B}: {err} > {tol}, {err32} or "
+                     f"{err_short} (bound {short}) > {tol32}, or launches differ")
+            row = {"cache": str(dtype), "B": B, "pos": pos_l, "max_abs_err": err, "tol": tol,
+                   "max_abs_err_f32": err32, "tol_f32": tol32, "repeat_bit_equal": repeat,
+                   "short_bound": short, "max_abs_err_short_bound": err_short,
+                   "grid": grid, "grid_tight": grid_tight, "max_split": max_split}
+            if dtype == torch.bfloat16 and B == 8:
+                kn, vn = kc.clone(), vc.clone()
+                for b, p in enumerate(pos_l):
+                    kn[:, b, p + 1:] = float("nan")
+                    vn[:, b, p + 1:] = float("nan")
+                poisoned = flash_decode.flash_decode_attention_batched(q.float(), kn, vn, pos, 2)
+                torch.cuda.synchronize()
+                nan_ok = bool(torch.isfinite(poisoned).all() and torch.equal(poisoned, got32))
+                log(f"    NaN past every row's prefix: finite and bit-equal to the clean launch: "
+                    f"{nan_ok}")
+                if not nan_ok:
+                    fail("flash_decode_batched: NaN past a row's prefix reached its output")
+                del kn, vn
+                row["nan_past_prefix_bit_equal"] = nan_ok
+                layers = itertools.count()
+                row["ms"] = time_ms(torch, lambda: flash_decode.flash_decode_attention_batched(
+                    q, kc, vc, pos, next(layers) % L, tight))
+                row["plain_ms"] = time_ms(torch, lambda: (
+                    flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, 2)), 10)
+                # the row slabs with each kv head repeated for its group: [B, H, S, hd]
+                ks = kc[2].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+                vs = vc[2].permute(0, 2, 1, 3).repeat_interleave(group, dim=1).contiguous()
+                qs = q[:, :, None]  # [B, H, 1, hd]
+                live = torch.arange(S, device=dev)[None, :] <= pos[:, None].long()
+                mask = live[:, None, None, :]  # [B, 1, 1, S]
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                row["library_ms"] = time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask))
+                nbytes = (2 * sum(p + 1 for p in pos_l) * kv * hd * kc.element_size()
+                          + 2 * q.numel() * 2)
+                b_ms, by = bound_ms(nbytes, 4.0 * sum(p + 1 for p in pos_l) * kv * group * hd,
+                                    BF16_FLOPS)
+                row["bound_ms"], row["bound_by"] = b_ms, by
+                log(f"    B=8 time {row['ms']:.4f} ms per launch (grid {tuple(grid_tight)})  bound "
+                    f"{b_ms:.5f} ms ({by}: the rows' live prefixes)  plain {row['plain_ms']:.4f} "
+                    f"ms  sdpa with a live mask {row['library_ms']:.4f} ms")
+            rows.append(row)
+        del kc8, vc8, kc, vc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase1_rope_batched(torch, dev, gen) -> list:
+    """Batched K5 bit-equal to its plain version for bf16 and f8 caches in
+    both rope styles at B = 8, a row at S - 1 and one past it (clamped);
+    timed at B = 8 (bf16, interleaved) beside its bound and plain version."""
+    from dllama_tpu_torch.ops import fused_rope_cache
+    from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
+
+    rows = []
+    L, S, kv, _, hd = BATCH_SHAPE
+    B = 8
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
+    pos_l = [0, 116, 1000, S - 1, S + 5, 32, 500, 7]  # S + 5 clamps to S - 1
+    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+    idx = pos.clamp(max=S - 1).long()
+    c, s = cos[idx][:, None], sin[idx][:, None]
+    for style in (INTERLEAVED, HALF):
+        for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            k = torch.randn((B, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+            v = torch.randn((B, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+            kc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
+            vc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
+            kr, vr = kc.clone(), vc.clone()
+            fused_rope_cache.rope_cache_update_batched(k, v, c, s, kc, vc, pos, 1, style)
+            torch.cuda.synchronize()
+            fused_rope_cache.rope_cache_update_batched_ref(k, v, c, s, kr, vr, pos, 1, style)
+            diff = int((kc.view(torch.uint8) != kr.view(torch.uint8)).sum()
+                       + (vc.view(torch.uint8) != vr.view(torch.uint8)).sum())
+            err = max((kc.float() - kr.float()).abs().max().item(),
+                      (vc.float() - vr.float()).abs().max().item())
+            log(f"  rope_cache_update_batched {style:11s} B={B} pos={pos_l} "
+                f"cache={str(dtype).split('.')[-1]}: {diff} cache bytes differ (tol 0)")
+            if diff:
+                fail(f"rope_cache_update_batched {style} {dtype}: {diff} bytes differ")
+            row = {"style": style, "B": B, "pos": pos_l, "cache": str(dtype),
+                   "bytes_differ": diff, "max_abs_err": err}
+            if style == INTERLEAVED and dtype == torch.bfloat16:
+                row["ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update_batched(
+                    k, v, c, s, kc, vc, pos, 1, style))
+                row["plain_ms"] = time_ms(
+                    torch, lambda: fused_rope_cache.rope_cache_update_batched_ref(
+                        k, v, c, s, kr, vr, pos, 1, style))
+                nbytes = 2 * (2 * B * kv * hd * 2) + 2 * B * hd // 2 * 4
+                b_ms, by = bound_ms(nbytes, 6.0 * B * kv * hd // 2, F32_FLOPS)
+                row["bound_ms"], row["bound_by"], row["library_ms"] = b_ms, by, None
+                log(f"    B=8 time {row['ms']:.4f} ms per launch  bound {b_ms:.6f} ms ({by})  "
+                    f"plain {row['plain_ms']:.4f} ms  (no single PyTorch call)")
+            rows.append(row)
     return rows
 
 
@@ -471,12 +660,19 @@ class plain_versions:
         self.saved = [(qmatmul, "q40_matmul", qmatmul.q40_matmul),
                       (qmatmul, "q80_matmul", qmatmul.q80_matmul),
                       (llama, "rope_cache_update", llama.rope_cache_update),
+                      (llama, "rope_cache_update_batched", llama.rope_cache_update_batched),
                       (flash_decode, "flash_decode_attention",
-                       flash_decode.flash_decode_attention)]
+                       flash_decode.flash_decode_attention),
+                      (flash_decode, "flash_decode_attention_batched",
+                       flash_decode.flash_decode_attention_batched)]
         qmatmul.q40_matmul = qmatmul.q40_matmul_ref
         qmatmul.q80_matmul = qmatmul.q80_matmul_ref
         llama.rope_cache_update = fused_rope_cache.rope_cache_update_ref
+        llama.rope_cache_update_batched = fused_rope_cache.rope_cache_update_batched_ref
         flash_decode.flash_decode_attention = flash_decode.flash_decode_attention_ref
+        flash_decode.flash_decode_attention_batched = (
+            lambda q, kc, vc, pos, layer, bound=None:
+            flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, layer))
         return self
 
     def __exit__(self, *exc):
@@ -794,6 +990,218 @@ def phase3() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: batched decode through Engine.generate_batch and BatchSession
+# ---------------------------------------------------------------------------
+
+def batch_prompts(cfg, n: int, seed: int) -> list:
+    """``n`` seeded prompts of 20-100 tokens."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(20, 101, (n,), generator=g).tolist()
+    return [torch.randint(0, cfg.vocab_size, (m,), generator=g).tolist() for m in lens]
+
+
+def leading_equal(a: list, b: list) -> int:
+    """How many leading tokens two streams share."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def phase4(torch, dev, kind: str, batches: tuple, solo_ms: float, cfg_kw=None,
+           steps: int = 32) -> dict:
+    """``Engine.generate_batch`` on the Llama-3-8B shape with random ``kind``
+    weights and a bf16 batch cache: the gates (a) step against solo, (d)
+    launch counts, and for the largest batch of several (b) neighbours and
+    (c) mid-flight admission; then ms per step, tokens/s, the profiler's
+    device time and the solo-stream agreement at each batch size, and the
+    largest batch's ms per step sampled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig, row_seed
+
+    cfg = ModelConfig(**(cfg_kw or LLAMA3_8B))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = llama.random_quant_params(cfg, dev, gen, kind)
+    engine = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
+                    cache_dtype=torch.bfloat16, device=dev)
+    B_max = max(batches)
+    prompts = batch_prompts(cfg, B_max, 2)
+    out = {"kind": kind, "prompt_lens": [len(p) for p in prompts], "steps": steps}
+    shape = (cfg.n_layers, B_max, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
+    log(f"  {B_max} prompts of {out['prompt_lens']} tokens; bf16 batch cache {shape} x 2 = "
+        f"{2 * math.prod(shape) * 2 / 1e9:.2f} GB")
+
+    # (a) one batched step against each row's solo forward at T = 1, and
+    # against the same batched step through the plain versions
+    cache, pend, poss = engine._prefill_batch_rows(prompts)
+    tokens = torch.tensor(pend, dtype=torch.long, device=dev)
+    pos = torch.tensor(poss, dtype=torch.int32, device=dev)
+    snapshot = {n: c.clone() for n, c in cache.items()}
+    kernels.reset_launches()
+    lb, _ = llama.forward_batched(cfg, engine.params, engine.rope, tokens, cache, pos,
+                                  max(poss) + 1)
+    step_launches = dict(kernels.launches)
+    with plain_versions():
+        lp, _ = llama.forward_batched(cfg, engine.params, engine.rope, tokens, snapshot, pos)
+    del snapshot
+    err_p = (lb - lp).abs().max().item()
+    tol_p = 5e-2 * lp.abs().max().item()
+    log(f"  (a) batched step vs the same step through the plain versions: max |dlogit| "
+        f"{err_p:.4e} (tol 5e-2*max|logit| = {tol_p:.4e}, err/tol {err_p / tol_p:.4f})")
+    if not err_p <= tol_p:
+        fail(f"{kind} batched step vs plain versions: {err_p} > {tol_p}")
+    out["step_vs_plain_err_over_tol"] = err_p / tol_p
+    worst, argmax_same, row_err = 0.0, 0, []
+    for b, p in enumerate(prompts):
+        single = engine.new_cache()
+        _, single = engine.prefill(single, p[:-1])
+        ls, _ = llama.forward(cfg, engine.params, engine.rope, tokens[b:b + 1], single, poss[b])
+        err = (lb[b] - ls[0]).abs().max().item()
+        tol = 5e-2 * ls.abs().max().item()
+        worst = max(worst, err / tol)
+        row_err.append(err / tol)
+        argmax_same += int(int(lb[b].argmax()) == int(ls[0].argmax()))
+        if not (bool(torch.isfinite(lb[b]).all()) and err <= tol):
+            fail(f"{kind} batched step row {b}: max |dlogit| {err} > {tol} (5e-2*max|logit|)")
+        del single
+    del cache
+    torch.cuda.empty_cache()
+    log(f"  (a) batched step vs solo forward, {B_max} rows: |dlogit|/tol by row "
+        f"{[round(e, 4) for e in row_err]} (tol 5e-2*max|logit|, phase 2's); argmax equal in "
+        f"{argmax_same}/{B_max} rows")
+    out.update(step_vs_solo_worst_err_over_tol=worst, step_vs_solo_err_over_tol=row_err,
+               step_argmax_equal=argmax_same)
+
+    # (d) every step launches the batched K4 and K5 once per layer
+    want = {k: 0 for k in step_launches}
+    want.update({f"{kind}_matmul": 4 * cfg.n_layers + 1, "flash_decode_batched": cfg.n_layers,
+                 "rope_cache_update_batched": cfg.n_layers})
+    if step_launches != want:
+        fail(f"{kind} batched step launched {step_launches}, want {want}")
+
+    solo = {}
+    for B in batches:
+        rows = prompts[:B]
+        kernels.reset_launches()
+        got = engine.generate_batch(rows, steps)
+        launches = dict(kernels.launches)
+        if launches["flash_decode_batched"] != steps * cfg.n_layers or \
+                launches["rope_cache_update_batched"] != steps * cfg.n_layers or \
+                launches["flash_decode"] or launches["rope_cache_update"]:
+            fail(f"{kind} generate_batch B={B}: launches {launches}")
+        if any(len(r) != steps for r in got):
+            fail(f"{kind} generate_batch B={B}: rows of {[len(r) for r in got]} tokens")
+        # ms per step: chunks of 8 steps, one sync each
+        cache, pend, poss = engine._prefill_batch_rows(rows)
+        tok = torch.tensor(pend, dtype=torch.long, device=dev)
+        p_dev = torch.tensor(poss, dtype=torch.int32, device=dev)
+        temps, topps, gens = [0.0] * B, [1.0] * B, [None] * B
+        host, per_step = list(poss), []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunk, ok, p_dev = engine._decode_chunk_batch(cache, tok, p_dev, 8, temps, topps, gens,
+                                                          host)
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3 / 8)
+            tok, host = chunk[-1], [min(p + 8, cfg.seq_len - 1) for p in host]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            engine._decode_chunk_batch(cache, tok, p_dev, 3, temps, topps, gens, host)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / 3
+        sampled = []
+        if B == B_max:
+            # the same chunks sampled: temperature 0.8, top-p 0.9, a generator per row
+            s_gens = [torch.Generator(device=dev).manual_seed(row_seed(0, b)) for b in range(B)]
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine._decode_chunk_batch(cache, tok, p_dev, 8, [0.8] * B, [0.9] * B, s_gens,
+                                           host)
+                torch.cuda.synchronize()
+                sampled.append((time.perf_counter() - t0) * 1e3 / 8)
+        del cache
+        by_name, families = device_time(prof, 3)
+        busy = sum(by_name.values())
+        ms = statistics.median(per_step)
+        r = {"B": B, "ms_per_step_median": ms, "ms_per_step": per_step,
+             "tokens_per_s": B * 1e3 / ms, "solo_tokens_per_s": 1e3 / solo_ms if solo_ms else None,
+             "launches": launches, "prefill_ms": engine.prefill_ms, "decode_ms": engine.decode_ms,
+             "tokens": got}
+        if sampled:
+            r.update(sampled_ms_per_step=sampled, sampled_ms_per_step_median=statistics.median(
+                sampled))
+        if busy > 0:
+            r.update(device_busy_ms_per_step=busy, profiled_wall_ms_per_step=wall,
+                     idle_share=max(0.0, 1.0 - busy / wall), kernels_per_step=families,
+                     cuda_launches_per_step=sum(v["launches"] for v in families.values()))
+        else:
+            r.update(device_busy_ms_per_step="not measured", idle_share="not measured")
+        # the rows' solo greedy streams (reported, not gated)
+        for b in range(B):
+            if b not in solo:
+                solo[b] = [t for t, _ in engine.generate(prompts[b], steps)]
+        r["leading_tokens_equal_solo"] = [leading_equal(got[b], solo[b]) for b in range(B)]
+        vs = f" ({r['tokens_per_s'] * solo_ms / 1e3:.2f}x solo's {1e3 / solo_ms:.2f})" if solo_ms \
+            else ""
+        log(f"  B={B}: {ms:.3f} ms per step (median of 4 chunks of 8, one sync each), "
+            f"{r['tokens_per_s']:.1f} tokens/s{vs}; launches over 32 steps {launches}")
+        if sampled:
+            log(f"    sampled (temperature 0.8, top-p 0.9, a generator per row): "
+                f"{r['sampled_ms_per_step_median']:.3f} ms per step (median of 2 chunks of 8)")
+        if busy > 0:
+            log(f"    profiler, 3 steps: device busy {busy:.3f} ms/step of {wall:.3f} ms wall "
+                f"(idle share {r['idle_share']:.3f}), {r['cuda_launches_per_step']:.0f} CUDA "
+                f"launches per step; by kernel:")
+            for fam, v in families.items():
+                log(f"      {v['ms']:.4f} ms ({v['ms'] / busy:.3f} of busy) in "
+                    f"{v['launches']:.0f} CUDA launches  {fam}")
+        log(f"    greedy tokens equal to the row's solo stream (leading, of {steps}): "
+            f"{r['leading_tokens_equal_solo']}")
+        out[f"B{B}"] = r
+
+    if len(batches) > 1:
+        # (b) row 0 against neighbours that differ in every other row
+        other = [prompts[0]] + batch_prompts(cfg, B_max - 1, 3)
+        a = out[f"B{B_max}"]["tokens"][0]
+        b0 = engine.generate_batch(other, steps)[0]
+        log(f"  (b) row 0 bit-identical across two batches of {B_max} with other neighbours: "
+            f"{a == b0}")
+        if a != b0:
+            fail(f"{kind} row 0 changed with its neighbours: {a} vs {b0}")
+        # (c) mid-flight admission into a BatchSession of 4
+        x = prompts[1]
+        sess = engine.batch_session(max_batch=4, chunk=8)
+        h = sess.admit(x, steps=16)
+        start = []
+        while not sess.is_done(h):
+            start += sess.step_chunk().get(h, [])
+        sess.close()
+        sess = engine.batch_session(max_batch=4, chunk=8)
+        for p in prompts[2:4]:
+            sess.admit(p, steps=24)
+        sess.step_chunk()
+        h = sess.admit(x, steps=16)
+        mid = []
+        while not sess.is_done(h):
+            mid += sess.step_chunk().get(h, [])
+        sess.close()
+        log(f"  (c) BatchSession(max_batch=4): admitted mid-flight == admitted at the start: "
+            f"{mid == start} ({len(mid)} tokens)")
+        if mid != start or len(mid) != 16:
+            fail(f"{kind} mid-flight admission: {mid} vs {start}")
+        out.update(neighbours_bit_equal=True, mid_flight_bit_equal=True)
+    del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def per_token(rows: list, key: str) -> float:
     """A per-launch number summed over one decode token's launches."""
     return sum(r[key] * r["launches_per_token"] for r in rows)
@@ -814,6 +1222,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
+    def header(title: str) -> None:
+        log(f"== {title} (at {time.perf_counter() - t_start:.0f} s)")
+
     log("== phase 0: card, versions, kernel build")
     card = gpu_line()
     log(f"  {card}")
@@ -827,24 +1238,31 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     log(f"  kernels built and loaded in {build_s:.1f} s: {so.relative_to(ROOT)}")
 
-    log("== phase 1: kernels vs plain versions (Llama-3-8B shapes)")
+    header("phase 1: kernels vs plain versions (Llama-3-8B shapes)")
     gen = torch.Generator(device=dev).manual_seed(0)
     q40 = phase1_matmul(torch, dev, gen, "q40")
     q80 = phase1_matmul(torch, dev, gen, "q80")
     variants = phase1_variants(torch, dev, gen)
     flash = phase1_flash(torch, dev, gen)
     rope = phase1_rope(torch, dev, gen)
+    flash_b = phase1_flash_batched(torch, dev, gen)
+    rope_b = phase1_rope_batched(torch, dev, gen)
 
-    log("== phase 2: Engine.generate, Llama-3-8B shape, random Q40, 100 + 32 tokens")
+    header("phase 2: Engine.generate, Llama-3-8B shape, random Q40, 100 + 32 tokens")
     e2e = phase2(torch, dev, "q40")
-    log("== phase 2: Engine.generate, Llama-3-8B shape, random Q80, 100 + 32 tokens")
+    header("phase 2: Engine.generate, Llama-3-8B shape, random Q80, 100 + 32 tokens")
     e2e80 = phase2(torch, dev, "q80")
 
-    log("== phase 2c: python -m dllama_tpu_torch.qkernel_experiments all (K 4096, O 11008)")
+    header("phase 2c: python -m dllama_tpu_torch.qkernel_experiments all (K 4096, O 11008)")
     exp = phase_experiments(torch)
 
-    log("== phase 3: python -m dllama_tpu_torch.cli generate on small Q40 and Q80 models")
+    header("phase 3: python -m dllama_tpu_torch.cli generate on small Q40 and Q80 models")
     cli = phase3()
+
+    header("phase 4: Engine.generate_batch, Llama-3-8B shape, random Q40, B = 1, 4, 8")
+    batch = phase4(torch, dev, "q40", (1, 4, 8), e2e["decode_ms_median"])
+    header("phase 4: Engine.generate_batch, Llama-3-8B shape, random Q80, B = 8")
+    batch80 = phase4(torch, dev, "q80", (8,), e2e80["decode_ms_median"])
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
@@ -888,7 +1306,10 @@ def main() -> None:
     fl_row = next(r for r in flash if "timed" in r)
     fl = next(t for t in fl_row["timed"] if t["pos"] == 1000)
     rp = next(r for r in rope if "ms" in r)
+    flb = next(r for r in flash_b if "ms" in r)
+    rpb = next(r for r in rope_b if "ms" in r)
     launches, launches80 = e2e["launches"], e2e80["launches"]
+    launches_b = batch["B8"]["launches"]
     summary = {"kernels": [
         matmul_entry("q40_matmul", q40, "dllama_tpu_torch/csrc/q40_matmul.cu",
                      "dllama_tpu/ops/qmatmul.py:361 (_q40_kernel) + :412 (_q40_corr_kernel)",
@@ -914,6 +1335,28 @@ def main() -> None:
          "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
          "bound_by": rp["bound_by"], "library_ms": None,
          "per": "one launch: T=1, kv=8, hd=128, bf16 activations and cache"},
+        {"name": "flash_decode_batched", "route": "cuda",
+         "source": "dllama_tpu_torch/csrc/flash_decode.cu",
+         "replaces": "dllama_tpu/ops/flash_decode.py:263 (flash_decode_attention_batched) via "
+                     "_launch :172", "tpu_kernels": ["K4"],
+         "launches": launches_b["flash_decode_batched"],
+         "launches_q80_decode": batch80["B8"]["launches"]["flash_decode_batched"],
+         "max_abs_err": max(r["max_abs_err"] for r in flash_b),
+         "ms": flb["ms"], "plain_ms": flb["plain_ms"], "bound_ms": flb["bound_ms"],
+         "bound_by": flb["bound_by"], "library_ms": flb["library_ms"], "grid": flb["grid_tight"],
+         "per": f"one launch: B=8 rows at pos {flb['pos']}, S=1024 bf16 cache, kv=8, group 4, "
+                "hd=128; launches: phase 4's B=8 generate_batch (32 steps)"},
+        {"name": "rope_cache_update_batched", "route": "cuda",
+         "source": "dllama_tpu_torch/csrc/rope_cache.cu",
+         "replaces": "dllama_tpu/ops/fused_rope_cache.py:235 (rope_cache_update_batched) via "
+                     "_launch :132", "tpu_kernels": ["K5"],
+         "launches": launches_b["rope_cache_update_batched"],
+         "launches_q80_decode": batch80["B8"]["launches"]["rope_cache_update_batched"],
+         "max_abs_err": max(r["max_abs_err"] for r in rope_b),
+         "ms": rpb["ms"], "plain_ms": rpb["plain_ms"], "bound_ms": rpb["bound_ms"],
+         "bound_by": rpb["bound_by"], "library_ms": None,
+         "per": "one launch: B=8 rows, kv=8, hd=128, bf16 activations and cache; launches: "
+                "phase 4's B=8 generate_batch (32 steps)"},
         variant_entry("q40_nosub_matmul", "dllama_tpu_torch/csrc/q40_matmul.cu",
                       "scripts/qkernel_experiments.py:60 (_q40_nosub_kernel)", ["K6"]),
         variant_entry("q40_int8_matmul", "dllama_tpu_torch/csrc/q40_int8_matmul.cu",
@@ -921,7 +1364,9 @@ def main() -> None:
     ]}
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "q40": q40, "q80": q80, "variants": variants,
-               "flash_decode": flash, "rope_cache": rope, "e2e": e2e, "e2e_q80": e2e80,
+               "flash_decode": flash, "rope_cache": rope, "flash_decode_batched": flash_b,
+               "rope_cache_batched": rope_b, "e2e": e2e, "e2e_q80": e2e80,
+               "batch_q40": batch, "batch_q80": batch80,
                "experiments": exp, "cli": cli, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

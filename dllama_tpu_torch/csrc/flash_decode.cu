@@ -1,27 +1,40 @@
 // Flash-decode attention for Hopper (sm_90a), split over the sequence.
 //
-// Replaces the TPU kernel dllama_tpu/ops/flash_decode.py::_kernel (K4), solo
-// form: online-softmax GQA decode attention over the live cache prefix only,
-// reading the stacked cache [L, S, kv, hd] in place at `layer`.
+// Replaces the TPU kernel dllama_tpu/ops/flash_decode.py::_kernel (K4) in
+// both launch forms of its _launch: the solo form (flash_decode_attention,
+// one sequence of T <= 16 query rows) and the batched form
+// (flash_decode_attention_batched, B sequences of one token each). Online-
+// softmax GQA decode attention over each sequence's own live cache prefix,
+// reading the stacked cache [L, B, S, kv, hd] in place at `layer` (the solo
+// cache [L, S, kv, hd] is the B = 1 case).
 //
-// Function: for query row r = t * group + g of kv head h (query head
-// h * group + g), out = softmax_n(q . k_n * scale) . v_n over cache
-// positions n <= pos + t, with scale = rsqrt(hd) (passed in by the
+// Function: for sequence b and query row r = t * group + g of kv head h
+// (query head h * group + g), out = softmax_n(q . k_n * scale) . v_n over
+// cache positions n <= pos[b] + t, with scale = rsqrt(hd) (passed in by the
 // wrapper), masked scores -1e30, everything in f32; bf16, f32 and
-// float8_e4m3fn caches are upcast to f32.
+// float8_e4m3fn caches are upcast to f32. pos[b] comes from a device int32
+// vector (batched) or a host int (solo), clamped into [0, S - 1].
 //
 // What bounds it on the H100: bytes — 2 * (pos + T) * kv * hd cache elements
-// per layer and token (4.1 MB for a bf16 Llama-3-8B layer at pos 1000, about
-// 1.2 us at 3.35 TB/s, below the card's launch latency), with ~4 flops per
-// cache element.
+// per layer, sequence and token (4.1 MB for a bf16 Llama-3-8B layer at pos
+// 1000, about 1.2 us at 3.35 TB/s, below the card's launch latency), with ~4
+// flops per cache element.
 //
 // Design: flash-decoding. The TPU walks 256-position blocks in order on one
-// core; here the live prefix is cut into n_split chunks of `chunk`
-// positions (ops/flash_decode.py split_plan: enough chunks that kv * n_split
-// blocks fill the card) and the grid is (kv, n_split). A block of 4 warps
-// streams its chunk through shared memory in 32-position tiles of K and V
-// with cp.async (3 stages; neighbouring threads copy neighbouring 16 bytes
-// of one cache row; rows past the live prefix are zero-filled, never read).
+// core; here each sequence's live prefix is cut into chunks and the grid is
+// (kv, n_split, B). Each row plans its own chunks from its own live length
+// (ops/flash_decode.py split_plan: min(ceil(live / 32), max_split) chunks of
+// ceil(live / chunks) positions, max_split from the host so that B * kv *
+// max_split blocks give every SM two), so a sequence's arithmetic depends on
+// its own position and B alone, never on its neighbours. The grid's n_split
+// covers the longest row the host's upper bound allows; a block whose chunk
+// starts at or past its row's live length writes the empty partial
+// (-1e30, 0, 0) and leaves. The grid depends on B, the cache shape and the
+// host bound only, never on a row's position.
+// A block of 4 warps streams its chunk through shared memory in 32-position
+// tiles of K and V with cp.async (3 stages; neighbouring threads copy
+// neighbouring 16 bytes of one cache row; rows past the chunk are
+// zero-filled, never read).
 // All T * group query rows of the kv head share each tile: warp w owns rows
 // w, w + 4, ... (1, 2 or 4 per warp, as few as cover the rows, up to 16 a
 // pass; more rows take more passes over the chunk) and keeps their
@@ -29,13 +42,15 @@
 // shared memory (rows padded by 16 bytes, so the lanes' 16-byte reads hit
 // distinct banks). Values: the probabilities go to the lanes by shuffle and
 // each lane accumulates the dims lane, lane + 32, ... of the V rows.
-// With one chunk the block writes acc / l. Otherwise each block writes its
-// partial (m, l, acc) to f32 scratch, and the last block of a kv head to
-// arrive (arrival counter + __threadfence) merges the head's partials in
-// split order 0..n_split-1 and resets its counter to 0: the result does
-// not depend on the order the blocks ran in. A chunk whose positions all lie
-// past pos + t gives row t the partial (-1e30, 0, 0), which the merge
-// weighs by exp(-1e30 - M) = 0.
+// With one chunk in the grid the block writes acc / l. Otherwise each block
+// writes its partial (m, l, acc) to f32 scratch, and the last block of a
+// (sequence, kv head) to arrive (arrival counter + __threadfence) merges
+// its partials in split order 0..n_split-1 and resets its counter to 0: the
+// result does not depend on the order the blocks ran in. An empty partial
+// weighs exp(-1e30 - M) = 0 and adds exact zeros, so trailing empty chunks
+// leave a row's bits as they are: a row gives the same bits whatever grid
+// the host bound picks. A chunk whose positions all lie past pos + t gives
+// row t the same empty partial.
 #include "common.cuh"
 
 namespace {
@@ -109,14 +124,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 struct Args {
-  const void* q;    // [T, H, hd] f32 or bf16 (act_bf16)
-  const void* kc;
+  const void* q;       // [B, T, H, hd] f32 or bf16 (act_bf16)
+  const void* kc;      // [L, B, S, kv, hd]
   const void* vc;
-  void* out;        // [T, H, hd] in q's dtype
-  float* part_acc;  // [kv, n_split, R, hd]
-  float* part_ml;   // [kv, n_split, R, 2]
-  int* counters;    // [kv], zero between launches
-  int T, H, hd, S, kv, pos, layer, n_split, chunk, act_bf16;
+  void* out;           // [B, T, H, hd] in q's dtype
+  float* part_acc;     // [B, kv, n_split, R, hd]
+  float* part_ml;      // [B, kv, n_split, R, 2]
+  int* counters;       // [B * kv], zero between launches
+  const int* pos_dev;  // [B] int32 on the device, or null: every row at `pos`
+  int B, T, H, hd, S, kv, pos, layer, n_split, max_split, act_bf16;
   float scale;
 };
 
@@ -142,7 +158,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   constexpr int kRowsPerPass = kWarps * RPW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int hd = a.hd, group = a.H / a.kv, R = a.T * group;
-  const int h = blockIdx.x, split = blockIdx.y;
+  const int h = blockIdx.x, split = blockIdx.y, b = blockIdx.z;
+  const int hb = b * a.kv + h;  // this (sequence, kv head)'s partials and counter
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row_bytes = hd * (int)sizeof(CacheT);
   const int srow = row_bytes + kPad;               // smem bytes per cache row
@@ -150,15 +167,21 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   float* qs = reinterpret_cast<float*>(smem_raw);  // [kRowsPerPass, hd]
   unsigned char* ring = smem_raw + (size_t)kMaxRowsPerPass * hd * sizeof(float);
 
-  const int live = min(a.pos + a.T, a.S);
-  const int c0 = split * a.chunk;
-  const int c1 = min(live, c0 + a.chunk);
-  const int ntile = (c1 - c0 + kTile - 1) / kTile;
+  // this row's own split plan (n_chunks): chunks of ceil(live / n)
+  const int pos = min(max(a.pos_dev != nullptr ? a.pos_dev[b] : a.pos, 0), a.S - 1);
+  const int live = min(pos + a.T, a.S);
+  // clamped to the grid: a host bound below this row's live length still
+  // covers its whole prefix (a right bound never reaches the clamp)
+  const int n_chunks = max(1, min(min((live + kTile - 1) / kTile, a.max_split), a.n_split));
+  const int chunk = (live + n_chunks - 1) / n_chunks;
+  const int c0 = split * chunk;
+  const int c1 = min(live, c0 + chunk);
+  const int ntile = c0 < live ? (c1 - c0 + kTile - 1) / kTile : 0;
   const size_t gstride = (size_t)a.kv * hd;  // cache elements per position
-  const CacheT* kbase =
-      static_cast<const CacheT*>(a.kc) + (size_t)a.layer * a.S * gstride + (size_t)h * hd;
-  const CacheT* vbase =
-      static_cast<const CacheT*>(a.vc) + (size_t)a.layer * a.S * gstride + (size_t)h * hd;
+  const size_t slab = ((size_t)a.layer * a.B + b) * a.S * gstride + (size_t)h * hd;
+  const CacheT* kbase = static_cast<const CacheT*>(a.kc) + slab;
+  const CacheT* vbase = static_cast<const CacheT*>(a.vc) + slab;
+  const size_t qrow0 = (size_t)b * a.T;  // this sequence's first query row
   constexpr int kVec = Vec16<CacheT>::n;
   const int row_chunks = row_bytes / 16;
 
@@ -179,7 +202,18 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
     }
   };
 
-  for (int r0 = 0; r0 < R; r0 += kRowsPerPass) {
+  if (ntile == 0) {  // a chunk past this row's live prefix: the empty partial
+    for (int i = threadIdx.x; i < R * hd; i += kThreads) {
+      const int row = i / hd, d = i - row * hd;
+      const size_t pr = ((size_t)hb * a.n_split + split) * R + row;
+      a.part_acc[pr * hd + d] = 0.f;
+      if (d == 0) {
+        a.part_ml[pr * 2] = -1e30f;
+        a.part_ml[pr * 2 + 1] = 0.f;
+      }
+    }
+  }
+  for (int r0 = 0; ntile > 0 && r0 < R; r0 += kRowsPerPass) {
     const int rp = min(kRowsPerPass, R - r0);
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) {  // the first tiles' loads fly while q is staged
@@ -191,7 +225,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
       float v = 0.f;
       if (r < rp) {
         const int row = r0 + r, t = row / group, g = row - t * group;
-        v = load_act(a, ((size_t)t * a.H + (size_t)h * group + g) * hd + d);
+        v = load_act(a, ((qrow0 + t) * a.H + (size_t)h * group + g) * hd + d);
       }
       qs[i] = v;
     }
@@ -199,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
     const int nr = rp > warp ? (rp - warp + kWarps - 1) / kWarps : 0;
     int qpos[RPW];  // the last position each row attends to
 #pragma unroll
-    for (int j = 0; j < RPW; ++j) qpos[j] = a.pos + (r0 + warp + kWarps * j) / group;
+    for (int j = 0; j < RPW; ++j) qpos[j] = pos + (r0 + warp + kWarps * j) / group;
 
     float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
@@ -295,14 +329,14 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
       const int row = r0 + warp + kWarps * j;
       if (a.n_split == 1) {
         const int t = row / group, g = row - t * group;
-        const size_t o = ((size_t)t * a.H + (size_t)h * group + g) * hd;
+        const size_t o = ((qrow0 + t) * a.H + (size_t)h * group + g) * hd;
 #pragma unroll
         for (int e = 0; e < DPL; ++e) {
           const int d = lane + 32 * e;
           if (d < hd) store_out(a, o + d, acc[j][e] / l[j]);
         }
       } else {
-        const size_t pr = ((size_t)h * a.n_split + split) * R + row;
+        const size_t pr = ((size_t)hb * a.n_split + split) * R + row;
 #pragma unroll
         for (int e = 0; e < DPL; ++e) {
           const int d = lane + 32 * e;
@@ -318,12 +352,12 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   }
   if (a.n_split == 1) return;
 
-  // the last block of this kv head to arrive merges the partials
+  // the last block of this (sequence, kv head) to arrive merges the partials
   __shared__ int is_last;
   __syncthreads();  // every partial of this block written
   if (threadIdx.x == 0) {
     __threadfence();
-    is_last = atomicAdd(a.counters + h, 1) == a.n_split - 1;
+    is_last = atomicAdd(a.counters + hb, 1) == a.n_split - 1;
     __threadfence();
   }
   __syncthreads();
@@ -332,7 +366,7 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   float* fs = reinterpret_cast<float*>(ring);         // [n_split, kMergeRows]: m, then weights
   float* lsm = fs + (size_t)a.n_split * kMergeRows;   // [n_split, kMergeRows]: l
   float* ls = lsm + (size_t)a.n_split * kMergeRows;   // [kMergeRows]: sum of weighted l
-  const size_t hbase = (size_t)h * a.n_split * R;
+  const size_t hbase = (size_t)hb * a.n_split * R;
   for (int r0 = 0; r0 < R; r0 += kMergeRows) {
     const int rp = min(kMergeRows, R - r0);
     for (int i = threadIdx.x; i < a.n_split * rp; i += kThreads) {
@@ -364,11 +398,11 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
         v = fmaf(__ldcg(a.part_acc + (hbase + (size_t)sp * R + row) * hd + d),
                  fs[sp * kMergeRows + r], v);
       const int t = row / group, g = row - t * group;
-      store_out(a, ((size_t)t * a.H + (size_t)h * group + g) * hd + d, v / ls[r]);
+      store_out(a, ((qrow0 + t) * a.H + (size_t)h * group + g) * hd + d, v / ls[r]);
     }
     __syncthreads();
   }
-  if (threadIdx.x == 0) a.counters[h] = 0;  // ready for the next launch
+  if (threadIdx.x == 0) a.counters[hb] = 0;  // ready for the next launch
 }
 
 template <typename CacheT, int RPW, int DPL>
@@ -380,7 +414,7 @@ int launch(const Args& a, cudaStream_t st) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(a.kv, a.n_split), kThreads, smem, st>>>(a);
+  kernel<<<dim3(a.kv, a.n_split, a.B), kThreads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -401,23 +435,27 @@ int launch_rows(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// q: [T, H, hd], f32 (act_kind 0) or bf16 (1); caches [L, S, kv, hd] of kind
-// 0 f32 / 1 bf16 / 2 f8; out: [T, H, hd] in q's dtype. hd % 16 == 0 and
-// hd <= 256 (checked by the wrapper).
-// The live prefix min(pos + T, S) is cut into n_split chunks of `chunk`
-// positions (ops/flash_decode.py split_plan); with n_split > 1, part_acc
-// (f32 [kv, n_split, T * H / kv, hd]) and part_ml (f32 [kv, n_split,
-// T * H / kv, 2]) are scratch and counters (int32 [>= kv]) must be zero,
+// q: [B, T, H, hd], f32 (act_kind 0) or bf16 (1); caches [L, B, S, kv, hd]
+// of kind 0 f32 / 1 bf16 / 2 f8; out: [B, T, H, hd] in q's dtype. hd % 16
+// == 0 and hd <= 256 (checked by the wrapper). Sequence b sits at pos_dev[b]
+// (device int32 [B]) or, with pos_dev null, every sequence at `pos`.
+// Each row cuts its live prefix min(pos + T, S) into at most max_split
+// chunks (ops/flash_decode.py n_chunks) and at most n_split; the grid is
+// (kv, n_split, B). With n_split > 1, part_acc (f32
+// [B, kv, n_split, T * H / kv, hd]) and part_ml (f32 [B, kv, n_split,
+// T * H / kv, 2]) are scratch and counters (int32 [>= B * kv]) must be zero,
 // and are left zero; launches that share the counters must not overlap.
 extern "C" int dllama_flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                                   void* out, int T, int H, int hd, int S, int kv, int pos,
-                                   int layer, float scale, int act_kind, int cache_kind,
-                                   int n_split, int chunk, void* part_acc, void* part_ml,
-                                   void* counters, void* stream) {
+                                   void* out, int B, int T, int H, int hd, int S, int kv,
+                                   const void* pos_dev, int pos, int layer, float scale,
+                                   int act_kind, int cache_kind, int n_split, int max_split,
+                                   void* part_acc, void* part_ml, void* counters,
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{q, k_cache, v_cache, out, static_cast<float*>(part_acc),
-               static_cast<float*>(part_ml), static_cast<int*>(counters), T, H, hd, S, kv, pos,
-               layer, n_split, chunk, act_kind, scale};
+               static_cast<float*>(part_ml), static_cast<int*>(counters),
+               static_cast<const int*>(pos_dev), B, T, H, hd, S, kv, pos, layer, n_split,
+               max_split, act_kind, scale};
   switch (cache_kind) {
     case 0: return launch_rows<float>(a, st);
     case 1: return launch_rows<__nv_bfloat16>(a, st);

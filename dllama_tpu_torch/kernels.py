@@ -41,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"q40_matmul": 0, "q80_matmul": 0, "flash_decode": 0, "rope_cache_update": 0,
+            "flash_decode_batched": 0, "rope_cache_update_batched": 0,
             "q40_nosub_matmul": 0, "q40_int8_matmul": 0}
 
 _P = ctypes.c_void_p
@@ -67,13 +68,13 @@ _SIGNATURES = {
     "dllama_q80_gemv": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
     # T, x_f32 -> resident GEMV blocks per SM
     "dllama_q80_gemv_blocks_per_sm": (_I, _I),
-    # q, k_cache, v_cache, out, T, H, hd, S, kv, pos, layer, scale, act_kind, cache_kind,
-    # n_split, chunk, part_acc, part_ml, counters, stream
-    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
-                            _P, _P, _P, _P),
-    # k, v, cos, sin, k_cache, v_cache, T, kv, hd, S, start, layer, half_style,
+    # q, k_cache, v_cache, out, B, T, H, hd, S, kv, pos_dev, pos, layer, scale, act_kind,
+    # cache_kind, n_split, max_split, part_acc, part_ml, counters, stream
+    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I,
+                            _I, _I, _P, _P, _P, _P),
+    # k, v, cos, sin, k_cache, v_cache, B, T, kv, hd, S, pos_dev, pos, layer, half_style,
     # act_kind, cache_kind, stream
-    "dllama_rope_cache_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "dllama_rope_cache_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                                  _I, _I, _I, _P),
 }
 

@@ -18,6 +18,12 @@ file's ``[out, in]`` rows). Decode steps (T <= 16) take the rope + cache-write
 kernel and flash-decode attention; prefill (T > 16) takes ``apply_rope``, a
 slice assignment and ``gqa_attention`` — the split the JAX package's kernel
 gates make.
+
+``forward_batched`` is one decode step for B independent sequences over a
+batch cache ``[L, B, S, kv, hd]``, each at its own position (a device
+vector): the projections are ordinary [B, K] matmuls, and rope, the cache
+write and attention are per row, through the batched launch forms of the
+same two kernels.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.ops import flash_decode
 from dllama_tpu_torch.ops.activations import ACTIVATIONS
 from dllama_tpu_torch.ops.attention import gqa_attention
-from dllama_tpu_torch.ops.fused_rope_cache import cast_cache, rope_cache_update
+from dllama_tpu_torch.ops.fused_rope_cache import (
+    cast_cache, rope_cache_update, rope_cache_update_batched,
+)
 from dllama_tpu_torch.ops.norms import rmsnorm
 from dllama_tpu_torch.ops.qmatmul import (
     K_MULTIPLE, QuantTensor, _pad_up, matmul_any, norm_fusion_engages, qmatmul_norm,
@@ -283,6 +291,16 @@ def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device=None) -> dict
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
 
+def init_batch_cache(cfg: ModelConfig, batch: int, cache_dtype=torch.float32,
+                     device=None) -> dict:
+    """KV cache for ``batch`` independent sequences: [L, B, seq_len,
+    n_kv_heads, head_size], on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
+    return {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
+
+
 def rope_tables(cfg: ModelConfig, device=None) -> dict:
     """The rope cos/sin tables [seq_len, head_size/2] f32, on the card unless
     ``device`` says otherwise."""
@@ -342,13 +360,7 @@ def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
     """One attention sub-block of layer ``layer``; writes this step's K/V
     into the stacked caches in place and returns the output [T, dim]."""
     T = x.shape[0]
-    if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
-        qkv = _norm_proj(x, lp["rms_att"], lp["wqkv"], cfg.norm_eps)
-        d, kv = cfg.dim, cfg.kv_dim
-        q, k, v = qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
-    else:
-        q, k, v = (_norm_proj(x, lp["rms_att"], lp[n], cfg.norm_eps)
-                   for n in ("wq", "wk", "wv"))
+    q, k, v = _qkv(cfg, lp, x)
     q = q.reshape(T, -1, cfg.head_size)
     k = k.reshape(T, -1, cfg.head_size)
     v = v.reshape(T, -1, cfg.head_size)
@@ -370,9 +382,46 @@ def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
     return matmul_any(out.reshape(T, -1), lp["wo"])
 
 
+def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> tuple:
+    """The attention projections of x [T, dim] (rms_att applied, fused into
+    the kernel under DLLAMA_FUSE_NORM): q [T, dim], k and v [T, kv_dim]."""
+    if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
+        qkv = _norm_proj(x, lp["rms_att"], lp["wqkv"], cfg.norm_eps)
+        d, kv = cfg.dim, cfg.kv_dim
+        return qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
+    return tuple(_norm_proj(x, lp["rms_att"], lp[n], cfg.norm_eps) for n in ("wq", "wk", "wv"))
+
+
+def _attn_block_batched(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                        layer: int, bound: int | None) -> torch.Tensor:
+    """Batched-decode attention of layer ``layer``: x [B, dim] carries B
+    independent sequences, row b at ``pos[b]`` (int32 [B] on x's device).
+    The projections are [B, K] matmuls (K1/K3 at T = B); rope takes each
+    row's own angle; the batched rope + cache-write kernel lands row b at
+    (layer, b, pos[b]) and the batched flash decode reads row b's own
+    prefix. Returns the output [B, dim]."""
+    B = x.shape[0]
+    q, k, v = (t.reshape(B, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
+    cos = rope["cos"][pos][:, None, :]  # per-row angle: [B, 1, hd/2]
+    sin = rope["sin"][pos][:, None, :]
+    q = apply_rope(q, cos, sin, cfg.rope_style)
+    rope_cache_update_batched(k, v, cos, sin, k_cache, v_cache, pos, layer, cfg.rope_style)
+    out = flash_decode.flash_decode_attention_batched(q, k_cache, v_cache, pos, layer, bound)
+    return matmul_any(out.reshape(B, -1), lp["wo"])
+
+
 def _layer_params(layers: dict, i: int) -> dict:
     return {name: (leaf.layer(i) if isinstance(leaf, QuantTensor) else leaf[i])
             for name, leaf in layers.items()}
+
+
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Final rmsnorm, then the classifier: f32 logits [rows, vocab]."""
+    logits = matmul_any(rmsnorm(x, params["rms_final"], cfg.norm_eps), params["wcls"]).float()
+    if cfg.logit_scale != 1.0:
+        logits = logits * cfg.logit_scale
+    return logits
 
 
 def forward(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
@@ -390,8 +439,24 @@ def forward(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
         x = _ffn_residual(cfg, lp, x, att_out)
     if last_pos is not None:
         x = x[last_pos:last_pos + 1]
-    x = rmsnorm(x, params["rms_final"], cfg.norm_eps)
-    logits = matmul_any(x, params["wcls"]).float()
-    if cfg.logit_scale != 1.0:
-        logits = logits * cfg.logit_scale
-    return logits, cache
+    return _logits(cfg, params, x), cache
+
+
+def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
+                    cache: dict, pos: torch.Tensor, bound: int | None = None) -> tuple:
+    """One decode step for B independent sequences -> (logits [B, vocab]
+    f32, cache), the cache ``{"k", "v": [L, B, S, kv, hd]}`` updated in place.
+
+    ``tokens`` [B] (one pending token per sequence) and ``pos`` int32 [B]
+    (each sequence's own position) stay on the device: nothing here reads
+    them back. ``bound``: a host upper bound of every ``pos + 1`` (default
+    seq_len), which only sizes flash decode's grid. The weights stream once
+    for all B rows; row b's math is ``forward`` at T = 1 and pos[b], summed
+    in the order the kernels take at B rows."""
+    x = embed(cfg, params, tokens)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer_params(layers, i)
+        att_out = _attn_block_batched(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, bound)
+        x = _ffn_residual(cfg, lp, x, att_out)
+    return _logits(cfg, params, x), cache

@@ -7,15 +7,20 @@ cache positions <= pos + t; masked scores are -1e30; scores are
 float8_e4m3fn caches are upcast to f32. Only the positions < pos + T are
 read, so the bytes per token scale with ``pos``, not ``seq_len``.
 
-``flash_decode_attention`` launches ``csrc/flash_decode.cu`` for a CUDA
-cache and runs ``flash_decode_attention_ref`` for a CPU one. The kernel masks
-its own ragged last block, so ``S`` need not divide into blocks.
+Two launch forms of one kernel, ``csrc/flash_decode.cu``, as the JAX
+package's ``_launch`` has them: :func:`flash_decode_attention` (one sequence,
+a host ``pos``) and :func:`flash_decode_attention_batched` (B sequences of
+one token over caches ``[L, B, S, kv, hd]``, each at its own position read
+from a device int32 vector; row b reads only its own prefix 0..pos[b]). Each
+runs its plain version (``*_ref``) for a CPU cache. The kernel masks its own
+ragged last block, so ``S`` need not divide into blocks.
 
-The kernel splits the live prefix across blocks (flash-decoding):
-:func:`split_plan` cuts it into ``n_split`` chunks, each block computes the
+The kernel splits each row's live prefix across blocks (flash-decoding):
+:func:`split_plan` cuts it into chunks, each block computes the
 online-softmax partial ``(m, l, acc)`` of its chunk, and the partials are
-merged in split order. :func:`flash_decode_split_ref` is that computation
-step by step in plain PyTorch.
+merged in split order. :func:`flash_decode_split_ref` and
+:func:`flash_decode_split_batched_ref` are that computation step by step in
+plain PyTorch.
 """
 
 from __future__ import annotations
@@ -103,15 +108,34 @@ def flash_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return _heads(acc / l, q)
 
 
-def split_plan(live: int, kv: int, n_sm: int) -> tuple[int, int]:
-    """(n_split, chunk) for the kernel's grid (kv, n_split): the live prefix
-    of ``live`` positions is cut into ``n_split`` chunks of ``chunk``
-    positions (the last may be shorter). Enough chunks that ``kv * n_split``
-    blocks give every SM two, but no more chunks than 32-position tiles, and
-    at most :data:`MAX_SPLITS`; every chunk holds at least one position."""
-    n = max(1, min(math.ceil(live / TILE), math.ceil(2 * n_sm / kv), MAX_SPLITS))
-    chunk = math.ceil(live / n)
+def max_splits(heads: int, n_sm: int) -> int:
+    """The most chunks a row's live prefix is cut into when ``heads``
+    (sequence, kv head) pairs share the card: enough that ``heads`` times
+    that many blocks give every SM two, at most :data:`MAX_SPLITS`."""
+    return max(1, min(math.ceil(2 * n_sm / heads), MAX_SPLITS))
+
+
+def n_chunks(live: int, max_split: int) -> int:
+    """How many chunks a row of ``live`` positions is planned in: no more
+    than its 32-position tiles, at most ``max_split``, at least one. The
+    kernel repeats this rule for each row from its own live length (and
+    clamps it to the grid's ``n_split``)."""
+    return max(1, min(math.ceil(live / TILE), max_split))
+
+
+def chunk_plan(live: int, max_split: int) -> tuple[int, int]:
+    """(n_split, chunk) for a row of ``live`` positions cut into
+    :func:`n_chunks` chunks of ``chunk`` positions (the last may be
+    shorter): ``n_split`` is how many of them hold a position."""
+    chunk = math.ceil(live / n_chunks(live, max_split))
     return math.ceil(live / chunk), chunk
+
+
+def split_plan(live: int, heads: int, n_sm: int) -> tuple[int, int]:
+    """:func:`chunk_plan` of a row of ``live`` positions when ``heads``
+    (sequence, kv head) pairs share the grid: at most :func:`max_splits`
+    chunks."""
+    return chunk_plan(live, max_splits(heads, n_sm))
 
 
 def flash_decode_split_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -139,6 +163,82 @@ def flash_decode_split_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     return _heads(num / lsum, q)
 
 
+def _row_positions(pos, B: int, S: int) -> list:
+    """Host ints of a [B] position vector, clamped into [0, S - 1] as the
+    kernel clamps them (reading a device vector syncs: plain versions only)."""
+    got = [int(p) for p in torch.as_tensor(pos).reshape(-1).tolist()]
+    if len(got) != B:
+        raise ValueError(f"{len(got)} positions for {B} sequences")
+    return [min(max(p, 0), S - 1) for p in got]
+
+
+def flash_decode_attention_batched_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                       v_cache: torch.Tensor, pos, layer: int) -> torch.Tensor:
+    """The batched form's function in plain PyTorch, row by row:
+    :func:`flash_decode_attention_ref` of row b at its own position. q
+    [B, H, hd], caches [L, B, S, kv, hd], pos [B] -> [B, H, hd]."""
+    B, S = k_cache.shape[1], k_cache.shape[2]
+    return torch.cat([flash_decode_attention_ref(q[b:b + 1], k_cache[:, b], v_cache[:, b], p,
+                                                 layer)
+                      for b, p in enumerate(_row_positions(pos, B, S))])
+
+
+def flash_decode_split_batched_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor, pos, layer: int,
+                                   max_split: int) -> torch.Tensor:
+    """The batched kernel's computation step by step: row b's live prefix
+    cut into its own :func:`n_chunks` chunks (:func:`flash_decode_split_ref`).
+    The grid's trailing empty chunks weigh exactly 0 in the merge and are
+    left out. q [B, H, hd] -> [B, H, hd]."""
+    B, S = k_cache.shape[1], k_cache.shape[2]
+    out = []
+    for b, p in enumerate(_row_positions(pos, B, S)):
+        out.append(flash_decode_split_ref(q[b:b + 1], k_cache[:, b], v_cache[:, b], p, layer,
+                                          n_chunks(p + 1, max_split)))
+    return torch.cat(out)
+
+
+def _launch(what: str, q, k_cache, v_cache, pos_dev, pos: int, layer: int, n_split: int,
+            max_split: int) -> torch.Tensor:
+    """Validate and make one launch of the kernel: q [B, T, H, hd], caches
+    [L, B, S, kv, hd], row b at ``pos_dev[b]`` (device int32 [B]) or, with
+    ``pos_dev`` None, every row at ``pos``; the grid (kv, n_split, B).
+    Returns [B, T, H, hd] in q's dtype."""
+    B, T, H, hd = q.shape
+    L, Bc, S, kv, hd_c = k_cache.shape
+    if (v_cache.shape != k_cache.shape or Bc != B or hd_c != hd or H % kv
+            or not 1 <= T <= MAX_T or not 0 <= layer < L or hd > 256 or hd % 16):
+        raise ValueError(
+            f"{what}: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, layer {layer} "
+            f"(want T <= {MAX_T}, hd % 16 == 0, hd <= 256)")
+    kind = CACHE_KINDS.get(k_cache.dtype)
+    if kind is None or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"{what}: cache dtype {k_cache.dtype} "
+                        f"(want one of {sorted(map(str, CACHE_KINDS))})")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{what}: caches must be contiguous")
+    if q.device != k_cache.device or v_cache.device != k_cache.device:
+        raise ValueError(f"{what}: q and caches on different devices")
+    qk = (q if q.dtype in ACT_KINDS else q.float()).contiguous()
+    out = torch.empty((B, T, H, hd), dtype=qk.dtype, device=q.device)
+    scale = float(_scale(hd, "cpu"))
+    R = T * (H // kv)
+    part_acc = part_ml = out  # unused with one chunk
+    if n_split > 1:
+        part_acc = torch.empty((B, kv, n_split, R, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, kv, n_split, R, 2), dtype=torch.float32, device=q.device)
+    counters = kernels.counters(q.device, B * kv)
+    with torch.cuda.device(q.device):
+        rc = kernels.lib().dllama_flash_decode(
+            qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            B, T, H, hd, S, kv, None if pos_dev is None else pos_dev.data_ptr(), int(pos),
+            int(layer), scale, ACT_KINDS[qk.dtype], kind, n_split, max_split,
+            part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
+            kernels.stream_of(q))
+    kernels.check(rc, what)
+    return out.to(q.dtype)
+
+
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            pos: int, layer: int) -> torch.Tensor:
     """Online-softmax decode attention over the live cache prefix only.
@@ -150,37 +250,55 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
         return flash_decode_attention_ref(q, k_cache, v_cache, pos, layer)
     if k_cache.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: unsupported device {k_cache.device}")
-    T, H, hd = q.shape
-    L, S, kv, hd_c = k_cache.shape
-    if (v_cache.shape != k_cache.shape or hd_c != hd or H % kv or not 1 <= T <= MAX_T
-            or not 0 <= layer < L or not 0 <= pos < S or hd > 256 or hd % 16):
-        raise ValueError(
-            f"flash_decode_attention: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
-            f"pos {pos}, layer {layer} (want T <= {MAX_T}, hd % 16 == 0, hd <= 256)")
-    kind = CACHE_KINDS.get(k_cache.dtype)
-    if kind is None or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"flash_decode_attention: cache dtype {k_cache.dtype} "
-                        f"(want one of {sorted(map(str, CACHE_KINDS))})")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("flash_decode_attention: caches must be contiguous")
-    if q.device != k_cache.device or v_cache.device != k_cache.device:
-        raise ValueError("flash_decode_attention: q and caches on different devices")
-    qk = (q if q.dtype in ACT_KINDS else q.float()).contiguous()
-    out = torch.empty((T, H, hd), dtype=qk.dtype, device=q.device)
-    scale = float(_scale(hd, "cpu"))
-    n_split, chunk = split_plan(min(pos + T, S), kv, kernels.sm_count(q.device))
-    R = T * (H // kv)
-    part_acc = part_ml = out  # unused with one chunk
-    if n_split > 1:
-        part_acc = torch.empty((kv, n_split, R, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((kv, n_split, R, 2), dtype=torch.float32, device=q.device)
-    counters = kernels.counters(q.device, kv)
-    with torch.cuda.device(q.device):
-        rc = kernels.lib().dllama_flash_decode(
-            qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            T, H, hd, S, kv, int(pos), int(layer), scale, ACT_KINDS[qk.dtype], kind,
-            n_split, chunk, part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
-            kernels.stream_of(q))
-    kernels.check(rc, "flash_decode_attention")
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"flash_decode_attention: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    T, _, _ = q.shape
+    _, S, kv, _ = k_cache.shape
+    if not 0 <= pos < S:
+        raise ValueError(f"flash_decode_attention: pos {pos} outside the cache of {S}")
+    n_sm = kernels.sm_count(q.device)
+    n_split, _ = split_plan(min(pos + T, S), kv, n_sm)
+    out = _launch("flash_decode_attention", q[None], k_cache[:, None], v_cache[:, None], None,
+                  pos, layer, n_split, max_splits(kv, n_sm))
     kernels.launches["flash_decode"] += 1
-    return out.to(q.dtype)
+    return out[0]
+
+
+def flash_decode_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
+                                   v_cache: torch.Tensor, pos: torch.Tensor, layer: int,
+                                   bound: int | None = None) -> torch.Tensor:
+    """Batched decode: B independent sequences of one token, each reading
+    ONLY its own live prefix 0..pos[b] (not max(pos)).
+
+    q [B, n_heads, hd]; caches [L, B, S, n_kv_heads, hd]; ``pos`` int32 [B]
+    on the caches' device (never read back by the host). ``bound``: a host
+    upper bound of every row's ``pos + 1`` (default S); it sizes the grid
+    and nothing else — a row's arithmetic depends on its own position and B
+    only, so its bits do not depend on its neighbours or on ``bound``. A
+    ``bound`` below some row's ``pos + 1`` is still right for that row: the
+    kernel cuts it into no more chunks than the grid has, so the row reads
+    its whole prefix (in another summation order).
+    Positions are clamped into [0, S - 1]. Returns [B, n_heads, hd] in q's
+    dtype, matching ``vmap(gqa_attention)`` over the per-row slabs."""
+    if k_cache.device.type == "cpu":
+        return flash_decode_attention_batched_ref(q, k_cache, v_cache, pos, layer)
+    if k_cache.device.type != "cuda":
+        raise ValueError(f"flash_decode_attention_batched: unsupported device "
+                         f"{k_cache.device}")
+    if q.dim() != 3 or k_cache.dim() != 5:
+        raise ValueError(f"flash_decode_attention_batched: q {tuple(q.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    B = q.shape[0]
+    _, _, S, kv, _ = k_cache.shape
+    if (not isinstance(pos, torch.Tensor) or pos.dtype != torch.int32
+            or pos.shape != (B,) or pos.device != k_cache.device):
+        raise ValueError("flash_decode_attention_batched: pos must be an int32 [B] tensor "
+                         "on the caches' device")
+    bound = S if bound is None else min(max(int(bound), 1), S)
+    n_sm = kernels.sm_count(q.device)
+    max_split = max_splits(B * kv, n_sm)
+    out = _launch("flash_decode_attention_batched", q[:, None], k_cache, v_cache,
+                  pos.contiguous(), 0, layer, n_chunks(bound, max_split), max_split)
+    kernels.launches["flash_decode_batched"] += 1
+    return out[:, 0]

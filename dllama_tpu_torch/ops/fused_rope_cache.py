@@ -8,8 +8,13 @@ JAX kernel aliases the caches input->output, the port owns them and writes
 them. ``start`` is clamped to [0, S - T] the way ``dynamic_update_slice``
 clamps.
 
-``rope_cache_update`` launches ``csrc/rope_cache.cu`` for a CUDA cache and
-runs ``rope_cache_update_ref`` for a CPU one.
+Two launch forms of one kernel, ``csrc/rope_cache.cu``, as the JAX
+package's ``_launch`` has them: :func:`rope_cache_update` (one sequence, T
+rows at a host ``pos``, caches ``[L, S, kv, hd]``) and
+:func:`rope_cache_update_batched` (B sequences of one row over caches
+``[L, B, S, kv, hd]``, row b at ``clamp(pos[b], 0, S - 1)`` with ``pos`` a
+device int32 vector the host never reads). Each runs its plain version
+(``*_ref``) for a CPU cache.
 """
 
 from __future__ import annotations
@@ -56,33 +61,31 @@ def rope_cache_update_ref(k, v, cos, sin, k_cache, v_cache, pos: int, layer: int
     return k_cache, v_cache
 
 
-def rope_cache_update(k, v, cos, sin, k_cache, v_cache, pos: int, layer: int,
-                      style: str = INTERLEAVED) -> tuple:
-    """Rotate K and land K/V at (layer, pos..pos+T) in one pass; returns the
-    (k_cache, v_cache) it updated in place."""
-    if k_cache.device.type == "cpu":
-        return rope_cache_update_ref(k, v, cos, sin, k_cache, v_cache, pos, layer, style)
-    if k_cache.device.type != "cuda":
-        raise ValueError(f"rope_cache_update: unsupported device {k_cache.device}")
-    T, kv, hd = k.shape
-    L, S, kv_c, hd_c = k_cache.shape
-    if (v.shape != k.shape or v_cache.shape != k_cache.shape or (kv_c, hd_c) != (kv, hd)
+def _launch(what: str, k, v, cos, sin, k_cache, v_cache, pos_dev, pos: int, layer: int,
+            style: str) -> None:
+    """One launch: k, v [B, T, kv, hd]; cos/sin [B, T, 1, hd/2]; caches
+    [L, B, S, kv, hd] written in place at rows clamp(start, 0, S - T), the
+    start ``pos_dev[b]`` (device int32 [B]) or, with ``pos_dev`` None,
+    ``pos`` for every row."""
+    B, T, kv, hd = k.shape
+    L, Bc, S, kv_c, hd_c = k_cache.shape
+    if (v.shape != k.shape or v_cache.shape != k_cache.shape or (Bc, kv_c, hd_c) != (B, kv, hd)
             or hd % 2 or not 1 <= T <= min(MAX_T, S) or not 0 <= layer < L
-            or cos.numel() != T * hd // 2 or sin.numel() != T * hd // 2):
-        raise ValueError(f"rope_cache_update: k {tuple(k.shape)}, cache "
-                         f"{tuple(k_cache.shape)}, cos {tuple(cos.shape)}, layer {layer}")
+            or cos.numel() != B * T * hd // 2 or sin.numel() != B * T * hd // 2):
+        raise ValueError(f"{what}: k {tuple(k.shape)}, cache {tuple(k_cache.shape)}, "
+                         f"cos {tuple(cos.shape)}, layer {layer}")
     act = ACT_KINDS.get(k.dtype)
     cache = CACHE_KINDS.get(k_cache.dtype)
     if act is None or v.dtype != k.dtype or cache is None or v_cache.dtype != k_cache.dtype:
-        raise TypeError(f"rope_cache_update: activations {k.dtype}/{v.dtype}, "
+        raise TypeError(f"{what}: activations {k.dtype}/{v.dtype}, "
                         f"caches {k_cache.dtype}/{v_cache.dtype}")
     if style not in (INTERLEAVED, HALF):
         raise ValueError(f"unknown rope style {style!r}")
     if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("rope_cache_update: caches must be contiguous")
+        raise ValueError(f"{what}: caches must be contiguous")
     devs = {t.device for t in (k, v, cos, sin, v_cache)}
     if devs != {k_cache.device}:
-        raise ValueError("rope_cache_update: inputs on different devices")
+        raise ValueError(f"{what}: inputs on different devices")
     kc = k.contiguous()
     vc = v.contiguous()
     c = cos.float().contiguous()
@@ -90,9 +93,63 @@ def rope_cache_update(k, v, cos, sin, k_cache, v_cache, pos: int, layer: int,
     with torch.cuda.device(k_cache.device):
         rc = kernels.lib().dllama_rope_cache_update(
             kc.data_ptr(), vc.data_ptr(), c.data_ptr(), s.data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(), T, kv, hd, S,
-            _start(pos, S, T), int(layer), int(style == HALF), act, cache,
-            kernels.stream_of(k_cache))
-    kernels.check(rc, "rope_cache_update")
+            k_cache.data_ptr(), v_cache.data_ptr(), B, T, kv, hd, S,
+            None if pos_dev is None else pos_dev.data_ptr(), int(pos), int(layer),
+            int(style == HALF), act, cache, kernels.stream_of(k_cache))
+    kernels.check(rc, what)
+
+
+def rope_cache_update(k, v, cos, sin, k_cache, v_cache, pos: int, layer: int,
+                      style: str = INTERLEAVED) -> tuple:
+    """Rotate K and land K/V at (layer, pos..pos+T) in one pass; returns the
+    (k_cache, v_cache) it updated in place. The B = 1 launch of the kernel."""
+    if k_cache.device.type == "cpu":
+        return rope_cache_update_ref(k, v, cos, sin, k_cache, v_cache, pos, layer, style)
+    if k_cache.device.type != "cuda":
+        raise ValueError(f"rope_cache_update: unsupported device {k_cache.device}")
+    if k.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError(f"rope_cache_update: k {tuple(k.shape)}, cache {tuple(k_cache.shape)}")
+    T = k.shape[0]
+    _launch("rope_cache_update", k[None], v[None], cos, sin, k_cache[:, None],
+            v_cache[:, None], None, _start(pos, k_cache.shape[1], T), layer, style)
     kernels.launches["rope_cache_update"] += 1
+    return k_cache, v_cache
+
+
+def rope_cache_update_batched_ref(k, v, cos, sin, k_cache, v_cache, pos, layer: int,
+                                  style: str = INTERLEAVED) -> tuple:
+    """The batched form's function in plain PyTorch: k, v [B, kv, hd]; cos/sin
+    [B, 1, hd/2]; caches [L, B, S, kv, hd]; row b written at (layer, b,
+    clamp(pos[b], 0, S - 1)) in place. ``pos`` [B] stays on its device."""
+    B, S = k_cache.shape[1], k_cache.shape[2]
+    rows = torch.arange(B, device=k_cache.device)
+    starts = torch.as_tensor(pos, device=k_cache.device).long().clamp(0, S - 1)
+    rot = rotate(k.float(), cos.float(), sin.float(), style)
+    k_cache[layer, rows, starts] = cast_cache(rot.to(k.dtype), k_cache.dtype)
+    v_cache[layer, rows, starts] = cast_cache(v, v_cache.dtype)
+    return k_cache, v_cache
+
+
+def rope_cache_update_batched(k, v, cos, sin, k_cache, v_cache, pos: torch.Tensor, layer: int,
+                              style: str = INTERLEAVED) -> tuple:
+    """Batched decode: B independent rows, row b rotated with its own angle
+    and landing at (layer, b, clamp(pos[b], 0, S - 1)) — the clamp the
+    unfused scatter makes, so an overrun row leaves the same cache. ``pos``
+    int32 [B] on the caches' device. Returns the (k_cache, v_cache) it
+    updated in place."""
+    if k_cache.device.type == "cpu":
+        return rope_cache_update_batched_ref(k, v, cos, sin, k_cache, v_cache, pos, layer, style)
+    if k_cache.device.type != "cuda":
+        raise ValueError(f"rope_cache_update_batched: unsupported device {k_cache.device}")
+    if k.dim() != 3 or k_cache.dim() != 5:
+        raise ValueError(f"rope_cache_update_batched: k {tuple(k.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    B = k.shape[0]
+    if (not isinstance(pos, torch.Tensor) or pos.dtype != torch.int32
+            or pos.shape != (B,) or pos.device != k_cache.device):
+        raise ValueError("rope_cache_update_batched: pos must be an int32 [B] tensor on the "
+                         "caches' device")
+    _launch("rope_cache_update_batched", k[:, None], v[:, None], cos, sin, k_cache, v_cache,
+            pos.contiguous(), 0, layer, style)
+    kernels.launches["rope_cache_update_batched"] += 1
     return k_cache, v_cache

@@ -57,7 +57,7 @@ def q40_nosub_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
                      s_hi: torch.Tensor, wide: bool = False) -> torch.Tensor:
     """K6: ``csrc/q40_matmul.cu`` in its no-correction mode for a CUDA
     ``packed`` — K1's decode kernel up to ``GEMV_MAX_T`` rows (``wide``: 1024
-    columns per block), the tensor-core tile beyond —
+    columns per block), the tensor-core tile beyond in either mode —
     :func:`q40_nosub_matmul_ref` for a CPU one."""
     if packed.device.type == "cpu":
         return q40_nosub_matmul_ref(x, packed, s_lo, s_hi)
@@ -70,10 +70,7 @@ def q40_nosub_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
     qmatmul.check_operands("q40_nosub_matmul", x, packed, K, [s_lo, s_hi])
     xk = _pad_cols(x.to(torch.bfloat16), K).contiguous()
     T = xk.shape[0]
-    if T > qmatmul.GEMV_MAX_T:
-        if wide:
-            raise ValueError(f"q40_nosub_matmul: the wide mode takes at most "
-                             f"{qmatmul.GEMV_MAX_T} rows, got {T}")
+    if T > qmatmul.GEMV_MAX_T:  # both modes: the TPU's 2048-lane block is a tiling knob
         out = qmatmul.q40_tile(xk, packed, s_lo, s_hi, qmatmul.Q40_NOSUB_RAW)
         kernels.launches["q40_nosub_matmul"] += 1
         return out

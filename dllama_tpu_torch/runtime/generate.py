@@ -1,11 +1,20 @@
-"""Solo decode engine: bucketed prefill, then one decode step per token with
-a resident KV cache, per-token timing and sampling on the device.
+"""Decode engine: bucketed prefill, then decode steps with a resident KV
+cache, per-token timing and sampling on the device.
 
 The port of the JAX package's single-device ``Engine`` (prefill, generate,
-Session, TokenStats and the numeric-health watchdog). PyTorch runs eagerly,
-so there are no compiled step functions: a decode step enqueues its kernels
-and the host waits only when it reads the sampled token. The KV cache is
-updated in place, where the JAX programs donate it.
+Session, TokenStats and the numeric-health watchdog), its batched decode
+(``generate_batch``) and the uniform continuous-batching ``BatchSession``.
+PyTorch runs eagerly, so there are no compiled step functions: a decode step
+enqueues its kernels and the host waits only when it reads the sampled
+tokens — once per token solo, once per chunk of up to ``decode_chunk`` steps
+batched. The KV cache is updated in place, where the JAX programs donate it.
+
+Batched rows and solo runs: a batched row sums in the order K1/K3 and flash
+decode take at B rows, which is not the solo order (the dequant-matmuls'
+split plans depend on the row count), so a row agrees with its solo run
+within the decode-step tolerance, not bit for bit. At a fixed batch size a
+row's tokens do not depend on its neighbours, bit for bit: every kernel
+computes a row from that row alone, in an order fixed by the shapes.
 """
 
 from __future__ import annotations
@@ -19,9 +28,13 @@ import torch
 from dllama_tpu_torch import resolve_device
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import ModelConfig
-from dllama_tpu_torch.runtime.sampler import SamplerConfig, sample_dynamic
+from dllama_tpu_torch.runtime.sampler import (
+    SamplerConfig, row_seed, sample_dynamic, sample_rows,
+)
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+#: batched decode steps per host sync (one read of the chunk's tokens)
+DECODE_CHUNK = 64
 
 
 class NumericHealthError(RuntimeError):
@@ -79,11 +92,15 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  sampler_cfg: SamplerConfig = SamplerConfig(),
-                 cache_dtype=torch.float32, device=None):
+                 cache_dtype=torch.float32, device=None, decode_chunk: int = DECODE_CHUNK):
         """Quantized projections that share an input are fused
-        (``llama.fuse_qkv_ffn``) if they are not already. Every decode step
-        checks ``isfinite(logits)`` and raises :class:`NumericHealthError`
-        on a non-finite value."""
+        (``llama.fuse_qkv_ffn``) if they are not already. Every solo decode
+        step checks ``isfinite(logits)`` and raises
+        :class:`NumericHealthError` on a non-finite value; batched decode
+        keeps a per-row flag instead (``row_health``). ``decode_chunk``:
+        batched decode steps between host syncs."""
+        if decode_chunk < 1:
+            raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sampler_cfg = sampler_cfg
@@ -93,11 +110,30 @@ class Engine:
         self.rope = llama.rope_tables(cfg, self.device)
         self.cache_dtype = cache_dtype
         self.generator = torch.Generator(device=self.device).manual_seed(sampler_cfg.seed)
+        self.decode_chunk = decode_chunk
         self.prefill_ms = 0.0
+        self.decode_ms = 0.0
+        self.row_health: list = []
         self.final_session: Optional[Session] = None
 
     def new_cache(self) -> dict:
         return llama.init_cache(self.cfg, self.cache_dtype, self.device)
+
+    def _batch_cache_init(self, batch: int) -> dict:
+        return llama.init_batch_cache(self.cfg, batch, self.cache_dtype, self.device)
+
+    @staticmethod
+    def _batch_cache_insert(cache: dict, single: dict, b: int) -> None:
+        """Copy a single-sequence cache [L, S, kv, hd] into row ``b`` of a
+        batch cache [L, B, S, kv, hd], in place."""
+        for n in ("k", "v"):
+            cache[n][:, b].copy_(single[n])
+
+    def _row_generator(self, temperature: float, seed: int) -> Optional[torch.Generator]:
+        """A sampled row's own generator (greedy rows draw nothing)."""
+        if temperature <= 0.0:
+            return None
+        return torch.Generator(device=self.device).manual_seed(seed)
 
     def prefill(self, cache: dict, tokens: list, pos: int = 0,
                 chunk: Optional[int] = None) -> tuple:
@@ -203,3 +239,381 @@ class Engine:
         else:
             pending = tok_int
         self.final_session = Session(cache, pos, pending_token=pending)
+
+    # -- batched decode -------------------------------------------------------
+    def _decode_chunk_batch(self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                            n: int, temps: list, topps: list, generators: list,
+                            host_pos: list) -> tuple:
+        """``n`` batched decode steps with no host sync: tokens, positions
+        and the per-row finite flags stay on the device. Row b samples with
+        its own settings and generator; a row whose context fills pins at
+        slot seq_len - 1 (its later tokens are garbage the caller drops).
+        ``host_pos`` is the host's mirror of ``pos``: it bounds flash
+        decode's grid for the whole chunk. Returns (tokens [n, B], ok [B],
+        the positions after the chunk)."""
+        S = self.cfg.seq_len
+        bound = min(max(host_pos) + n, S)
+        ok = torch.ones(tokens.shape, dtype=torch.bool, device=self.device)
+        out = []
+        for _ in range(n):
+            logits, _ = llama.forward_batched(self.cfg, self.params, self.rope, tokens, cache,
+                                              pos, bound)
+            ok &= torch.isfinite(logits).all(dim=-1)
+            tokens = sample_rows(logits, temps, topps, generators)
+            out.append(tokens)
+            pos = torch.clamp(pos + 1, max=S - 1)
+        return torch.stack(out), ok, pos
+
+    def _prefill_batch_rows(self, prompts: list) -> tuple:
+        """The batch cache [L, B, S, kv, hd] with every row's prompt prefix
+        in place: each DISTINCT prefix is prefilled once through the solo
+        bucketed ``prefill`` and copied into every row that shares it. The
+        last prompt token stays pending (the first batched step feeds it).
+        Returns (cache, pending tokens [B], positions [B]); sets
+        ``prefill_ms``."""
+        t0 = time.perf_counter()
+        cache = self._batch_cache_init(len(prompts))
+        groups: dict = {}
+        for b, p in enumerate(prompts):
+            if len(p) > 1:
+                groups.setdefault(tuple(p[:-1]), []).append(b)
+        for prefix, rows in groups.items():
+            _, single = self.prefill(self.new_cache(), list(prefix), 0)
+            for b in rows:
+                self._batch_cache_insert(cache, single, b)
+            del single  # 1-token-prompt rows keep their zero slots
+        _sync(self.device)
+        self.prefill_ms = (time.perf_counter() - t0) * 1000.0
+        return cache, [int(p[-1]) for p in prompts], [len(p) - 1 for p in prompts]
+
+    def generate_batch(self, prompts: list, steps: int,
+                       sampler: Optional[SamplerConfig] = None, stop_tokens: tuple = (),
+                       row_steps: Optional[list] = None, samplers: Optional[list] = None,
+                       on_chunk=None) -> list:
+        """Decode B independent prompts together: one pass over the weights
+        per step serves every sequence (``llama.forward_batched``). Returns B
+        token lists; row b carries min(steps, its own remaining context)
+        tokens — a near-full row pins at its last slot while the others go
+        on. ``stop_tokens``: once EVERY row has emitted one (or met its
+        budget) the remaining chunks are skipped; rows still carry tokens
+        past their stop (the caller truncates). ``row_steps``: per-row
+        budgets for that check (default ``steps``).
+
+        Sampling: row b runs its own generator. ``samplers`` gives row b its
+        full settings, the generator seeded with ``samplers[b].seed``. With
+        one ``sampler``, rows share its temperature/top-p and row b's seed
+        is ``row_seed(sampler.seed, b)`` (row 0 keeps the seed itself). With
+        neither, the engine's settings, and a base seed drawn from the
+        engine's generator. Greedy rows are exact argmaxes either way.
+
+        ``on_chunk(rows)``: called after every chunk with each row's tokens
+        from this chunk (trimmed to its budget). After the call
+        ``row_health[b]`` is False once row b's logits went non-finite (its
+        tokens are garbage from that chunk on; the other rows are
+        unaffected); ``prefill_ms`` and ``decode_ms`` hold the wall times."""
+        if not prompts or any(not p for p in prompts):
+            raise ValueError("generate_batch needs non-empty prompts")
+        B = len(prompts)
+        if samplers is not None:
+            if len(samplers) != B:
+                raise ValueError(f"samplers must have {B} entries")
+            cfgs, seeds = list(samplers), [sc.seed for sc in samplers]
+        else:
+            scfg = sampler if sampler is not None else self.sampler_cfg
+            if sampler is not None:
+                base = scfg.seed
+            else:
+                base = int(torch.randint(0, 2 ** 62, (1,), generator=self.generator,
+                                         device=self.device))
+            cfgs, seeds = [scfg] * B, [row_seed(base, b) for b in range(B)]
+        temps = [float(c.temperature) for c in cfgs]
+        topps = [float(c.topp) for c in cfgs]
+        gens = [self._row_generator(t, sd) for t, sd in zip(temps, seeds)]
+
+        cache, pend, poss = self._prefill_batch_rows(prompts)
+        S = self.cfg.seq_len
+        tokens = torch.tensor(pend, dtype=torch.long, device=self.device)
+        pos = torch.tensor(poss, dtype=torch.int32, device=self.device)
+        rooms = [S - p for p in poss]  # feeds each row allows
+        steps = min(steps, max(rooms))
+        budgets = [min(rooms[b], row_steps[b] if row_steps else steps) for b in range(B)]
+        out: list = [[] for _ in range(B)]
+        self.row_health = [True] * B
+        self.decode_ms = 0.0
+        if steps <= 0:
+            return out
+        remaining, done = steps, 0
+        host_pos = list(poss)
+        t1 = time.perf_counter()
+        while remaining > 0:
+            n = min(self.decode_chunk, remaining)
+            chunk, ok, pos = self._decode_chunk_batch(cache, tokens, pos, n, temps, topps, gens,
+                                                      host_pos)
+            arr = chunk.cpu().tolist()  # the chunk's one host sync
+            okh = ok.cpu().tolist()
+            tokens = chunk[-1]
+            host_pos = [min(p + n, S - 1) for p in host_pos]
+            fresh: list = [[] for _ in range(B)]
+            for b in range(B):
+                self.row_health[b] = self.row_health[b] and bool(okh[b])
+                # a context-exhausted row pinned at its last slot: keep only
+                # the tokens its room allows
+                keep = max(0, min(n, rooms[b] - done))
+                fresh[b] = [row[b] for row in arr[:keep]]
+                out[b].extend(fresh[b])
+            done += n
+            remaining -= n
+            if on_chunk is not None:
+                on_chunk(fresh)
+            if (stop_tokens or row_steps) and all(
+                    len(out[b]) >= budgets[b]
+                    or (stop_tokens and any(t in stop_tokens for t in out[b]))
+                    for b in range(B)):
+                break
+        self.decode_ms = (time.perf_counter() - t1) * 1000.0
+        return out
+
+    def batch_session(self, max_batch: int, chunk: Optional[int] = None,
+                      bucket_kv: bool = False, prefill_chunk: int = 0,
+                      kv_pages: int = 0) -> "BatchSession":
+        """Open a slot-pool decode session (continuous batching) over one
+        resident batch cache [L, max_batch, S, kv, hd]: rows are admitted,
+        stepped and released independently between chunks of ``chunk``
+        steps (default ``decode_chunk``). Only the uniform mode is ported:
+        ``bucket_kv``, ``prefill_chunk`` and ``kv_pages`` raise
+        NotImplementedError."""
+        return BatchSession(self, max_batch, chunk, bucket_kv=bucket_kv,
+                            prefill_chunk=prefill_chunk, kv_pages=kv_pages)
+
+
+@dataclasses.dataclass
+class _SlotState:
+    """Host-side bookkeeping for one admitted BatchSession row."""
+
+    room: int  # feeds the row's remaining context allows (S - admit pos)
+    budget: int  # min(room, the caller's step budget)
+    stop_tokens: tuple
+    offered: int = 0  # tokens the chunks have offered this row so far
+    done: bool = False  # budget/stop reached; pinned in place until release()
+    emitted: int = 0  # tokens actually kept (after budget/stop truncation)
+    finish: Optional[str] = None  # "stop" | "length" | "error" once done
+    prefill_ms: float = 0.0  # admission-prefill wall time
+
+
+class BatchSession:
+    """Slot-pool decode over one resident batch cache [L, max_batch, S, kv,
+    hd] — the continuous-batching primitive, uniform mode. Rows join
+    (``admit``), step (``step_chunk``) and leave (``release``) independently
+    between chunks; handles are slot indices 0..max_batch-1.
+
+    Every chunk runs the whole fixed-size pool through the engine's batched
+    decode chunk. Free and finished rows ride along pinned at slot S - 1
+    (free rows greedy, feeding token 0), so the batch size never changes
+    and a row's arithmetic never depends on who else is in the pool: a row
+    admitted mid-flight emits, bit for bit, the tokens it would emit
+    admitted at the start. Slot reuse needs no clearing: admission
+    overwrites the row's whole slab with its prefilled cache (a 1-token
+    prompt writes position 0 before attending it), and positions past a
+    row's own pos are never attended.
+
+    Not ported yet (ROADMAP Queue 1, items 3b and 4): bucketed slot pools
+    (``bucket_kv``), chunked admission (``prefill_chunk``,
+    ``admit_begin``/``prefill_step``), paged KV (``kv_pages``), the
+    ``kv_budget`` accountant and row export/import."""
+
+    def __init__(self, eng: Engine, max_batch: int, chunk: Optional[int] = None,
+                 bucket_kv: bool = False, prefill_chunk: int = 0, kv_pages: int = 0):
+        if bucket_kv or prefill_chunk > 0:
+            raise NotImplementedError(
+                "bucketed slot pools and chunked admission are not ported yet "
+                "(ROADMAP Queue 1, item 3b): use the uniform session")
+        if kv_pages > 0:
+            raise NotImplementedError(
+                "paged KV is not ported yet (ROADMAP Queue 1, item 4): use the uniform "
+                "session")
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        chunk = eng.decode_chunk if chunk is None else chunk
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        self.eng = eng
+        self.max_batch = max_batch
+        self.chunk = chunk
+        self._cache: Optional[dict] = eng._batch_cache_init(max_batch)
+        S = eng.cfg.seq_len
+        # per-row decode state, host mirrors shipped to the device per chunk;
+        # free rows pin at the last slot, greedy, feeding token 0
+        self._tokens = [0] * max_batch
+        self._pos = [S - 1] * max_batch
+        self._temps = [0.0] * max_batch
+        self._topps = [1.0] * max_batch
+        self._gens: list = [None] * max_batch
+        self._slots: dict = {}  # handle (= row) -> _SlotState
+        self._closed = False
+        self.decode_ms = 0.0  # cumulative chunk wall time
+        self.prefill_ms = 0.0  # cumulative admission-prefill wall time
+
+    # -- introspection ----------------------------------------------------
+    @property
+    def cache(self) -> Optional[dict]:
+        """The resident batch cache (None once closed)."""
+        return self._cache
+
+    @property
+    def free_slots(self) -> list:
+        """Row indices ``admit`` can take right now."""
+        if self._closed:
+            return []
+        return [b for b in range(self.max_batch) if b not in self._slots]
+
+    @property
+    def occupied(self) -> list:
+        """Admitted-and-not-released handles (done rows included)."""
+        return sorted(self._slots)
+
+    @property
+    def num_live(self) -> int:
+        """Rows the next step_chunk will advance."""
+        return sum(1 for st in self._slots.values() if not st.done)
+
+    def _state(self, slot: int) -> _SlotState:
+        st = self._slots.get(slot)
+        if st is None:
+            raise ValueError(f"slot {slot} is not occupied")
+        return st
+
+    def is_done(self, slot: int) -> bool:
+        """True once the row hit its stop token, budget or the watchdog (it
+        gets no more tokens; release() it to free the slot)."""
+        return self._state(slot).done
+
+    def finish_reason(self, slot: int) -> Optional[str]:
+        """``"stop"``, ``"length"``, ``"error"`` (non-finite logits), or None
+        while live / after cancel()."""
+        return self._state(slot).finish
+
+    def prefill_ms_of(self, slot: int) -> float:
+        return self._state(slot).prefill_ms
+
+    def can_admit(self, prompt_len: int, steps: int) -> bool:
+        """True when a slot is free (uniform mode: every row reserves the
+        full context)."""
+        return bool(self.free_slots)
+
+    # -- lifecycle --------------------------------------------------------
+    def admit(self, prompt_tokens: list, steps: int, sampler: Optional[SamplerConfig] = None,
+              stop_tokens: tuple = ()) -> int:
+        """Prefill ``prompt_tokens`` into the lowest free row and return its
+        handle (the slot index). The prompt's prefix runs through the
+        engine's bucketed prefill into a fresh single cache, copied into the
+        row's slab; the last prompt token stays pending for the row's first
+        step, which samples with a generator freshly seeded from
+        ``sampler.seed`` (``sampler`` defaults to the engine's). ``steps`` and
+        ``stop_tokens`` are the row's own budget and stop set. Raises
+        RuntimeError when the session is closed or full."""
+        if self._closed:
+            raise RuntimeError("batch session is closed")
+        if not prompt_tokens:
+            raise ValueError("admit needs a non-empty prompt")
+        S = self.eng.cfg.seq_len
+        if len(prompt_tokens) > S:
+            raise ValueError(f"prompt of {len(prompt_tokens)} tokens exceeds seq_len {S}")
+        free = self.free_slots
+        if not free:
+            raise RuntimeError(f"no free slot (max_batch={self.max_batch}); "
+                               "release a finished row first")
+        scfg = sampler if sampler is not None else self.eng.sampler_cfg
+        row = free[0]
+        plen = len(prompt_tokens)
+        room = S - (plen - 1)
+        budget = min(room, steps)
+        st = _SlotState(room=room, budget=budget, stop_tokens=tuple(stop_tokens),
+                        done=budget <= 0, finish="length" if budget <= 0 else None)
+        self._slots[row] = st
+        if budget <= 0:
+            return row  # never decodes; skip the prefill
+        if plen > 1:
+            t0 = time.perf_counter()
+            _, single = self.eng._prefill_piece(self.eng.new_cache(), list(prompt_tokens[:-1]),
+                                                0)
+            Engine._batch_cache_insert(self._cache, single, row)
+            _sync(self.eng.device)
+            st.prefill_ms = (time.perf_counter() - t0) * 1000.0
+            self.prefill_ms += st.prefill_ms
+        self._tokens[row] = int(prompt_tokens[-1])
+        self._pos[row] = plen - 1
+        self._temps[row] = float(scfg.temperature)
+        self._topps[row] = float(scfg.topp)
+        self._gens[row] = self.eng._row_generator(scfg.temperature, scfg.seed)
+        return row
+
+    def step_chunk(self) -> dict:
+        """Run ONE chunk over the whole pool and return {handle: fresh
+        tokens} for every live row, each truncated at the row's budget and
+        (inclusively) at its first stop token — never empty unless the row's
+        logits went non-finite (then it is done with finish reason
+        ``"error"`` and gets nothing from the chunk). Rows that finish are
+        marked done and skip later chunks until released. Returns {} without
+        touching the device when nothing is live."""
+        if self._closed:
+            raise RuntimeError("batch session is closed")
+        live = [r for r, st in sorted(self._slots.items()) if not st.done]
+        if not live:
+            return {}
+        eng, S, dev = self.eng, self.eng.cfg.seq_len, self.eng.device
+        t1 = time.perf_counter()
+        chunk, ok, _ = eng._decode_chunk_batch(
+            self._cache, torch.tensor(self._tokens, dtype=torch.long, device=dev),
+            torch.tensor(self._pos, dtype=torch.int32, device=dev), self.chunk, self._temps,
+            self._topps, self._gens, self._pos)
+        arr = chunk.cpu().tolist()  # the chunk's one host sync
+        okh = ok.cpu().tolist()
+        self._tokens = [t if r in self._slots else 0 for r, t in enumerate(arr[-1])]
+        self._pos = [min(p + self.chunk, S - 1) for p in self._pos]
+        self.decode_ms += (time.perf_counter() - t1) * 1000.0
+        fresh: dict = {}
+        for r in live:
+            st = self._slots[r]
+            if not okh[r]:
+                st.done, st.finish = True, "error"
+                fresh[r] = []
+                continue
+            # a context-exhausted row pinned at its last slot: tokens past
+            # its room are garbage
+            keep = max(0, min(self.chunk, st.room - st.offered))
+            st.offered += self.chunk
+            toks = [row[r] for row in arr[:keep]]
+            take = min(len(toks), st.budget - st.emitted)
+            for j in range(take):
+                if toks[j] in st.stop_tokens:
+                    take = j + 1
+                    break
+            toks = toks[:take]
+            st.emitted += len(toks)
+            if st.emitted >= st.budget:
+                st.done, st.finish = True, "length"
+            elif st.stop_tokens and toks and toks[-1] in st.stop_tokens:
+                st.done, st.finish = True, "stop"
+            fresh[r] = toks
+        return fresh
+
+    def cancel(self, slot: int) -> None:
+        """Stop decoding the row now: it is marked done and rides along
+        pinned until ``release()``. Idempotent."""
+        self._state(slot).done = True
+
+    def release(self, slot: int) -> None:
+        """Free the row for the next admission. The slab is not cleared (see
+        the class docstring); the row re-pins at the last slot, greedy,
+        feeding token 0."""
+        if self._slots.pop(slot, None) is None:
+            raise ValueError(f"slot {slot} is not occupied")
+        self._tokens[slot] = 0
+        self._pos[slot] = self.eng.cfg.seq_len - 1
+        self._temps[slot], self._topps[slot], self._gens[slot] = 0.0, 1.0, None
+
+    def close(self) -> None:
+        """Drop the resident cache and every row. Idempotent."""
+        self._closed = True
+        self._cache = None
+        self._slots = {}

@@ -112,8 +112,7 @@ def sweep_flash(dev, gen) -> dict:
         ref = flash_decode.flash_decode_attention_ref(q.float(), kc, vc, pos, 2)
         by = {}
         for want in NSPLITS:
-            chunk = math.ceil(live / want)
-            n_split = math.ceil(live / chunk)
+            n_split, _ = flash_decode.chunk_plan(live, want)
             if n_split in by:
                 continue
             part_acc = torch.empty((kv, n_split, R, hd), device=dev)
@@ -121,8 +120,8 @@ def sweep_flash(dev, gen) -> dict:
 
             def call(layer):
                 kernels.check(lib.dllama_flash_decode(
-                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(), res.data_ptr(), T,
-                    kv * group, hd, S, kv, pos, layer, scale, 1, 1, n_split, chunk,
+                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(), res.data_ptr(), 1, T,
+                    kv * group, hd, S, kv, None, pos, layer, scale, 1, 1, n_split, want,
                     part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
                     kernels.stream_of(q)), "flash decode")
 

@@ -14,7 +14,10 @@ caches must be bit-equal. The fused-norm epilogue (K1, K3) must equal the
 unfused composition bit for bit: the same bf16 tile, the same split plan.
 K3's decode GEMV, the K1/K3 prefill tile (T > 8, split-K partials summed
 in split order) and K4 merge their blocks' partials in a fixed order, so
-two launches on the same inputs must give the same bits.
+two launches on the same inputs must give the same bits. K4's batched form
+plans each row's chunks from that row alone: a row's bits do not depend on
+its neighbours or on the host's grid bound, and the solo form is its
+one-row launch, bit for bit.
 """
 
 import numpy as np
@@ -308,15 +311,145 @@ def test_tile_fused_norm_matches_ref_and_unfused_bits(cuda, kind, nosub, act, T,
     assert torch.equal(fused, unfused)
 
 
-@pytest.mark.parametrize("T,K,O", [(20, 4096, 11008), (128, 512, 100)])
+@pytest.mark.parametrize("T,K,O", [(20, 4096, 11008), (128, 512, 100), (128, 4096, 11008)])
 def test_q40_nosub_kernel_takes_the_tile_past_the_decode_rows(cuda, T, K, O):
     planes = _q40_planes(K, O, cuda, T + O)
     x = torch.randn((T, K), device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
     got = qkernel_experiments.q40_nosub_matmul(x, *planes)
+    wide = qkernel_experiments.q40_nosub_matmul(x, *planes, wide=True)  # the same tile
     torch.cuda.synchronize()
     _close(got, qkernel_experiments.q40_nosub_matmul_ref(x, *planes))
-    with pytest.raises(ValueError):  # the wide mode is a decode-shape variant
-        qkernel_experiments.q40_nosub_matmul(x, *planes, wide=True)
+    assert torch.equal(wide, got)
+
+
+def _batch_caches(L, B, S, kv, hd, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype),
+            torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype), gen)
+
+
+#: mixed row positions of S = 1024: first slot, short, long, last slot
+BATCH_POS = [0, 116, 1000, 1023, 31, 32, 500, 7]
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("group,hd", [(4, 128), (8, 64)])
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_flash_decode_batched_kernel_matches_ref_and_repeats_its_bits(cuda, cache_dtype, group,
+                                                                       hd, B):
+    L, S, kv = 2, 1024, 8
+    kc, vc, gen = _batch_caches(L, B, S, kv, hd, cache_dtype, cuda, B * hd + group)
+    pos = torch.tensor(BATCH_POS[:B] if B > 1 else [1000], dtype=torch.int32, device=cuda)
+    q = torch.randn((B, kv * group, hd), device=cuda, generator=gen)
+    before = kernels.launches["flash_decode_batched"]
+    got = flash_decode.flash_decode_attention_batched(q, kc, vc, pos, 1)
+    again = flash_decode.flash_decode_attention_batched(q, kc, vc, pos, 1)
+    # the host bound only trims the grid: a row's bits stay
+    tight = flash_decode.flash_decode_attention_batched(q, kc, vc, pos, 1,
+                                                        int(pos.max()) + 1)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_decode_batched"] == before + 3
+    ref = flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, 1)
+    split = flash_decode.flash_decode_split_batched_ref(
+        q, kc, vc, pos, 1, flash_decode.max_splits(B * kv, kernels.sm_count(cuda)))
+    tol = 1e-5 * ref.abs().max().item()
+    assert (got - ref).abs().max().item() <= tol
+    assert (got - split).abs().max().item() <= tol
+    assert torch.equal(got, again) and torch.equal(got, tight)
+
+
+@pytest.mark.parametrize("bound", [1, 100, 500])
+def test_flash_decode_batched_too_small_bound_still_reads_every_prefix(cuda, bound):
+    """A host bound below some rows' pos + 1 gives a grid with fewer chunks
+    than those rows plan: each such row is cut into the grid's chunks, and
+    still attends over its whole prefix."""
+    L, S, kv, group, hd, B = 2, 1024, 8, 4, 128, 8
+    kc, vc, gen = _batch_caches(L, B, S, kv, hd, torch.bfloat16, cuda, bound)
+    pos = torch.tensor(BATCH_POS, dtype=torch.int32, device=cuda)
+    q = torch.randn((B, kv * group, hd), device=cuda, generator=gen)
+    got = flash_decode.flash_decode_attention_batched(q, kc, vc, pos, 1, bound)
+    torch.cuda.synchronize()
+    ref = flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, 1)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("pos", [0, 116, 1000, 1023])
+def test_flash_decode_solo_is_the_batched_kernel_at_one_row(cuda, cache_dtype, pos):
+    L, S, kv, group, hd = 2, 1024, 8, 4, 128
+    kc, vc, gen = _batch_caches(L, 1, S, kv, hd, cache_dtype, cuda, pos)
+    q = torch.randn((1, kv * group, hd), device=cuda, generator=gen).to(torch.bfloat16)
+    solo = flash_decode.flash_decode_attention(q, kc[:, 0], vc[:, 0], pos, 1)
+    batched = flash_decode.flash_decode_attention_batched(
+        q, kc, vc, torch.tensor([pos], dtype=torch.int32, device=cuda), 1)
+    torch.cuda.synchronize()
+    assert torch.equal(solo, batched)
+
+
+def test_flash_decode_batched_rows_ignore_other_rows_and_nan_past_prefix(cuda):
+    """NaN beyond each row's own prefix never leaks in; a row's bits do not
+    depend on its neighbours' queries, caches or positions."""
+    L, B, S, kv, group, hd = 1, 4, 1024, 8, 4, 128
+    kc, vc, gen = _batch_caches(L, B, S, kv, hd, torch.bfloat16, cuda, 8)
+    pos = torch.tensor([10, 400, 1023, 300], dtype=torch.int32, device=cuda)
+    q = torch.randn((B, kv * group, hd), device=cuda, generator=gen)
+    want = flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, 0)
+    clean = flash_decode.flash_decode_attention_batched(q, kc, vc, pos, 0)
+    kn, vn = kc.clone(), vc.clone()
+    for b, p in enumerate(pos.tolist()):
+        kn[:, b, p + 1:] = float("nan")
+        vn[:, b, p + 1:] = float("nan")
+    got = flash_decode.flash_decode_attention_batched(q, kn, vn, pos, 0)
+    # other rows: new queries, caches and positions; row 0 as it was
+    q2 = torch.randn((B, kv * group, hd), device=cuda, generator=gen)
+    q2[0] = q[0]
+    k2, v2 = torch.randn_like(kc.float()).bfloat16(), torch.randn_like(vc.float()).bfloat16()
+    k2[:, 0], v2[:, 0] = kc[:, 0], vc[:, 0]
+    pos2 = torch.tensor([10, 1023, 5, 700], dtype=torch.int32, device=cuda)
+    other = flash_decode.flash_decode_attention_batched(q2, k2, v2, pos2, 0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(other[0], got[0])
+
+
+@pytest.mark.parametrize("style", [INTERLEAVED, HALF])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+def test_rope_cache_batched_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype):
+    L, B, S, kv, hd = 2, 5, 32, 2, 64
+    rng = np.random.default_rng(B + hd)
+    pos = torch.tensor([0, 7, S - 1, S + 3, 20], dtype=torch.int32, device=cuda)  # S + 3 clamps
+    k = torch.from_numpy(rng.standard_normal((B, kv, hd)).astype(np.float32)).to(cuda, act)
+    v = torch.from_numpy(rng.standard_normal((B, kv, hd)).astype(np.float32)).to(cuda, act)
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
+    idx = pos.clamp(max=S - 1).long()
+    c, s = cos[idx][:, None], sin[idx][:, None]
+    base = torch.from_numpy(rng.standard_normal((L, B, S, kv, hd)).astype(np.float32))
+    kc, vc = (base.to(cuda).to(cache_dtype) for _ in range(2))
+    kr, vr = kc.clone(), vc.clone()
+    before = kernels.launches["rope_cache_update_batched"]
+    fused_rope_cache.rope_cache_update_batched(k, v, c, s, kc, vc, pos, 1, style)
+    torch.cuda.synchronize()
+    assert kernels.launches["rope_cache_update_batched"] == before + 1
+    fused_rope_cache.rope_cache_update_batched_ref(k, v, c, s, kr, vr, pos, 1, style)
+    assert torch.equal(kc.view(torch.uint8), kr.view(torch.uint8))
+    assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
+
+
+def test_batched_wrappers_want_device_int32_positions(cuda):
+    kc = torch.zeros((1, 2, 64, 1, 64), device=cuda)
+    q = torch.zeros((2, 4, 64), device=cuda)
+    k = torch.zeros((2, 1, 64), device=cuda)
+    cs = torch.zeros((2, 1, 32), device=cuda)
+    for bad in ([0, 1], torch.tensor([0, 1], device=cuda),  # a list; int64
+                torch.tensor([0, 1], dtype=torch.int32),  # on the host
+                torch.tensor([0], dtype=torch.int32, device=cuda)):  # one row short
+        with pytest.raises(ValueError):
+            flash_decode.flash_decode_attention_batched(q, kc, kc, bad, 0)
+        with pytest.raises(ValueError):
+            fused_rope_cache.rope_cache_update_batched(k, k, cs, cs, kc, kc, bad, 0)
 
 
 def test_wrappers_raise_on_unsupported_cuda_input(cuda):

@@ -91,3 +91,17 @@ def test_k7_activation_quantization_pads_and_scales_per_block():
     assert torch.equal(sx, padded.abs().amax(-1) / 127.0)
     assert torch.equal(xq.abs().reshape(3, 4, 32).amax(-1)[sx > 0],
                        torch.full_like(sx[sx > 0], 127, dtype=torch.int8))
+
+
+@pytest.mark.parametrize("rows", [12])
+def test_variant_f_past_the_decode_rows_matches_the_jax_script(jax_script, matrix, rows):
+    """K6's wide mode takes any T, as the script's ``variant_f`` does: past
+    ``GEMV_MAX_T`` rows both of the port's modes take the tile on the card,
+    and on the CPU the plain version."""
+    qt_j, qt_t, _ = matrix
+    assert rows > tq.GEMV_MAX_T
+    x = np.random.default_rng(rows).standard_normal((rows, K)).astype(np.float32)
+    ref = np.asarray(jax_script.variant_f(jnp.asarray(x, jnp.bfloat16), qt_j))
+    got = qe.VARIANTS["F"][0](torch.from_numpy(x).to(torch.bfloat16), qt_t)
+    assert got.shape == (rows, O)
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
