@@ -32,7 +32,11 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    tight grid bound giving the same bits, a too-small bound still right;
    K5 bit-equal for bf16 and f8 caches in both rope styles, a row at S - 1)
    are timed at B = 8 beside their bounds, plain versions and, for K4,
-   ``scaled_dot_product_attention`` with a per-row live mask.
+   ``scaled_dot_product_attention`` with a per-row live mask. K5's verify
+   form (B = 8 sequences of T = 9 and 16 rows, bf16 and f8 caches, both
+   styles, rows at 0, in the middle, at S - T and past it) must equal its
+   plain version and repeat its bits, timed at T = 9; K1 and K3 are also
+   checked and timed at the verify step's T = 9, 16 and 72.
 2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
@@ -52,7 +56,8 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
 3. ``python -m dllama_tpu_torch.cli generate`` as a subprocess on small Q40
    and Q80 `.m`/`.t` pairs written by the port's own writers; with no
    weight flag the card keeps the file's format, and with f32 activations
-   it must print the token ids the CPU run (plain versions) prints.
+   it must print the token ids the CPU run (plain versions) prints, and so
+   must ``--spec-draft 8`` on the card.
 4. ``Engine.generate_batch`` on the Llama-3-8B shape (random Q40, bf16
    batch cache [32, 8, 1024, 8, 128]), 8 seeded prompts of 20-100 tokens
    and 32 greedy steps. Gates: (a) one batched step's logits, row by row,
@@ -68,6 +73,28 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    greedy tokens of each row equal its solo stream; at B = 8 also the ms
    per step sampled (temperature 0.8, top-p 0.9). Then Q80 at B = 8
    (gates a and d).
+5. Prompt-lookup speculative decoding on phase 4's Q40 model (draft 8).
+   Gates: (a) one ``forward_batched_verify`` at B = 8, T = 9, rows at mixed
+   positions, row by row against the solo ``forward`` at (T = 9, pos[b]),
+   and (b) against the same step through the plain versions, both within
+   phase 2's tolerance; every verify step launches K1 (the tile at 72
+   rows) 129 times and K5's verify form once per layer, and every solo
+   verify step the solo K4 and K5 once per layer; no verify forward (solo
+   or batched) and no generator snapshot waits for the device; sampled
+   ``generate_spec`` with no draft (T = 1 verify steps) gives plain sampled
+   ``generate``'s tokens; (c) a CUDA generator restored to the state noted
+   after draw k makes draw k + 1; (d) the sampled verify of T = 9 logits
+   picks what row-by-row ``sample_dynamic`` picks with the same seed; (e)
+   a plain sampled stream's tokens recomputed through T = 1 steps with its
+   own noise are its tokens (logged beside: what the same noise picks from
+   the T = 9 verify logits of those positions). Logged: solo
+   ``generate_spec`` on phase 2's prompt with no history and with phase
+   2's greedy stream as history (ms, tokens and rows fed per verify step,
+   ms per token against phase 2's, the device split and CUDA launches per
+   verify step, greedy tokens equal to phase 2's), sampled with draft 8
+   against plain sampled ``generate``, and ``generate_batch_spec`` at B =
+   8 (ms and rows fed per verify step, tokens/s against phase 4's B = 8,
+   the device split at T = 9, the plain verify attention's time).
 
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
@@ -154,6 +181,9 @@ SHAPES = [("wqkv", 4096, 6144, 32), ("wo", 4096, 4096, 32),
           ("wcls", 4096, 128256, 1)]
 #: the shapes whose input is an rmsnorm's output: the fused-norm epilogue's
 FUSED = ("wqkv", "w13")
+#: rows of a speculative verify step: solo at draft 8 (9), solo at the
+#: kernels' most rows (16), and B = 8 sequences of 9 (72)
+VERIFY_T = (9, 16, 72)
 
 
 def quant_planes(torch, dev, gen, kind: str, K: int, O: int) -> tuple:
@@ -207,10 +237,12 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
     """K1+K2 (q40) or K3 (q80) at every Llama-3-8B width, plain and with the
     fused-norm epilogue: each against its plain version within 1e-5 *
     max|ref|, the fused form bit-equal to the unfused one, and two launches
-    on the same inputs bit-equal. T = 1, 128 and 512, and the batched
-    decode step's T = B = 4 and the GEMV's largest T (``GEMV_MAX_T``).
-    Timed at T = 1 (decode), T = 128 (prefill) and T = 512 (not wcls), each
-    beside bf16 ``torch.matmul`` on the dequantized weight."""
+    on the same inputs bit-equal. T = 1, 128 and 512, the batched decode
+    step's T = B = 4 and the GEMV's largest T (``GEMV_MAX_T``), and the
+    speculative verify step's T (``VERIFY_T``). Timed at T = 1 (decode),
+    T = 128 (prefill), T = 512 (not wcls) and the verify T (the kernel and
+    the library call only), each beside bf16 ``torch.matmul`` on the
+    dequantized weight."""
     from dllama_tpu_torch import kernels
     from dllama_tpu_torch.ops import qmatmul
     from dllama_tpu_torch.ops.norms import rmsnorm
@@ -226,7 +258,7 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
         return qmatmul.q80_matmul_ref(x, *p, **kw)
 
     n_sm = kernels.sm_count(dev)
-    ts = (1, 4, qmatmul.GEMV_MAX_T, 128, 512)
+    ts = (1, 4, qmatmul.GEMV_MAX_T, *VERIFY_T, 128, 512)
     rows = []
     for name, K, O, per_token in SHAPES:
         planes = [quant_planes(torch, dev, gen, kind, K, O)]
@@ -275,21 +307,26 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                          f"or fused != unfused")
                 if not repeat:
                     fail(f"{kind}_matmul {name} T={T}: two launches on the same inputs differ")
-                if ((kind == "q40" and nosub != qmatmul.Q40_NOSUB) or T not in (1, 128, 512)
-                        or (T == 512 and name == "wcls")):
+                if ((kind == "q40" and nosub != qmatmul.Q40_NOSUB)
+                        or T not in (1, *VERIFY_T, 128, 512) or (T == 512 and name == "wcls")):
                     rows.append(row)
                     continue
                 nxt = rotating(planes)
                 row["ms"] = time_ms(torch, lambda: kern(x, nxt(), nosub))
+                row["library_ms"] = library_ms(torch, kind, planes, x)
+                b, by = bound_ms(plane_bytes(p) + T * K * 2 + T * O * 4, 2.0 * T * K * O, BF16_FLOPS)
+                row["bound_ms"], row["bound_by"] = b, by
+                row["launches_per_token"] = per_token if T == 1 else None
+                if T in VERIFY_T:  # the speculative verify step's rows: kernel and library
+                    log(f"    time {row['ms']:.4f} ms  bound {b:.4f} ms ({by})  bf16 "
+                        f"torch.matmul {row['library_ms']:.4f} ms")
+                    rows.append(row)
+                    continue
                 row["fused_ms"] = time_ms(torch, lambda: kern(x, nxt(), nosub, norm_w=nw,
                                                             norm_inv=inv))
                 row["plain_ms"] = time_ms(torch, lambda: plain(x, p, nosub), 20)
                 row["fused_plain_ms"] = time_ms(
                     torch, lambda: plain(x, p, nosub, norm_w=nw, norm_inv=inv), 20)
-                row["library_ms"] = library_ms(torch, kind, planes, x)
-                b, by = bound_ms(plane_bytes(p) + T * K * 2 + T * O * 4, 2.0 * T * K * O, BF16_FLOPS)
-                row["bound_ms"], row["bound_by"] = b, by
-                row["launches_per_token"] = per_token if T == 1 else None
                 log(f"    time {row['ms']:.4f} ms (fused norm {row['fused_ms']:.4f})  bound "
                     f"{b:.4f} ms ({by})  plain {row['plain_ms']:.4f} ms  bf16 torch.matmul "
                     f"{row['library_ms']:.4f} ms")
@@ -636,6 +673,67 @@ def phase1_rope_batched(torch, dev, gen) -> list:
     return rows
 
 
+def phase1_rope_verify(torch, dev, gen) -> list:
+    """The verify form of K5 (B = 8 sequences of T rows) bit-equal to its
+    plain version for bf16 and f8 caches in both rope styles at T = 9 (draft
+    8) and 16 (``MAX_T``), rows at pos 0, in the middle, at S - T and past
+    it (clamped to S - T); a second launch on the same inputs must give the
+    same bits. Timed at T = 9 (bf16, interleaved) beside its byte bound and
+    plain version."""
+    from dllama_tpu_torch.ops import fused_rope_cache
+    from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
+
+    rows = []
+    L, S, kv, _, hd = BATCH_SHAPE
+    B = 8
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
+    for T in (9, fused_rope_cache.MAX_T):
+        pos_l = [0, 116, 500, S - T, S - T + 4, S + 5, 31, 7]  # the last three of S clamp
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        idx = (pos.long()[:, None] + torch.arange(T, device=dev)).clamp(max=S - 1)
+        c, s = cos[idx][:, :, None], sin[idx][:, :, None]
+        for style in (INTERLEAVED, HALF):
+            for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+                k = torch.randn((B, T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+                v = torch.randn((B, T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+                kc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
+                vc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
+                kr, vr, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                fused_rope_cache.rope_cache_update_verify(k, v, c, s, kc, vc, pos, 1, style)
+                fused_rope_cache.rope_cache_update_verify(k, v, c, s, k2, v2, pos, 1, style)
+                torch.cuda.synchronize()
+                fused_rope_cache.rope_cache_update_verify_ref(k, v, c, s, kr, vr, pos, 1, style)
+                diff = int((kc.view(torch.uint8) != kr.view(torch.uint8)).sum()
+                           + (vc.view(torch.uint8) != vr.view(torch.uint8)).sum())
+                repeat = bool(torch.equal(kc.view(torch.uint8), k2.view(torch.uint8))
+                              and torch.equal(vc.view(torch.uint8), v2.view(torch.uint8)))
+                err = max((kc.float() - kr.float()).abs().max().item(),
+                          (vc.float() - vr.float()).abs().max().item())
+                log(f"  rope_cache_update_verify {style:11s} B={B} T={T} pos={pos_l} "
+                    f"cache={str(dtype).split('.')[-1]}: {diff} cache bytes differ (tol 0); "
+                    f"repeat bit-equal: {repeat}")
+                if diff or not repeat:
+                    fail(f"rope_cache_update_verify {style} T={T} {dtype}: {diff} bytes differ "
+                         f"or two launches differ")
+                row = {"style": style, "B": B, "T": T, "pos": pos_l, "cache": str(dtype),
+                       "bytes_differ": diff, "repeat_bit_equal": repeat, "max_abs_err": err}
+                if style == INTERLEAVED and dtype == torch.bfloat16 and T == 9:
+                    row["ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update_verify(
+                        k, v, c, s, kc, vc, pos, 1, style))
+                    row["plain_ms"] = time_ms(
+                        torch, lambda: fused_rope_cache.rope_cache_update_verify_ref(
+                            k, v, c, s, kr, vr, pos, 1, style))
+                    nbytes = 2 * (2 * B * T * kv * hd * 2) + 2 * B * T * hd // 2 * 4
+                    b_ms, by = bound_ms(nbytes, 6.0 * B * T * kv * hd // 2, F32_FLOPS)
+                    row["bound_ms"], row["bound_by"], row["library_ms"] = b_ms, by, None
+                    log(f"    B=8 T=9 time {row['ms']:.4f} ms per launch  bound {b_ms:.6f} ms "
+                        f"({by})  plain {row['plain_ms']:.4f} ms  (no single PyTorch call)")
+                rows.append(row)
+                del kc, vc, kr, vr, k2, v2
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: full-width decode through Engine.generate
 # ---------------------------------------------------------------------------
@@ -661,6 +759,7 @@ class plain_versions:
                       (qmatmul, "q80_matmul", qmatmul.q80_matmul),
                       (llama, "rope_cache_update", llama.rope_cache_update),
                       (llama, "rope_cache_update_batched", llama.rope_cache_update_batched),
+                      (llama, "rope_cache_update_verify", llama.rope_cache_update_verify),
                       (flash_decode, "flash_decode_attention",
                        flash_decode.flash_decode_attention),
                       (flash_decode, "flash_decode_attention_batched",
@@ -669,6 +768,7 @@ class plain_versions:
         qmatmul.q80_matmul = qmatmul.q80_matmul_ref
         llama.rope_cache_update = fused_rope_cache.rope_cache_update_ref
         llama.rope_cache_update_batched = fused_rope_cache.rope_cache_update_batched_ref
+        llama.rope_cache_update_verify = fused_rope_cache.rope_cache_update_verify_ref
         flash_decode.flash_decode_attention = flash_decode.flash_decode_attention_ref
         flash_decode.flash_decode_attention_batched = (
             lambda q, kc, vc, pos, layer, bound=None:
@@ -678,6 +778,35 @@ class plain_versions:
     def __exit__(self, *exc):
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
+
+
+class rows_fed:
+    """Within the block, note the row count (``tokens.shape[axis]``) of every
+    call of ``module.name`` that feeds at most ``max_t`` rows (a verify
+    forward; a prefill feeds its bucket)."""
+
+    def __init__(self, module, name: str, axis: int, max_t: int = 16):
+        self.module, self.name, self.axis, self.max_t = module, name, axis, max_t
+        self.ts: list = []
+
+    def __enter__(self):
+        fn = self.saved = getattr(self.module, self.name)
+
+        def noted(cfg, params, rope, tokens, *a, **kw):
+            if tokens.shape[self.axis] <= self.max_t:
+                self.ts.append(int(tokens.shape[self.axis]))
+            return fn(cfg, params, rope, tokens, *a, **kw)
+
+        setattr(self.module, self.name, noted)
+        return self.ts
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def t_histogram(ts: list) -> dict:
+    """{T: how many steps fed T rows}, in order of T."""
+    return {t: ts.count(t) for t in sorted(set(ts))}
 
 
 class fuse_norm:
@@ -794,6 +923,7 @@ def phase2(torch, dev, kind: str) -> dict:
         "weight_bound_ms": bound,
         "launches": totals,
         "launches_per_decode_token": {k: v for k, v in want.items() if v},
+        "prompt": prompt,
         "tokens": tokens,
     }
     log(f"  prefill {engine.prefill_ms:.2f} ms ({len(prompt)} tokens, bucket 128); decode "
@@ -979,14 +1109,20 @@ def phase3() -> dict:
             card32, _ = run_cli(model, tok, ["--dtype", "float32"])
             cpu32, _ = run_cli(model, tok, ["--dtype", "float32", "--device", "cpu",
                                             "--weights-float-type", kind])
+            spec32, _ = run_cli(model, tok, ["--dtype", "float32", "--spec-draft", "8"])
             log(f"  {kind.upper()} model: cli generate on the card (bf16): {card}")
             log(f"  {kind.upper()} model: cli generate on the card (f32):  {card32}")
             log(f"  {kind.upper()} model: cli generate on the CPU  (f32):  {cpu32}")
+            log(f"  {kind.upper()} model: cli generate --spec-draft 8 on the card (f32): {spec32}")
             if f"weights resident as {kind}" not in card_out:
                 fail(f"the card run of the {kind} model did not keep {kind} weights")
             if card32 != cpu32:
                 fail(f"{kind} model: card tokens {card32} differ from the CPU's {cpu32}")
-            out[kind] = {"card_bf16": card, "card_f32": card32, "cpu_f32": cpu32}
+            if spec32 != cpu32:
+                fail(f"{kind} model: --spec-draft 8 tokens {spec32} differ from the CPU's plain "
+                     f"{cpu32}")
+            out[kind] = {"card_bf16": card, "card_f32": card32, "cpu_f32": cpu32,
+                         "card_f32_spec_draft_8": spec32}
     return out
 
 
@@ -1009,13 +1145,14 @@ def leading_equal(a: list, b: list) -> int:
 
 
 def phase4(torch, dev, kind: str, batches: tuple, solo_ms: float, cfg_kw=None,
-           steps: int = 32) -> dict:
+           steps: int = 32, then=None) -> dict:
     """``Engine.generate_batch`` on the Llama-3-8B shape with random ``kind``
     weights and a bf16 batch cache: the gates (a) step against solo, (d)
     launch counts, and for the largest batch of several (b) neighbours and
     (c) mid-flight admission; then ms per step, tokens/s, the profiler's
     device time and the solo-stream agreement at each batch size, and the
-    largest batch's ms per step sampled."""
+    largest batch's ms per step sampled. ``then(engine, prompts, out)``
+    runs last on the same model, before it is freed."""
     from torch.profiler import ProfilerActivity, profile
 
     from dllama_tpu_torch import kernels
@@ -1197,7 +1334,332 @@ def phase4(torch, dev, kind: str, batches: tuple, solo_ms: float, cfg_kw=None,
         if mid != start or len(mid) != 16:
             fail(f"{kind} mid-flight admission: {mid} vs {start}")
         out.update(neighbours_bit_equal=True, mid_flight_bit_equal=True)
+    if then is not None:
+        then(engine, prompts, out)
     del engine, params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: speculative decoding through generate_spec and generate_batch_spec
+# ---------------------------------------------------------------------------
+
+def profile_window(torch, run) -> tuple:
+    """(device busy ms, wall ms, ms by kernel name, families, steps) of
+    ``run()`` under the profiler; ``run`` returns how many steps it made and
+    every number is per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        n = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / n
+    by_name, families = device_time(prof, n)
+    return sum(by_name.values()), wall, by_name, families, n
+
+
+def log_split(busy: float, wall: float, families: dict, what: str) -> dict:
+    """Log a profiler window's split by kernel family; returns its record."""
+    if busy <= 0:
+        log(f"    profiler showed no device time: {what} device split not measured")
+        return {"device_busy_ms": "not measured", "idle_share": "not measured"}
+    launches = sum(v["launches"] for v in families.values())
+    log(f"    profiler: device busy {busy:.3f} ms per {what} of {wall:.3f} ms wall (idle share "
+        f"{max(0.0, 1.0 - busy / wall):.3f}), {launches:.0f} CUDA launches per {what}; by kernel:")
+    for fam, v in families.items():
+        if v["launches"]:
+            log(f"      {v['ms']:.4f} ms ({v['ms'] / busy:.3f} of busy) in {v['launches']:.0f} "
+                f"CUDA launches  {fam}")
+    return {"device_busy_ms": busy, "profiled_wall_ms": wall,
+            "idle_share": max(0.0, 1.0 - busy / wall), "cuda_launches": launches,
+            "kernels": families}
+
+
+def phase5(torch, dev, engine, prompts: list, solo: dict, batched: dict) -> dict:
+    """Prompt-lookup speculative decoding on phase 4's Q40 model. Gates: (a)
+    one ``forward_batched_verify`` at B = 8, T = 9 (rows at phase 4's mixed
+    positions, random drafts), row by row against the solo ``forward`` at
+    (T = 9, pos[b]), and (b) against the same step through the plain
+    versions, both within phase 2's 5e-2 * max|logit|; every verify step
+    launches K1 129 times and the K5 verify form once per layer; neither a
+    verify forward (solo or batched) nor the generator's state snapshots
+    wait for the device; sampled ``generate_spec`` with no draft (T = 1
+    verify steps, plain decode's kernels) gives plain sampled ``generate``'s
+    tokens. The sampled verify's replay, on the card: (c) restoring the
+    state noted after draw k puts a CUDA generator where draw k + 1 starts;
+    (d) ``verify_sampled`` on a T = 9 verify step's logits picks what
+    ``sample_dynamic`` picks row by row with the same seed; (e) tokens 1..9
+    of a plain sampled stream, recomputed through T = 1 steps with the
+    stream's own noise, are the stream's tokens. Logged beside (e): the same
+    noise on the T = 9 verify logits of the same positions (how far the
+    routes' logits differ, and which tokens change). Logged: solo
+    ``generate_spec`` (draft 8, phase 2's prompt and 33 tokens) with no
+    history and with the prompt + phase 2's greedy stream as history (ms
+    and tokens per verify step, rows fed per step, ms per token against
+    phase 2's, the device split and launches per verify step), sampled with
+    draft 8 against plain sampled ``generate``, and ``generate_batch_spec``
+    at B = 8 (ms per verify step, rows fed per step, tokens/s against phase
+    4's B = 8, the device split at T = 9, the plain verify attention's
+    time)."""
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.ops.attention import gqa_attention_batched
+    from dllama_tpu_torch.runtime.generate import verify_sampled
+    from dllama_tpu_torch.runtime.sampler import (
+        SamplerConfig, gumbel_noise, sample_dynamic, sample_rows,
+    )
+
+    cfg, B, T = engine.cfg, len(prompts), 9
+    out = {}
+
+    # (a), (b): one batched verify step
+    cache, pend, poss = engine._prefill_batch_rows(prompts)
+    drafts = torch.randint(0, cfg.vocab_size, (B, T - 1), generator=torch.Generator().manual_seed(4))
+    tokens = torch.cat([torch.tensor(pend)[:, None], drafts], 1).to(dev)
+    pos = torch.tensor(poss, dtype=torch.int32, device=dev)
+    snapshot = {n: c.clone() for n, c in cache.items()}
+    kernels.reset_launches()
+    lv, _ = llama.forward_batched_verify(cfg, engine.params, engine.rope, tokens, cache, pos)
+    torch.cuda.synchronize()
+    step_launches = dict(kernels.launches)
+    want = {k: 0 for k in step_launches}
+    want.update(q40_matmul=4 * cfg.n_layers + 1, rope_cache_update_verify=cfg.n_layers)
+    if step_launches != want:
+        fail(f"verify step launched {step_launches}, want {want}")
+    with plain_versions():
+        lp, _ = llama.forward_batched_verify(cfg, engine.params, engine.rope, tokens, snapshot,
+                                             pos)
+    del snapshot
+    err_p = (lv - lp).abs().max().item()
+    tol_p = 5e-2 * lp.abs().max().item()
+    log(f"  (b) verify step B={B} T={T} at pos {poss} vs the same step through the plain "
+        f"versions: max |dlogit| {err_p:.4e} (tol 5e-2*max|logit| = {tol_p:.4e}, err/tol "
+        f"{err_p / tol_p:.4f}); launches {step_launches}")
+    if not (bool(torch.isfinite(lv).all()) and err_p <= tol_p):
+        fail(f"verify step vs plain versions: {err_p} > {tol_p}")
+    del lp
+    row_err, argmax_same = [], 0
+    for b, p in enumerate(prompts):
+        _, single = engine.prefill(engine.new_cache(), p[:-1])
+        ls, _ = llama.forward(cfg, engine.params, engine.rope, tokens[b], single, poss[b])
+        err = (lv[b] - ls).abs().max().item()
+        tol = 5e-2 * ls.abs().max().item()
+        row_err.append(err / tol)
+        argmax_same += int(torch.equal(lv[b].argmax(-1), ls.argmax(-1)))
+        if not err <= tol:
+            fail(f"verify step row {b}: max |dlogit| {err} > {tol} (5e-2*max|logit|) against "
+                 f"its solo forward at T={T}, pos {poss[b]}")
+        del single
+    log(f"  (a) verify step vs each row's solo forward at (T={T}, pos[b]): |dlogit|/tol by row "
+        f"{[round(e, 4) for e in row_err]}; all {T} argmaxes equal in {argmax_same}/{B} rows")
+    out.update(verify_vs_plain_err_over_tol=err_p / tol_p, verify_vs_solo_err_over_tol=row_err,
+               verify_rows_argmax_equal=argmax_same)
+
+    # nothing inside a verify step waits for the device: the forwards (solo
+    # and batched), and the sampled verify's generator snapshots
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def draws():
+        states = []
+        for _ in range(T):
+            gumbel_noise(cfg.vocab_size, g, dev)
+            states.append(g.get_state())
+        g.set_state(states[3])
+
+    _, single = engine.prefill(engine.new_cache(), prompts[0][:-1])
+    for what, fn in (
+            ("a B=8 verify forward", lambda: llama.forward_batched_verify(
+                cfg, engine.params, engine.rope, tokens, cache, pos)),
+            ("a solo verify forward (T=9)", lambda: llama.forward(
+                cfg, engine.params, engine.rope, tokens[0], single, poss[0])),
+            (f"{T} Gumbel draws with get_state after each and one set_state", draws)):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            fail(f"{what} synchronizes with the device: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log(f"  {what}: no host sync (torch.cuda.set_sync_debug_mode('error'))")
+    del single
+
+    # solo generate_spec, two ways
+    prompt, plain = solo["prompt"], solo["tokens"]
+    steps = len(plain)
+    list(engine.generate_spec(prompt, 4, history=prompt + plain))  # warm
+    for way, hist in (("no history", None), ("history = prompt + greedy stream", prompt + plain)):
+        kernels.reset_launches()
+        toks, stats = [], []
+        with rows_fed(llama, "forward", 0) as ts:
+            for t, st in engine.generate_spec(prompt, steps, draft_len=8, history=hist):
+                toks.append(t)
+                stats.append(st)
+        launches = dict(kernels.launches)
+        verify = [st.generation_ms for st in stats[1:] if st.generation_ms > 0]
+        n = len(verify)
+        if launches["rope_cache_update_verify"] or launches["flash_decode"] != n * cfg.n_layers \
+                or launches["rope_cache_update"] != n * cfg.n_layers:
+            fail(f"solo generate_spec ({way}): {n} verify steps launched {launches}")
+        r = {"tokens": toks, "verify_steps": n, "ms_per_verify_step_median": statistics.median(verify),
+             "tokens_per_verify_step": (len(toks) - 1) / n,
+             "ms_per_token": sum(verify) / (len(toks) - 1),
+             "plain_decode_ms_per_token": solo["decode_ms_median"],
+             "leading_tokens_equal_plain": leading_equal(toks, plain), "launches": launches,
+             "rows_fed": t_histogram(ts)}
+        log(f"  generate_spec, draft 8, {way}: {n} verify steps for {len(toks) - 1} tokens after "
+            f"the prefill's ({r['tokens_per_verify_step']:.2f} a step; steps by rows fed T: "
+            f"{r['rows_fed']}); "
+            f"{r['ms_per_verify_step_median']:.3f} ms per verify step (median), "
+            f"{r['ms_per_token']:.3f} ms per token against phase 2's plain decode "
+            f"{solo['decode_ms_median']:.3f}; greedy tokens equal to phase 2's (leading, of "
+            f"{steps}): {r['leading_tokens_equal_plain']}")
+        # the device split: a continuation of the same prefill, verify steps only
+        list(engine.generate_spec(prompt, 1))
+        sess = engine.final_session
+        window = (hist or []) + prompt
+
+        def run():
+            return sum(st.generation_ms > 0 for _, st in engine.generate_spec(
+                [], 10, session=sess, draft_len=8, history=window))
+
+        busy, wall, _, families, _ = profile_window(torch, run)
+        r["profile"] = log_split(busy, wall, families, "verify step")
+        out["solo_" + ("organic" if hist is None else "drafted")] = r
+
+    # sampled: with no draft every verify step is the T = 1 forward plain
+    # decode runs, so the replayed draws must give plain decode's tokens bit
+    # for bit
+    scfg = SamplerConfig(temperature=0.8, topp=0.9, seed=5)
+    plain_s = [t for t, _ in engine.generate(prompt, 17, sampler=scfg)]
+    one_row = [t for t, _ in engine.generate_spec(prompt, 17, sampler=scfg, draft_len=0)]
+    log(f"  sampled (temperature 0.8, top-p 0.9, seed 5), draft 0 (T = 1 verify steps): tokens "
+        f"equal to plain sampled generate: {one_row == plain_s} ({len(plain_s)} tokens)")
+    if one_row != plain_s:
+        fail(f"sampled generate_spec with no draft {one_row} != plain sampled {plain_s}")
+
+    # tokens 1..T of that stream predicted from one cache two ways: plain
+    # decode's T = 1 steps, and one T-row verify forward of tokens 0..T-1
+    list(engine.generate(prompt, 1, sampler=scfg))
+    sess = engine.final_session
+    fed = torch.tensor(plain_s[:T], dtype=torch.long, device=dev)
+    c = {n: x.clone() for n, x in sess.cache.items()}
+    lv9, _ = llama.forward(cfg, engine.params, engine.rope, fed, c, sess.pos)
+    c = {n: x.clone() for n, x in sess.cache.items()}
+    lp9 = torch.cat([llama.forward(cfg, engine.params, engine.rope, fed[i:i + 1], c,
+                                   sess.pos + i)[0] for i in range(T)])
+    del c
+    V = lp9.shape[-1]
+    g0 = torch.Generator(device=dev).manual_seed(scfg.seed)
+    noise = torch.stack([gumbel_noise(V, g0, dev) for _ in range(T + 1)][1:])  # 0: the prefill's
+    temps, topps = [scfg.temperature] * T, [scfg.topp] * T
+    via_plain = sample_rows(lp9, temps, topps, gumbel=noise).tolist()
+    via_verify = sample_rows(lv9, temps, topps, gumbel=noise).tolist()
+    ok_e = via_plain == plain_s[1:T + 1]
+    log(f"  (e) tokens 1..{T} of the plain sampled stream recomputed through T = 1 steps with "
+        f"the stream's own noise: equal to the stream: {ok_e}")
+    if not ok_e:
+        fail(f"sampled replay through T = 1 steps {via_plain} != the stream {plain_s[1:T + 1]}")
+    # what differs on the verify route: the logits' low bits, the top-p
+    # ranking they give, and the tokens the same noise then picks
+    probs_p, idx_p = torch.sort(torch.softmax(lp9.float() / scfg.temperature, -1), dim=-1,
+                                descending=True, stable=True)
+    _, idx_v = torch.sort(torch.softmax(lv9.float() / scfg.temperature, -1), dim=-1,
+                          descending=True, stable=True)
+    nucleus = ((probs_p.cumsum(-1) - probs_p) < scfg.topp).sum(-1).tolist()
+    first_swap = [int((idx_p[i] != idx_v[i]).nonzero()[0]) if bool((idx_p[i] != idx_v[i]).any())
+                  else None for i in range(T)]
+    d_logit = (lv9 - lp9).abs().max().item()
+    routes = {"max_abs_dlogit": d_logit, "max_abs_logit": lp9.abs().max().item(),
+              "tokens_differ": sum(a != b for a, b in zip(via_plain, via_verify)),
+              "argmax_differ": int((lv9.argmax(-1) != lp9.argmax(-1)).sum()),
+              "nucleus_size": nucleus, "first_rank_swap": first_swap,
+              "via_plain": via_plain, "via_verify": via_verify}
+    log(f"    the same noise on the T = {T} verify logits of those positions: max |dlogit| "
+        f"{d_logit:.4e} (max |logit| {routes['max_abs_logit']:.4e}); tokens differ in "
+        f"{routes['tokens_differ']}/{T} rows, argmax in {routes['argmax_differ']}/{T}; top-p "
+        f"nucleus sizes {nucleus}; first rank where the sorted vocabularies differ {first_swap}")
+
+    # (d) one sampled verify against row-by-row sample_dynamic, same seed
+    gv = torch.Generator(device=dev).manual_seed(77)
+    picks, states = verify_sampled(lv9, scfg, gv)
+    gr = torch.Generator(device=dev).manual_seed(77)
+    rowwise = [int(sample_dynamic(lv9[i], scfg.temperature, scfg.topp, gr)) for i in range(T)]
+    ok_d = picks.tolist() == rowwise
+    log(f"  (d) verify_sampled on the T = {T} verify logits vs row-by-row sample_dynamic (same "
+        f"seed): equal: {ok_d}")
+    if not ok_d:
+        fail(f"verify_sampled {picks.tolist()} != row-by-row sample_dynamic {rowwise}")
+    # (c) each noted state restores the CUDA generator to the next draw
+    gf = torch.Generator(device=dev).manual_seed(77)
+    fresh = [gumbel_noise(V, gf, dev) for _ in range(T)]
+    bad = []
+    for k in range(T - 1):
+        gv.set_state(states[k])
+        if not torch.equal(gumbel_noise(V, gv, dev), fresh[k + 1]):
+            bad.append(k)
+    log(f"  (c) CUDA generator: restoring the state noted after draw k gives draw k + 1 of a "
+        f"fresh generator, k = 0..{T - 2}: {'all equal' if not bad else f'differs at {bad}'}")
+    if bad:
+        fail(f"CUDA generator restore: states {bad} do not replay the next draw")
+    out["sampled_routes"] = routes
+
+    groups = 0
+    spec_s = []
+    for t, st in engine.generate_spec(prompt, 17, sampler=scfg, history=prompt + plain_s):
+        spec_s.append(t)
+        groups += st.generation_ms > 0
+    out["sampled"] = {"plain": plain_s, "spec": spec_s, "steps": groups,
+                      "leading_tokens_equal": leading_equal(spec_s, plain_s)}
+    log(f"  sampled, draft 8 from the plain sampled stream: {len(spec_s)} tokens in {groups} "
+        f"steps (the prefill's included); tokens equal to plain sampled generate (leading, of "
+        f"17): {out['sampled']['leading_tokens_equal']}")
+
+    # batched generate_batch_spec at B = 8
+    kernels.reset_launches()
+    with rows_fed(llama, "forward_batched_verify", 1) as ts:
+        rows, st = engine.generate_batch_spec(prompts, 32, draft_len=8)
+    launches = dict(kernels.launches)
+    if launches["rope_cache_update_verify"] != st["verify_steps"] * cfg.n_layers \
+            or launches["q40_matmul"] == 0 or launches["flash_decode_batched"] \
+            or launches["rope_cache_update_batched"]:
+        fail(f"generate_batch_spec: {st} launched {launches}")
+    ms = engine.decode_ms / st["verify_steps"]
+    tps = st["emitted"] * 1e3 / engine.decode_ms
+    ref = batched["B8"]
+    r = {"stats": st, "ms_per_verify_step": ms, "tokens_per_s": tps,
+         "generate_batch_tokens_per_s": ref["tokens_per_s"],
+         "generate_batch_ms_per_step": ref["ms_per_step_median"], "launches": launches,
+         "leading_tokens_equal_generate_batch": [leading_equal(rows[b], ref["tokens"][b])
+                                                 for b in range(B)], "tokens": rows,
+         "rows_fed": t_histogram(ts)}
+    log(f"  generate_batch_spec B={B}, draft 8, 32 steps: {st}; steps by rows fed T: "
+        f"{r['rows_fed']}; {ms:.3f} ms per verify step, "
+        f"{tps:.1f} tokens/s against phase 4's B=8 generate_batch {ref['tokens_per_s']:.1f} "
+        f"({ref['ms_per_step_median']:.3f} ms per step); launches {launches}")
+    log(f"    greedy tokens equal to phase 4's generate_batch rows (leading, of 32): "
+        f"{r['leading_tokens_equal_generate_batch']}")
+
+    def run_b():
+        for _ in range(3):
+            logits, _ = llama.forward_batched_verify(cfg, engine.params, engine.rope, tokens,
+                                                     cache, pos)
+            torch.argmax(logits, dim=-1).tolist()
+        return 3
+
+    busy, wall, by_name, families, _ = profile_window(torch, run_b)
+    r["profile"] = log_split(busy, wall, families, "B=8 T=9 verify step")
+    r["profile_top"] = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    # the plain verify attention of one layer, CUDA events
+    q = torch.randn((B, T, cfg.n_heads, cfg.head_size), device=dev).to(torch.bfloat16)
+    att = time_ms(torch, lambda: gqa_attention_batched(q, cache["k"][1], cache["v"][1], pos))
+    r["verify_attention_ms_per_layer"] = att
+    log(f"    plain verify attention (gqa_attention_batched, [8, 9, 32, 128] over [8, 1024, 8, "
+        f"128] bf16): {att:.4f} ms per layer, {att * cfg.n_layers:.3f} ms per verify step")
+    out["batched"] = r
+    del cache
     torch.cuda.empty_cache()
     return out
 
@@ -1247,6 +1709,7 @@ def main() -> None:
     rope = phase1_rope(torch, dev, gen)
     flash_b = phase1_flash_batched(torch, dev, gen)
     rope_b = phase1_rope_batched(torch, dev, gen)
+    rope_v = phase1_rope_verify(torch, dev, gen)
 
     header("phase 2: Engine.generate, Llama-3-8B shape, random Q40, 100 + 32 tokens")
     e2e = phase2(torch, dev, "q40")
@@ -1259,16 +1722,22 @@ def main() -> None:
     header("phase 3: python -m dllama_tpu_torch.cli generate on small Q40 and Q80 models")
     cli = phase3()
 
+    spec = {}
+
+    def run_phase5(engine, prompts, batch_out):
+        header("phase 5: generate_spec and generate_batch_spec, phase 4's Q40 model, draft 8")
+        spec.update(phase5(torch, dev, engine, prompts, e2e, batch_out))
+
     header("phase 4: Engine.generate_batch, Llama-3-8B shape, random Q40, B = 1, 4, 8")
-    batch = phase4(torch, dev, "q40", (1, 4, 8), e2e["decode_ms_median"])
+    batch = phase4(torch, dev, "q40", (1, 4, 8), e2e["decode_ms_median"], then=run_phase5)
     header("phase 4: Engine.generate_batch, Llama-3-8B shape, random Q80, B = 8")
     batch80 = phase4(torch, dev, "q80", (8,), e2e80["decode_ms_median"])
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
     def at_t(rows, T):
-        return {r["matrix"]: {k: r[k] for k in ("ms", "fused_ms", "library_ms", "bound_ms",
-                                               "bound_by", "ksplit")}
+        return {r["matrix"]: {k: r.get(k) for k in ("ms", "fused_ms", "library_ms", "bound_ms",
+                                                   "bound_by", "ksplit")}
                 for r in rows if r["T"] == T and "ms" in r}
 
     def matmul_entry(name, rows, source, replaces, tpu, launches, tile_entry):
@@ -1289,6 +1758,7 @@ def main() -> None:
                 "per_width_ms": {r["matrix"]: r["ms"] for r in dec},
                 "tile_entry": tile_entry, "tile_source": "dllama_tpu_torch/csrc/dq_tile.cuh",
                 "prefill_T128": at_t(rows, 128), "tile_T512": at_t(rows, 512),
+                **{f"verify_T{T}": at_t(rows, T) for T in VERIFY_T},
                 "worst_err_over_tol": {r["matrix"]: max(v["err_over_tol"] for v in rows
                                                         if v["matrix"] == r["matrix"])
                                        for r in dec},
@@ -1308,6 +1778,7 @@ def main() -> None:
     rp = next(r for r in rope if "ms" in r)
     flb = next(r for r in flash_b if "ms" in r)
     rpb = next(r for r in rope_b if "ms" in r)
+    rpv = next(r for r in rope_v if "ms" in r)
     launches, launches80 = e2e["launches"], e2e80["launches"]
     launches_b = batch["B8"]["launches"]
     summary = {"kernels": [
@@ -1357,6 +1828,16 @@ def main() -> None:
          "bound_by": rpb["bound_by"], "library_ms": None,
          "per": "one launch: B=8 rows, kv=8, hd=128, bf16 activations and cache; launches: "
                 "phase 4's B=8 generate_batch (32 steps)"},
+        {"name": "rope_cache_update_verify", "route": "cuda",
+         "source": "dllama_tpu_torch/csrc/rope_cache.cu",
+         "replaces": "dllama_tpu/ops/fused_rope_cache.py:209 (rope_cache_update_verify) -> "
+                     "_launch :132", "tpu_kernels": ["K5"],
+         "launches": spec["batched"]["launches"]["rope_cache_update_verify"],
+         "max_abs_err": max(r["max_abs_err"] for r in rope_v),
+         "ms": rpv["ms"], "plain_ms": rpv["plain_ms"], "bound_ms": rpv["bound_ms"],
+         "bound_by": rpv["bound_by"], "library_ms": None,
+         "per": "one launch: B=8 sequences of T=9 rows, kv=8, hd=128, bf16 activations and "
+                "cache; launches: phase 5's B=8 generate_batch_spec (32 tokens a row)"},
         variant_entry("q40_nosub_matmul", "dllama_tpu_torch/csrc/q40_matmul.cu",
                       "scripts/qkernel_experiments.py:60 (_q40_nosub_kernel)", ["K6"]),
         variant_entry("q40_int8_matmul", "dllama_tpu_torch/csrc/q40_int8_matmul.cu",
@@ -1365,8 +1846,8 @@ def main() -> None:
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "q40": q40, "q80": q80, "variants": variants,
                "flash_decode": flash, "rope_cache": rope, "flash_decode_batched": flash_b,
-               "rope_cache_batched": rope_b, "e2e": e2e, "e2e_q80": e2e80,
-               "batch_q40": batch, "batch_q80": batch80,
+               "rope_cache_batched": rope_b, "rope_cache_verify": rope_v, "e2e": e2e,
+               "e2e_q80": e2e80, "batch_q40": batch, "batch_q80": batch80, "spec": spec,
                "experiments": exp, "cli": cli, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

@@ -9,7 +9,10 @@ On the card the weights stay in the file's own Q40 or Q80 format and every
 projection runs through that format's dequant-matmul kernel (pass
 ``--weights-float-type`` to choose otherwise; q80 on a Q40 file requantizes
 the dequantized values). ``DLLAMA_FUSE_NORM=1`` folds each rmsnorm into the
-projection kernels that follow it.
+projection kernels that follow it. ``--spec-draft K`` decodes with
+prompt-lookup speculative drafting (up to K drafted tokens verified in one
+step); on the CPU the tokens are the plain run's, on the card up to the
+low-bit logit differences of a drafted step (see ``Engine.generate_spec``).
 """
 
 from __future__ import annotations
@@ -43,6 +46,14 @@ def build_parser() -> argparse.ArgumentParser:
             help="on-device weight storage: q40/q80 keep weights block-quantized and "
             "run that format's dequant-matmul kernel (default on the card: the model "
             "file's own q40/q80); bf16/f16/f32 dequantize at load")
+        sp.add_argument(
+            "--spec-draft", type=int, default=0, metavar="K",
+            help="prompt-lookup speculative decoding: draft up to K tokens from the "
+            "context's own history and verify them in one step (more than one token a "
+            "step on repetitive text). On the CPU the tokens are plain decode's, greedy "
+            "or sampled; on the card a drafted step's logits differ from plain decode's "
+            "in their low bits, so greedy tokens may differ at near-ties and sampled "
+            "ones more often")
         sp.add_argument(
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
@@ -104,7 +115,12 @@ def run_generate(args, show_stats: bool) -> None:
     produced = []
     # incremental decode: multi-byte chars can span byte-fallback tokens
     utf8 = codecs.getincrementaldecoder("utf-8")("replace")
-    for tok_id, stats in engine.generate(tokens, args.steps, stop_tokens=(tok.eos_id,)):
+    if args.spec_draft:
+        stream = engine.generate_spec(tokens, args.steps, stop_tokens=(tok.eos_id,),
+                                      draft_len=args.spec_draft)
+    else:
+        stream = engine.generate(tokens, args.steps, stop_tokens=(tok.eos_id,))
+    for tok_id, stats in stream:
         sys.stdout.write(utf8.decode(tok.decode_piece(prev, tok_id)))
         sys.stdout.flush()
         prev = tok_id
@@ -140,6 +156,7 @@ def run_chat(args) -> None:
     if system is None:
         system = input("💻 Enter system prompt (optional): ")
     session = None
+    consumed: list = []  # every token fed or emitted so far; the pending one last
     while True:
         try:
             user = input("👱 User: ")
@@ -161,8 +178,17 @@ def run_chat(args) -> None:
         print("🤖 Assistant: ", end="", flush=True)
         prev = tokens[-1]
         utf8 = codecs.getincrementaldecoder("utf-8")("replace")
-        for tok_id, _ in engine.generate(tokens, args.steps, session=session,
-                                         stop_tokens=(tok.eos_id,)):
+        if args.spec_draft:
+            # the n-gram index drafts from the whole conversation so far
+            stream = engine.generate_spec(tokens, args.steps, session=session,
+                                          stop_tokens=(tok.eos_id,), draft_len=args.spec_draft,
+                                          history=consumed[:-1] if session else None)
+        else:
+            stream = engine.generate(tokens, args.steps, session=session,
+                                     stop_tokens=(tok.eos_id,))
+        consumed.extend(tokens)
+        for tok_id, _ in stream:
+            consumed.append(tok_id)
             if tok_id == tok.eos_id:
                 continue  # the generator stops itself after a stop token
             print(utf8.decode(tok.decode_piece(prev, tok_id)), end="", flush=True)

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"q40_matmul": 0, "q80_matmul": 0, "flash_decode": 0, "rope_cache_update": 0,
             "flash_decode_batched": 0, "rope_cache_update_batched": 0,
+            "rope_cache_update_verify": 0,
             "q40_nosub_matmul": 0, "q40_int8_matmul": 0}
 
 _P = ctypes.c_void_p

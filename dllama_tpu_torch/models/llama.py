@@ -24,6 +24,12 @@ batch cache ``[L, B, S, kv, hd]``, each at its own position (a device
 vector): the projections are ordinary [B, K] matmuls, and rope, the cache
 write and attention are per row, through the batched launch forms of the
 same two kernels.
+
+``forward_batched_verify`` is the batched speculative-verify step: B
+sequences of T candidate rows each, every matmul on the flattened [B*T,
+dim] rows (K1/K3's tile past 8 rows), rope and the cache write through the
+verify launch form of the rope + cache-write kernel, and attention in plain
+PyTorch (``gqa_attention_batched``), as the reference attends it.
 """
 
 from __future__ import annotations
@@ -36,9 +42,9 @@ from dllama_tpu_torch.formats.weights import WeightFileReader
 from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.ops import flash_decode
 from dllama_tpu_torch.ops.activations import ACTIVATIONS
-from dllama_tpu_torch.ops.attention import gqa_attention
+from dllama_tpu_torch.ops.attention import gqa_attention, gqa_attention_batched
 from dllama_tpu_torch.ops.fused_rope_cache import (
-    cast_cache, rope_cache_update, rope_cache_update_batched,
+    cast_cache, rope_cache_update, rope_cache_update_batched, rope_cache_update_verify,
 )
 from dllama_tpu_torch.ops.norms import rmsnorm
 from dllama_tpu_torch.ops.qmatmul import (
@@ -411,6 +417,28 @@ def _attn_block_batched(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
     return matmul_any(out.reshape(B, -1), lp["wo"])
 
 
+def _attn_block_verify(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                       layer: int, B: int) -> torch.Tensor:
+    """Verify-step attention of layer ``layer``: x [B*T, dim] holds B
+    sequences of T candidate rows, sequence b's first row at ``pos[b]``
+    (int32 [B] on x's device). The projections run on all B*T rows at once;
+    the verify rope + cache-write kernel lands row b's T rows at (layer, b,
+    pos[b]..); attention is dense over each row's slab. Returns [B*T, dim]."""
+    T = x.shape[0] // B
+    q, k, v = (t.reshape(B, T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
+    # per-row angles of positions pos[b]..pos[b]+T-1; JAX's gather clamps an
+    # index past the table, torch's would fault, so the clamp is explicit
+    # (a row that close to the end is emission-capped by the caller)
+    ppos = (pos.long()[:, None] + torch.arange(T, device=x.device)).clamp(max=cfg.seq_len - 1)
+    cos = rope["cos"][ppos][:, :, None, :]  # [B, T, 1, hd/2]
+    sin = rope["sin"][ppos][:, :, None, :]
+    q = apply_rope(q, cos, sin, cfg.rope_style)
+    rope_cache_update_verify(k, v, cos, sin, k_cache, v_cache, pos, layer, cfg.rope_style)
+    out = gqa_attention_batched(q, k_cache[layer], v_cache[layer], pos)
+    return matmul_any(out.reshape(B * T, -1), lp["wo"])
+
+
 def _layer_params(layers: dict, i: int) -> dict:
     return {name: (leaf.layer(i) if isinstance(leaf, QuantTensor) else leaf[i])
             for name, leaf in layers.items()}
@@ -460,3 +488,22 @@ def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Te
         att_out = _attn_block_batched(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, bound)
         x = _ffn_residual(cfg, lp, x, att_out)
     return _logits(cfg, params, x), cache
+
+
+def forward_batched_verify(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
+                           cache: dict, pos: torch.Tensor) -> tuple:
+    """T candidate tokens for each of B sequences -> (logits [B, T, vocab]
+    f32, cache): the batched speculative-verify step, the cache ``{"k", "v":
+    [L, B, S, kv, hd]}`` updated in place. ``tokens`` [B, T] and ``pos``
+    int32 [B] (the position of ``tokens[b, 0]``) stay on the device. Row b's
+    math is ``forward`` at (T, pos[b]), summed in the order of B*T rows.
+    Single device, dense Llama."""
+    _check_dense_arch(cfg)
+    B, T = tokens.shape
+    x = embed(cfg, params, tokens.reshape(B * T))
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer_params(layers, i)
+        att_out = _attn_block_verify(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, B)
+        x = _ffn_residual(cfg, lp, x, att_out)
+    return _logits(cfg, params, x).reshape(B, T, -1), cache

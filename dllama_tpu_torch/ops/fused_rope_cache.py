@@ -8,13 +8,15 @@ JAX kernel aliases the caches input->output, the port owns them and writes
 them. ``start`` is clamped to [0, S - T] the way ``dynamic_update_slice``
 clamps.
 
-Two launch forms of one kernel, ``csrc/rope_cache.cu``, as the JAX
+Three launch forms of one kernel, ``csrc/rope_cache.cu``, as the JAX
 package's ``_launch`` has them: :func:`rope_cache_update` (one sequence, T
-rows at a host ``pos``, caches ``[L, S, kv, hd]``) and
+rows at a host ``pos``, caches ``[L, S, kv, hd]``),
 :func:`rope_cache_update_batched` (B sequences of one row over caches
 ``[L, B, S, kv, hd]``, row b at ``clamp(pos[b], 0, S - 1)`` with ``pos`` a
-device int32 vector the host never reads). Each runs its plain version
-(``*_ref``) for a CPU cache.
+device int32 vector the host never reads) and
+:func:`rope_cache_update_verify` (the speculative verify step: B sequences
+of T rows each, row b at ``clamp(pos[b], 0, S - T)``). Each runs its plain
+version (``*_ref``) for a CPU cache.
 """
 
 from __future__ import annotations
@@ -116,6 +118,12 @@ def rope_cache_update(k, v, cos, sin, k_cache, v_cache, pos: int, layer: int,
     return k_cache, v_cache
 
 
+def _check_pos(what: str, pos, B: int, device) -> None:
+    if (not isinstance(pos, torch.Tensor) or pos.dtype != torch.int32
+            or pos.shape != (B,) or pos.device != device):
+        raise ValueError(f"{what}: pos must be an int32 [B] tensor on the caches' device")
+
+
 def rope_cache_update_batched_ref(k, v, cos, sin, k_cache, v_cache, pos, layer: int,
                                   style: str = INTERLEAVED) -> tuple:
     """The batched form's function in plain PyTorch: k, v [B, kv, hd]; cos/sin
@@ -144,12 +152,48 @@ def rope_cache_update_batched(k, v, cos, sin, k_cache, v_cache, pos: torch.Tenso
     if k.dim() != 3 or k_cache.dim() != 5:
         raise ValueError(f"rope_cache_update_batched: k {tuple(k.shape)}, cache "
                          f"{tuple(k_cache.shape)}")
-    B = k.shape[0]
-    if (not isinstance(pos, torch.Tensor) or pos.dtype != torch.int32
-            or pos.shape != (B,) or pos.device != k_cache.device):
-        raise ValueError("rope_cache_update_batched: pos must be an int32 [B] tensor on the "
-                         "caches' device")
+    _check_pos("rope_cache_update_batched", pos, k.shape[0], k_cache.device)
     _launch("rope_cache_update_batched", k[:, None], v[:, None], cos, sin, k_cache, v_cache,
             pos.contiguous(), 0, layer, style)
     kernels.launches["rope_cache_update_batched"] += 1
+    return k_cache, v_cache
+
+
+def rope_cache_update_verify_ref(k, v, cos, sin, k_cache, v_cache, pos, layer: int,
+                                 style: str = INTERLEAVED) -> tuple:
+    """The verify form's function in plain PyTorch: k, v [B, T, kv, hd];
+    cos/sin [B, T, 1, hd/2]; caches [L, B, S, kv, hd]; row b's T rows
+    written at (layer, b, s..s+T) with s = clamp(pos[b], 0, S - T), in
+    place. ``pos`` [B] stays on its device."""
+    B, T = k.shape[:2]
+    S = k_cache.shape[2]
+    dev = k_cache.device
+    starts = torch.as_tensor(pos, device=dev).long().clamp(0, S - T)
+    slots = starts[:, None] + torch.arange(T, device=dev)  # [B, T]
+    rows = torch.arange(B, device=dev)[:, None]
+    rot = rotate(k.float(), cos.float(), sin.float(), style)
+    k_cache[layer, rows, slots] = cast_cache(rot.to(k.dtype), k_cache.dtype)
+    v_cache[layer, rows, slots] = cast_cache(v, v_cache.dtype)
+    return k_cache, v_cache
+
+
+def rope_cache_update_verify(k, v, cos, sin, k_cache, v_cache, pos: torch.Tensor, layer: int,
+                             style: str = INTERLEAVED) -> tuple:
+    """Speculative verify: B sequences of T draft rows each (T <= MAX_T),
+    row b's rows rotated with their own angles and landing at (layer, b,
+    s..s+T) with s = clamp(pos[b], 0, S - T), as the vmapped
+    ``dynamic_update_slice`` clamps. k, v [B, T, kv, hd]; cos/sin [B, T, 1,
+    hd/2]; ``pos`` int32 [B] on the caches' device. Returns the (k_cache,
+    v_cache) it updated in place."""
+    if k_cache.device.type == "cpu":
+        return rope_cache_update_verify_ref(k, v, cos, sin, k_cache, v_cache, pos, layer, style)
+    if k_cache.device.type != "cuda":
+        raise ValueError(f"rope_cache_update_verify: unsupported device {k_cache.device}")
+    if k.dim() != 4 or k_cache.dim() != 5:
+        raise ValueError(f"rope_cache_update_verify: k {tuple(k.shape)}, cache "
+                         f"{tuple(k_cache.shape)}")
+    _check_pos("rope_cache_update_verify", pos, k.shape[0], k_cache.device)
+    _launch("rope_cache_update_verify", k, v, cos, sin, k_cache, v_cache, pos.contiguous(), 0,
+            layer, style)
+    kernels.launches["rope_cache_update_verify"] += 1
     return k_cache, v_cache

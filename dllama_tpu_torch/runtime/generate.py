@@ -3,7 +3,9 @@ cache, per-token timing and sampling on the device.
 
 The port of the JAX package's single-device ``Engine`` (prefill, generate,
 Session, TokenStats and the numeric-health watchdog), its batched decode
-(``generate_batch``) and the uniform continuous-batching ``BatchSession``.
+(``generate_batch``), the uniform continuous-batching ``BatchSession`` and
+prompt-lookup speculative decoding, solo (``generate_spec``) and batched
+(``generate_batch_spec``).
 PyTorch runs eagerly, so there are no compiled step functions: a decode step
 enqueues its kernels and the host waits only when it reads the sampled
 tokens — once per token solo, once per chunk of up to ``decode_chunk`` steps
@@ -15,6 +17,15 @@ split plans depend on the row count), so a row agrees with its solo run
 within the decode-step tolerance, not bit for bit. At a fixed batch size a
 row's tokens do not depend on its neighbours, bit for bit: every kernel
 computes a row from that row alone, in an order fixed by the shapes.
+
+Speculative and plain decode: a verify step scores T = draft + 1 rows in
+one forward, where plain decode feeds one. A step with no draft is plain
+decode's own step. With drafts the kernels sum T rows in another order
+than one (past 8 rows K1/K3 take the tensor-core tile), so verify logits
+agree with plain decode's within the decode-step tolerance, not bit for
+bit. The emitted tokens are the ones plain decode would pick from those
+logits: argmax, or the Gumbel draw plain decode would make with the same
+generator state (``verify_sampled``).
 """
 
 from __future__ import annotations
@@ -29,7 +40,7 @@ from dllama_tpu_torch import resolve_device
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.runtime.sampler import (
-    SamplerConfig, row_seed, sample_dynamic, sample_rows,
+    SamplerConfig, gumbel_noise, row_seed, sample_dynamic, sample_rows,
 )
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -168,22 +179,33 @@ class Engine:
                                       last_pos=len(tokens) - 1)
         return logits[0], cache
 
-    def _decode_step(self, cache: dict, token: torch.Tensor, pos: int) -> tuple:
+    def _sampling(self, sampler: Optional[SamplerConfig]) -> tuple:
+        """(settings, generator) of one call: ``sampler`` with a fresh
+        generator seeded from ``sampler.seed``, else the engine's own."""
+        if sampler is None:
+            return self.sampler_cfg, self.generator
+        return sampler, torch.Generator(device=self.device).manual_seed(sampler.seed)
+
+    def _decode_step(self, cache: dict, token: torch.Tensor, pos: int, scfg: SamplerConfig,
+                     gen: torch.Generator) -> tuple:
         """Enqueue one decode step; returns (next token, finite flag), both
         device tensors the host has not waited for yet."""
         logits, _ = llama.forward(self.cfg, self.params, self.rope,
                                   token.reshape(1), cache, pos)
-        scfg = self.sampler_cfg
-        nxt = sample_dynamic(logits[0], scfg.temperature, scfg.topp, self.generator)
+        nxt = sample_dynamic(logits[0], scfg.temperature, scfg.topp, gen)
         return nxt, torch.isfinite(logits).all()
 
     def generate(self, prompt_tokens: list, steps: int, session: Optional[Session] = None,
-                 stop_tokens: tuple = ()) -> Iterator[tuple]:
+                 stop_tokens: tuple = (), sampler: Optional[SamplerConfig] = None
+                 ) -> Iterator[tuple]:
         """Yield (token_id, TokenStats) for up to ``steps`` generated tokens.
 
         Pass the previous call's ``engine.final_session`` to continue a
-        conversation with one continuous KV cache and position counter."""
-        scfg = self.sampler_cfg
+        conversation with one continuous KV cache and position counter.
+        ``sampler`` overrides the engine's settings for this call only, with
+        a fresh generator seeded from ``sampler.seed`` (the engine's
+        generator is left as it is)."""
+        scfg, gen = self._sampling(sampler)
         if session is None:
             cache, pos = self.new_cache(), 0
         else:
@@ -195,7 +217,7 @@ class Engine:
         t0 = time.perf_counter()
         if len(prompt_tokens) > 1:
             last_logits, cache = self.prefill(cache, prompt_tokens, pos)
-            token = sample_dynamic(last_logits, scfg.temperature, scfg.topp, self.generator)
+            token = sample_dynamic(last_logits, scfg.temperature, scfg.topp, gen)
         else:
             token = torch.tensor(prompt_tokens[0], dtype=torch.long, device=self.device)
         _sync(self.device)
@@ -215,7 +237,7 @@ class Engine:
                 return
         for _ in range(max(steps, 0)):
             t1 = time.perf_counter()
-            token, ok = self._decode_step(cache, token, pos)
+            token, ok = self._decode_step(cache, token, pos, scfg, gen)
             # the step returns once its kernels are enqueued: the wait from
             # here to the result is device execution ("inference")
             t2 = time.perf_counter()
@@ -239,6 +261,119 @@ class Engine:
         else:
             pending = tok_int
         self.final_session = Session(cache, pos, pending_token=pending)
+
+    def generate_spec(self, prompt_tokens: list, steps: int, session: Optional[Session] = None,
+                      stop_tokens: tuple = (), draft_len: int = 8, ngram: int = 3,
+                      history: Optional[list] = None,
+                      sampler: Optional[SamplerConfig] = None) -> Iterator[tuple]:
+        """Decode with prompt-lookup speculative drafting, greedy or sampled:
+        yields (token_id, TokenStats) as ``generate`` does, and the tokens
+        ``generate`` picks with the same sampler wherever a verify row's
+        logits equal the decode step's. On the CPU they do. On the card a
+        verify step with drafts (T > 1) sums its logits through other kernel
+        routes than a T = 1 decode step, so they differ in their low bits:
+        greedy tokens can then differ at near-ties, and sampled ones far
+        more often, since top-p ranks the vocabulary before the draw.
+
+        A verify step drafts up to ``draft_len`` tokens by matching the
+        trailing ``ngram`` of the context against its own history (what
+        followed the same n-gram last time), feeds pending + draft through
+        ONE ``forward`` at T = len(draft) + 1 (up to 16 rows take the decode
+        kernels; a step with no draft is plain decode's T = 1 step), and
+        accepts the longest prefix of the draft that the model itself picks:
+        m matched drafts emit m + 1 tokens for one pass over the weights.
+
+        Greedy takes each row's argmax and draws nothing, as ``generate``
+        draws nothing. Sampled, row i takes the draw ``generate`` makes for
+        its i-th token: the step draws one row of Gumbel noise per fed row,
+        in order, from the call's generator (``sampler``'s fresh one, else
+        the engine's) and notes the generator's state after each draw; after
+        acceptance the generator goes back to the state after the last
+        EMITTED token, so a stop token or the ``steps`` cap that truncates a
+        step truncates the draws with it.
+
+        Rejected draft rows write K/V past the accepted prefix;
+        every later step writes a position before any query attends it, so
+        nothing is rolled back. ``history``: tokens already in the session's
+        cache before this call (without its pending token), used for
+        drafting only. ``final_session`` after each yielded token resumes
+        exactly after it. The first token's stats report the prefill, as in
+        ``generate``; a verify step's times go to the first token it emits,
+        the others report 0."""
+        scfg, gen = self._sampling(sampler)
+        sampled = scfg.temperature > 0.0
+        S = self.cfg.seq_len
+        if session is None:
+            cache, pos = self.new_cache(), 0
+        else:
+            cache, pos = session.cache, session.pos
+            if session.pending_token is not None:
+                prompt_tokens = [session.pending_token] + list(prompt_tokens)
+        if not prompt_tokens:
+            raise ValueError("generate_spec needs a token to feed: an empty prompt needs a "
+                             "session with a pending token")
+        steps = min(steps, S - pos - len(prompt_tokens))
+
+        t0 = time.perf_counter()
+        # the index covers the tokens in the cache; the pending token joins
+        # it when a verify step consumes it
+        index = _NgramIndex(ngram)
+        if history:
+            index.extend(history)
+        if len(prompt_tokens) > 1:
+            index.extend(prompt_tokens)
+            last_logits, cache = self.prefill(cache, prompt_tokens, pos)
+            token = int(sample_dynamic(last_logits, scfg.temperature, scfg.topp, gen))
+            pos += len(prompt_tokens)
+        else:
+            token = int(prompt_tokens[0])
+        self.prefill_ms = (time.perf_counter() - t0) * 1000.0
+        if steps <= 0:
+            self.final_session = Session(cache, pos, pending_token=token)
+            return
+
+        emitted = 0
+        first = len(prompt_tokens) > 1
+        while emitted < steps:
+            if first:  # the prefill's token
+                out, first, base = [token], False, pos - 1
+                stats = TokenStats(self.prefill_ms, self.prefill_ms)
+            else:
+                t1 = time.perf_counter()
+                L = min(draft_len + 1, S - pos)
+                draft = index.draft(token, min(L - 1, steps - emitted - 1))
+                feed = torch.tensor([token] + draft, dtype=torch.long)
+                logits, _ = llama.forward(self.cfg, self.params, self.rope,
+                                          feed.to(self.device), cache, pos)
+                if sampled:
+                    picks, states = verify_sampled(logits, scfg, gen)
+                else:
+                    picks = torch.argmax(logits, dim=-1)
+                ok = torch.isfinite(logits).all().reshape(1)
+                t2 = time.perf_counter()
+                _sync(self.device)
+                t3 = time.perf_counter()
+                *g, finite = torch.cat([picks, ok.long()]).tolist()  # the step's one read
+                if not finite:
+                    raise NumericHealthError(f"at verify position {pos}")
+                m, out = accept(draft, g, steps - emitted, stop_tokens)
+                if sampled:  # back to the state after the last emitted token's draw
+                    gen.set_state(states[len(out) - 1])
+                index.extend([token] + draft[:m])
+                token, base = out[-1], pos
+                pos += m + 1
+                t4 = time.perf_counter()
+                stats = TokenStats(generation_ms=(t4 - t1) * 1000.0,
+                                   inference_ms=(t3 - t2) * 1000.0,
+                                   transfer_ms=(t2 - t1 + t4 - t3) * 1000.0)
+            for i, tk in enumerate(out):
+                emitted += 1
+                # a consumer stopping at token i resumes as if only tokens
+                # 0..i were consumed: later slots are overwritten first
+                self.final_session = Session(cache, base + i + 1, pending_token=tk)
+                yield tk, (stats if i == 0 else TokenStats(0.0, 0.0))
+                if tk in stop_tokens:
+                    return
 
     # -- batched decode -------------------------------------------------------
     def _decode_chunk_batch(self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
@@ -372,6 +507,92 @@ class Engine:
                 break
         self.decode_ms = (time.perf_counter() - t1) * 1000.0
         return out
+
+    def generate_batch_spec(self, prompts: list, steps: int, stop_tokens: tuple = (),
+                            row_steps: Optional[list] = None, draft_len: int = 8,
+                            ngram: int = 3, sampler: Optional[SamplerConfig] = None,
+                            on_step=None, row_cancel=None) -> tuple:
+        """Batched greedy decode with prompt-lookup drafting: every verify
+        step scores T candidate rows of ALL B sequences in one pass over the
+        weights (``llama.forward_batched_verify``), T = 1 + the longest
+        draft of the step (at most ``draft_len``; shorter drafts are padded).
+
+        Returns (rows, stats). Row b is ``generate_batch``'s greedy row b cut
+        at its budget min(steps, row_steps[b], its context) and, inclusively,
+        at its first stop token; stats = {"verify_steps", "accepted_drafts",
+        "emitted"}. The draft cap is shared and shrinks so the most
+        context-bound active row's rows fit; a row with no draft still verifies its pending token
+        (at least one token a step), and a finished row re-verifies its
+        pending token in place at min(pos, S - T) without advancing. Greedy
+        only: above temperature 0 (``sampler`` or the engine's settings) it
+        raises ValueError. With no ``sampler`` it draws one number from the
+        engine's generator, as ``generate_batch`` does, so either call leaves
+        the generator in the same state.
+
+        ``on_step(fresh)``: after every verify step, each row's tokens that
+        step emitted (final: budget- and stop-truncated; empty for finished
+        rows). ``row_cancel(b) -> bool``: asked for every unfinished row
+        between steps; True finishes the row there, its tokens so far stand.
+        The host reads the [B, T] argmax once a step."""
+        if not prompts or any(not p for p in prompts):
+            raise ValueError("generate_batch_spec needs non-empty prompts")
+        scfg = sampler if sampler is not None else self.sampler_cfg
+        if scfg.temperature > 0.0:
+            raise ValueError("generate_batch_spec is greedy only: use generate_batch for sampled "
+                             "batches or generate_spec for sampled solo decoding")
+        if sampler is None:  # generate_batch's base-seed draw
+            torch.randint(0, 2 ** 62, (1,), generator=self.generator, device=self.device)
+        B, S, dev = len(prompts), self.cfg.seq_len, self.device
+        cache, pend, poss = self._prefill_batch_rows(prompts)
+        budgets = [min(S - poss[b], row_steps[b] if row_steps else steps, steps)
+                   for b in range(B)]
+        indexes = [_NgramIndex(ngram) for _ in range(B)]
+        for b, p in enumerate(prompts):
+            indexes[b].extend(p[:-1])
+        out: list = [[] for _ in range(B)]
+        done = [budgets[b] <= 0 for b in range(B)]
+        verify_steps = accepted = 0
+        t1 = time.perf_counter()
+        while not all(done):
+            if row_cancel is not None:
+                for b in range(B):
+                    if not done[b] and row_cancel(b):
+                        done[b] = True
+                if all(done):
+                    break
+            cap = min(draft_len, min(S - poss[b] for b in range(B) if not done[b]) - 1)
+            drafts = [[] if done[b] else
+                      indexes[b].draft(pend[b], min(cap, budgets[b] - len(out[b]) - 1))
+                      for b in range(B)]
+            T = 1 + max(len(d) for d in drafts)
+            # a finished row re-verifies its pending token in place
+            feeds = [[pend[b]] * T if done[b] else [pend[b]] + d + [0] * (T - 1 - len(d))
+                     for b, d in enumerate(drafts)]
+            starts = [min(poss[b], S - T) if done[b] else poss[b] for b in range(B)]
+            logits, cache = llama.forward_batched_verify(
+                self.cfg, self.params, self.rope,
+                torch.tensor(feeds, dtype=torch.long, device=dev), cache,
+                torch.tensor(starts, dtype=torch.int32, device=dev))
+            g = torch.argmax(logits, dim=-1).tolist()  # the step's one host read
+            verify_steps += 1
+            fresh: list = [[] for _ in range(B)]
+            for b in range(B):
+                if done[b]:
+                    continue
+                m, emit = accept(drafts[b], g[b], budgets[b] - len(out[b]), stop_tokens)
+                accepted += m
+                indexes[b].extend([pend[b]] + drafts[b][:m])
+                out[b].extend(emit)
+                fresh[b] = emit
+                pend[b] = emit[-1]
+                poss[b] += m + 1
+                if len(out[b]) >= budgets[b] or emit[-1] in stop_tokens:
+                    done[b] = True
+            if on_step is not None:
+                on_step(fresh)
+        self.decode_ms = (time.perf_counter() - t1) * 1000.0
+        return out, {"verify_steps": verify_steps, "accepted_drafts": accepted,
+                     "emitted": sum(len(r) for r in out)}
 
     def batch_session(self, max_batch: int, chunk: Optional[int] = None,
                       bucket_kv: bool = False, prefill_chunk: int = 0,
@@ -617,3 +838,71 @@ class BatchSession:
         self._closed = True
         self._cache = None
         self._slots = {}
+
+
+def accept(draft: list, picks: list, room: int, stop_tokens) -> tuple:
+    """One sequence's verify rule: (m, emitted). m counts the leading drafts
+    the model picked itself (``picks[i]`` is its pick after draft[:i]); the
+    step emits those and the model's next pick, at most ``room`` tokens,
+    cut after the first stop token."""
+    m = 0
+    while m < len(draft) and draft[m] == picks[m]:
+        m += 1
+    out = picks[:m + 1][:room]
+    for j, t in enumerate(out):
+        if t in stop_tokens:
+            return m, out[:j + 1]
+    return m, out
+
+
+def verify_sampled(logits: torch.Tensor, scfg: SamplerConfig, gen: torch.Generator) -> tuple:
+    """Sample every row of ``logits [L, vocab]`` as ``generate`` samples its
+    next L tokens: row i takes the i-th draw of Gumbel noise from ``gen``.
+    Returns (picks, states): the int64 [L] device picks, and ``gen``'s state
+    after each draw, so the caller can put the generator back to the state
+    after the last token it keeps. Nothing waits for the device."""
+    L = logits.shape[0]
+    noise, states = [], []
+    for _ in range(L):
+        noise.append(gumbel_noise(logits.shape[-1], gen, logits.device))
+        states.append(gen.get_state())
+    picks = sample_rows(logits, [scfg.temperature] * L, [scfg.topp] * L,
+                        gumbel=torch.stack(noise))
+    return picks, states
+
+
+class _NgramIndex:
+    """Incremental n-gram -> latest-start-position index over the consumed
+    context: O(1) amortized per appended token and per draft lookup (a
+    backward scan would cost O(context) of host time per verify step)."""
+
+    def __init__(self, ngram: int):
+        self.ngram = ngram
+        self.ctx: list = []
+        self._pos: dict = {}
+        self._prev: dict = {}  # the occurrence before the latest, per n-gram
+
+    def extend(self, tokens) -> None:
+        for t in tokens:
+            self.ctx.append(t)
+            if len(self.ctx) >= self.ngram:
+                key = tuple(self.ctx[-self.ngram:])
+                if key in self._pos:
+                    self._prev[key] = self._pos[key]
+                self._pos[key] = len(self.ctx) - self.ngram
+
+    def draft(self, pending: int, k: int) -> list:
+        """Up to k proposed continuations of context + [pending]: what
+        followed the most recent earlier occurrence of its trailing n-gram.
+        If the latest occurrence ends flush at the end of the context (an
+        empty continuation, the norm on runs of one repeated token), the one
+        before it is used, whose continuation is never empty."""
+        if k <= 0 or len(self.ctx) + 1 <= self.ngram:
+            return []
+        tail = tuple((self.ctx + [pending])[-self.ngram:])
+        for j in (self._pos.get(tail), self._prev.get(tail)):
+            if j is not None:
+                cont = self.ctx[j + self.ngram: j + self.ngram + k]
+                if cont:
+                    return list(cont)
+        return []

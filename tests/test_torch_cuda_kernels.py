@@ -17,7 +17,10 @@ in split order) and K4 merge their blocks' partials in a fixed order, so
 two launches on the same inputs must give the same bits. K4's batched form
 plans each row's chunks from that row alone: a row's bits do not depend on
 its neighbours or on the host's grid bound, and the solo form is its
-one-row launch, bit for bit.
+one-row launch, bit for bit. The verify form of the rope + cache write
+(B sequences of T rows) is the same kernel's [B, T] grid, bit-equal to its
+plain version; solo flash decode at the verify step's T never reads a
+cache slot past pos + T (where rejected drafts leave garbage).
 """
 
 import numpy as np
@@ -438,6 +441,52 @@ def test_rope_cache_batched_kernel_bit_equal_to_ref(cuda, style, act, cache_dtyp
     assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
 
 
+@pytest.mark.parametrize("style", [INTERLEAVED, HALF])
+@pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("T", [9, 16])
+def test_rope_cache_verify_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype, T):
+    L, B, S, kv, hd = 2, 5, 48, 2, 64
+    rng = np.random.default_rng(T + hd)
+    # first slot, middle, S - T, past S - T and past S (both clamp to S - T)
+    pos = torch.tensor([0, 20, S - T, S - T + 3, S + 2], dtype=torch.int32, device=cuda)
+    k = torch.from_numpy(rng.standard_normal((B, T, kv, hd)).astype(np.float32)).to(cuda, act)
+    v = torch.from_numpy(rng.standard_normal((B, T, kv, hd)).astype(np.float32)).to(cuda, act)
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
+    idx = (pos.long()[:, None] + torch.arange(T, device=cuda)).clamp(max=S - 1)
+    c, s = cos[idx][:, :, None], sin[idx][:, :, None]
+    base = torch.from_numpy(rng.standard_normal((L, B, S, kv, hd)).astype(np.float32))
+    kc, vc = (base.to(cuda).to(cache_dtype) for _ in range(2))
+    kr, vr, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = kernels.launches["rope_cache_update_verify"]
+    fused_rope_cache.rope_cache_update_verify(k, v, c, s, kc, vc, pos, 1, style)
+    fused_rope_cache.rope_cache_update_verify(k, v, c, s, k2, v2, pos, 1, style)
+    torch.cuda.synchronize()
+    assert kernels.launches["rope_cache_update_verify"] == before + 2
+    fused_rope_cache.rope_cache_update_verify_ref(k, v, c, s, kr, vr, pos, 1, style)
+    assert torch.equal(kc.view(torch.uint8), kr.view(torch.uint8))
+    assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
+    assert torch.equal(kc.view(torch.uint8), k2.view(torch.uint8))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_flash_decode_solo_verify_rows_ignore_nan_past_their_window(cuda, cache_dtype):
+    """A solo verify step writes T rows at pos and attends up to pos + T - 1:
+    NaN in every slot from pos + T on leaves its output's bits as they are."""
+    L, S, kv, group, hd, T, pos = 2, 512, 8, 4, 128, 9, 300
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    kc = torch.randn((L, S, kv, hd), device=cuda, generator=gen).to(cache_dtype)
+    vc = torch.randn((L, S, kv, hd), device=cuda, generator=gen).to(cache_dtype)
+    q = torch.randn((T, kv * group, hd), device=cuda, generator=gen)
+    clean = flash_decode.flash_decode_attention(q, kc, vc, pos, 1)
+    kn, vn = kc.clone(), vc.clone()
+    kn[:, pos + T:] = float("nan")
+    vn[:, pos + T:] = float("nan")
+    got = flash_decode.flash_decode_attention(q, kn, vn, pos, 1)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, clean)
+
+
 def test_batched_wrappers_want_device_int32_positions(cuda):
     kc = torch.zeros((1, 2, 64, 1, 64), device=cuda)
     q = torch.zeros((2, 4, 64), device=cuda)
@@ -450,6 +499,9 @@ def test_batched_wrappers_want_device_int32_positions(cuda):
             flash_decode.flash_decode_attention_batched(q, kc, kc, bad, 0)
         with pytest.raises(ValueError):
             fused_rope_cache.rope_cache_update_batched(k, k, cs, cs, kc, kc, bad, 0)
+        with pytest.raises(ValueError):
+            fused_rope_cache.rope_cache_update_verify(k[:, None], k[:, None], cs[:, None],
+                                                      cs[:, None], kc, kc, bad, 0)
 
 
 def test_wrappers_raise_on_unsupported_cuda_input(cuda):
