@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card. It imports
 nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
 
 0. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   build of the port's CUDA kernels from ``dllama_tpu_torch/csrc``.
+   build of the port's CUDA kernels from ``dllama_tpu_torch/csrc``, with
+   ptxas's registers and spills for each instance of the decode GEMVs (and
+   every kernel that spills).
 1. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (Llama-3-8B widths), with its stated tolerance, and timed
    with CUDA events (median of 30 launches queued behind a GPU sleep, so
@@ -18,10 +20,11 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    call computes the same function, that call. The Q40 (K1+K2) and Q80 (K3)
    dequant-matmuls run at T = 1 (decode), 128 (prefill) and 512 (the
    tensor-core tile where bytes stop bounding; timed at the four layer
-   widths), and at the batched step's T = 4 and 8, each with the fused-norm
-   epilogue too, which must equal the unfused kernel bit for bit; each
-   call's route (decode kernel or tile), its tile plan and its error over
-   the tolerance are logged; K1, K3 and flash decode (K4: every cache dtype,
+   widths), and at the batched step's T = 4 and 8 (timed, the kernel beside
+   its bound and the library call), each with the fused-norm epilogue too,
+   which must equal the unfused kernel bit for bit; each call's route
+   (decode GEMV or tile), its split or tile plan and its error over the
+   tolerance are logged; K1, K3 and flash decode (K4: every cache dtype,
    T in {1, 4, 16}, its grid logged, timed at pos 1000 and 116) must repeat
    their bits on the same inputs; the experiment kernels K6 and K7 run at
    the variant shootout's matrix and the Llama-3-8B widths. The solo K4 and
@@ -45,8 +48,9 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    decode step's logits are held against the same step with every kernel
    swapped for its plain version. Then the same with random Q80 params (the
    Q40 model freed first): 129 Q80 matmuls per token. The profiler's device
-   time per token is split by kernel; each flash-decode call, and on the
-   Q80 decode each matmul, must be one CUDA launch. One more prefill runs
+   time per token is split by kernel; each flash-decode call and each
+   matmul (the Q40 or Q80 decode GEMV) must be one CUDA launch: no
+   ``sum_splits_kernel`` on either decode. One more prefill runs
    under the profiler, its device time split by kernel the same way.
    2b. For each model, one decode step with ``DLLAMA_FUSE_NORM=1`` against
    ``=0``: the logits must be bit-equal.
@@ -171,6 +175,38 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def ptxas_report(text: str) -> list:
+    """[{kernel, registers, stack, spill_stores, spill_loads}] for each entry
+    function in nvcc's ``-Xptxas -v`` output, names demangled where
+    ``c++filt`` is there."""
+    import re
+
+    rows, cur = [], {}
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            cur["registers"] = int(m.group(1))
+            rows.append(cur)
+            cur = {}
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) == len(rows):
+        for r, n in zip(rows, names):
+            r["kernel"] = n.replace("(anonymous namespace)::", "").replace("void ", "")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -240,9 +276,9 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
     on the same inputs bit-equal. T = 1, 128 and 512, the batched decode
     step's T = B = 4 and the GEMV's largest T (``GEMV_MAX_T``), and the
     speculative verify step's T (``VERIFY_T``). Timed at T = 1 (decode),
-    T = 128 (prefill), T = 512 (not wcls) and the verify T (the kernel and
-    the library call only), each beside bf16 ``torch.matmul`` on the
-    dequantized weight."""
+    T = 128 (prefill), T = 512 (not wcls), and at the batched T and the
+    verify T (the kernel and the library call only), each beside bf16
+    ``torch.matmul`` on the dequantized weight."""
     from dllama_tpu_torch import kernels
     from dllama_tpu_torch.ops import qmatmul
     from dllama_tpu_torch.ops.norms import rmsnorm
@@ -258,7 +294,8 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
         return qmatmul.q80_matmul_ref(x, *p, **kw)
 
     n_sm = kernels.sm_count(dev)
-    ts = (1, 4, qmatmul.GEMV_MAX_T, *VERIFY_T, 128, 512)
+    batched_t = (4, qmatmul.GEMV_MAX_T)
+    ts = (1, *batched_t, *VERIFY_T, 128, 512)
     rows = []
     for name, K, O, per_token in SHAPES:
         planes = [quant_planes(torch, dev, gen, kind, K, O)]
@@ -286,18 +323,21 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                        "max_abs_err": err, "tol": tol, "fused_max_abs_err": err_n,
                        "fused_tol": tol_n, "err_over_tol": max(err / tol, err_n / tol_n),
                        "fused_bit_equal_unfused": bit_equal, "repeat_bit_equal": repeat}
-                per_sm = (qmatmul.gemv_blocks_per_sm(T, False)
-                          if kind == "q80" and T <= qmatmul.GEMV_MAX_T else 0)
-                route, ksplit, per = (qmatmul.q40_plan(T, K, O, n_sm) if kind == "q40"
-                                      else qmatmul.q80_plan(T, K, O, n_sm, per_sm))
+                per_sm = 0
+                if T <= qmatmul.GEMV_MAX_T:
+                    per_sm = (qmatmul.q40_gemv_blocks_per_sm(T) if kind == "q40"
+                              else qmatmul.gemv_blocks_per_sm(T, False))
+                route, ksplit, per = (qmatmul.q40_plan if kind == "q40"
+                                      else qmatmul.q80_plan)(T, K, O, n_sm, per_sm)
                 row.update(route=route, ksplit=ksplit)
                 tag = f" nosub={int(nosub)}" if kind == "q40" else ""
                 tag += f" {route} ksplit={ksplit}"
                 if route == "tile":
                     row["tile_plan"] = qmatmul.tile_plan(T, K, O, n_sm)
                     tag += f" tile_plan(m, n, ksplit, per)={row['tile_plan']}"
-                elif kind == "q80":
+                else:
                     row.update(rows_per_split=per, gemv_blocks_per_sm=per_sm)
+                    tag += f" rows_per_split={per} blocks_per_sm={per_sm}"
                 log(f"  {kind}_matmul {name:5s} {K:5d}->{O:6d} T={T:3d}{tag} max_abs_err "
                     f"{err:.3e} (tol 1e-5*max|ref| = {tol:.3e}); fused norm {err_n:.3e} "
                     f"(tol {tol_n:.3e}); worst err/tol {row['err_over_tol']:.3f}; bit-equal to "
@@ -308,7 +348,7 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                 if not repeat:
                     fail(f"{kind}_matmul {name} T={T}: two launches on the same inputs differ")
                 if ((kind == "q40" and nosub != qmatmul.Q40_NOSUB)
-                        or T not in (1, *VERIFY_T, 128, 512) or (T == 512 and name == "wcls")):
+                        or (T == 512 and name == "wcls")):
                     rows.append(row)
                     continue
                 nxt = rotating(planes)
@@ -317,7 +357,7 @@ def phase1_matmul(torch, dev, gen, kind: str) -> list:
                 b, by = bound_ms(plane_bytes(p) + T * K * 2 + T * O * 4, 2.0 * T * K * O, BF16_FLOPS)
                 row["bound_ms"], row["bound_by"] = b, by
                 row["launches_per_token"] = per_token if T == 1 else None
-                if T in VERIFY_T:  # the speculative verify step's rows: kernel and library
+                if T in (*batched_t, *VERIFY_T):  # batched and verify rows: kernel, library
                     log(f"    time {row['ms']:.4f} ms  bound {b:.4f} ms ({by})  bf16 "
                         f"torch.matmul {row['library_ms']:.4f} ms")
                     rows.append(row)
@@ -739,7 +779,7 @@ def phase1_rope_verify(torch, dev, gen) -> list:
 # ---------------------------------------------------------------------------
 
 #: the port's CUDA kernels, as the profiler's names begin (the rest is "other")
-KERNEL_FAMILIES = ("q40_matmul_kernel", "q80_gemv_kernel", "dq_tile_kernel",
+KERNEL_FAMILIES = ("q40_gemv_kernel", "q80_gemv_kernel", "dq_tile_kernel",
                    "sum_splits_kernel", "flash_decode_kernel", "rope_cache_kernel")
 
 LLAMA3_8B = dict(arch="llama", dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
@@ -956,11 +996,10 @@ def phase2(torch, dev, kind: str) -> dict:
                 f"CUDA launches  {fam}")
         for k, v in list(out["profile_ms_per_token"].items())[:6]:
             log(f"    {v:.4f} ms  {k}")
-        # one CUDA launch per wrapper call on the Q80 decode: no split-sum pass
-        # after the GEMV, no merge kernel after flash decode
-        want = {"flash_decode_kernel": cfg.n_layers}
-        if kind == "q80":
-            want.update(q80_gemv_kernel=4 * cfg.n_layers + 1, sum_splits_kernel=0)
+        # one CUDA launch per wrapper call: no split-sum pass after the decode
+        # GEMV, no merge kernel after flash decode
+        want = {"flash_decode_kernel": cfg.n_layers, f"{kind}_gemv_kernel": 4 * cfg.n_layers + 1,
+                "sum_splits_kernel": 0}
         for fam, n in want.items():
             if abs(families[fam]["launches"] - n) > 1e-6:
                 fail(f"{kind} decode token: {families[fam]['launches']} CUDA launches of "
@@ -1699,6 +1738,12 @@ def main() -> None:
     kernels.lib()
     build_s = time.perf_counter() - t0
     log(f"  kernels built and loaded in {build_s:.1f} s: {so.relative_to(ROOT)}")
+    ptxas = ptxas_report(kernels.build_log().read_text()) if kernels.build_log().exists() else []
+    for r in ptxas:
+        if "gemv_kernel" in r["kernel"] or r.get("spill_stores") or r.get("spill_loads"):
+            log(f"  ptxas: {r['registers']:3d} registers, {r.get('stack')} B stack, "
+                f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads  "
+                f"{r['kernel'].split('(')[0]}")
 
     header("phase 1: kernels vs plain versions (Llama-3-8B shapes)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1740,7 +1785,7 @@ def main() -> None:
                                                    "bound_by", "ksplit")}
                 for r in rows if r["T"] == T and "ms" in r}
 
-    def matmul_entry(name, rows, source, replaces, tpu, launches, tile_entry):
+    def matmul_entry(name, rows, source, replaces, tpu, launches, decode_entry, tile_entry):
         dec = [r for r in rows if r["T"] == 1 and "ms" in r]
         fused = [r for r in dec if r["matrix"] in FUSED]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1756,7 +1801,9 @@ def main() -> None:
                                "plain_ms": per_token(fused, "fused_plain_ms"),
                                "per": "one decode token's wqkv + w13 launches (64)"},
                 "per_width_ms": {r["matrix"]: r["ms"] for r in dec},
-                "tile_entry": tile_entry, "tile_source": "dllama_tpu_torch/csrc/dq_tile.cuh",
+                "decode_entry": decode_entry, "tile_entry": tile_entry,
+                "tile_source": "dllama_tpu_torch/csrc/dq_tile.cuh",
+                "decode_T4": at_t(rows, 4), "decode_T8": at_t(rows, 8),
                 "prefill_T128": at_t(rows, 128), "tile_T512": at_t(rows, 512),
                 **{f"verify_T{T}": at_t(rows, T) for T in VERIFY_T},
                 "worst_err_over_tol": {r["matrix"]: max(v["err_over_tol"] for v in rows
@@ -1764,10 +1811,10 @@ def main() -> None:
                                        for r in dec},
                 "per": "one decode token: 32 x (wqkv, wo, w13, w2) + wcls, T=1"}
 
-    def variant_entry(name, source, replaces, tpu):
+    def variant_entry(name, source, replaces, tpu, entry):
         r = next(v for v in variants if v["name"] == name and v["matrix"] == "exp")
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "tpu_kernels": tpu, "launches": exp["launches"][name],
+                "entry": entry, "tpu_kernels": tpu, "launches": exp["launches"][name],
                 "max_abs_err": max(v["max_abs_err"] for v in variants if v["name"] == name),
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -1784,10 +1831,12 @@ def main() -> None:
     summary = {"kernels": [
         matmul_entry("q40_matmul", q40, "dllama_tpu_torch/csrc/q40_matmul.cu",
                      "dllama_tpu/ops/qmatmul.py:361 (_q40_kernel) + :412 (_q40_corr_kernel)",
-                     ["K1", "K2"], launches["q40_matmul"], "dllama_q40_tile"),
+                     ["K1", "K2"], launches["q40_matmul"],
+                     "dllama_q40_gemv (q40_gemv_kernel)", "dllama_q40_tile"),
         matmul_entry("q80_matmul", q80, "dllama_tpu_torch/csrc/q80_matmul.cu",
                      "dllama_tpu/ops/qmatmul.py:179 (_q80_kernel)", ["K3"],
-                     launches80["q80_matmul"], "dllama_q80_tile"),
+                     launches80["q80_matmul"], "dllama_q80_gemv (q80_gemv_kernel)",
+                     "dllama_q80_tile"),
         {"name": "flash_decode", "route": "cuda", "source": "dllama_tpu_torch/csrc/flash_decode.cu",
          "replaces": "dllama_tpu/ops/flash_decode.py:102 (_kernel)", "tpu_kernels": ["K4"],
          "launches": launches["flash_decode"],
@@ -1839,12 +1888,14 @@ def main() -> None:
          "per": "one launch: B=8 sequences of T=9 rows, kv=8, hd=128, bf16 activations and "
                 "cache; launches: phase 5's B=8 generate_batch_spec (32 tokens a row)"},
         variant_entry("q40_nosub_matmul", "dllama_tpu_torch/csrc/q40_matmul.cu",
-                      "scripts/qkernel_experiments.py:60 (_q40_nosub_kernel)", ["K6"]),
+                      "scripts/qkernel_experiments.py:60 (_q40_nosub_kernel)", ["K6"],
+                      "dllama_q40_gemv mode 2 (q40_gemv_kernel)"),
         variant_entry("q40_int8_matmul", "dllama_tpu_torch/csrc/q40_int8_matmul.cu",
-                      "scripts/qkernel_experiments.py:138 (_q40_int8_kernel)", ["K7"]),
+                      "scripts/qkernel_experiments.py:138 (_q40_int8_kernel)", ["K7"],
+                      "dllama_q40_int8_matmul (q40_int8_kernel + sum_splits_kernel)"),
     ]}
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s, "q40": q40, "q80": q80, "variants": variants,
+               "build_s": build_s, "ptxas": ptxas, "q40": q40, "q80": q80, "variants": variants,
                "flash_decode": flash, "rope_cache": rope, "flash_decode_batched": flash_b,
                "rope_cache_batched": rope_b, "rope_cache_verify": rope_v, "e2e": e2e,
                "e2e_q80": e2e80, "batch_q40": batch, "batch_q80": batch80, "spec": spec,

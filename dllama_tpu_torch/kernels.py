@@ -6,7 +6,8 @@ every source is compiled by its own ``nvcc`` (all started together) for
 is loaded with ``ctypes``. The library lands in ``build/torch_kernels/`` at
 the repository root, named by a hash of the sources and flags: a changed
 source rebuilds, an unchanged one loads what is there. A failed build raises;
-nothing falls back.
+nothing falls back. ptxas reports each kernel's registers, stack and spills
+(``-Xptxas -v``); the report is kept beside the library (:func:`build_log`).
 
 Every C entry point takes its pointers and the CUDA stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launches; :func:`check` turns a
@@ -15,7 +16,8 @@ entry in :data:`launches` where it launches its kernel, and nowhere else, so a
 run can show which kernels the main path went through.
 
 Kernels that split work across blocks and merge it in the last block to
-arrive share one buffer of arrival counters per device (:func:`counters`):
+arrive — the Q40 and Q80 decode GEMVs (K1, K3, K6) and flash decode (K4) —
+share one buffer of arrival counters per device (:func:`counters`):
 it starts zeroed, each such kernel leaves every counter it used at 0 again,
 and so launches that use it must not overlap — the port issues them on one
 stream.
@@ -37,7 +39,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 launches = {"q40_matmul": 0, "q80_matmul": 0, "flash_decode": 0, "rope_cache_update": 0,
@@ -51,14 +53,15 @@ _F = ctypes.c_float
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so ctypes never truncates one to 32 bits)
 _SIGNATURES = {
-    # x, x_f32, T, K, w, s_lo, s_hi, O, nosub, inv, norm_w, ksplit, sb_per_split,
-    # partials, out, stream
-    "dllama_q40_matmul": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
+    # x, x_f32, T, K, w, s_lo, s_hi, O, mode, inv, norm_w, wide, ksplit, rows_per_split,
+    # partials, counters, out, stream
+    "dllama_q40_gemv": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
+                        _P),
+    # T, wide -> resident Q40 GEMV blocks per SM
+    "dllama_q40_gemv_blocks_per_sm": (_I, _I),
     # x, x_f32, T, K, w, s_lo, s_hi, O, mode, inv, norm_w, ksplit, sb_per_split,
     # partials, out, stream
     "dllama_q40_tile": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P),
-    # x, T, K, w, s_lo, s_hi, O, wide, ksplit, sb_per_split, partials, out, stream
-    "dllama_q40_nosub_matmul": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, sb_per_split, partials, out,
     # stream
     "dllama_q80_tile": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P),
@@ -77,7 +80,11 @@ _SIGNATURES = {
     # act_kind, cache_kind, stream
     "dllama_rope_cache_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
                                  _I, _I, _I, _P),
+    # CUDA error code -> its message
+    "dllama_error_string": (_I,),
 }
+#: the entry points that return something other than an int
+_RESTYPES = {"dllama_error_string": ctypes.c_char_p}
 
 #: arrival counters per device (see the module docstring)
 N_COUNTERS = 4096
@@ -113,6 +120,11 @@ def library_path() -> Path:
     return BUILD_DIR / f"libdllama_torch_kernels-{h.hexdigest()[:16]}.so"
 
 
+def build_log() -> Path:
+    """Where the build of the current sources keeps nvcc's output."""
+    return library_path().with_suffix(".log")
+
+
 def build() -> Path:
     """Compile and link the kernels unless the library for these sources
     exists. Returns its path; raises with nvcc's output on failure."""
@@ -129,19 +141,22 @@ def build() -> Path:
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                   text=True)
                  for src, obj in zip(sources, objs)]
-        failed = []
+        failed, logs = [], []
         for src, proc in zip(sources, procs):
             out, _ = proc.communicate()
+            logs.append(f"--- {src.name} (exit {proc.returncode}) ---\n{out}")
             if proc.returncode != 0:
-                failed.append(f"--- {src.name} (exit {proc.returncode}) ---\n{out}")
+                failed.append(logs[-1])
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        (tmp / "build.log").write_text("\n".join(logs))
         lib_tmp = tmp / so.name
         link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *map(str, objs),
                                "-o", str(lib_tmp)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}")
+        os.replace(tmp / "build.log", build_log())
         os.replace(lib_tmp, so)  # atomic: a concurrent loader sees all or nothing
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -157,9 +172,7 @@ def lib() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            handle.dllama_error_string.argtypes = [ctypes.c_int]
-            handle.dllama_error_string.restype = ctypes.c_char_p
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = handle
     return _lib
 

@@ -30,7 +30,8 @@ followed by the plain product.
 ``q40_matmul``/``q80_matmul`` launch the CUDA kernels (``csrc/q40_matmul.cu``,
 ``csrc/q80_matmul.cu``) for CUDA tensors and run ``q40_matmul_ref``/
 ``q80_matmul_ref`` for CPU tensors; there is no other route. On the card,
-up to :data:`GEMV_MAX_T` activation rows take each kind's decode kernel and
+up to :data:`GEMV_MAX_T` activation rows take each kind's decode GEMV — one
+launch a call, K split by :func:`gemv_plan` and summed in the kernel — and
 more take the tensor-core prefill tile both share (``csrc/dq_tile.cuh``):
 :func:`q40_plan` and :func:`q80_plan` decide, :func:`tile_plan` cuts the
 tile's grid.
@@ -59,7 +60,8 @@ Q40_NOSUB = os.environ.get("DLLAMA_Q40_NOSUB", "1") != "0"
 #: input-dim padding unit per kind, as the JAX package packs it
 K_MULTIPLE = {"q40": 512, "q80": 256}
 
-#: output columns one CUDA block covers (128 threads x 4 columns)
+#: output columns one block of K7 (``csrc/q40_int8_matmul.cu``) covers: 128
+#: threads x 4 columns
 _BLOCK_COLS = 512
 
 #: the most activation rows the decode kernels (K1's, K3's GEMV) take; more
@@ -75,9 +77,10 @@ TILE_BLOCKS_PER_SM = 2
 _TILE_FILL = 2
 #: the tile's Q40 modes (``csrc/dq_tile.cuh`` Mode)
 Q40_SUB, Q40_NOSUB_CORRECT, Q40_NOSUB_RAW = 0, 1, 2
-#: output columns one GEMV block covers (32 lanes x 16 columns)
+#: output columns one Q80 GEMV block covers (32 lanes x 16 columns)
 _GEMV_COLS = 512
-#: input rows per GEMV split unit (8 warps x two 4-row groups)
+#: input rows per GEMV split unit (Q80: 8 warps x two 4-row groups; Q40: a
+#: superblock)
 _GEMV_UNIT = 64
 #: the most staged activation values per GEMV block (64 KB of shared memory)
 _GEMV_X_FLOATS = 16384
@@ -243,10 +246,10 @@ def q80_matmul_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 
 def split_plan(T: int, K: int, O: int, n_sm: int,
                block_cols: int = _BLOCK_COLS) -> tuple[int, int]:
-    """(ksplit, 64-row superblocks per split) for K1's decode kernel, K6 and
-    K7: split K across blocks until about four blocks per SM are in flight,
-    so a decode GEMV with few output columns (wo: 8 column blocks) still
-    fills the card."""
+    """(ksplit, 64-row superblocks per split) for K7 alone (the decode
+    GEMVs take :func:`gemv_plan`): split K across blocks until about four
+    blocks per SM are in flight, so a launch with few output columns still
+    fills the card; ``dllama::sum_splits`` adds the splits after it."""
     nsb = K // 64
     tt = 8 if T > 8 else next(t for t in (1, 2, 4, 8) if t >= T)
     blocks_ = math.ceil(O / block_cols) * math.ceil(T / tt)
@@ -255,17 +258,20 @@ def split_plan(T: int, K: int, O: int, n_sm: int,
     return math.ceil(nsb / sb_per), sb_per
 
 
-def gemv_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[int, int]:
-    """(ksplit, rows per split) for the Q80 decode GEMV: split K, in 64-row
-    units, as far as one wave of resident blocks (``n_sm * per_sm``) holds
-    the column tiles times the splits — a second wave would take as long as
-    the first — and at least far enough that a block's staged activation
-    (rows x T rounded up to a power of two) fits :data:`_GEMV_X_FLOATS`.
-    Split s takes rows ``[s * rows, min((s + 1) * rows, K))``, so each
-    32-row scale block lies in exactly one split."""
+def gemv_plan(T: int, K: int, O: int, n_sm: int, per_sm: int,
+              cols: int = _GEMV_COLS) -> tuple[int, int]:
+    """(ksplit, rows per split) for a decode GEMV (Q80's, and Q40's through
+    :func:`q40_plan`) whose blocks cover ``cols`` output columns: split K,
+    in 64-row units, as far as one wave of resident blocks (``n_sm *
+    per_sm``) holds the column blocks times the splits — a second wave would
+    take as long as the first — and at least far enough that a block's
+    staged activation (rows x T rounded up to a power of two) fits
+    :data:`_GEMV_X_FLOATS`. Split s takes rows ``[s * rows, min((s + 1) *
+    rows, K))``, so each 32-row scale block and each 64-row Q40 superblock
+    lies in exactly one split."""
     tt = next(t for t in (1, 2, 4, 8) if t >= T)
     units = K // _GEMV_UNIT
-    tiles = math.ceil(O / _GEMV_COLS)
+    tiles = math.ceil(O / cols)
     want = max(n_sm * per_sm // tiles, math.ceil(K * tt / _GEMV_X_FLOATS), 1)
     per = math.ceil(units / min(units, want))
     return math.ceil(units / per), per * _GEMV_UNIT
@@ -301,13 +307,26 @@ def tile_plan(T: int, K: int, O: int, n_sm: int) -> tuple[int, int, int, int]:
     return m_tiles, n_tiles, best[1], best[2]
 
 
-def q40_plan(T: int, K: int, O: int, n_sm: int) -> tuple[str, int, int]:
-    """(kernel, ksplit, 64-row superblocks per split) for a Q40 matmul of T
-    rows: K1's decode kernel up to :data:`GEMV_MAX_T` rows
-    (:func:`split_plan`), the tensor-core tile beyond (:func:`tile_plan`)."""
+#: output columns one Q40 GEMV block covers: two strips of 8 lane groups x
+#: 16 columns (``wide``: K6's blocks of 8 such strips)
+Q40_GEMV_COLS, Q40_GEMV_WIDE_COLS = 256, 1024
+
+
+def q40_gemv_cols(wide: bool = False) -> int:
+    """Output columns one Q40 GEMV block covers, whatever the row count."""
+    return Q40_GEMV_WIDE_COLS if wide else Q40_GEMV_COLS
+
+
+def q40_plan(T: int, K: int, O: int, n_sm: int, per_sm: int,
+             wide: bool = False) -> tuple[str, int, int]:
+    """(kernel, ksplit, input rows per split) for a Q40 matmul of T rows:
+    the decode GEMV up to :data:`GEMV_MAX_T` rows (:func:`gemv_plan` over
+    :func:`q40_gemv_cols`-column blocks, ``per_sm`` of them resident on an
+    SM), the tensor-core tile beyond (:func:`tile_plan`)."""
     if T <= GEMV_MAX_T:
-        return ("gemv", *split_plan(T, K, O, n_sm))
-    return ("tile", *tile_plan(T, K, O, n_sm)[2:])
+        return ("gemv", *gemv_plan(T, K, O, n_sm, per_sm, q40_gemv_cols(wide)))
+    ksplit, per = tile_plan(T, K, O, n_sm)[2:]
+    return "tile", ksplit, TILE_K * per
 
 
 def q80_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[str, int, int]:
@@ -321,21 +340,34 @@ def q80_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[str, int, 
     return "tile", ksplit, TILE_K * per
 
 
-#: (T rounded up to a power of two, x is f32) -> the GEMV's blocks per SM
+#: (kind, T rounded up to a power of two, x is f32 or the Q40 GEMV is wide)
+#: -> the GEMV's blocks per SM
 _gemv_occupancy: dict = {}
 
 
-def gemv_blocks_per_sm(T: int, x_f32: bool) -> int:
-    """The GEMV's resident blocks per SM for T rows, from the CUDA occupancy
-    calculator (cached)."""
-    key = (next(t for t in (1, 2, 4, 8) if t >= T), int(x_f32))
+def _occupancy(kind: str, T: int, flag: bool) -> int:
+    key = (kind, next(t for t in (1, 2, 4, 8) if t >= T), int(flag))
     n = _gemv_occupancy.get(key)
     if n is None:
-        n = kernels.lib().dllama_q80_gemv_blocks_per_sm(*key)
+        n = getattr(kernels.lib(), f"dllama_{kind}_gemv_blocks_per_sm")(*key[1:])
         if n <= 0:
-            kernels.check(-n, "q80 GEMV occupancy")
+            kernels.check(-n, f"{kind} GEMV occupancy")
         _gemv_occupancy[key] = n
     return n
+
+
+def gemv_blocks_per_sm(T: int, x_f32: bool) -> int:
+    """The Q80 GEMV's resident blocks per SM for T rows, from the CUDA
+    occupancy calculator (cached)."""
+    return _occupancy("q80", T, x_f32)
+
+
+def q40_gemv_blocks_per_sm(T: int, wide: bool = False) -> int:
+    """The Q40 GEMV's resident blocks per SM for T rows (``wide``: K6's
+    blocks), from the CUDA occupancy calculator (cached): the fewer of its
+    bf16 and f32 activation instances', so a fused-norm launch on f32 x
+    splits K as the unfused bf16 launch does and gives its bits."""
+    return _occupancy("q40", T, wide)
 
 
 def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int,
@@ -353,7 +385,7 @@ def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int,
 def launch_buffers(T: int, K: int, O: int, device,
                    block_cols: int = _BLOCK_COLS) -> tuple:
     """(out [T, O] f32, partials [ksplit, T, O] f32, ksplit, sb_per_split):
-    the outputs a split-K launch writes, per :func:`split_plan`."""
+    the outputs a K7 launch writes, per :func:`split_plan`."""
     ksplit, sb_per = split_plan(T, K, O, kernels.sm_count(device), block_cols)
     return (*_split_outputs(T, O, ksplit, device), ksplit, sb_per)
 
@@ -415,6 +447,28 @@ def q40_tile(xk: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor, s_hi: t
     return out
 
 
+def q40_gemv(xk: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor, s_hi: torch.Tensor,
+             mode: int, inv=None, nw=None, wide: bool = False) -> torch.Tensor:
+    """Launch the Q40 decode GEMV (``dllama_q40_gemv``, up to
+    :data:`GEMV_MAX_T` rows) on operands the wrapper has checked, as
+    :func:`q40_tile` does, K split by :func:`q40_plan`; ``wide``: K6's
+    1024-column blocks (bf16 ``xk`` only). One CUDA launch: the last block
+    of each column block adds the splits. Counts no launch: its callers do."""
+    T, K = xk.shape
+    O = packed.shape[1]
+    per_sm = q40_gemv_blocks_per_sm(T, wide)
+    _, ksplit, rows = q40_plan(T, K, O, kernels.sm_count(packed.device), per_sm, wide)
+    out, partials = _split_outputs(T, O, ksplit, packed.device)
+    counters = kernels.counters(packed.device, math.ceil(O / q40_gemv_cols(wide)))
+    with torch.cuda.device(packed.device):
+        rc = kernels.lib().dllama_q40_gemv(
+            xk.data_ptr(), int(xk.dtype == torch.float32), T, K, packed.data_ptr(),
+            s_lo.data_ptr(), s_hi.data_ptr(), O, mode, _ptr(inv), _ptr(nw), int(wide), ksplit,
+            rows, partials.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            kernels.stream_of(packed))
+    kernels.check(rc, "q40 GEMV")
+    return out
+
 
 def q40_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
                s_hi: torch.Tensor, nosub: bool | None = None,
@@ -422,7 +476,7 @@ def q40_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
                norm_inv: torch.Tensor | None = None) -> torch.Tensor:
     """``x [T, K] @ dequant(packed uint8 [K/2, O]) -> [T, O]`` f32.
 
-    A CUDA ``packed`` launches ``csrc/q40_matmul.cu`` — its decode kernel or
+    A CUDA ``packed`` launches ``csrc/q40_matmul.cu`` — its decode GEMV or
     the tensor-core prefill tile, by T (:func:`q40_plan`); a CPU one runs
     :func:`q40_matmul_ref`. K2's correction term is computed inside the same
     kernel under ``nosub``. ``norm_w``/``norm_inv``: the fused-norm epilogue
@@ -442,19 +496,8 @@ def q40_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
                          f"{tuple(s_lo.shape)}, {tuple(s_hi.shape)} disagree")
     check_operands("q40_matmul", x, packed, K, [s_lo, s_hi])
     xk, inv, nw = _kernel_activation(x, K, norm_w, norm_inv)
-    T = xk.shape[0]
-    route, ksplit, sb_per = q40_plan(T, K, O, kernels.sm_count(packed.device))
-    if route == "tile":
-        out = q40_tile(xk, packed, s_lo, s_hi, Q40_NOSUB_CORRECT if nosub else Q40_SUB,
-                       inv, nw)
-    else:
-        out, partials = _split_outputs(T, O, ksplit, packed.device)
-        with torch.cuda.device(packed.device):
-            rc = kernels.lib().dllama_q40_matmul(
-                xk.data_ptr(), int(xk.dtype == torch.float32), T, K, packed.data_ptr(),
-                s_lo.data_ptr(), s_hi.data_ptr(), O, int(bool(nosub)), _ptr(inv), _ptr(nw),
-                ksplit, sb_per, partials.data_ptr(), out.data_ptr(), kernels.stream_of(packed))
-        kernels.check(rc, "q40_matmul")
+    launch = q40_gemv if xk.shape[0] <= GEMV_MAX_T else q40_tile
+    out = launch(xk, packed, s_lo, s_hi, Q40_NOSUB_CORRECT if nosub else Q40_SUB, inv, nw)
     kernels.launches["q40_matmul"] += 1
     return out
 

@@ -56,9 +56,9 @@ def q40_nosub_matmul_ref(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tens
 def q40_nosub_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
                      s_hi: torch.Tensor, wide: bool = False) -> torch.Tensor:
     """K6: ``csrc/q40_matmul.cu`` in its no-correction mode for a CUDA
-    ``packed`` — K1's decode kernel up to ``GEMV_MAX_T`` rows (``wide``: 1024
-    columns per block), the tensor-core tile beyond in either mode —
-    :func:`q40_nosub_matmul_ref` for a CPU one."""
+    ``packed`` — K1's decode GEMV up to ``GEMV_MAX_T`` rows (``wide``: two
+    column tiles a block, 1024 columns up to 4 rows), the tensor-core tile
+    beyond in either mode — :func:`q40_nosub_matmul_ref` for a CPU one."""
     if packed.device.type == "cpu":
         return q40_nosub_matmul_ref(x, packed, s_lo, s_hi)
     if packed.device.type != "cuda":
@@ -72,16 +72,8 @@ def q40_nosub_matmul(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
     T = xk.shape[0]
     if T > qmatmul.GEMV_MAX_T:  # both modes: the TPU's 2048-lane block is a tiling knob
         out = qmatmul.q40_tile(xk, packed, s_lo, s_hi, qmatmul.Q40_NOSUB_RAW)
-        kernels.launches["q40_nosub_matmul"] += 1
-        return out
-    out, partials, ksplit, sb_per = qmatmul.launch_buffers(
-        T, K, O, packed.device, 1024 if wide else qmatmul._BLOCK_COLS)
-    with torch.cuda.device(packed.device):
-        rc = kernels.lib().dllama_q40_nosub_matmul(
-            xk.data_ptr(), T, K, packed.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(), O,
-            int(wide), ksplit, sb_per, partials.data_ptr(), out.data_ptr(),
-            kernels.stream_of(packed))
-    kernels.check(rc, "q40_nosub_matmul")
+    else:
+        out = qmatmul.q40_gemv(xk, packed, s_lo, s_hi, qmatmul.Q40_NOSUB_RAW, wide=wide)
     kernels.launches["q40_nosub_matmul"] += 1
     return out
 

@@ -12,9 +12,10 @@ they are held to 1e-5 of the output's magnitude in f32; the rope + cache
 write does the same single-rounding arithmetic as its plain version, so the
 caches must be bit-equal. The fused-norm epilogue (K1, K3) must equal the
 unfused composition bit for bit: the same bf16 tile, the same split plan.
-K3's decode GEMV, the K1/K3 prefill tile (T > 8, split-K partials summed
-in split order) and K4 merge their blocks' partials in a fixed order, so
-two launches on the same inputs must give the same bits. K4's batched form
+The K1 and K3 decode GEMVs, the K1/K3 prefill tile (T > 8, split-K
+partials summed in split order) and K4 merge their blocks' partials in a
+fixed order, so two launches on the same inputs must give the same bits;
+the GEMVs add their splits in the kernel, one CUDA launch a call. K4's batched form
 plans each row's chunks from that row alone: a row's bits do not depend on
 its neighbours or on the host's grid bound, and the solo form is its
 one-row launch, bit for bit. The verify form of the rope + cache write
@@ -261,6 +262,77 @@ def _q40_planes(K, O, dev, seed):
             torch.rand((K // 64, O), device=dev, generator=gen) * 0.004)
 
 
+@pytest.mark.parametrize("nosub", [True, False])
+@pytest.mark.parametrize("K,O", LLAMA3_8B_WIDTHS)
+def test_q40_gemv_matches_ref_and_repeats_its_bits(cuda, nosub, K, O):
+    planes = _q40_planes(K, O, cuda, K + O + nosub)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for T in range(1, qmatmul.GEMV_MAX_T + 1):
+        per_sm = qmatmul.q40_gemv_blocks_per_sm(T)
+        assert per_sm >= 1
+        assert qmatmul.q40_plan(T, K, O, kernels.sm_count(cuda), per_sm)[0] == "gemv"
+        x = torch.randn((T, K), device=cuda, generator=gen).to(torch.bfloat16)
+        before = kernels.launches["q40_matmul"]
+        got = qmatmul.q40_matmul(x, *planes, nosub=nosub)
+        again = qmatmul.q40_matmul(x, *planes, nosub=nosub)
+        torch.cuda.synchronize()
+        assert kernels.launches["q40_matmul"] == before + 2
+        _close(got, qmatmul.q40_matmul_ref(x, *planes, nosub=nosub))
+        assert torch.equal(got, again), T
+
+
+@pytest.mark.parametrize("nosub", [True, False])
+@pytest.mark.parametrize("T", [1, 3, 8])
+@pytest.mark.parametrize("K,O", [(256, 102), (1024, 516), (4096, 4100), (512, 8)])
+def test_q40_gemv_ragged_columns(cuda, nosub, T, K, O):
+    planes = _q40_planes(K, O, cuda, K * O + nosub)
+    x = torch.randn((T, K), device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))
+    got = qmatmul.q40_matmul(x, *planes, nosub=nosub)
+    torch.cuda.synchronize()
+    _close(got, qmatmul.q40_matmul_ref(x, *planes, nosub=nosub))
+
+
+@pytest.mark.parametrize("nosub", [True, False])
+@pytest.mark.parametrize("act", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("K,O", [(4096, 6144), (4096, 28672), (1024, 516)])
+def test_q40_gemv_fused_norm_bit_equal_to_unfused(cuda, nosub, act, K, O):
+    planes = _q40_planes(K, O, cuda, K + 7 * O + nosub)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    nw = 1.0 + 0.1 * torch.randn(K, device=cuda, generator=gen)
+    for T in range(1, qmatmul.GEMV_MAX_T + 1):
+        x = torch.randn((T, K), device=cuda, generator=gen).to(act)
+        inv = qmatmul.rmsnorm_inv(x)
+        fused = qmatmul.q40_matmul(x, *planes, nosub=nosub, norm_w=nw, norm_inv=inv)
+        unfused = qmatmul.q40_matmul(rmsnorm(x, nw), *planes, nosub=nosub)
+        torch.cuda.synchronize()
+        _close(fused, qmatmul.q40_matmul_ref(x, *planes, nosub=nosub, norm_w=nw, norm_inv=inv))
+        assert torch.equal(fused, unfused), T
+
+
+@pytest.mark.parametrize("T", [1, 8])
+def test_q40_gemv_call_is_one_cuda_launch(cuda, T):
+    """wo splits K across blocks at every T: the last block of each column
+    tile adds the splits, so K1 and K6 are one launch a call and no
+    ``sum_splits_kernel`` follows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K, O = 4096, 4096
+    planes = _q40_planes(K, O, cuda, T)
+    assert qmatmul.q40_plan(T, K, O, kernels.sm_count(cuda),
+                            qmatmul.q40_gemv_blocks_per_sm(T))[1] > 1
+    x = torch.randn((T, K), device=cuda).to(torch.bfloat16)
+    qmatmul.q40_matmul(x, *planes)
+    qkernel_experiments.q40_nosub_matmul(x, *planes, wide=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        qmatmul.q40_matmul(x, *planes)
+        qkernel_experiments.q40_nosub_matmul(x, *planes, wide=True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    assert sum("q40_gemv_kernel" in n for n in names) == 2, names
+    assert not any("sum_splits" in n for n in names), names
+
+
 def _tile_call(kind, nosub, x, planes, **kw):
     if kind == "q40":
         return qmatmul.q40_matmul(x, *planes, nosub=nosub, **kw)
@@ -283,7 +355,7 @@ TILE_KINDS = [("q40", True), ("q40", False), ("q80", None)]
 def test_tile_matches_ref_and_repeats_its_bits(cuda, kind, nosub, T, K, O):
     planes = (_q40_planes if kind == "q40" else _q80_planes)(K, O, cuda, T + K + O)
     n_sm = kernels.sm_count(cuda)
-    route = (qmatmul.q40_plan(T, K, O, n_sm) if kind == "q40"
+    route = (qmatmul.q40_plan(T, K, O, n_sm, 0) if kind == "q40"
              else qmatmul.q80_plan(T, K, O, n_sm, 0))[0]
     assert route == "tile"
     x = torch.randn((T, K), device=cuda, generator=torch.Generator(device=cuda).manual_seed(T))

@@ -80,14 +80,14 @@ def test_tile_plan_fills_one_wave_at_llama3_8b_widths(name, T):
 @pytest.mark.parametrize("T", list(range(1, 20)) + [100, 128, 200, 512])
 def test_plans_route_decode_rows_to_the_decode_kernels_and_more_to_the_tile(T):
     want = "gemv" if T <= tq.GEMV_MAX_T else "tile"
-    route40, ksplit40, per40 = tq.q40_plan(T, 4096, 6144, 132)
+    route40, ksplit40, rows40 = tq.q40_plan(T, 4096, 6144, 132, 2)
     route80, ksplit80, rows80 = tq.q80_plan(T, 4096, 6144, 132, 2)
     assert (route40, route80) == (want, want)
     if want == "gemv":
-        assert (ksplit40, per40) == tq.split_plan(T, 4096, 6144, 132)
+        assert (ksplit40, rows40) == tq.gemv_plan(T, 4096, 6144, 132, 2, tq.q40_gemv_cols())
         assert (ksplit80, rows80) == tq.gemv_plan(T, 4096, 6144, 132, 2)
     else:
-        assert (ksplit40, per40) == tq.tile_plan(T, 4096, 6144, 132)[2:]
+        assert (ksplit40, rows40 // tq.TILE_K) == tq.tile_plan(T, 4096, 6144, 132)[2:]
         assert (ksplit80, rows80 // tq.TILE_K) == tq.tile_plan(T, 4096, 6144, 132)[2:]
 
 
