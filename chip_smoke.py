@@ -40,7 +40,7 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    styles, rows at 0, in the middle, at S - T and past it) must equal its
    plain version and repeat its bits, timed at T = 9; K1 and K3 are also
    checked and timed at the verify step's T = 9, 16 and 72.
-2. ``Engine.generate`` on a Llama-3-8B-shape model (random Q40 params made on
+2. ``Engine.generate`` (eager steps) on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
    decode token went through the Q40 matmul (4 per layer + the classifier),
@@ -62,7 +62,7 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    weight flag the card keeps the file's format, and with f32 activations
    it must print the token ids the CPU run (plain versions) prints, and so
    must ``--spec-draft 8`` on the card.
-4. ``Engine.generate_batch`` on the Llama-3-8B shape (random Q40, bf16
+4. ``Engine.generate_batch`` (eager steps) on the Llama-3-8B shape (random Q40, bf16
    batch cache [32, 8, 1024, 8, 128]), 8 seeded prompts of 20-100 tokens
    and 32 greedy steps. Gates: (a) one batched step's logits, row by row,
    against the same row's solo ``forward`` at T = 1 within phase 2's
@@ -99,6 +99,24 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    against plain sampled ``generate``, and ``generate_batch_spec`` at B =
    8 (ms and rows fed per verify step, tokens/s against phase 4's B = 8,
    the device split at T = 9, the plain verify attention's time).
+6. CUDA-graphed decode (``Engine(cuda_graphs=True)``, one ``StepGraph``
+   replay per decode step) on phase 2's model and prompt and phase 4's
+   prompts, Q40 then Q80, beside an eager engine on the same parameters
+   (phases 2 and 4 run eager). First K4 at B = 1 with the graphs' grid
+   bound S against the solo launch's tight grid at pos 116 and 1000 (bits
+   equal, the cost per token logged). Gates: (a) the first graphed step's
+   logits and cache bit-equal to eager ``forward`` at T = 1, one replay
+   counting 129 matmuls and 32 batched K4 and K5; (b) 33 greedy tokens of
+   graphed ``generate`` = eager; (c) ``generate_fused`` for 97 tokens
+   (decode chunks of 64 and 32) = ``generate``; (d, Q40) sampled at 0.8 /
+   0.9 the graphed streams = eager, solo and for 8 ``generate_batch`` rows;
+   (e) graphed batched chunks at B = 1, 4, 8 (Q80: 8) bit-equal to eager,
+   and phase 4's mid-flight admission through graphs; (f) no host sync
+   (``set_sync_debug_mode("error")``) and no allocation in a chunk's
+   replays. Logged: ms per token of graphed ``generate`` and
+   ``generate_fused`` beside eager, ms per step and tokens/s batched, the
+   profiler's device busy, idle share and host launch calls per token or
+   step, capture ms and pool memory per graph.
 
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
@@ -913,7 +931,7 @@ def phase2(torch, dev, kind: str) -> dict:
             q_bytes += plane_bytes((leaf.w, leaf.s, leaf.s2))
     bound = q_bytes / HBM_BYTES_PER_S * 1e3
     engine = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
-                    cache_dtype=torch.bfloat16, device=dev)
+                    cache_dtype=torch.bfloat16, device=dev, cuda_graphs=False)
     prompt = torch.randint(0, cfg.vocab_size, (100,), generator=torch.Generator().manual_seed(1))
     prompt = prompt.tolist()
     log(f"  Llama-3-8B shape, random {kind.upper()} params built on the card in {build_s:.2f} s; "
@@ -1204,7 +1222,7 @@ def phase4(torch, dev, kind: str, batches: tuple, solo_ms: float, cfg_kw=None,
     gen = torch.Generator(device=dev).manual_seed(0)
     params = llama.random_quant_params(cfg, dev, gen, kind)
     engine = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
-                    cache_dtype=torch.bfloat16, device=dev)
+                    cache_dtype=torch.bfloat16, device=dev, cuda_graphs=False)
     B_max = max(batches)
     prompts = batch_prompts(cfg, B_max, 2)
     out = {"kind": kind, "prompt_lens": [len(p) for p in prompts], "steps": steps}
@@ -1703,6 +1721,363 @@ def phase5(torch, dev, engine, prompts: list, solo: dict, batched: dict) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: CUDA-graphed decode (StepGraph replays), against the eager steps
+# ---------------------------------------------------------------------------
+
+#: the runtime calls that put work on the card, as the profiler names them
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def graph_window(torch, run) -> dict:
+    """``run()`` (returns its step count) under the profiler: device busy
+    and wall ms per step, the idle share, the split by kernel family, and
+    the host's launch calls per step (one ``cudaGraphLaunch`` a replay)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        n = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t1) * 1e3 / n
+    by_name, families = device_time(prof, n)
+    calls = {}
+    for ev in prof.key_averages():
+        if ev.key in LAUNCH_CALLS:
+            calls[ev.key] = calls.get(ev.key, 0) + ev.count / n
+    busy = sum(by_name.values())
+    r = {"wall_ms": wall, "host_launch_calls": calls}
+    if busy > 0:
+        r.update(device_busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall),
+                 cuda_launches=sum(v["launches"] for v in families.values()), kernels=families)
+    else:
+        r.update(device_busy_ms="not measured", idle_share="not measured")
+    return r
+
+
+def log_window(r: dict, what: str) -> None:
+    calls = ", ".join(f"{v:.1f} {k}" for k, v in sorted(r["host_launch_calls"].items()))
+    if r["device_busy_ms"] == "not measured":
+        log(f"    profiler: device busy not measured; {r['wall_ms']:.3f} ms wall per {what}; "
+            f"host calls per {what}: {calls}")
+        return
+    log(f"    profiler: device busy {r['device_busy_ms']:.3f} ms per {what} of {r['wall_ms']:.3f}"
+        f" ms wall (idle share {r['idle_share']:.3f}); {r['cuda_launches']:.0f} kernels per "
+        f"{what}; host calls per {what}: {calls}")
+    for fam, v in r["kernels"].items():
+        if v["launches"]:
+            log(f"      {v['ms']:.4f} ms in {v['launches']:.0f} kernels  {fam}")
+
+
+def k4_bound_cost(torch, dev, gen) -> dict:
+    """K4 at B = 1 with the graphs' grid bound S against the solo launch
+    (tight grid), at pos 116 and 1000, bf16 cache cold in L2: what the
+    empty blocks of a fixed grid cost per decode token (32 layers)."""
+    from dllama_tpu_torch.ops import flash_decode
+
+    L, S, kv, group, hd = 64, 1024, 8, 4, 128
+    kc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+    vc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
+    q = torch.randn((1, kv * group, hd), device=dev, generator=gen).to(torch.bfloat16)
+    out = {}
+    for pos in (116, 1000):
+        p_dev = torch.tensor([pos], dtype=torch.int32, device=dev)
+        a = flash_decode.flash_decode_attention(q, kc, vc, pos, 3)
+        b = flash_decode.flash_decode_attention_batched(q, kc[:, None], vc[:, None], p_dev, 3, S)
+        if not torch.equal(a, b):
+            fail(f"K4 at B = 1, bound S != the solo launch at pos {pos}")
+        layers = itertools.count()
+        tight = time_ms(torch, lambda: flash_decode.flash_decode_attention(
+            q, kc, vc, pos, next(layers) % L))
+        layers = itertools.count()
+        fixed = time_ms(torch, lambda: flash_decode.flash_decode_attention_batched(
+            q, kc[:, None], vc[:, None], p_dev, next(layers) % L, S))
+        out[pos] = {"solo_ms": tight, "bound_S_ms": fixed,
+                    "per_token_ms": 32 * (fixed - tight)}
+        log(f"  K4 at pos {pos}: solo launch {tight:.4f} ms, B = 1 with bound S {fixed:.4f} ms "
+            f"(bit-equal); {out[pos]['per_token_ms']:+.4f} ms per token over 32 layers")
+    del kc, vc
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
+    """Graphed decode on the Llama-3-8B shape with random ``kind`` weights
+    (phase 2's model and prompt, phase 4's prompts and bf16 batch cache),
+    one engine with ``cuda_graphs=True`` and one with False on the same
+    parameters. Gates: (a) the first graphed decode step's logits and cache
+    (all but slot S - 1, which a graph's warm-up step writes) are bit-equal
+    to eager ``forward`` at T = 1, and a replay counts the
+    launches it captured (129 matmuls, 32 batched K4 and K5); (b) 33 greedy
+    tokens of graphed ``generate`` = eager; (c) ``generate_fused`` for 97
+    tokens (decode chunks of 64 and 32) = ``generate``'s; (d) with
+    ``sampled``: a sampled stream (temperature 0.8, top-p 0.9, seed 5)
+    graphed = eager, solo and for the B = 8 rows of ``generate_batch``; (e)
+    graphed batched chunks (4 of 8 steps) at each B give the eager chunks'
+    tokens, flags and caches (but slot S - 1) bit for bit, and, at the largest B of several,
+    phase 4's mid-flight admission holds through graphs; (f) under
+    ``torch.cuda.set_sync_debug_mode("error")`` a graphed chunk (solo, and
+    batched sampled) makes no host sync, and its replays allocate nothing.
+    Logged: ms per token of graphed ``generate`` and ``generate_fused``
+    beside eager, ms per step and tokens/s batched, the profiler's device
+    busy, idle share and host launch calls per token or step, capture ms and
+    pool memory per graph, launches per replay."""
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig, row_seed
+
+    cfg = ModelConfig(**LLAMA3_8B)
+    params = llama.random_quant_params(cfg, dev, torch.Generator(device=dev).manual_seed(0), kind)
+    greedy = SamplerConfig(temperature=0.0, seed=0)
+    graphed = Engine(cfg, params, greedy, cache_dtype=torch.bfloat16, device=dev)
+    eager = Engine(cfg, graphed.params, greedy, cache_dtype=torch.bfloat16, device=dev,
+                   cuda_graphs=False)
+    prompt = torch.randint(0, cfg.vocab_size, (100,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    prompts = batch_prompts(cfg, max(batches), 2)
+    want_step = {f"{kind}_matmul": 4 * cfg.n_layers + 1, "flash_decode_batched": cfg.n_layers,
+                 "rope_cache_update_batched": cfg.n_layers}
+    out = {"kind": kind}
+    S = cfg.seq_len
+
+    def new_graph(cache, temps):
+        """A graph made now, with its capture ms and pool memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        a0 = torch.cuda.memory_allocated(dev)
+        g = graphed.step_graph(cache, temps, graphed.decode_chunk)
+        mem = {"capture_ms": g.capture_ms,
+               "peak_mb": (torch.cuda.max_memory_allocated(dev) - a0) / 2 ** 20,
+               "held_mb": (torch.cuda.memory_allocated(dev) - a0) / 2 ** 20}
+        return g, mem
+
+    # (a) the first graphed step against eager forward at T = 1
+    cache = eager.new_cache()
+    last, cache = eager.prefill(cache, prompt)
+    nxt = torch.argmax(last).reshape(1)
+    pos = len(prompt)
+    twin = {n: c.clone() for n, c in cache.items()}
+    le, _ = llama.forward(cfg, eager.params, eager.rope, nxt, cache, pos)
+    g, mem = new_graph(twin, [0.0])
+    g.load(nxt, pos)
+    kernels.reset_launches()
+    g.run(1)
+    replay_launches = {k: v for k, v in kernels.launches.items() if v}
+    torch.cuda.synchronize()
+    a_equal = bool(torch.equal(g.logits, le))
+    # slot S - 1 is the graph's warm-up step's (see StepGraph): the rest
+    cache_equal = all(torch.equal(twin[n][:, :S - 1], cache[n][:, :S - 1]) for n in ("k", "v"))
+    log(f"  (a) first graphed step vs eager forward (T = 1): logits bit-equal {a_equal}, cache "
+        f"bit-equal {cache_equal}; one replay counted {replay_launches} (want {want_step})")
+    log(f"    solo graph: capture {mem['capture_ms']:.1f} ms (warm-up step + capture); pool "
+        f"peak {mem['peak_mb']:.1f} MB, held {mem['held_mb']:.1f} MB")
+    if not (a_equal and cache_equal and replay_launches == want_step and g.counts == want_step):
+        fail(f"{kind} graphed step: logits equal {a_equal}, cache equal {cache_equal}, launches "
+             f"{replay_launches}, captured {g.counts}")
+    out.update(step_logits_bit_equal=True, solo_graph=mem, launches_per_replay=g.counts)
+    del cache, twin, g, le
+    torch.cuda.empty_cache()
+
+    # (b) 33 greedy tokens, graphed and eager
+    def timed(engine, steps, sampler=None):
+        toks, ms = [], []
+        for tok, st in engine.generate(prompt, steps, sampler=sampler):
+            toks.append(tok)
+            ms.append(st.generation_ms)
+        return toks, ms[1:]
+
+    kernels.reset_launches()
+    tg, ms_g = timed(graphed, 33)
+    launches = dict(kernels.launches)
+    te, ms_e = timed(eager, 33)
+    log(f"  (b) 33 greedy tokens, graphed generate == eager: {tg == te}; ms per token median "
+        f"graphed {statistics.median(ms_g):.3f} (first decode token, with the capture, "
+        f"{ms_g[0]:.1f}; min {min(ms_g):.3f}), eager {statistics.median(ms_e):.3f} (min "
+        f"{min(ms_e):.3f}); launches over the graphed run (prefill, warm-up, 32 replays) "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if tg != te:
+        fail(f"{kind} graphed generate {tg} != eager {te}")
+    if launches["flash_decode_batched"] != 33 * cfg.n_layers or launches["flash_decode"]:
+        fail(f"{kind} graphed generate launches {launches}")
+    out.update(tokens=tg, generate_ms_graphed=ms_g, generate_ms_eager=ms_e,
+               generate_ms_per_token_graphed=statistics.median(ms_g),
+               generate_ms_per_token_eager=statistics.median(ms_e), launches_graphed=launches)
+
+    # (c) generate_fused: prefill's token + 96 decode steps (chunks of 64 and 32)
+    gt = [t for t, _ in graphed.generate(prompt, 97)]
+    fused, _, fused_ms = graphed.generate_fused(prompt, 97)
+    sess = graphed.final_session
+    fg = graphed.step_graph(sess.cache, [0.0], graphed.decode_chunk)
+    fused_e, _, fused_ms_e = eager.generate_fused(prompt, 97)
+    steady = (fused_ms - fg.capture_ms) / 96
+    log(f"  (c) generate_fused, 97 tokens == generate's: {fused == gt} (eager fused too: "
+        f"{fused_e == gt}); decode {fused_ms:.1f} ms for 96 steps with one capture of "
+        f"{fg.capture_ms:.1f} ms: {steady:.3f} ms per token without it (eager fused "
+        f"{fused_ms_e / 96:.3f}); final pos {sess.pos} (want {len(prompt) + 96})")
+    if fused != gt or fused_e != gt or sess.pos != len(prompt) + 96:
+        fail(f"{kind} generate_fused {fused} vs generate {gt} (eager fused {fused_e})")
+    out.update(fused_tokens_equal=True, fused_decode_ms=fused_ms, fused_capture_ms=fg.capture_ms,
+               fused_ms_per_token=steady, fused_ms_per_token_eager=fused_ms_e / 96)
+
+    # device time and host launch calls of graphed solo steps (8 replays)
+    tok = torch.tensor(sess.pending_token, device=dev)
+
+    def solo_chunk():
+        graphed._decode_chunk_solo(sess.cache, tok, sess.pos, 8, greedy, None)
+        return 8
+
+    solo_chunk()
+    r = graph_window(torch, solo_chunk)
+    log_window(r, "graphed token")
+    out["graphed_token_profile"] = r
+
+    # (f) solo: a chunk's replays make no host sync and allocate nothing
+    torch.cuda.synchronize()
+    n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fg.load(tok, sess.pos)
+        fg.run(8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - n_alloc
+    log(f"  (f) solo chunk of 8 replays under sync debug 'error': no sync; allocations {allocs}")
+    if allocs:
+        fail(f"{kind} a graphed chunk allocated {allocs} blocks")
+    del sess, fg
+    graphed.final_session = eager.final_session = None
+    torch.cuda.empty_cache()
+
+    if sampled:  # (d) sampled streams, solo and B = 8
+        s = SamplerConfig(temperature=0.8, topp=0.9, seed=5)
+        sg, ms_sg = timed(graphed, 33, s)
+        se, ms_se = timed(eager, 33, s)
+        first = leading_equal(sg, se)
+        log(f"  (d) sampled solo (0.8 / 0.9, seed 5), graphed == eager: {sg == se} (leading "
+            f"equal {first} of 33); ms per token graphed {statistics.median(ms_sg):.3f}, eager "
+            f"{statistics.median(ms_se):.3f}")
+        bg = graphed.generate_batch(prompts, 32, sampler=s)
+        be = eager.generate_batch(prompts, 32, sampler=s)
+        lead = [leading_equal(a, b) for a, b in zip(bg, be)]
+        log(f"  (d) sampled B = {len(prompts)} rows, graphed == eager: {bg == be} (leading equal "
+            f"{lead})")
+        if sg != se or bg != be:
+            fail(f"{kind} sampled graphed streams differ from eager: solo from token {first}, "
+                 f"rows from {lead}")
+        out.update(sampled_solo_equal=True, sampled_batch_equal=True,
+                   sampled_ms_per_token_graphed=statistics.median(ms_sg),
+                   sampled_ms_per_token_eager=statistics.median(ms_se))
+
+    # (e) batched chunks, graphed against eager, timed
+    for B in batches:
+        cache, pend, poss = eager._prefill_batch_rows(prompts[:B])
+        twin = {n: c.clone() for n, c in cache.items()}
+        tok0 = torch.tensor(pend, dtype=torch.long, device=dev)
+        pos0 = torch.tensor(poss, dtype=torch.int32, device=dev)
+        temps, topps, gens = [0.0] * B, [1.0] * B, [None] * B
+        g, mem = new_graph(twin, temps)
+        runs = {}
+        for name, engine, c in (("eager", eager, cache), ("graphed", graphed, twin)):
+            tok, p, host, toks, oks, per_step = tok0, pos0, list(poss), [], [], []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chunk, ok, p = engine._decode_chunk_batch(c, tok, p, 8, temps, topps, gens, host)
+                toks += chunk.tolist()  # the chunk's one host sync
+                per_step.append((time.perf_counter() - t0) * 1e3 / 8)
+                oks.append(ok.tolist())
+                tok, host = chunk[-1], [min(h + 8, cfg.seq_len - 1) for h in host]
+            runs[name] = {"tokens": toks, "ok": oks, "ms": per_step, "tok": tok, "pos": p,
+                          "host": host}
+        same = (runs["eager"]["tokens"] == runs["graphed"]["tokens"]
+                and runs["eager"]["ok"] == runs["graphed"]["ok"]
+                and all(torch.equal(cache[n][:, :, :S - 1], twin[n][:, :, :S - 1])
+                        for n in ("k", "v")))
+        ms_g, ms_e = (statistics.median(runs[n]["ms"]) for n in ("graphed", "eager"))
+        log(f"  (e) B={B}: 4 graphed chunks of 8 == eager (tokens, flags, caches): {same}; ms "
+            f"per step graphed {ms_g:.3f} ({B * 1e3 / ms_g:.1f} tokens/s), eager {ms_e:.3f} "
+            f"({B * 1e3 / ms_e:.1f} tokens/s); graph capture {mem['capture_ms']:.1f} ms, pool "
+            f"peak {mem['peak_mb']:.1f} MB, held {mem['held_mb']:.1f} MB")
+        if not same:
+            fail(f"{kind} B={B} graphed chunks differ from eager")
+        rg = runs["graphed"]
+
+        def batch_chunk(n=3):
+            graphed._decode_chunk_batch(twin, rg["tok"], rg["pos"], n, temps, topps, gens,
+                                        rg["host"])
+            return n
+
+        prof = graph_window(torch, batch_chunk)
+        log_window(prof, "graphed step")
+        row = {"B": B, "bit_equal": True, "ms_per_step_graphed": ms_g, "ms_per_step_eager": ms_e,
+               "ms_graphed": rg["ms"], "ms_eager": runs["eager"]["ms"],
+               "tokens_per_s_graphed": B * 1e3 / ms_g, "tokens_per_s_eager": B * 1e3 / ms_e,
+               "graph": mem, "profile": prof}
+        if B == max(batches) and sampled:
+            # sampled chunks: ms per step, and (f) no host sync in a graphed chunk
+            s_gens = [torch.Generator(device=dev).manual_seed(row_seed(0, b)) for b in range(B)]
+            st = [0.8] * B
+            gs, smem = new_graph(twin, st)
+            per = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                graphed._decode_chunk_batch(twin, rg["tok"], rg["pos"], 8, st, [0.9] * B, s_gens,
+                                            rg["host"])
+                torch.cuda.synchronize()
+                per.append((time.perf_counter() - t0) * 1e3 / 8)
+            n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                gs.load(rg["tok"], rg["pos"], st, [0.9] * B)
+                gs.run(8, s_gens)
+                graphed._decode_chunk_batch(twin, rg["tok"], rg["pos"], 8, st, [0.9] * B, s_gens,
+                                            rg["host"])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            log(f"    sampled (0.8 / 0.9): {statistics.median(per):.3f} ms per step graphed "
+                f"(capture {smem['capture_ms']:.1f} ms); (f) a sampled chunk under sync debug "
+                f"'error': no sync")
+            row.update(sampled_ms_per_step_graphed=statistics.median(per), sampled_graph=smem)
+        out[f"B{B}"] = row
+        del cache, twin, g, runs, rg
+        torch.cuda.empty_cache()
+
+    if len(batches) > 1:  # phase 4's gate (c) through graphs
+        x = prompts[1]
+        got = {}
+        for name, engine in (("eager", eager), ("graphed", graphed)):
+            sess = engine.batch_session(max_batch=4, chunk=8)
+            h = sess.admit(x, steps=16)
+            start = []
+            while not sess.is_done(h):
+                start += sess.step_chunk().get(h, [])
+            sess.close()
+            got[name] = start
+        sess = graphed.batch_session(max_batch=4, chunk=8)
+        for p in prompts[2:4]:
+            sess.admit(p, steps=24)
+        sess.step_chunk()
+        h = sess.admit(x, steps=16)
+        mid = []
+        while not sess.is_done(h):
+            mid += sess.step_chunk().get(h, [])
+        sess.close()
+        ok = mid == got["graphed"] == got["eager"] and len(mid) == 16
+        log(f"  (e) BatchSession(max_batch=4) through graphs: admitted mid-flight == at the start "
+            f"== eager: {ok}")
+        if not ok:
+            fail(f"{kind} graphed mid-flight admission: {mid} vs {got}")
+        out["mid_flight_bit_equal"] = True
+    del graphed, eager, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def per_token(rows: list, key: str) -> float:
     """A per-launch number summed over one decode token's launches."""
     return sum(r[key] * r["launches_per_token"] for r in rows)
@@ -1777,6 +2152,12 @@ def main() -> None:
     batch = phase4(torch, dev, "q40", (1, 4, 8), e2e["decode_ms_median"], then=run_phase5)
     header("phase 4: Engine.generate_batch, Llama-3-8B shape, random Q80, B = 8")
     batch80 = phase4(torch, dev, "q80", (8,), e2e80["decode_ms_median"])
+
+    header("phase 6: CUDA-graphed decode, Llama-3-8B shape, random Q40, solo and B = 1, 4, 8")
+    k4_fixed = k4_bound_cost(torch, dev, gen)
+    graphs = phase6(torch, dev, "q40", (1, 4, 8), sampled=True)
+    header("phase 6: CUDA-graphed decode, Llama-3-8B shape, random Q80, solo and B = 8")
+    graphs80 = phase6(torch, dev, "q80", (8,), sampled=False)
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
@@ -1894,11 +2275,19 @@ def main() -> None:
                       "scripts/qkernel_experiments.py:138 (_q40_int8_kernel)", ["K7"],
                       "dllama_q40_int8_matmul (q40_int8_kernel + sum_splits_kernel)"),
     ]}
+    # phase 6's graphed solo run (prefill, the graph's warm-up step, 32
+    # replays): the kernels a replay launches
+    for entry in summary["kernels"]:
+        run = graphs80 if entry["name"] == "q80_matmul" else graphs
+        if entry["name"] in ("q40_matmul", "q80_matmul", "flash_decode_batched",
+                             "rope_cache_update_batched"):
+            entry["launches_graphed_decode"] = run["launches_graphed"][entry["name"]]
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "q40": q40, "q80": q80, "variants": variants,
                "flash_decode": flash, "rope_cache": rope, "flash_decode_batched": flash_b,
                "rope_cache_batched": rope_b, "rope_cache_verify": rope_v, "e2e": e2e,
                "e2e_q80": e2e80, "batch_q40": batch, "batch_q80": batch80, "spec": spec,
+               "graphs_q40": graphs, "graphs_q80": graphs80, "k4_bound_S": k4_fixed,
                "experiments": exp, "cli": cli, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))

@@ -9,7 +9,9 @@ On the card the weights stay in the file's own Q40 or Q80 format and every
 projection runs through that format's dequant-matmul kernel (pass
 ``--weights-float-type`` to choose otherwise; q80 on a Q40 file requantizes
 the dequantized values). ``DLLAMA_FUSE_NORM=1`` folds each rmsnorm into the
-projection kernels that follow it. ``--spec-draft K`` decodes with
+projection kernels that follow it. Each decode step replays one captured
+CUDA graph; ``--decode-chunk N`` sets the steps between host syncs where
+the engine chunks them (64 by default). ``--spec-draft K`` decodes with
 prompt-lookup speculative drafting (up to K drafted tokens verified in one
 step); on the CPU the tokens are the plain run's, on the card up to the
 low-bit logit differences of a drafted step (see ``Engine.generate_spec``).
@@ -55,6 +57,10 @@ def build_parser() -> argparse.ArgumentParser:
             "in their low bits, so greedy tokens may differ at near-ties and sampled "
             "ones more often")
         sp.add_argument(
+            "--decode-chunk", type=int, default=None, metavar="N",
+            help="decode steps between host syncs in fused and batched decode (default "
+            "64); each step replays one captured CUDA graph")
+        sp.add_argument(
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
             "plain PyTorch versions)")
@@ -69,7 +75,7 @@ def load_engine(args):
     from dllama_tpu_torch.models import llama
     from dllama_tpu_torch.models.config import ModelConfig, resolve_dtype
     from dllama_tpu_torch.quants import blocks
-    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.generate import DECODE_CHUNK, Engine
     from dllama_tpu_torch.runtime.sampler import SamplerConfig
     from dllama_tpu_torch.tokenizer.bpe import Tokenizer
 
@@ -99,7 +105,10 @@ def load_engine(args):
     seed = args.seed if args.seed is not None else int(time.time())
     sampler_cfg = SamplerConfig(temperature=args.temperature, topp=args.topp, seed=seed)
     cache_dtype = resolve_dtype(args.cache_dtype, default=args.dtype)
-    engine = Engine(cfg, params, sampler_cfg, cache_dtype=cache_dtype, device=device)
+    # an explicit 0 must reach Engine's own validation, not become the default
+    chunk = args.decode_chunk
+    engine = Engine(cfg, params, sampler_cfg, cache_dtype=cache_dtype, device=device,
+                    decode_chunk=DECODE_CHUNK if chunk is None else chunk)
     return engine, tok, cfg
 
 

@@ -21,6 +21,10 @@ share one buffer of arrival counters per device (:func:`counters`):
 it starts zeroed, each such kernel leaves every counter it used at 0 again,
 and so launches that use it must not overlap — the port issues them on one
 stream.
+
+A CUDA graph (``runtime.graphs``) replays launches without running the
+wrappers, so the counts of a captured step are taken at capture
+(:func:`counted`) and added on every replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -98,6 +102,28 @@ _sm_counts: dict = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+class counted:
+    """Within the block, the wrappers' counts go to :attr:`counts` (what
+    the block launched, or captured) and :data:`launches` is left as it
+    was: a capture launches nothing until it is replayed."""
+
+    def __enter__(self) -> "counted":
+        self._saved = dict(launches)
+        self.counts: dict = {}
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.counts = {k: launches[k] - self._saved[k] for k in launches
+                       if launches[k] != self._saved[k]}
+        launches.update(self._saved)
+
+
+def add_launches(counts: dict, times: int = 1) -> None:
+    """Count ``times`` replays of a graph that captured ``counts``."""
+    for name, n in counts.items():
+        launches[name] += n * times
 
 
 def _nvcc() -> str:
@@ -186,12 +212,17 @@ def check(rc: int, what: str) -> None:
 
 def counters(device: torch.device, n: int) -> torch.Tensor:
     """The device's zeroed int32 arrival counters, allocated once; raises
-    if a launch needs more than :data:`N_COUNTERS`."""
+    if a launch needs more than :data:`N_COUNTERS`, and if the first use is
+    inside a CUDA graph capture (the buffer would live in the graph's pool:
+    a graph's warm-up allocates it)."""
     if n > N_COUNTERS:
         raise ValueError(f"a launch needs {n} arrival counters, the buffer has {N_COUNTERS}")
     with _lock:
         buf = _counters.get(device)
         if buf is None:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("the arrival counters must exist before a CUDA graph "
+                                   "capture: warm the step up first")
             buf = _counters[device] = torch.zeros(N_COUNTERS, dtype=torch.int32, device=device)
     return buf
 

@@ -25,6 +25,11 @@ vector): the projections are ordinary [B, K] matmuls, and rope, the cache
 write and attention are per row, through the batched launch forms of the
 same two kernels.
 
+``forward_decode`` is the solo decode step in that form: ``forward_batched``
+at B = 1 on the solo cache's ``[:, None]`` view, the position a device
+int32 [1], bit-equal to ``forward`` at T = 1. It is the step the engine's
+CUDA graphs capture (``runtime.graphs``).
+
 ``forward_batched_verify`` is the batched speculative-verify step: B
 sequences of T candidate rows each, every matmul on the flattened [B*T,
 dim] rows (K1/K3's tile past 8 rows), rope and the cache write through the
@@ -488,6 +493,25 @@ def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Te
         att_out = _attn_block_batched(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, bound)
         x = _ffn_residual(cfg, lp, x, att_out)
     return _logits(cfg, params, x), cache
+
+
+def forward_decode(cfg: ModelConfig, params: dict, rope: dict, token: torch.Tensor,
+                   cache: dict, pos: torch.Tensor) -> tuple:
+    """One solo decode step with the position on the device -> (logits
+    [1, vocab] f32, cache), the solo cache ``{"k", "v": [L, S, kv, hd]}``
+    updated in place: :func:`forward_batched` at B = 1 on the cache's
+    ``[:, None]`` view with the grid bound ``seq_len``. ``token`` [1] and
+    ``pos`` int32 [1] stay on the device, so nothing in the step depends on
+    a host integer and a CUDA graph can capture it.
+
+    Bit-equal to ``forward`` at T = 1: the rope angle is the same table row
+    (gathered, not sliced), the batched rope + cache write and flash decode
+    at B = 1 are the solo launches' kernel, and flash decode plans each
+    row's chunks from its own position, whatever the grid bound (empty
+    chunks weigh 0 in the merge)."""
+    view = {"k": cache["k"][:, None], "v": cache["v"][:, None]}
+    logits, _ = forward_batched(cfg, params, rope, token, view, pos, cfg.seq_len)
+    return logits, cache
 
 
 def forward_batched_verify(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,

@@ -6,10 +6,18 @@ Session, TokenStats and the numeric-health watchdog), its batched decode
 (``generate_batch``), the uniform continuous-batching ``BatchSession`` and
 prompt-lookup speculative decoding, solo (``generate_spec``) and batched
 (``generate_batch_spec``).
-PyTorch runs eagerly, so there are no compiled step functions: a decode step
-enqueues its kernels and the host waits only when it reads the sampled
-tokens — once per token solo, once per chunk of up to ``decode_chunk`` steps
-batched. The KV cache is updated in place, where the JAX programs donate it.
+PyTorch runs eagerly, so where the JAX package compiles a decode step and
+fuses N of them into one program, the port captures one decode step in a
+CUDA graph (``runtime.graphs.StepGraph``) and replays it once per step:
+solo (``generate``, ``generate_fused``) and batched (``generate_batch``,
+``BatchSession``). Each replay feeds the next on the device, and the host
+waits only when it reads the sampled tokens — once per token in
+``generate``, which yields each one, and once per chunk of up to
+``decode_chunk`` steps in ``generate_fused`` and batched decode.
+``Engine(cuda_graphs=False)`` keeps the eager steps (solo ``forward`` with a
+host position) for comparison; on the CPU the graph's body runs eagerly.
+Prefill and the speculative verify steps are eager. The KV cache is updated
+in place, where the JAX programs donate it.
 
 Batched rows and solo runs: a batched row sums in the order K1/K3 and flash
 decode take at B rows, which is not the solo order (the dequant-matmuls'
@@ -39,12 +47,14 @@ import torch
 from dllama_tpu_torch import resolve_device
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import ModelConfig
+from dllama_tpu_torch.runtime.graphs import GraphCache, StepGraph
 from dllama_tpu_torch.runtime.sampler import (
     SamplerConfig, gumbel_noise, row_seed, sample_dynamic, sample_rows,
 )
 
 PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
-#: batched decode steps per host sync (one read of the chunk's tokens)
+#: decode steps per host sync in generate_fused and batched decode (one read
+#: of the chunk's tokens)
 DECODE_CHUNK = 64
 
 
@@ -103,13 +113,17 @@ class Engine:
 
     def __init__(self, cfg: ModelConfig, params: dict,
                  sampler_cfg: SamplerConfig = SamplerConfig(),
-                 cache_dtype=torch.float32, device=None, decode_chunk: int = DECODE_CHUNK):
+                 cache_dtype=torch.float32, device=None, decode_chunk: int = DECODE_CHUNK,
+                 cuda_graphs: bool = True):
         """Quantized projections that share an input are fused
         (``llama.fuse_qkv_ffn``) if they are not already. Every solo decode
-        step checks ``isfinite(logits)`` and raises
-        :class:`NumericHealthError` on a non-finite value; batched decode
-        keeps a per-row flag instead (``row_health``). ``decode_chunk``:
-        batched decode steps between host syncs."""
+        step checks ``isfinite(logits)`` and ``generate`` raises
+        :class:`NumericHealthError` on a non-finite value (``generate_fused``
+        once per chunk); batched decode keeps a per-row flag instead
+        (``row_health``). ``decode_chunk``: decode steps between host syncs
+        in ``generate_fused`` and batched decode. ``cuda_graphs``: decode
+        steps replay captured graphs (:class:`StepGraph`, on the CPU their
+        body runs eagerly); False keeps the eager steps."""
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.device = resolve_device(device)
@@ -122,6 +136,8 @@ class Engine:
         self.cache_dtype = cache_dtype
         self.generator = torch.Generator(device=self.device).manual_seed(sampler_cfg.seed)
         self.decode_chunk = decode_chunk
+        self.cuda_graphs = cuda_graphs
+        self.graphs = GraphCache()
         self.prefill_ms = 0.0
         self.decode_ms = 0.0
         self.row_health: list = []
@@ -195,6 +211,46 @@ class Engine:
         nxt = sample_dynamic(logits[0], scfg.temperature, scfg.topp, gen)
         return nxt, torch.isfinite(logits).all()
 
+    def step_graph(self, cache: dict, temps: list, ring: int) -> StepGraph:
+        """The captured decode step over ``cache`` (made on first use): the
+        solo step (``llama.forward_decode``) for a cache [L, S, kv, hd], the
+        batched one at the grid bound seq_len for [L, B, S, kv, hd]. Rows
+        with a temperature above 0 sample; ``ring``: the most steps a run
+        takes."""
+        cfg, params, rope, S = self.cfg, self.params, self.rope, self.cfg.seq_len
+        solo = cache["k"].dim() == 4
+
+        def step(c, tok, pos):
+            if solo:
+                return llama.forward_decode(cfg, params, rope, tok, c, pos)[0]
+            return llama.forward_batched(cfg, params, rope, tok, c, pos, S)[0]
+
+        def make() -> StepGraph:
+            return StepGraph(step, cache, S, temps, ring)
+
+        # the storage and shape (B) of the cache, the sampled rows, the ring
+        key = (cache["v"].data_ptr(), tuple(cache["k"].shape), tuple(t > 0.0 for t in temps),
+               ring)
+        return self.graphs.get(cache["k"], key, make)
+
+    def _decode_chunk_solo(self, cache: dict, token: torch.Tensor, pos: int, n: int,
+                           scfg: SamplerConfig, gen: torch.Generator) -> tuple:
+        """``n`` solo decode steps from ``token`` (a device tensor) at host
+        ``pos`` with no host sync: one graph replay each (eager steps with
+        ``cuda_graphs=False``). Returns the sampled tokens int64 [n] and the
+        finite flag [1], device tensors."""
+        if self.cuda_graphs:
+            g = self.step_graph(cache, [scfg.temperature], self.decode_chunk)
+            g.load(token, pos, [scfg.temperature], [scfg.topp])
+            toks, ok = g.run(n, [gen])
+            return toks[:, 0], ok
+        out, ok = [], torch.ones(1, dtype=torch.bool, device=self.device)
+        for i in range(n):
+            token, finite = self._decode_step(cache, token, pos + i, scfg, gen)
+            ok &= finite
+            out.append(token)
+        return torch.stack(out), ok
+
     def generate(self, prompt_tokens: list, steps: int, session: Optional[Session] = None,
                  stop_tokens: tuple = (), sampler: Optional[SamplerConfig] = None
                  ) -> Iterator[tuple]:
@@ -237,13 +293,17 @@ class Engine:
                 return
         for _ in range(max(steps, 0)):
             t1 = time.perf_counter()
-            token, ok = self._decode_step(cache, token, pos, scfg, gen)
+            if self.cuda_graphs:
+                toks, ok = self._decode_chunk_solo(cache, token, pos, 1, scfg, gen)
+                token = toks[0]
+            else:
+                token, ok = self._decode_step(cache, token, pos, scfg, gen)
             # the step returns once its kernels are enqueued: the wait from
             # here to the result is device execution ("inference")
             t2 = time.perf_counter()
             _sync(self.device)
             t3 = time.perf_counter()
-            if not bool(ok):
+            if not bool(ok.all()):
                 raise NumericHealthError(f"at decode position {pos}")
             tok_int = int(token)
             t4 = time.perf_counter()
@@ -261,6 +321,75 @@ class Engine:
         else:
             pending = tok_int
         self.final_session = Session(cache, pos, pending_token=pending)
+
+    def generate_fused(self, prompt_tokens: list, steps: int,
+                       sampler: Optional[SamplerConfig] = None) -> tuple:
+        """Generate ``steps`` tokens in chunks of at most ``decode_chunk``
+        decode steps, with one host sync per chunk: the port of the
+        reference's fused on-device loop. Returns (tokens, prefill_ms,
+        decode_ms). No early stop; use ``generate`` where stop tokens or
+        streaming matter more than latency. Each chunk is one graph replay
+        per step; a non-finite logit anywhere in a chunk raises
+        :class:`NumericHealthError` after it. ``final_session`` resumes
+        after the last token, which is pending (fed by the next call).
+
+        The reference pads its last chunk to a prefill bucket so that
+        distinct step counts share compiled programs; graph replays have no
+        such cost, so the port runs exactly the steps it needs. The cache
+        slots past ``final_session.pos`` may differ from the reference's;
+        no later step reads them before writing them.
+
+        ``sampler`` (or the engine's settings and generator) draws as
+        ``generate`` draws: with the same seed the two emit the same
+        tokens. The reference's fused loop splits its key chain once per
+        chunk and so departs from its own ``generate``; the port's
+        generator has no chain, and its numbers differ from JAX's anyway."""
+        scfg, gen = self._sampling(sampler)
+        cache = self.new_cache()
+        steps = min(steps, self.cfg.seq_len - len(prompt_tokens))
+        t0 = time.perf_counter()
+        if steps <= 0 and len(prompt_tokens) > 1:
+            # nothing to emit; the prefill still advances the session
+            _, cache = self.prefill(cache, prompt_tokens, 0)
+            _sync(self.device)
+            self.prefill_ms = (time.perf_counter() - t0) * 1000.0
+            self.final_session = Session(cache, len(prompt_tokens), pending_token=None)
+            return [], self.prefill_ms, 0.0
+        if len(prompt_tokens) > 1:
+            last_logits, cache = self.prefill(cache, prompt_tokens, 0)
+            token = sample_dynamic(last_logits, scfg.temperature, scfg.topp, gen)
+            pos = len(prompt_tokens)
+            first = [int(token)]
+            steps -= 1
+        else:
+            token = torch.tensor(prompt_tokens[0], dtype=torch.long, device=self.device)
+            pos = 0
+            first = []
+        _sync(self.device)
+        self.prefill_ms = prefill_ms = (time.perf_counter() - t0) * 1000.0
+
+        t1 = time.perf_counter()
+        toks: list = []
+        remaining = steps
+        while remaining > 0:
+            n = min(self.decode_chunk, remaining)
+            chunk, ok = self._decode_chunk_solo(cache, token, pos, n, scfg, gen)
+            *got, finite = torch.cat([chunk, ok.long()]).tolist()  # the chunk's one sync
+            if not finite:
+                raise NumericHealthError(f"in fused decode chunk starting at position {pos}")
+            toks.extend(got)
+            token = chunk[-1]
+            pos += n
+            remaining -= n
+        decode_ms = (time.perf_counter() - t1) * 1000.0
+
+        emitted = first + toks
+        if emitted:
+            pending = emitted[-1]
+        else:
+            pending = prompt_tokens[0] if len(prompt_tokens) == 1 else None
+        self.final_session = Session(cache, pos, pending_token=pending)
+        return emitted, prefill_ms, decode_ms
 
     def generate_spec(self, prompt_tokens: list, steps: int, session: Optional[Session] = None,
                       stop_tokens: tuple = (), draft_len: int = 8, ngram: int = 3,
@@ -383,9 +512,16 @@ class Engine:
         and the per-row finite flags stay on the device. Row b samples with
         its own settings and generator; a row whose context fills pins at
         slot seq_len - 1 (its later tokens are garbage the caller drops).
-        ``host_pos`` is the host's mirror of ``pos``: it bounds flash
+        One graph replay per step, the graph's grid bound seq_len (a row's
+        bits do not depend on the bound); eager with ``cuda_graphs=False``,
+        where ``host_pos``, the host's mirror of ``pos``, bounds flash
         decode's grid for the whole chunk. Returns (tokens [n, B], ok [B],
         the positions after the chunk)."""
+        if self.cuda_graphs:
+            g = self.step_graph(cache, temps, max(n, self.decode_chunk))
+            g.load(tokens, pos, temps, topps)
+            toks, ok = g.run(n, generators)
+            return toks.clone(), ok.clone(), g.pos.clone()
         S = self.cfg.seq_len
         bound = min(max(host_pos) + n, S)
         ok = torch.ones(tokens.shape, dtype=torch.bool, device=self.device)

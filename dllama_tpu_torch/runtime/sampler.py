@@ -52,6 +52,45 @@ def sample_dynamic(logits: torch.Tensor, temperature: float, topp: float,
                        None if gumbel is None else gumbel[None])[0]
 
 
+@dataclasses.dataclass
+class RowSampling:
+    """The per-row settings of :func:`sample_prepared`, as device tensors
+    made once: ``rows`` (host) are the sampled rows (temperature > 0),
+    ``index`` int64 [R] the same rows on the device, ``temp`` f32 [R, 1]
+    each row's temperature (at least 1e-6) and ``topp`` f32 [R, 1] its top-p
+    threshold (2.0 for a top-p outside (0, 1): keep every token). A captured
+    decode step keeps one and refills its values with :meth:`set` before a
+    replay, with no host sync."""
+
+    rows: tuple
+    index: torch.Tensor
+    temp: torch.Tensor
+    topp: torch.Tensor
+
+    @staticmethod
+    def _values(temps: list, topps: list, rows) -> tuple:
+        t = [max(float(temps[b]), 1e-6) for b in rows]
+        # topp outside (0,1): threshold 2.0 keeps every token (cum prefix < 2)
+        p = [2.0 if (topps[b] <= 0.0 or topps[b] >= 1.0) else float(topps[b]) for b in rows]
+        return (torch.tensor(t, dtype=torch.float32)[:, None],
+                torch.tensor(p, dtype=torch.float32)[:, None])
+
+    @classmethod
+    def prepare(cls, temps: list, topps: list, device) -> "RowSampling":
+        rows = tuple(b for b, t in enumerate(temps) if t > 0.0)
+        t, p = cls._values(temps, topps, rows)
+        return cls(rows, torch.tensor(rows, dtype=torch.long).to(device), t.to(device),
+                   p.to(device))
+
+    def set(self, temps: list, topps: list) -> None:
+        """New settings for the same sampled rows, copied without a sync."""
+        if tuple(b for b, t in enumerate(temps) if t > 0.0) != self.rows:
+            raise ValueError("set() keeps the sampled rows: prepare a new RowSampling")
+        t, p = self._values(temps, topps, self.rows)
+        self.temp.copy_(t, non_blocking=True)
+        self.topp.copy_(p, non_blocking=True)
+
+
 def sample_rows(logits: torch.Tensor, temps: list, topps: list,
                 generators: list | None = None,
                 gumbel: torch.Tensor | None = None) -> torch.Tensor:
@@ -61,10 +100,24 @@ def sample_rows(logits: torch.Tensor, temps: list, topps: list,
     sampled rows go through one batched softmax, sort and top-p cut, and
     each draws its Gumbel noise from ITS OWN ``generators[b]`` (or takes
     ``gumbel[b]``), so a row's stream never depends on its neighbours.
-    Nothing is read back to the host."""
+    Nothing is read back to the host. :func:`sample_prepared` on settings
+    prepared here."""
+    if not any(t > 0.0 for t in temps):
+        return torch.argmax(logits.float(), dim=-1)
+    return sample_prepared(logits, RowSampling.prepare(temps, topps, logits.device),
+                           generators, gumbel)
+
+
+def sample_prepared(logits: torch.Tensor, prep: RowSampling,
+                    generators: list | None = None,
+                    gumbel: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`sample_rows` with its settings already on the device: every
+    operation is a kernel on tensors that exist, with no tensor made from a
+    host value, so a CUDA graph can capture it (the generators registered
+    with the graph)."""
     logits = logits.float()
     out = torch.argmax(logits, dim=-1)
-    rows = [b for b, t in enumerate(temps) if t > 0.0]
+    rows = prep.rows
     if not rows:
         return out
     dev, V = logits.device, logits.shape[-1]
@@ -73,16 +126,11 @@ def sample_rows(logits: torch.Tensor, temps: list, topps: list,
             raise ValueError("sampling above temperature 0 needs a generator or gumbel noise")
         noise = torch.stack([gumbel_noise(V, generators[b], dev) for b in rows])
     else:
-        noise = gumbel.to(dev)[rows]
-    t = torch.tensor([max(float(temps[b]), 1e-6) for b in rows], device=dev)[:, None]
-    # topp outside (0,1): threshold 2.0 keeps every token (cum prefix < 2)
-    eff_topp = torch.tensor([2.0 if (topps[b] <= 0.0 or topps[b] >= 1.0) else float(topps[b])
-                             for b in rows], device=dev)[:, None]
-    probs = torch.softmax(logits[rows] / t, dim=-1)
+        noise = gumbel.to(dev).index_select(0, prep.index)
+    probs = torch.softmax(logits.index_select(0, prep.index) / prep.temp, dim=-1)
     sorted_probs, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     cum = torch.cumsum(sorted_probs, dim=-1)
-    keep = (cum - sorted_probs) < eff_topp  # mass before this token < topp
+    keep = (cum - sorted_probs) < prep.topp  # mass before this token < topp
     masked = torch.where(keep, sorted_probs, torch.zeros_like(sorted_probs))
     choice = torch.argmax(noise + torch.log(masked), dim=-1, keepdim=True)
-    out[rows] = sorted_idx.gather(-1, choice)[:, 0]
-    return out
+    return out.index_copy_(0, prep.index, sorted_idx.gather(-1, choice)[:, 0])

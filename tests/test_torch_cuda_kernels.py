@@ -21,7 +21,11 @@ its neighbours or on the host's grid bound, and the solo form is its
 one-row launch, bit for bit. The verify form of the rope + cache write
 (B sequences of T rows) is the same kernel's [B, T] grid, bit-equal to its
 plain version; solo flash decode at the verify step's T never reads a
-cache slot past pos + T (where rejected drafts leave garbage).
+cache slot past pos + T (where rejected drafts leave garbage). The decode
+step captured in a CUDA graph (``runtime.graphs.StepGraph``) replays the
+eager step's bits: logits, cache, greedy and sampled tokens, solo and
+batched; its replays make no host sync and count the launches they
+captured.
 """
 
 import numpy as np
@@ -29,6 +33,8 @@ import pytest
 import torch
 
 from dllama_tpu_torch import kernels, qkernel_experiments
+from dllama_tpu_torch.models import llama
+from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.ops import flash_decode, fused_rope_cache, qmatmul
 from dllama_tpu_torch.ops.norms import rmsnorm
 from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
@@ -596,3 +602,87 @@ def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):  # the fused norm's operands come together
         qmatmul.q80_matmul(torch.zeros((1, 256), device=cuda), w, s,
                            norm_w=torch.ones(256, device=cuda))
+
+
+def _graph_engines(dev, kind):
+    """A small random ``kind`` model on the card: (graphed engine, eager
+    engine) on the same parameters."""
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    cfg = ModelConfig(arch="llama", dim=256, hidden_dim=512, n_layers=2, n_heads=8,
+                      n_kv_heads=4, vocab_size=512, seq_len=128, head_size=32, kv_dim=128,
+                      dtype="bfloat16")
+    params = llama.random_quant_params(cfg, dev, torch.Generator(device=dev).manual_seed(0), kind)
+    greedy = SamplerConfig(temperature=0.0)
+    graphed = Engine(cfg, params, greedy, cache_dtype=torch.bfloat16, device=dev, decode_chunk=8)
+    eager = Engine(cfg, graphed.params, greedy, cache_dtype=torch.bfloat16, device=dev,
+                   cuda_graphs=False)
+    return cfg, graphed, eager
+
+
+@pytest.mark.parametrize("kind", ["q40", "q80"])
+def test_graphed_solo_step_replays_eager_bits(cuda, kind):
+    cfg, graphed, eager = _graph_engines(cuda, kind)
+    prompt = list(range(1, 20))
+    cache = eager.new_cache()
+    last, cache = eager.prefill(cache, prompt)
+    nxt = torch.argmax(last).reshape(1)
+    twin = {n: c.clone() for n, c in cache.items()}
+    want, _ = llama.forward(cfg, eager.params, eager.rope, nxt, cache, len(prompt))
+    g = graphed.step_graph(twin, [0.0], 8)
+    g.load(nxt, len(prompt))
+    before = dict(kernels.launches)
+    g.run(1)
+    torch.cuda.synchronize()
+    step = {f"{kind}_matmul": 4 * cfg.n_layers + 1, "flash_decode_batched": cfg.n_layers,
+            "rope_cache_update_batched": cfg.n_layers}
+    assert g.counts == step
+    assert {k: v - before[k] for k, v in kernels.launches.items() if v != before[k]} == step
+    assert torch.equal(g.logits, want)
+    S = cfg.seq_len  # slot S - 1 is the graph's warm-up step's
+    for n in ("k", "v"):
+        assert torch.equal(twin[n][:, :S - 1], cache[n][:, :S - 1])
+
+
+@pytest.mark.parametrize("kind", ["q40", "q80"])
+def test_graphed_decode_tokens_equal_eager(cuda, kind):
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    _, graphed, eager = _graph_engines(cuda, kind)
+    prompt = list(range(3, 30))
+    want = [t for t, _ in eager.generate(prompt, 20)]
+    assert [t for t, _ in graphed.generate(prompt, 20)] == want
+    assert graphed.generate_fused(prompt, 20)[0] == want  # chunks of 8, 8 and 3
+    s = SamplerConfig(temperature=0.8, topp=0.9, seed=5)
+    want = [t for t, _ in eager.generate(prompt, 20, sampler=s)]
+    assert [t for t, _ in graphed.generate(prompt, 20, sampler=s)] == want
+    assert graphed.generate_fused(prompt, 20, sampler=s)[0] == want
+    prompts = [prompt, [7], list(range(40, 90)), [5, 6, 7]]
+    for sampler in (None, s):
+        want = eager.generate_batch(prompts, 20, sampler=sampler)
+        assert graphed.generate_batch(prompts, 20, sampler=sampler) == want
+
+
+def test_graphed_replays_make_no_host_sync(cuda):
+    cfg, graphed, eager = _graph_engines(cuda, "q40")
+    B = 4
+    cache = llama.init_batch_cache(cfg, B, torch.bfloat16, cuda)
+    temps, topps = [0.8, 0.0, 0.8, 0.0], [0.9, 1.0, 0.9, 1.0]
+    gens = [torch.Generator(device=cuda).manual_seed(b) if t else None
+            for b, t in enumerate(temps)]
+    g = graphed.step_graph(cache, temps, 8)
+    tokens = torch.tensor([1, 2, 3, 4], device=cuda)
+    pos = torch.tensor([0, 5, 9, 100], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    before = dict(kernels.launches)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.load(tokens, pos, temps, topps)
+        toks, ok = g.run(8, gens)
+        graphed._decode_chunk_batch(cache, toks[-1], g.pos, 8, temps, topps, gens, [8] * B)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launches["flash_decode_batched"] - before["flash_decode_batched"] == \
+        16 * cfg.n_layers
+    assert bool(ok.all()) and g.pos.tolist() == [16, 21, 25, 116]
