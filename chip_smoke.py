@@ -1802,7 +1802,7 @@ def k4_bound_cost(torch, dev, gen) -> dict:
     return out
 
 
-def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
+def phase6(torch, dev, kind: str, batches: tuple, sampled: bool, mixed: bool) -> dict:
     """Graphed decode on the Llama-3-8B shape with random ``kind`` weights
     (phase 2's model and prompt, phase 4's prompts and bf16 batch cache),
     one engine with ``cuda_graphs=True`` and one with False on the same
@@ -1810,19 +1810,25 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
     (all but slot S - 1, which a graph's warm-up step writes) are bit-equal
     to eager ``forward`` at T = 1, and a replay counts the
     launches it captured (129 matmuls, 32 batched K4 and K5); (b) 33 greedy
-    tokens of graphed ``generate`` = eager; (c) ``generate_fused`` for 97
-    tokens (decode chunks of 64 and 32) = ``generate``'s; (d) with
-    ``sampled``: a sampled stream (temperature 0.8, top-p 0.9, seed 5)
-    graphed = eager, solo and for the B = 8 rows of ``generate_batch``; (e)
-    graphed batched chunks (4 of 8 steps) at each B give the eager chunks'
-    tokens, flags and caches (but slot S - 1) bit for bit, and, at the largest B of several,
-    phase 4's mid-flight admission holds through graphs; (f) under
-    ``torch.cuda.set_sync_debug_mode("error")`` a graphed chunk (solo, and
-    batched sampled) makes no host sync, and its replays allocate nothing.
-    Logged: ms per token of graphed ``generate`` and ``generate_fused``
-    beside eager, ms per step and tokens/s batched, the profiler's device
-    busy, idle share and host launch calls per token or step, capture ms and
-    pool memory per graph, launches per replay."""
+    tokens of graphed ``generate`` = eager, and a second call without a
+    session captures nothing (the engine's resident cache); (c)
+    ``generate_fused`` for 97 tokens (decode chunks of 64 and 32) =
+    ``generate``'s, with no capture; (d) with ``sampled``: a sampled stream
+    (temperature 0.8, top-p 0.9, seed 5) graphed = eager, solo and for the
+    B = 8 rows of ``generate_batch``, and, with ``mixed``, a
+    ``BatchSession`` of sampled and greedy requests admitted and released
+    between chunks gives the eager session's tokens with one greedy and one
+    sampled graph; (e) graphed batched chunks (4 of 8 steps) at each B give
+    the eager chunks' tokens, flags and caches (but slot S - 1) bit for
+    bit, and, with ``mixed``, phase 4's mid-flight admission holds through
+    graphs; (f) under ``torch.cuda.set_sync_debug_mode("error")`` a graphed
+    chunk (solo, and batched sampled) makes no host sync, and its replays
+    allocate nothing. Logged: ms per token of graphed ``generate`` and
+    ``generate_fused`` beside eager, whole-call ms of ``generate`` with and
+    without a capture, ms per step and tokens/s batched, the profiler's
+    device busy, idle share and host launch calls per token or step, capture
+    ms and pool memory per graph, captures per admission, launches per
+    replay."""
     from dllama_tpu_torch import kernels
     from dllama_tpu_torch.models import llama
     from dllama_tpu_torch.models.config import ModelConfig
@@ -1848,7 +1854,7 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         a0 = torch.cuda.memory_allocated(dev)
-        g = graphed.step_graph(cache, temps, graphed.decode_chunk)
+        g = graphed.step_graph(cache, any(t > 0.0 for t in temps), graphed.decode_chunk)
         mem = {"capture_ms": g.capture_ms,
                "peak_mb": (torch.cuda.max_memory_allocated(dev) - a0) / 2 ** 20,
                "held_mb": (torch.cuda.memory_allocated(dev) - a0) / 2 ** 20}
@@ -1889,38 +1895,58 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
             ms.append(st.generation_ms)
         return toks, ms[1:]
 
+    def call(engine, steps=33, sampler=None):
+        """timed(), with the whole call's wall ms and the graphs it made."""
+        made = engine.graphs.made
+        t0 = time.perf_counter()
+        toks, ms = timed(engine, steps, sampler)
+        return toks, ms, (time.perf_counter() - t0) * 1e3, engine.graphs.made - made
+
     kernels.reset_launches()
-    tg, ms_g = timed(graphed, 33)
+    tg, ms_g, call1, made1 = call(graphed)
     launches = dict(kernels.launches)
-    te, ms_e = timed(eager, 33)
-    log(f"  (b) 33 greedy tokens, graphed generate == eager: {tg == te}; ms per token median "
-        f"graphed {statistics.median(ms_g):.3f} (first decode token, with the capture, "
-        f"{ms_g[0]:.1f}; min {min(ms_g):.3f}), eager {statistics.median(ms_e):.3f} (min "
-        f"{min(ms_e):.3f}); launches over the graphed run (prefill, warm-up, 32 replays) "
+    tg2, ms_g2, call2, made2 = call(graphed)
+    te, ms_e, call_e, _ = call(eager)
+    log(f"  (b) 33 greedy tokens, graphed generate == eager: {tg == te} (second call: "
+        f"{tg2 == te}); ms per token median graphed {statistics.median(ms_g):.3f} (min "
+        f"{min(ms_g):.3f}), eager {statistics.median(ms_e):.3f} (min {min(ms_e):.3f}); launches "
+        f"over the graphed run (prefill, warm-up, 32 replays) "
         f"{ {k: v for k, v in launches.items() if v} }")
-    if tg != te:
-        fail(f"{kind} graphed generate {tg} != eager {te}")
+    log(f"    whole call (prefill + 32 decode tokens): first graphed call {call1:.1f} ms with "
+        f"{made1} capture (first decode token {ms_g[0]:.1f} ms), second {call2:.1f} ms with "
+        f"{made2} (first decode token {ms_g2[0]:.3f} ms; the resident cache's graph), eager "
+        f"{call_e:.1f} ms")
+    if tg != te or tg2 != te:
+        fail(f"{kind} graphed generate {tg} / {tg2} != eager {te}")
+    if made1 != 1 or made2 != 0:
+        fail(f"{kind} graphed generate calls captured {made1} then {made2} graphs (want 1, 0)")
     if launches["flash_decode_batched"] != 33 * cfg.n_layers or launches["flash_decode"]:
         fail(f"{kind} graphed generate launches {launches}")
     out.update(tokens=tg, generate_ms_graphed=ms_g, generate_ms_eager=ms_e,
                generate_ms_per_token_graphed=statistics.median(ms_g),
-               generate_ms_per_token_eager=statistics.median(ms_e), launches_graphed=launches)
+               generate_ms_per_token_eager=statistics.median(ms_e), launches_graphed=launches,
+               generate_call_ms={"graphed_first": call1, "graphed_second": call2,
+                                 "eager": call_e, "first_decode_token_ms_capture": ms_g[0],
+                                 "first_decode_token_ms_second": ms_g2[0]})
 
     # (c) generate_fused: prefill's token + 96 decode steps (chunks of 64 and 32)
     gt = [t for t, _ in graphed.generate(prompt, 97)]
+    made = graphed.graphs.made
     fused, _, fused_ms = graphed.generate_fused(prompt, 97)
+    made = graphed.graphs.made - made
     sess = graphed.final_session
-    fg = graphed.step_graph(sess.cache, [0.0], graphed.decode_chunk)
+    fg = graphed.step_graph(sess.cache, False, graphed.decode_chunk)
     fused_e, _, fused_ms_e = eager.generate_fused(prompt, 97)
-    steady = (fused_ms - fg.capture_ms) / 96
+    steady = fused_ms / 96
     log(f"  (c) generate_fused, 97 tokens == generate's: {fused == gt} (eager fused too: "
-        f"{fused_e == gt}); decode {fused_ms:.1f} ms for 96 steps with one capture of "
-        f"{fg.capture_ms:.1f} ms: {steady:.3f} ms per token without it (eager fused "
+        f"{fused_e == gt}); decode {fused_ms:.1f} ms for 96 steps, {made} captures (the "
+        f"resident cache's graph): {steady:.3f} ms per token (eager fused "
         f"{fused_ms_e / 96:.3f}); final pos {sess.pos} (want {len(prompt) + 96})")
-    if fused != gt or fused_e != gt or sess.pos != len(prompt) + 96:
-        fail(f"{kind} generate_fused {fused} vs generate {gt} (eager fused {fused_e})")
-    out.update(fused_tokens_equal=True, fused_decode_ms=fused_ms, fused_capture_ms=fg.capture_ms,
-               fused_ms_per_token=steady, fused_ms_per_token_eager=fused_ms_e / 96)
+    if fused != gt or fused_e != gt or sess.pos != len(prompt) + 96 or made:
+        fail(f"{kind} generate_fused {fused} vs generate {gt} (eager fused {fused_e}), "
+             f"{made} captures")
+    out.update(fused_tokens_equal=True, fused_decode_ms=fused_ms, fused_ms_per_token=steady,
+               fused_ms_per_token_eager=fused_ms_e / 96)
 
     # device time and host launch calls of graphed solo steps (8 replays)
     tok = torch.tensor(sess.pending_token, device=dev)
@@ -2029,11 +2055,18 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
                                             rg["host"])
                 torch.cuda.synchronize()
                 per.append((time.perf_counter() - t0) * 1e3 / 8)
+            torch.cuda.synchronize()
             n_alloc = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
             torch.cuda.set_sync_debug_mode("error")
             try:
                 gs.load(rg["tok"], rg["pos"], st, [0.9] * B)
                 gs.run(8, s_gens)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            allocs = torch.cuda.memory_stats(dev)["allocation.all.allocated"] - n_alloc
+            torch.cuda.set_sync_debug_mode("error")
+            try:
                 graphed._decode_chunk_batch(twin, rg["tok"], rg["pos"], 8, st, [0.9] * B, s_gens,
                                             rg["host"])
             finally:
@@ -2041,13 +2074,15 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
             torch.cuda.synchronize()
             log(f"    sampled (0.8 / 0.9): {statistics.median(per):.3f} ms per step graphed "
                 f"(capture {smem['capture_ms']:.1f} ms); (f) a sampled chunk under sync debug "
-                f"'error': no sync")
+                f"'error': no sync; its replays' allocations {allocs}")
+            if allocs:
+                fail(f"{kind} a graphed sampled B = {B} chunk allocated {allocs} blocks")
             row.update(sampled_ms_per_step_graphed=statistics.median(per), sampled_graph=smem)
         out[f"B{B}"] = row
         del cache, twin, g, runs, rg
         torch.cuda.empty_cache()
 
-    if len(batches) > 1:  # phase 4's gate (c) through graphs
+    if mixed:  # phase 4's gate (c) through graphs
         x = prompts[1]
         got = {}
         for name, engine in (("eager", eager), ("graphed", graphed)):
@@ -2073,6 +2108,49 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool) -> dict:
         if not ok:
             fail(f"{kind} graphed mid-flight admission: {mid} vs {got}")
         out["mid_flight_bit_equal"] = True
+
+    if mixed and sampled:  # (d) sampled and greedy requests through one BatchSession
+        reqs = [(prompts[i % len(prompts)], 0.8 if i % 2 else 0.0, 8 * (1 + i % 3))
+                for i in range(12)]
+        runs = {}
+        for name, engine in (("eager", eager), ("graphed", graphed)):
+            sess = engine.batch_session(max_batch=8, chunk=8)
+            queue, rows, toks, captures = list(enumerate(reqs)), {}, {}, []
+            while queue or sess.num_live:
+                admitted = 0
+                while queue and sess.free_slots:
+                    i, (p, temp, steps) = queue.pop(0)
+                    rows[sess.admit(p, steps, SamplerConfig(temperature=temp, topp=0.9,
+                                                            seed=i))] = i
+                    toks[i], admitted = [], admitted + 1
+                made = engine.graphs.made
+                for r, fresh in sess.step_chunk().items():
+                    toks[rows[r]] += fresh
+                captures.append((admitted, engine.graphs.made - made))
+                for r in [r for r in rows if sess.is_done(r)]:
+                    sess.release(r)
+                    del rows[r]
+            n_steps = 8 * len(captures)
+            runs[name] = {"tokens": toks, "captures": captures, "chunks": len(captures),
+                          "ms_per_step": sess.decode_ms / n_steps,
+                          "tokens_per_s": sum(map(len, toks.values())) * 1e3 / sess.decode_ms}
+            sess.close()
+        rg, re_ = runs["graphed"], runs["eager"]
+        made = sum(c for _, c in rg["captures"])
+        same = rg["tokens"] == re_["tokens"]
+        log(f"  (d) BatchSession(max_batch=8), 12 requests alternating greedy and sampled (0.8 / "
+            f"0.9), budgets 8/16/24, released when done and replaced between chunks: graphed "
+            f"== eager: {same}; (admissions, captures) per chunk {rg['captures']}: {made} "
+            f"captures for 12 admissions; {rg['ms_per_step']:.3f} ms per step graphed "
+            f"({rg['tokens_per_s']:.1f} tokens/s), eager {re_['ms_per_step']:.3f} "
+            f"({re_['tokens_per_s']:.1f} tokens/s), {rg['chunks']} chunks of 8")
+        if not same or made > 2:
+            fail(f"{kind} mixed BatchSession: graphed tokens equal eager {same}, {made} captures")
+        out["mixed_session"] = {"bit_equal": True, "captures": rg["captures"],
+                                "ms_per_step_graphed": rg["ms_per_step"],
+                                "ms_per_step_eager": re_["ms_per_step"],
+                                "tokens_per_s_graphed": rg["tokens_per_s"],
+                                "tokens_per_s_eager": re_["tokens_per_s"]}
     del graphed, eager, params
     torch.cuda.empty_cache()
     return out
@@ -2155,9 +2233,9 @@ def main() -> None:
 
     header("phase 6: CUDA-graphed decode, Llama-3-8B shape, random Q40, solo and B = 1, 4, 8")
     k4_fixed = k4_bound_cost(torch, dev, gen)
-    graphs = phase6(torch, dev, "q40", (1, 4, 8), sampled=True)
+    graphs = phase6(torch, dev, "q40", (1, 4, 8), sampled=True, mixed=True)
     header("phase 6: CUDA-graphed decode, Llama-3-8B shape, random Q80, solo and B = 8")
-    graphs80 = phase6(torch, dev, "q80", (8,), sampled=False)
+    graphs80 = phase6(torch, dev, "q80", (8,), sampled=True, mixed=False)
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)

@@ -10,8 +10,10 @@ projection runs through that format's dequant-matmul kernel (pass
 ``--weights-float-type`` to choose otherwise; q80 on a Q40 file requantizes
 the dequantized values). ``DLLAMA_FUSE_NORM=1`` folds each rmsnorm into the
 projection kernels that follow it. Each decode step replays one captured
-CUDA graph; ``--decode-chunk N`` sets the steps between host syncs where
-the engine chunks them (64 by default). ``--spec-draft K`` decodes with
+CUDA graph. ``generate`` decodes in fused chunks of ``--decode-chunk N``
+steps (64 by default), one host sync and one print a chunk
+(``Engine.generate_fused``); ``inference`` and ``chat`` read each token as
+it is made, for its per-token times and its stop. ``--spec-draft K`` decodes with
 prompt-lookup speculative drafting (up to K drafted tokens verified in one
 step); on the CPU the tokens are the plain run's, on the card up to the
 low-bit logit differences of a drafted step (see ``Engine.generate_spec``).
@@ -58,8 +60,10 @@ def build_parser() -> argparse.ArgumentParser:
             "ones more often")
         sp.add_argument(
             "--decode-chunk", type=int, default=None, metavar="N",
-            help="decode steps between host syncs in fused and batched decode (default "
-            "64); each step replays one captured CUDA graph")
+            help="generate mode: decode steps per host sync (default 64), each step one "
+            "CUDA graph replay; the text is printed a chunk at a time and a stop token "
+            "ends the run after its chunk. inference and chat read each token as it is "
+            "made and do not chunk")
         sp.add_argument(
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
@@ -118,22 +122,50 @@ def run_generate(args, show_stats: bool) -> None:
     tokens = tok.encode(prompt, add_bos=True)
     print(f"📄 prompt tokens: {len(tokens)}")
 
-    gen_ms = []
-    inf_ms = []
     prev = tokens[-1]
     produced = []
     # incremental decode: multi-byte chars can span byte-fallback tokens
     utf8 = codecs.getincrementaldecoder("utf-8")("replace")
+
+    def emit(tok_id: int) -> None:
+        nonlocal prev
+        sys.stdout.write(utf8.decode(tok.decode_piece(prev, tok_id)))
+        prev = tok_id
+        produced.append(tok_id)
+
+    if not show_stats and not args.spec_draft:
+        # fused chunks: one host sync and one print per chunk
+        def on_chunk(ids):
+            for tok_id in ids:
+                emit(tok_id)
+            sys.stdout.flush()
+
+        _, prefill_ms, decode_ms = engine.generate_fused(
+            tokens, args.steps, stop_tokens=(tok.eos_id,), on_chunk=on_chunk)
+        sys.stdout.write(utf8.decode(b"", True))
+        print()
+        print(f"Token ids:           {' '.join(map(str, produced))}")
+        if produced:
+            decoded = len(produced) - (len(tokens) > 1)
+            print(f"Generated tokens:    {len(produced)}")
+            if decoded:
+                avg = decode_ms / decoded
+                print(f"Avg tokens / second: {1000.0 / avg:.2f}")
+                print(f"Avg generation time: {avg:.2f} ms (chunks of {engine.decode_chunk}, "
+                      f"one host sync each)")
+            print(f"Prefill time:        {prefill_ms:.2f} ms ({len(tokens)} tokens)")
+        return
+
+    gen_ms = []
+    inf_ms = []
     if args.spec_draft:
         stream = engine.generate_spec(tokens, args.steps, stop_tokens=(tok.eos_id,),
                                       draft_len=args.spec_draft)
     else:
         stream = engine.generate(tokens, args.steps, stop_tokens=(tok.eos_id,))
     for tok_id, stats in stream:
-        sys.stdout.write(utf8.decode(tok.decode_piece(prev, tok_id)))
+        emit(tok_id)
         sys.stdout.flush()
-        prev = tok_id
-        produced.append(tok_id)
         gen_ms.append(stats.generation_ms)
         inf_ms.append(stats.inference_ms)
         if show_stats:

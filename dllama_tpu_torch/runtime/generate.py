@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Iterator, Optional
 
 import torch
@@ -138,6 +139,10 @@ class Engine:
         self.decode_chunk = decode_chunk
         self.cuda_graphs = cuda_graphs
         self.graphs = GraphCache()
+        # the solo cache that calls without a session reuse, and the live
+        # Sessions and running calls that hold it
+        self._resident: Optional[dict] = None
+        self._holders: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
         self.prefill_ms = 0.0
         self.decode_ms = 0.0
         self.row_health: list = []
@@ -145,6 +150,31 @@ class Engine:
 
     def new_cache(self) -> dict:
         return llama.init_cache(self.cfg, self.cache_dtype, self.device)
+
+    def _solo_cache(self) -> dict:
+        """A zeroed solo cache for a ``generate`` or ``generate_fused`` call
+        without a session: the engine's resident one, unless a live Session
+        or a running call holds it (then a new one). Consecutive calls thus
+        replay one decode graph, captured once per engine (a graph holds its
+        cache's pointers). ``final_session`` is dropped first: the engine's
+        own reference does not hold the cache."""
+        self.final_session = None
+        if self._resident is None:
+            self._resident = self.new_cache()
+            return self._resident
+        if self._holders:
+            return self.new_cache()
+        for c in self._resident.values():
+            c.zero_()
+        return self._resident
+
+    def _session(self, cache: dict, pos: int, pending_token: Optional[int] = None) -> Session:
+        """A Session over ``cache``, counted among the resident cache's
+        holders when it is that cache."""
+        s = Session(cache, pos, pending_token)
+        if cache is self._resident:
+            self._holders[id(s)] = s
+        return s
 
     def _batch_cache_init(self, batch: int) -> dict:
         return llama.init_batch_cache(self.cfg, batch, self.cache_dtype, self.device)
@@ -211,12 +241,12 @@ class Engine:
         nxt = sample_dynamic(logits[0], scfg.temperature, scfg.topp, gen)
         return nxt, torch.isfinite(logits).all()
 
-    def step_graph(self, cache: dict, temps: list, ring: int) -> StepGraph:
+    def step_graph(self, cache: dict, sampled: bool, ring: int) -> StepGraph:
         """The captured decode step over ``cache`` (made on first use): the
         solo step (``llama.forward_decode``) for a cache [L, S, kv, hd], the
-        batched one at the grid bound seq_len for [L, B, S, kv, hd]. Rows
-        with a temperature above 0 sample; ``ring``: the most steps a run
-        takes."""
+        batched one at the grid bound seq_len for [L, B, S, kv, hd].
+        ``sampled``: the graph samples (any mix of sampled and greedy rows;
+        else every row is greedy); ``ring``: the most steps a run takes."""
         cfg, params, rope, S = self.cfg, self.params, self.rope, self.cfg.seq_len
         solo = cache["k"].dim() == 4
 
@@ -226,11 +256,10 @@ class Engine:
             return llama.forward_batched(cfg, params, rope, tok, c, pos, S)[0]
 
         def make() -> StepGraph:
-            return StepGraph(step, cache, S, temps, ring)
+            return StepGraph(step, cache, S, sampled, ring)
 
-        # the storage and shape (B) of the cache, the sampled rows, the ring
-        key = (cache["v"].data_ptr(), tuple(cache["k"].shape), tuple(t > 0.0 for t in temps),
-               ring)
+        # the storage and shape (B) of the cache, greedy or sampled, the ring
+        key = (cache["v"].data_ptr(), tuple(cache["k"].shape), sampled, ring)
         return self.graphs.get(cache["k"], key, make)
 
     def _decode_chunk_solo(self, cache: dict, token: torch.Tensor, pos: int, n: int,
@@ -240,7 +269,7 @@ class Engine:
         ``cuda_graphs=False``). Returns the sampled tokens int64 [n] and the
         finite flag [1], device tensors."""
         if self.cuda_graphs:
-            g = self.step_graph(cache, [scfg.temperature], self.decode_chunk)
+            g = self.step_graph(cache, scfg.temperature > 0.0, self.decode_chunk)
             g.load(token, pos, [scfg.temperature], [scfg.topp])
             toks, ok = g.run(n, [gen])
             return toks[:, 0], ok
@@ -258,16 +287,20 @@ class Engine:
 
         Pass the previous call's ``engine.final_session`` to continue a
         conversation with one continuous KV cache and position counter.
+        Without a session the call decodes in the engine's resident cache
+        when no live Session holds it, so its decode graph is captured once
+        per engine; a Session kept from an earlier call stays valid.
         ``sampler`` overrides the engine's settings for this call only, with
         a fresh generator seeded from ``sampler.seed`` (the engine's
         generator is left as it is)."""
         scfg, gen = self._sampling(sampler)
         if session is None:
-            cache, pos = self.new_cache(), 0
+            cache, pos = self._solo_cache(), 0
         else:
             cache, pos = session.cache, session.pos
             if session.pending_token is not None:
                 prompt_tokens = [session.pending_token] + list(prompt_tokens)
+        held = self._session(cache, pos)  # holds the cache while this call runs
         steps = min(steps, self.cfg.seq_len - pos - len(prompt_tokens))
 
         t0 = time.perf_counter()
@@ -283,10 +316,10 @@ class Engine:
         if len(prompt_tokens) > 1:
             pos += len(prompt_tokens)
             if steps <= 0:
-                self.final_session = Session(cache, pos, pending_token=None)
+                self.final_session = self._session(cache, pos, pending_token=None)
                 return
             tok_int = int(token)
-            self.final_session = Session(cache, pos, pending_token=tok_int)
+            self.final_session = self._session(cache, pos, pending_token=tok_int)
             yield tok_int, TokenStats(self.prefill_ms, self.prefill_ms)
             steps -= 1
             if tok_int in stop_tokens:
@@ -308,7 +341,7 @@ class Engine:
             tok_int = int(token)
             t4 = time.perf_counter()
             pos += 1
-            self.final_session = Session(cache, pos, pending_token=tok_int)
+            self.final_session = self._session(cache, pos, pending_token=tok_int)
             yield tok_int, TokenStats(
                 generation_ms=(t4 - t1) * 1000.0,
                 inference_ms=(t3 - t2) * 1000.0,
@@ -320,18 +353,26 @@ class Engine:
             pending = prompt_tokens[0] if len(prompt_tokens) == 1 else None
         else:
             pending = tok_int
-        self.final_session = Session(cache, pos, pending_token=pending)
+        self.final_session = self._session(cache, pos, pending_token=pending)
 
     def generate_fused(self, prompt_tokens: list, steps: int,
-                       sampler: Optional[SamplerConfig] = None) -> tuple:
+                       sampler: Optional[SamplerConfig] = None, stop_tokens: tuple = (),
+                       on_chunk=None) -> tuple:
         """Generate ``steps`` tokens in chunks of at most ``decode_chunk``
         decode steps, with one host sync per chunk: the port of the
         reference's fused on-device loop. Returns (tokens, prefill_ms,
-        decode_ms). No early stop; use ``generate`` where stop tokens or
-        streaming matter more than latency. Each chunk is one graph replay
-        per step; a non-finite logit anywhere in a chunk raises
-        :class:`NumericHealthError` after it. ``final_session`` resumes
-        after the last token, which is pending (fed by the next call).
+        decode_ms). Each chunk is one graph replay per step; a non-finite
+        logit anywhere in a chunk raises :class:`NumericHealthError` after
+        it. ``final_session`` resumes after the last token, which is pending
+        (fed by the next call).
+
+        ``stop_tokens``: the tokens are cut after the first one, and no
+        chunk runs after the chunk that made it (the steps past it in that
+        chunk are wasted, and their cache slots past ``final_session.pos``
+        are written before any later step attends them). ``on_chunk(tokens)``:
+        called with the prefill's token, then with each chunk's tokens (cut
+        as returned), as they reach the host. Use ``generate`` where each
+        token must reach the host as soon as it is made.
 
         The reference pads its last chunk to a prefill bucket so that
         distinct step counts share compiled programs; graph replays have no
@@ -345,7 +386,7 @@ class Engine:
         chunk and so departs from its own ``generate``; the port's
         generator has no chain, and its numbers differ from JAX's anyway."""
         scfg, gen = self._sampling(sampler)
-        cache = self.new_cache()
+        cache = self._solo_cache()
         steps = min(steps, self.cfg.seq_len - len(prompt_tokens))
         t0 = time.perf_counter()
         if steps <= 0 and len(prompt_tokens) > 1:
@@ -353,20 +394,22 @@ class Engine:
             _, cache = self.prefill(cache, prompt_tokens, 0)
             _sync(self.device)
             self.prefill_ms = (time.perf_counter() - t0) * 1000.0
-            self.final_session = Session(cache, len(prompt_tokens), pending_token=None)
+            self.final_session = self._session(cache, len(prompt_tokens), pending_token=None)
             return [], self.prefill_ms, 0.0
         if len(prompt_tokens) > 1:
             last_logits, cache = self.prefill(cache, prompt_tokens, 0)
             token = sample_dynamic(last_logits, scfg.temperature, scfg.topp, gen)
             pos = len(prompt_tokens)
             first = [int(token)]
-            steps -= 1
+            steps = 0 if first[0] in stop_tokens else steps - 1
         else:
             token = torch.tensor(prompt_tokens[0], dtype=torch.long, device=self.device)
             pos = 0
             first = []
         _sync(self.device)
         self.prefill_ms = prefill_ms = (time.perf_counter() - t0) * 1000.0
+        if first and on_chunk is not None:
+            on_chunk(first)
 
         t1 = time.perf_counter()
         toks: list = []
@@ -377,10 +420,13 @@ class Engine:
             *got, finite = torch.cat([chunk, ok.long()]).tolist()  # the chunk's one sync
             if not finite:
                 raise NumericHealthError(f"in fused decode chunk starting at position {pos}")
-            toks.extend(got)
+            cut = next((i + 1 for i, t in enumerate(got) if t in stop_tokens), n)
+            toks.extend(got[:cut])
+            if on_chunk is not None:
+                on_chunk(got[:cut])
             token = chunk[-1]
-            pos += n
-            remaining -= n
+            pos += cut
+            remaining = 0 if cut < n or got[-1] in stop_tokens else remaining - n
         decode_ms = (time.perf_counter() - t1) * 1000.0
 
         emitted = first + toks
@@ -388,7 +434,7 @@ class Engine:
             pending = emitted[-1]
         else:
             pending = prompt_tokens[0] if len(prompt_tokens) == 1 else None
-        self.final_session = Session(cache, pos, pending_token=pending)
+        self.final_session = self._session(cache, pos, pending_token=pending)
         return emitted, prefill_ms, decode_ms
 
     def generate_spec(self, prompt_tokens: list, steps: int, session: Optional[Session] = None,
@@ -441,6 +487,7 @@ class Engine:
         if not prompt_tokens:
             raise ValueError("generate_spec needs a token to feed: an empty prompt needs a "
                              "session with a pending token")
+        held = self._session(cache, pos)  # holds the cache while this call runs
         steps = min(steps, S - pos - len(prompt_tokens))
 
         t0 = time.perf_counter()
@@ -458,7 +505,7 @@ class Engine:
             token = int(prompt_tokens[0])
         self.prefill_ms = (time.perf_counter() - t0) * 1000.0
         if steps <= 0:
-            self.final_session = Session(cache, pos, pending_token=token)
+            self.final_session = self._session(cache, pos, pending_token=token)
             return
 
         emitted = 0
@@ -499,7 +546,7 @@ class Engine:
                 emitted += 1
                 # a consumer stopping at token i resumes as if only tokens
                 # 0..i were consumed: later slots are overwritten first
-                self.final_session = Session(cache, base + i + 1, pending_token=tk)
+                self.final_session = self._session(cache, base + i + 1, pending_token=tk)
                 yield tk, (stats if i == 0 else TokenStats(0.0, 0.0))
                 if tk in stop_tokens:
                     return
@@ -518,7 +565,7 @@ class Engine:
         decode's grid for the whole chunk. Returns (tokens [n, B], ok [B],
         the positions after the chunk)."""
         if self.cuda_graphs:
-            g = self.step_graph(cache, temps, max(n, self.decode_chunk))
+            g = self.step_graph(cache, any(t > 0.0 for t in temps), max(n, self.decode_chunk))
             g.load(tokens, pos, temps, topps)
             toks, ok = g.run(n, generators)
             return toks.clone(), ok.clone(), g.pos.clone()

@@ -17,12 +17,11 @@ that fails raises: nothing falls back to eager.
 
 :class:`GraphCache` keeps an engine's graphs. A graph holds its cache's
 pointers, so it is keyed by the cache's storage and dropped when that cache
-is freed, and at most ``limit`` are kept.
+is freed.
 """
 
 from __future__ import annotations
 
-import collections
 import time
 import weakref
 
@@ -50,11 +49,13 @@ class StepGraph:
       i (a device index, reset by :meth:`run`).
     * ``logits``: the last step's logits (CUDA: the capture's output).
 
-    ``temps`` fixes which rows sample (temperature > 0): the graph draws
-    their noise from generators of its own, registered with the capture; a
-    run takes each row's state (seed and offset) from the caller's
-    generator and gives it back after, so the draws are the ones the
-    caller's generator would make. Greedy rows are a bare argmax.
+    A greedy graph (``sampled`` False) takes each row's argmax. A sampled one
+    runs :func:`sample_prepared` over every row, its settings
+    (``sampling``) refilled by :meth:`load`, so one graph serves any mix of
+    sampled and greedy rows. Each row draws its noise from a generator the
+    graph owns, registered with the capture; a run takes each sampled row's
+    state (seed and offset) from the caller's generator and gives it back
+    after, so the draws are the ones the caller's generator would make.
 
     The warm-up step runs with every row at ``seq_len - 1``: it writes cache
     slot ``seq_len - 1``, which every step at that position writes again
@@ -62,7 +63,7 @@ class StepGraph:
     reads. The graph holds its cache weakly (a captured graph holds its
     pointers): a run after the cache was freed raises."""
 
-    def __init__(self, step, cache: dict, seq_len: int, temps: list, ring_len: int):
+    def __init__(self, step, cache: dict, seq_len: int, sampled: bool, ring_len: int):
         k = cache["k"]
         device, batch = k.device, 1 if k.dim() == 4 else k.shape[1]
         self.device, self.seq_len = device, seq_len
@@ -72,8 +73,10 @@ class StepGraph:
         self.ok = torch.ones(batch, dtype=torch.bool, device=device)
         self.ring = torch.zeros((ring_len, batch), dtype=torch.long, device=device)
         self.idx = torch.zeros(1, dtype=torch.long, device=device)
-        self.sampling = RowSampling.prepare(list(temps), [1.0] * batch, device)
-        self.generators = [torch.Generator(device=device) if t > 0.0 else None for t in temps]
+        self.sampling = (RowSampling.prepare([1.0] * batch, [1.0] * batch, device)
+                         if sampled else None)
+        self.generators = [torch.Generator(device=device) for _ in range(batch if sampled else 0)]
+        self._rows: tuple = ()  # the sampled rows of the loaded settings
         self.graph = None
         self.logits = None
         #: kernel launches per replay, taken at capture
@@ -93,7 +96,10 @@ class StepGraph:
     def _body(self, cache: dict) -> torch.Tensor:
         logits = self._step(cache, self.tokens, self.pos)
         self.ok &= torch.isfinite(logits).all(dim=-1)
-        nxt = sample_prepared(logits, self.sampling, self.generators)
+        if self.sampling is None:
+            nxt = torch.argmax(logits.float(), dim=-1)
+        else:
+            nxt = sample_prepared(logits, self.sampling, self.generators)
         self.ring.index_copy_(0, self.idx, nxt[None])
         self.idx += 1
         self.tokens.copy_(nxt)
@@ -112,8 +118,7 @@ class StepGraph:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         for g in self.generators:
-            if g is not None:
-                graph.register_generator_state(g)
+            graph.register_generator_state(g)
         with kernels.counted() as captured:
             with torch.cuda.graph(graph):
                 self.logits = self._body(cache)
@@ -122,16 +127,21 @@ class StepGraph:
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, tokens, pos, temps: list | None = None, topps: list | None = None) -> None:
-        """Set each row's token, position and sampler settings before a run,
-        with no host sync: ``tokens`` and ``pos`` are device tensors ([B]) or
-        one host int for every row."""
+        """Set each row's token, position and sampler settings (greedy where
+        ``temps`` is None) before a run, with no host sync: ``tokens`` and
+        ``pos`` are device tensors ([B]) or one host int for every row."""
         for dst, src in ((self.tokens, tokens), (self.pos, pos)):
             if isinstance(src, torch.Tensor):
                 dst.copy_(src.reshape(dst.shape))
             else:
                 dst.fill_(int(src))
-        if self.sampling.rows and temps is not None:
-            self.sampling.set(temps, topps)
+        batch = self.tokens.shape[0]
+        temps = [0.0] * batch if temps is None else temps
+        self._rows = tuple(b for b, t in enumerate(temps) if t > 0.0)
+        if self.sampling is not None:
+            self.sampling.set(temps, [1.0] * batch if topps is None else topps)
+        elif self._rows:
+            raise ValueError("a greedy graph cannot sample: make a sampled one")
 
     def run(self, n: int, generators: list | None = None) -> tuple:
         """``n`` steps, no host sync: one replay each on the card. Returns
@@ -140,7 +150,7 @@ class StepGraph:
         draws from (its state goes in before and comes back after)."""
         if not 1 <= n <= self.ring.shape[0]:
             raise ValueError(f"a run of {n} steps: the ring holds {self.ring.shape[0]}")
-        rows = self.sampling.rows
+        rows = self._rows
         if rows and (generators is None or any(generators[b] is None for b in rows)):
             raise ValueError("sampled rows need their generators")
         cache = self._live_cache()
@@ -162,14 +172,15 @@ class StepGraph:
 
 class GraphCache:
     """An engine's step graphs, keyed by the cache they were captured on
-    (its storage) and by what else fixes a capture (B, the sampled rows, the
-    ring). A graph leaves when its cache is freed (a weakref finalizer on
-    the cache tensor), so a new cache at the same address is captured anew,
-    and at most ``limit`` stay (least recently used out first)."""
+    (its storage) and by what else fixes a capture (B, greedy or sampled,
+    the ring). A graph leaves when its cache is freed (a weakref finalizer
+    on the cache tensor), so a new cache at the same address is captured
+    anew; a live cache keeps at most one graph per key."""
 
-    def __init__(self, limit: int = 8):
-        self.limit = limit
-        self._graphs: collections.OrderedDict = collections.OrderedDict()
+    def __init__(self):
+        self._graphs: dict = {}
+        #: graphs made so far
+        self.made = 0
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -179,13 +190,10 @@ class GraphCache:
         ``make()`` if there is none."""
         full = (owner.data_ptr(), *key)
         g = self._graphs.get(full)
-        if g is not None:
-            self._graphs.move_to_end(full)
-            return g
-        g = self._graphs[full] = make()
-        weakref.finalize(owner, self._drop, full, weakref.ref(g))
-        while len(self._graphs) > self.limit:
-            self._graphs.popitem(last=False)
+        if g is None:
+            g = self._graphs[full] = make()
+            self.made += 1
+            weakref.finalize(owner, self._drop, full, weakref.ref(g))
         return g
 
     def _drop(self, key: tuple, ref) -> None:

@@ -55,40 +55,34 @@ def sample_dynamic(logits: torch.Tensor, temperature: float, topp: float,
 @dataclasses.dataclass
 class RowSampling:
     """The per-row settings of :func:`sample_prepared`, as device tensors
-    made once: ``rows`` (host) are the sampled rows (temperature > 0),
-    ``index`` int64 [R] the same rows on the device, ``temp`` f32 [R, 1]
-    each row's temperature (at least 1e-6) and ``topp`` f32 [R, 1] its top-p
-    threshold (2.0 for a top-p outside (0, 1): keep every token). A captured
-    decode step keeps one and refills its values with :meth:`set` before a
-    replay, with no host sync."""
+    made once: ``mask`` bool [B] the rows that sample (temperature > 0),
+    ``temp`` f32 [B, 1] each row's temperature (at least 1e-6; 1 on a greedy
+    row) and ``topp`` f32 [B, 1] its top-p threshold (2.0 for a top-p
+    outside (0, 1): keep every token). A captured decode step keeps one and
+    refills it with :meth:`set` before a replay, with no host sync, for any
+    mix of sampled and greedy rows."""
 
-    rows: tuple
-    index: torch.Tensor
+    mask: torch.Tensor
     temp: torch.Tensor
     topp: torch.Tensor
 
     @staticmethod
-    def _values(temps: list, topps: list, rows) -> tuple:
-        t = [max(float(temps[b]), 1e-6) for b in rows]
+    def _values(temps: list, topps: list) -> tuple:
+        m = [t > 0.0 for t in temps]
+        t = [max(float(t), 1e-6) if s else 1.0 for t, s in zip(temps, m)]
         # topp outside (0,1): threshold 2.0 keeps every token (cum prefix < 2)
-        p = [2.0 if (topps[b] <= 0.0 or topps[b] >= 1.0) else float(topps[b]) for b in rows]
-        return (torch.tensor(t, dtype=torch.float32)[:, None],
+        p = [2.0 if (q <= 0.0 or q >= 1.0) else float(q) for q in topps]
+        return (torch.tensor(m, dtype=torch.bool), torch.tensor(t, dtype=torch.float32)[:, None],
                 torch.tensor(p, dtype=torch.float32)[:, None])
 
     @classmethod
     def prepare(cls, temps: list, topps: list, device) -> "RowSampling":
-        rows = tuple(b for b, t in enumerate(temps) if t > 0.0)
-        t, p = cls._values(temps, topps, rows)
-        return cls(rows, torch.tensor(rows, dtype=torch.long).to(device), t.to(device),
-                   p.to(device))
+        return cls(*(v.to(device) for v in cls._values(temps, topps)))
 
     def set(self, temps: list, topps: list) -> None:
-        """New settings for the same sampled rows, copied without a sync."""
-        if tuple(b for b, t in enumerate(temps) if t > 0.0) != self.rows:
-            raise ValueError("set() keeps the sampled rows: prepare a new RowSampling")
-        t, p = self._values(temps, topps, self.rows)
-        self.temp.copy_(t, non_blocking=True)
-        self.topp.copy_(p, non_blocking=True)
+        """New settings for every row, copied without a sync."""
+        for dst, src in zip((self.mask, self.temp, self.topp), self._values(temps, topps)):
+            dst.copy_(src, non_blocking=True)
 
 
 def sample_rows(logits: torch.Tensor, temps: list, topps: list,
@@ -96,14 +90,20 @@ def sample_rows(logits: torch.Tensor, temps: list, topps: list,
                 gumbel: torch.Tensor | None = None) -> torch.Tensor:
     """One token per row of ``logits [B, vocab]`` (int64 [B], on logits'
     device): what ``jax.vmap(sample_dynamic)`` does. ``temps``/``topps`` are
-    host floats per row. Greedy rows (temperature 0) take the argmax; the
-    sampled rows go through one batched softmax, sort and top-p cut, and
-    each draws its Gumbel noise from ITS OWN ``generators[b]`` (or takes
-    ``gumbel[b]``), so a row's stream never depends on its neighbours.
-    Nothing is read back to the host. :func:`sample_prepared` on settings
-    prepared here."""
+    host floats per row. Greedy rows (temperature 0) take the argmax and
+    draw nothing; if any row samples, every row goes through one batched
+    softmax, sort and top-p cut (a row's result depends on that row alone)
+    and each sampled row draws its Gumbel noise from ITS OWN
+    ``generators[b]`` (or takes ``gumbel[b]``), so a row's stream never
+    depends on its neighbours. Nothing is read back to the host.
+    :func:`sample_prepared` on settings prepared here."""
     if not any(t > 0.0 for t in temps):
         return torch.argmax(logits.float(), dim=-1)
+    if gumbel is None:
+        if generators is None or any(t > 0.0 and generators[b] is None
+                                     for b, t in enumerate(temps)):
+            raise ValueError("sampling above temperature 0 needs a generator or gumbel noise")
+        generators = [g if t > 0.0 else None for g, t in zip(generators, temps)]
     return sample_prepared(logits, RowSampling.prepare(temps, topps, logits.device),
                            generators, gumbel)
 
@@ -112,25 +112,26 @@ def sample_prepared(logits: torch.Tensor, prep: RowSampling,
                     generators: list | None = None,
                     gumbel: torch.Tensor | None = None) -> torch.Tensor:
     """:func:`sample_rows` with its settings already on the device: every
-    operation is a kernel on tensors that exist, with no tensor made from a
-    host value, so a CUDA graph can capture it (the generators registered
-    with the graph)."""
+    row is sampled and ``prep.mask`` picks between that and the argmax, so
+    every operation is a kernel on tensors that exist, with no tensor made
+    from a host value, and a CUDA graph can capture it for any mix of rows
+    (the generators registered with the graph). Row b's noise is
+    ``gumbel[b]``, else a draw from ``generators[b]`` (zeros where that is
+    None: a greedy row's noise is never used)."""
     logits = logits.float()
-    out = torch.argmax(logits, dim=-1)
-    rows = prep.rows
-    if not rows:
-        return out
     dev, V = logits.device, logits.shape[-1]
     if gumbel is None:
-        if generators is None or any(generators[b] is None for b in rows):
+        if generators is None:
             raise ValueError("sampling above temperature 0 needs a generator or gumbel noise")
-        noise = torch.stack([gumbel_noise(V, generators[b], dev) for b in rows])
+        noise = torch.stack([torch.zeros(V, device=dev) if g is None else gumbel_noise(V, g, dev)
+                             for g in generators])
     else:
-        noise = gumbel.to(dev).index_select(0, prep.index)
-    probs = torch.softmax(logits.index_select(0, prep.index) / prep.temp, dim=-1)
+        noise = gumbel.to(dev)
+    probs = torch.softmax(logits / prep.temp, dim=-1)
     sorted_probs, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     cum = torch.cumsum(sorted_probs, dim=-1)
     keep = (cum - sorted_probs) < prep.topp  # mass before this token < topp
     masked = torch.where(keep, sorted_probs, torch.zeros_like(sorted_probs))
     choice = torch.argmax(noise + torch.log(masked), dim=-1, keepdim=True)
-    return out.index_copy_(0, prep.index, sorted_idx.gather(-1, choice)[:, 0])
+    return torch.where(prep.mask, sorted_idx.gather(-1, choice)[:, 0],
+                       torch.argmax(logits, dim=-1))

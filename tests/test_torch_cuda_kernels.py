@@ -25,7 +25,8 @@ cache slot past pos + T (where rejected drafts leave garbage). The decode
 step captured in a CUDA graph (``runtime.graphs.StepGraph``) replays the
 eager step's bits: logits, cache, greedy and sampled tokens, solo and
 batched; its replays make no host sync and count the launches they
-captured.
+captured; one greedy and one sampled graph serve a session's every mix of
+admitted rows.
 """
 
 import numpy as np
@@ -630,7 +631,7 @@ def test_graphed_solo_step_replays_eager_bits(cuda, kind):
     nxt = torch.argmax(last).reshape(1)
     twin = {n: c.clone() for n, c in cache.items()}
     want, _ = llama.forward(cfg, eager.params, eager.rope, nxt, cache, len(prompt))
-    g = graphed.step_graph(twin, [0.0], 8)
+    g = graphed.step_graph(twin, False, 8)
     g.load(nxt, len(prompt))
     before = dict(kernels.launches)
     g.run(1)
@@ -671,7 +672,7 @@ def test_graphed_replays_make_no_host_sync(cuda):
     temps, topps = [0.8, 0.0, 0.8, 0.0], [0.9, 1.0, 0.9, 1.0]
     gens = [torch.Generator(device=cuda).manual_seed(b) if t else None
             for b, t in enumerate(temps)]
-    g = graphed.step_graph(cache, temps, 8)
+    g = graphed.step_graph(cache, True, 8)
     tokens = torch.tensor([1, 2, 3, 4], device=cuda)
     pos = torch.tensor([0, 5, 9, 100], dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
@@ -686,3 +687,27 @@ def test_graphed_replays_make_no_host_sync(cuda):
     assert kernels.launches["flash_decode_batched"] - before["flash_decode_batched"] == \
         16 * cfg.n_layers
     assert bool(ok.all()) and g.pos.tolist() == [16, 21, 25, 116]
+
+
+def test_graphed_batch_session_mixed_traffic_equals_eager(cuda):
+    """Sampled and greedy rows admitted and released between chunks: one
+    greedy and one sampled graph serve every mix (no capture per
+    admission), and every row's tokens equal the eager session's."""
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    _, graphed, eager = _graph_engines(cuda, "q40")
+    got = {}
+    for name, eng in (("graphed", graphed), ("eager", eager)):
+        sess = eng.batch_session(max_batch=4, chunk=4)
+        log = []
+        for i, (prompt, temp) in enumerate([([3, 4, 5], 0.0), ([9, 8], 0.8), ([7] * 6, 0.0),
+                                            ([1, 2], 1.1), ([6, 5, 4, 3], 0.7)]):
+            h = sess.admit(prompt, 10, SamplerConfig(temperature=temp, topp=0.9, seed=i))
+            for r, toks in sess.step_chunk().items():
+                log.append((i, r, toks))
+            if i % 2:
+                sess.release(sess.occupied[0])
+        sess.close()
+        got[name] = log
+    assert got["graphed"] == got["eager"]
+    assert graphed.graphs.made == 2

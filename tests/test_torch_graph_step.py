@@ -12,9 +12,15 @@ it).
   chunk pins it.
 * ``sampler.sample_prepared`` on a prepared ``RowSampling`` makes no
   tensor from a host value (``torch.tensor`` and ``torch.as_tensor``
-  raise inside it) and picks what ``sample_rows`` picks.
-* ``GraphCache`` drops a graph with its cache and keeps at most its limit.
-* ``cli --decode-chunk N`` reaches ``Engine``; an explicit 0 raises there.
+  raise inside it) and picks what ``sample_rows`` picks, for any mix of
+  sampled and greedy rows that ``RowSampling.set`` loads.
+* ``GraphCache`` makes one graph per cache and key and drops it with its
+  cache; calls without a session reuse the engine's resident solo cache
+  (one graph per engine) unless a live Session holds it; a
+  ``BatchSession`` serves sampled and greedy admissions and releases with
+  one greedy and one sampled graph, its tokens the eager session's.
+* ``cli --decode-chunk N`` reaches ``Engine``; an explicit 0 raises there;
+  ``cli generate`` decodes in chunks of N.
 """
 
 import gc
@@ -91,7 +97,7 @@ def test_step_graph_body_advances_like_eager_steps(quant):
     def step(cache, tok, pos):
         return llama.forward_decode(cfg, p, rope, tok, cache, pos)[0]
 
-    g = StepGraph(step, b, cfg.seq_len, [0.0], ring_len=8)
+    g = StepGraph(step, b, cfg.seq_len, False, ring_len=8)
     assert g.graph is None  # the CPU runs the body eagerly
     g.load(11, 20)
     toks, ok = g.run(4)
@@ -180,11 +186,14 @@ def test_sample_prepared_makes_no_tensor_from_host_values(monkeypatch):
                                      [torch.Generator().manual_seed(b) for b in range(4)])
     monkeypatch.undo()
     assert torch.equal(got, want) and torch.equal(got_g, want_g)
-    assert prep.rows == (0, 2, 3)
-    prep.set([0.5, 0.0, 0.7, 0.2], topps)
-    assert prep.temp[:, 0].tolist() == pytest.approx([0.5, 0.7, 0.2])
-    with pytest.raises(ValueError, match="keeps the sampled rows"):
-        prep.set([0.5, 0.3, 0.7, 0.2], topps)
+    assert prep.mask.tolist() == [True, False, True, True]
+    # another mix of rows, loaded into the same tensors
+    temps2 = [0.0, 0.6, 0.7, 0.0]
+    prep.set(temps2, topps)
+    assert prep.mask.tolist() == [False, True, True, False]
+    assert prep.temp[:, 0].tolist() == pytest.approx([1.0, 0.6, 0.7, 1.0])
+    assert torch.equal(tsampler.sample_prepared(logits, prep, gumbel=noise),
+                       tsampler.sample_rows(logits, temps2, topps, gumbel=noise))
 
 
 def test_graph_cache_drops_graphs_with_their_caches():
@@ -197,29 +206,31 @@ def test_graph_cache_drops_graphs_with_their_caches():
         made.append(Graph())
         return made[-1]
 
-    cache = GraphCache(limit=2)
+    cache = GraphCache()
     owners = [torch.zeros(4) for _ in range(3)]
     assert cache.get(owners[0], ("a",), make) is cache.get(owners[0], ("a",), make)
     cache.get(owners[0], ("b",), make)
-    assert len(cache) == 2 and len(made) == 2
-    cache.get(owners[1], ("a",), make)  # the least recently used goes
-    assert len(cache) == 2
+    assert len(cache) == 2 and len(made) == 2 == cache.made
+    cache.get(owners[1], ("a",), make)
+    assert len(cache) == 3
     del owners[1]
     gc.collect()
-    assert len(cache) == 1
+    assert len(cache) == 2 and cache.made == 3
 
 
 def test_engine_keeps_no_graph_of_a_freed_cache():
     cfg, p = _model("float32", None)
     eng = tgen.Engine(cfg, p, GREEDY, device="cpu")
-    for _ in range(3):
+    held = []
+    for _ in range(3):  # each held Session keeps its cache: a new one each call
         for _ in eng.generate([1, 2, 3], 4):
             pass
+        held.append(eng.final_session)
     gc.collect()
-    assert len(eng.graphs) == 1  # final_session's cache only
-    eng.final_session = None
+    assert len(eng.graphs) == 3 and eng.graphs.made == 3
+    held = eng.final_session = None
     gc.collect()
-    assert len(eng.graphs) == 0
+    assert len(eng.graphs) == 1  # the resident cache's, kept with the engine
 
 
 @pytest.fixture(scope="module")
@@ -255,3 +266,100 @@ def test_cli_decode_chunk_zero_raises(small_model):
          "--decode-chunk", "0"])
     with pytest.raises(ValueError, match="decode_chunk must be >= 1"):
         cli.load_engine(args)
+
+
+def _stream(eng, prompt, steps, **kw):
+    return [t for t, _ in eng.generate(prompt, steps, **kw)]
+
+
+def test_calls_without_a_session_reuse_one_graph():
+    """Consecutive calls without a session decode in the engine's resident
+    cache, zeroed for each call, so one graph serves them all and their
+    tokens equal those of an engine made for each call; a Session that is
+    still held keeps its cache, and continuing it gives the continuation."""
+    cfg, p = _model("float32", "q40")
+    eng = tgen.Engine(cfg, p, GREEDY, device="cpu", decode_chunk=4)
+    s = tsampler.SamplerConfig(temperature=0.9, topp=0.8, seed=4)
+    want = [_stream(tgen.Engine(cfg, p, GREEDY, device="cpu"), [5, 6, 7], 9),
+            _stream(tgen.Engine(cfg, p, GREEDY, device="cpu"), [9], 7, sampler=s),
+            tgen.Engine(cfg, p, GREEDY, device="cpu", decode_chunk=4).generate_fused(
+                [1, 2, 3, 4], 11)[0]]
+    for _ in range(2):
+        got = [_stream(eng, [5, 6, 7], 9), _stream(eng, [9], 7, sampler=s),
+               eng.generate_fused([1, 2, 3, 4], 11)[0]]
+        assert got == want
+    assert eng.graphs.made == 2 and len(eng.graphs) == 2  # greedy and sampled
+    resident = eng.final_session.cache
+    held = eng.final_session
+    both = _stream(eng, [5, 6, 7], 9)  # the resident cache is held: a new cache
+    assert both == want[0] and eng.final_session.cache is not resident
+    assert _stream(eng, [], 3, session=held) == _stream(
+        tgen.Engine(cfg, p, GREEDY, device="cpu"), [1, 2, 3, 4], 15)[11:14]
+
+
+def test_batch_session_mixed_admissions_use_two_graphs():
+    """Sampled and greedy rows admitted and released between chunks: the
+    graphed session's tokens equal the eager session's, and one greedy and
+    one sampled graph serve every mix (no capture per admission)."""
+    cfg, p = _model("float32", "q40")
+    graphed = tgen.Engine(cfg, p, GREEDY, device="cpu", decode_chunk=4)
+    eager = tgen.Engine(cfg, p, GREEDY, device="cpu", cuda_graphs=False)
+    got = {}
+    for name, eng in (("graphed", graphed), ("eager", eager)):
+        sess = eng.batch_session(max_batch=3, chunk=4)
+        log = []
+        for i, (prompt, temp) in enumerate([([3, 4, 5], 0.0), ([9, 8], 0.8), ([7] * 6, 0.0),
+                                            ([1, 2], 1.1), ([6, 5, 4, 3], 0.0)]):
+            sess.admit(prompt, 10, tsampler.SamplerConfig(temperature=temp, topp=0.9, seed=i))
+            log.append(sorted(sess.step_chunk().items()))
+            if i % 2:
+                sess.release(sess.occupied[0])
+        while sess.num_live:
+            log.append(sorted(sess.step_chunk().items()))
+        sess.close()
+        got[name] = log
+    assert got["graphed"] == got["eager"]
+    assert graphed.graphs.made == 2
+
+
+def test_generate_fused_stop_tokens_cut_like_generate():
+    """A stop token cuts ``generate_fused`` where it cuts ``generate``: the
+    same tokens and the same ``final_session``, whatever the chunk."""
+    cfg, p = _model("float32", None)
+    free = _stream(tgen.Engine(cfg, p, GREEDY, device="cpu"), [1, 2, 3], 20)
+    stop = (free[9],)
+    first = free.index(stop[0])
+    ref = tgen.Engine(cfg, p, GREEDY, device="cpu")
+    want = _stream(ref, [1, 2, 3], 20, stop_tokens=stop)
+    assert want == free[:first + 1]
+    for chunk in (1, 4, 64):
+        eng = tgen.Engine(cfg, p, GREEDY, device="cpu", decode_chunk=chunk)
+        seen = []
+        toks, _, _ = eng.generate_fused([1, 2, 3], 20, stop_tokens=stop, on_chunk=seen.append)
+        assert toks == want and sum(seen, []) == want
+        assert (eng.final_session.pos, eng.final_session.pending_token) == \
+            (ref.final_session.pos, ref.final_session.pending_token)
+
+
+def test_cli_generate_decodes_in_chunks_of_decode_chunk(small_model, monkeypatch, capsys):
+    model, tok = small_model
+    runs = []
+    real = tgen.Engine._decode_chunk_solo
+
+    def spy(self, cache, token, pos, n, *a):
+        runs.append(n)
+        return real(self, cache, token, pos, n, *a)
+
+    monkeypatch.setattr(tgen.Engine, "_decode_chunk_solo", spy)
+    ids = {}
+    for chunk in ("4", "64"):
+        runs.clear()
+        cli.main(["generate", "--model", model, "--tokenizer", tok, "--device", "cpu",
+                  "--steps", "12", "--temperature", "0", "--seed", "0",
+                  "--decode-chunk", chunk])
+        out = capsys.readouterr().out
+        line = next(ln for ln in out.splitlines() if ln.startswith("Token ids:"))
+        ids[chunk] = line.split(":", 1)[1].split()
+        want = [4, 4, 3] if chunk == "4" else [11]
+        assert runs == want
+    assert ids["4"] == ids["64"] and len(ids["4"]) == 12
