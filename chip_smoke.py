@@ -8,8 +8,8 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
 
 0. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
    build of the port's CUDA kernels from ``dllama_tpu_torch/csrc``, with
-   ptxas's registers and spills for each instance of the decode GEMVs (and
-   every kernel that spills).
+   ptxas's registers, shared memory and spills for each instance of the
+   decode GEMVs, K5 and K7 (and every kernel that spills).
 1. Each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (Llama-3-8B widths), with its stated tolerance, and timed
    with CUDA events (median of 30 launches queued behind a GPU sleep, so
@@ -27,19 +27,23 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    tolerance are logged; K1, K3 and flash decode (K4: every cache dtype,
    T in {1, 4, 16}, its grid logged, timed at pos 1000 and 116) must repeat
    their bits on the same inputs; the experiment kernels K6 and K7 run at
-   the variant shootout's matrix and the Llama-3-8B widths. The solo K4 and
-   K5 are the one-row launches of the batched kernels; their times are
-   logged beside their times before that (``SOLO_MS_BEFORE``). The batched
-   forms (K4 for every cache dtype at B = 1, 4 and 8, rows at mixed
-   positions from 0 to S - 1, NaN past each row's prefix, two launches and a
-   tight grid bound giving the same bits, a too-small bound still right;
-   K5 bit-equal for bf16 and f8 caches in both rope styles, a row at S - 1)
-   are timed at B = 8 beside their bounds, plain versions and, for K4,
-   ``scaled_dot_product_attention`` with a per-row live mask. K5's verify
-   form (B = 8 sequences of T = 9 and 16 rows, bf16 and f8 caches, both
-   styles, rows at 0, in the middle, at S - T and past it) must equal its
-   plain version and repeat its bits, timed at T = 9; K1 and K3 are also
-   checked and timed at the verify step's T = 9, 16 and 72.
+   the variant shootout's matrix and the Llama-3-8B widths (K7 also at T =
+   3, 8 and 12, repeating its bits, one CUDA launch a call). The solo K4 is
+   the one-row launch of the batched kernel; its time is logged beside its
+   time before that (``SOLO_MS_BEFORE``). The batched K4 (every cache
+   dtype at B = 1, 4 and 8, rows at mixed positions from 0 to S - 1, NaN
+   past each row's prefix, two launches and a tight grid bound giving the
+   same bits, a too-small bound still right) is timed at B = 8 beside its
+   bound, plain version and ``scaled_dot_product_attention`` with a per-row
+   live mask. K5 (q's rope, K's rope and the cache write in one launch) in
+   each form — solo T = 1 and 4 at the cache's end, batched B = 8 with a row
+   past S, verify B = 8 x T = 9 and 16 with rows whose angle and write rows
+   part — on q, k and v sliced from one fused qkv projection, bf16 and f8
+   caches, both styles: q rotated and the caches must equal its plain
+   version bit for bit and repeat their bits; timed (T = 1, B = 8, B = 8 x
+   T = 9) beside its bound with q's bytes and the time of the K-only kernel
+   it replaced (``K5_MS_BEFORE``). K1 and K3 are also checked and timed at the verify
+   step's T = 9, 16 and 72.
 2. ``Engine.generate`` (eager steps) on a Llama-3-8B-shape model (random Q40 params made on
    the card from a seeded generator, seq_len 1024): a 100-token prompt
    (bucket 128) and 32 greedy decode tokens. Launch counters show every
@@ -48,9 +52,9 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    decode step's logits are held against the same step with every kernel
    swapped for its plain version. Then the same with random Q80 params (the
    Q40 model freed first): 129 Q80 matmuls per token. The profiler's device
-   time per token is split by kernel; each flash-decode call and each
-   matmul (the Q40 or Q80 decode GEMV) must be one CUDA launch: no
-   ``sum_splits_kernel`` on either decode. One more prefill runs
+   time per token is split by kernel; each flash-decode call, each rope
+   launch and each matmul (the Q40 or Q80 decode GEMV) must be one CUDA
+   launch: no ``sum_splits_kernel`` on either decode. One more prefill runs
    under the profiler, its device time split by kernel the same way.
    2b. For each model, one decode step with ``DLLAMA_FUSE_NORM=1`` against
    ``=0``: the logits must be bit-equal.
@@ -113,8 +117,11 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    (e) graphed batched chunks at B = 1, 4, 8 (Q80: 8) bit-equal to eager,
    and phase 4's mid-flight admission through graphs; (f) no host sync
    (``set_sync_debug_mode("error")``) and no allocation in a chunk's
-   replays. Logged: ms per token of graphed ``generate`` and
-   ``generate_fused`` beside eager, ms per step and tokens/s batched, the
+   replays; (g) a graphed Q40 token runs at least 15 kernels per layer
+   fewer than the 1,980 it ran before (``GRAPHED_KERNELS_BEFORE``: one rope
+   launch per layer in place of q's rope, the table gathers and the k/v
+   copies). Logged: ms per token of graphed
+   ``generate`` and ``generate_fused`` beside eager, ms per step and tokens/s batched, the
    profiler's device busy, idle share and host launch calls per token or
    step, capture ms and pool memory per graph.
 
@@ -142,11 +149,10 @@ BF16_FLOPS = 989e12  # tensor-core bf16 peak: the least time for bf16 products
 F32_FLOPS = 67e12  # CUDA-core float32 peak
 INT8_OPS = 1979e12  # tensor-core int8 peak: the least time for int8 products
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU spin ahead of each timed series
-#: per-launch times of the solo K4 (pos 1000, pos 116) and K5 on the NVIDIA
-#: H100 80GB HBM3 at 700 W (PERF.md) before they became the one-row launches
-#: of the batched kernels
-SOLO_MS_BEFORE = {"flash_decode@1000": 0.0194, "flash_decode@116": 0.0157,
-               "rope_cache_update": 0.0053}
+#: per-launch times of the solo K4 (pos 1000, pos 116) on the NVIDIA H100
+#: 80GB HBM3 at 700 W (PERF.md) before it became the one-row launch of the
+#: batched kernel
+SOLO_MS_BEFORE = {"flash_decode@1000": 0.0194, "flash_decode@116": 0.0157}
 
 
 def fail(msg: str) -> None:
@@ -194,7 +200,7 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple:
 
 
 def ptxas_report(text: str) -> list:
-    """[{kernel, registers, stack, spill_stores, spill_loads}] for each entry
+    """[{kernel, registers, static_smem, stack, spill_stores, spill_loads}] for each entry
     function in nvcc's ``-Xptxas -v`` output, names demangled where
     ``c++filt`` is there."""
     import re
@@ -209,9 +215,10 @@ def ptxas_report(text: str) -> list:
         if m and cur:
             cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
                        spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
+        m = re.search(r"Used (\d+) registers(?:, (\d+) bytes smem)?", line)
         if m and cur:
             cur["registers"] = int(m.group(1))
+            cur["static_smem"] = int(m.group(2) or 0)
             rows.append(cur)
             cur = {}
     try:
@@ -399,9 +406,32 @@ VARIANT_SHAPES = [("exp", 4096, 11008), ("wqkv", 4096, 6144), ("w13", 4096, 2867
                   ("w2", 14336, 4096)]
 
 
+def k7_one_launch(torch, qe, xq, sx, p) -> dict:
+    """The CUDA kernels one K7 call launches, by the profiler: the int8 GEMV
+    alone, no ``sum_splits_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qe.q40_int8_matmul(xq, sx, *p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        qe.q40_int8_matmul(xq, sx, *p)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    counts = {n: names.count(n) for n in set(names)}
+    if not names:
+        fail("K7: the profiler recorded no CUDA kernel, so one launch a call is unchecked")
+    if (sum("q40_int8_kernel" in n for n in names) != 1
+            or any("sum_splits" in n for n in names)):
+        fail(f"K7: one call launched {counts}, want one q40_int8_kernel and no sum_splits")
+    return counts
+
+
 def phase1_variants(torch, dev, gen) -> list:
     """K6 (the nosub dot without correction, 512- and 1024-column blocks) and
-    K7 (the Q40 x Q80 integer dot) against their plain versions at T = 1."""
+    K7 (the Q40 x Q80 integer dot) against their plain versions at T = 1;
+    K7 also at T = 3, 8 and 12 (two row tiles) on the shootout's matrix,
+    each call's bits repeated by a second call, and one CUDA launch a call."""
+    from dllama_tpu_torch import kernels
     from dllama_tpu_torch import qkernel_experiments as qe
 
     rows = []
@@ -415,17 +445,39 @@ def phase1_variants(torch, dev, gen) -> list:
         got = qe.q40_nosub_matmul(x, *p)
         wide = qe.q40_nosub_matmul(x, *p, wide=True)
         got7 = qe.q40_int8_matmul(xq, sx, *p)
+        again7 = qe.q40_int8_matmul(xq, sx, *p)
         torch.cuda.synchronize()
         ref = qe.q40_nosub_matmul_ref(x, *p)
         ref7 = qe.q40_int8_matmul_ref(xq, sx, *p)
         err = max((got - ref).abs().max().item(), (wide - ref).abs().max().item())
         err7 = (got7 - ref7).abs().max().item()
         tol, tol7 = 1e-5 * ref.abs().max().item(), 1e-5 * ref7.abs().max().item()
+        repeat7 = bool(torch.equal(got7, again7))
+        plan7 = qe.int8_plan(1, K, O, kernels.sm_count(dev), qe.int8_blocks_per_sm(1))
         log(f"  q40_nosub_matmul {name:4s} {K:5d}->{O:6d} T=1 (512 and 1024 columns a block) "
             f"max_abs_err {err:.3e} (tol 1e-5*max|ref| = {tol:.3e}); q40_int8_matmul "
-            f"{err7:.3e} (tol {tol7:.3e})")
-        if not (err <= tol and err7 <= tol7):
-            fail(f"K6/K7 at {name}: {err} > {tol} or {err7} > {tol7}")
+            f"{err7:.3e} (tol {tol7:.3e}), repeat bit-equal {repeat7}, plan (row tiles, "
+            f"ksplit, rows a split) {plan7}, {qe.int8_blocks_per_sm(1)} blocks an SM")
+        if not (err <= tol and err7 <= tol7 and repeat7):
+            fail(f"K6/K7 at {name}: {err} > {tol} or {err7} > {tol7} or K7 repeat {repeat7}")
+        more7 = {}
+        if name == "exp":
+            for T in (3, 8, 12):
+                xt = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
+                xqt, sxt = qe.quantize_q80_rows(xt, K)
+                a = qe.q40_int8_matmul(xqt, sxt, *p)
+                b = qe.q40_int8_matmul(xqt, sxt, *p)
+                torch.cuda.synchronize()
+                want = qe.q40_int8_matmul_ref(xqt, sxt, *p)
+                e, tl = (a - want).abs().max().item(), 1e-5 * want.abs().max().item()
+                log(f"    q40_int8_matmul T={T}: max_abs_err {e:.3e} (tol {tl:.3e}), repeat "
+                    f"bit-equal {torch.equal(a, b)}")
+                if not (e <= tl and torch.equal(a, b)):
+                    fail(f"K7 at T={T}: {e} > {tl} or two calls differ")
+                more7[T] = {"max_abs_err": e, "tol": tl}
+                err7 = max(err7, e)
+            more7["one_call_launches"] = k7_one_launch(torch, qe, xq, sx, p)
+            log(f"    one K7 call launches {more7['one_call_launches']}")
         nxt = rotating(planes)
         k6 = {"name": "q40_nosub_matmul", "matrix": name, "K": K, "O": O, "max_abs_err": err,
               "tol": tol,
@@ -436,7 +488,7 @@ def phase1_variants(torch, dev, gen) -> list:
         k6["bound_ms"], k6["bound_by"] = bound_ms(plane_bytes(p) + K * 2 + O * 4, 2.0 * K * O,
                                                   BF16_FLOPS)
         k7 = {"name": "q40_int8_matmul", "matrix": name, "K": K, "O": O, "max_abs_err": err7,
-              "tol": tol7,
+              "tol": tol7, "plan": plan7, "repeat_bit_equal": repeat7, **more7,
               "ms": time_ms(torch, lambda: qe.q40_int8_matmul(xq, sx, *nxt())),
               "plain_ms": time_ms(torch, lambda: qe.q40_int8_matmul_ref(xq, sx, *p), 20),
               "library_ms": None}
@@ -445,6 +497,8 @@ def phase1_variants(torch, dev, gen) -> list:
         for r in (k6, k7):
             log(f"    {r['name']}: time {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']})  plain {r['plain_ms']:.4f} ms  library {r['library_ms']}")
+        log(f"    K7 / K6 time {k7['ms'] / k6['ms']:.3f}; K7 at {k7['bound_ms'] / k7['ms']:.3f} of "
+            f"its bound")
         rows += [k6, k7]
         del planes
         torch.cuda.empty_cache()
@@ -526,53 +580,94 @@ def phase1_flash(torch, dev, gen) -> list:
     return rows
 
 
-def phase1_rope(torch, dev, gen) -> list:
+#: kernels a graphed Q40 decode token ran on the NVIDIA H100 80GB HBM3 before
+#: q's rope moved into the rope launch (PERF.md)
+GRAPHED_KERNELS_BEFORE = 1980
+#: Llama-3-8B attention: q heads, kv heads, head size
+ROPE_HEADS = (32, 8, 128)
+#: per-launch CUDA-event times of the K-only rope + cache-write kernel this
+#: launch replaced (q's rope, the table gathers and the k/v copies ran as
+#: PyTorch kernels beside it) on the NVIDIA H100 80GB HBM3 at 700 W (PERF.md)
+K5_MS_BEFORE = {"rope_cache_update": 0.0054, "rope_cache_update_batched": 0.0055,
+                "rope_cache_update_verify": 0.0058}
+
+
+def rope_launches(torch, dev, gen, form: str, cases: list, timed_case: int) -> list:
+    """One K5 launch form against its plain version at Llama-3-8B widths: q,
+    k and v sliced from one fused bf16 qkv projection (as the decode step
+    hands them over), the f32 tables of S = 1024 rows, bf16 and f8 caches,
+    both rope styles. q rotated and both caches must be bit-equal, and a
+    second launch on the same inputs must give the same bits. ``cases``:
+    (rows, pos, cache shape); case ``timed_case`` (bf16, interleaved) is
+    timed by CUDA events beside its byte bound (q read and written, k and v
+    read, the cache rows written, the table rows read) and its plain
+    version."""
     from dllama_tpu_torch.ops import fused_rope_cache
     from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
 
-    rows = []
-    L, S, kv, hd = 4, 1024, 8, 128
+    name = {"solo": "rope_cache_update", "batched": "rope_cache_update_batched",
+            "verify": "rope_cache_update_verify"}[form]
+    fn, ref = getattr(fused_rope_cache, name), getattr(fused_rope_cache, name + "_ref")
+    H, kv, hd = ROPE_HEADS
+    S = cases[0][2][-3]
     cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
-    for style in (INTERLEAVED, HALF):
-        for T, pos in ((1, 700), (4, 1022)):  # pos 1022 + 4 > S: start clamps to 1020
+    rows = []
+    for i, (lead, pos_l, shape) in enumerate(cases):
+        n = math.prod(lead)
+        pos = pos_l if form == "solo" else torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        for style in (INTERLEAVED, HALF):
             for dtype in (torch.bfloat16, torch.float8_e4m3fn):
-                k = torch.randn((T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
-                v = torch.randn((T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
-                r0 = min(pos, S - T)
-                c, s = cos[r0:r0 + T, None], sin[r0:r0 + T, None]
-                kc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
-                vc = torch.randn((L, S, kv, hd), device=dev, generator=gen).to(dtype)
-                kr, vr = kc.clone(), vc.clone()
-                fused_rope_cache.rope_cache_update(k, v, c, s, kc, vc, pos, 1, style)
+                qkv = torch.randn((n, (H + 2 * kv) * hd), device=dev, generator=gen)
+                qkv = qkv.to(torch.bfloat16)
+                q, k, v = (t.reshape(*lead, -1, hd) for t in (
+                    qkv[:, :H * hd], qkv[:, H * hd:(H + kv) * hd], qkv[:, (H + kv) * hd:]))
+                kc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                vc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                kr, vr, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+                got = fn(q, k, v, cos, sin, kc, vc, pos, 1, style)
+                again = fn(q, k, v, cos, sin, k2, v2, pos, 1, style)
                 torch.cuda.synchronize()
-                fused_rope_cache.rope_cache_update_ref(k, v, c, s, kr, vr, pos, 1, style)
-                diff = int((kc.view(torch.uint8) != kr.view(torch.uint8)).sum()
-                           + (vc.view(torch.uint8) != vr.view(torch.uint8)).sum())
-                err = max((kc.float() - kr.float()).abs().max().item(),
-                          (vc.float() - vr.float()).abs().max().item())
-                log(f"  rope_cache_update {style:11s} T={T} pos={pos} "
-                    f"cache={str(dtype).split('.')[-1]}: {diff} cache bytes differ "
-                    f"(tol 0: bit-equal)")
-                if diff:
-                    fail(f"rope_cache_update {style} T={T} pos={pos} {dtype}: {diff} bytes differ")
-                row = {"style": style, "T": T, "pos": pos, "cache": str(dtype),
-                       "bytes_differ": diff, "max_abs_err": err}
-                if style == INTERLEAVED and T == 1 and dtype == torch.bfloat16:
-                    row["ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update(
-                        k, v, c, s, kc, vc, pos, 1, style))
-                    row["plain_ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update_ref(
-                        k, v, c, s, kr, vr, pos, 1, style))
-                    nbytes = 2 * (2 * T * kv * hd * 2) + 2 * T * hd // 2 * 4
-                    b, by = bound_ms(nbytes, 6.0 * T * kv * hd // 2, F32_FLOPS)
-                    row["bound_ms"], row["bound_by"] = b, by
-                    row["library_ms"] = None
-                    was = SOLO_MS_BEFORE["rope_cache_update"]
-                    row["before_ms"], row["change"] = was, row["ms"] / was - 1.0
-                    log(f"    time {row['ms']:.4f} ms (before {was} ms: "
-                        f"{100 * row['change']:+.1f}%)  bound {b:.6f} ms ({by})  plain "
-                        f"{row['plain_ms']:.4f} ms  (no single PyTorch call)")
+                want = ref(q, k, v, cos, sin, kr, vr, pos, 1, style)
+                diff = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                           for a, b in ((got, want), (kc, kr), (vc, vr)))
+                repeat = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                             for a, b in ((got, again), (kc, k2), (vc, v2)))
+                err = max((a.float() - b.float()).abs().nan_to_num().max().item()
+                          for a, b in ((got, want), (kc, kr), (vc, vr)))
+                log(f"  {name} {style:11s} rows {lead} pos={pos_l} "
+                    f"cache={str(dtype).split('.')[-1]}: {diff} bytes of q rotated and the "
+                    f"caches differ (tol 0: bit-equal); repeat bit-equal: {repeat}")
+                if diff or not repeat:
+                    fail(f"{name} {style} rows {lead} {dtype}: {diff} bytes differ or two "
+                         f"launches differ")
+                row = {"style": style, "rows": list(lead), "pos": pos_l, "cache": str(dtype),
+                       "bytes_differ": diff, "repeat_bit_equal": repeat, "max_abs_err": err}
+                if i == timed_case and style == INTERLEAVED and dtype == torch.bfloat16:
+                    row["ms"] = time_ms(torch, lambda: fn(q, k, v, cos, sin, kc, vc, pos, 1,
+                                                          style))
+                    row["plain_ms"] = time_ms(torch, lambda: ref(q, k, v, cos, sin, kr, vr, pos,
+                                                                 1, style))
+                    nbytes = n * (2 * H * hd * 2 + 2 * kv * hd * 2 + 2 * kv * hd * 2 + hd * 4)
+                    b_ms, by = bound_ms(nbytes, 6.0 * n * (H + kv) * hd // 2, F32_FLOPS)
+                    row.update(bound_ms=b_ms, bound_by=by, bound_bytes=nbytes, library_ms=None)
+                    was = K5_MS_BEFORE[name]
+                    row["k_only_ms_from_perf_md"] = was
+                    log(f"    rows {lead}: time {row['ms']:.4f} ms per launch (the K-only kernel "
+                        f"before, from PERF.md, not this run: {was} ms)  bound {b_ms:.6f} ms "
+                        f"({by}, {nbytes} bytes with q's)  plain {row['plain_ms']:.4f} ms  (no "
+                        f"single PyTorch call)")
                 rows.append(row)
+                del kc, vc, kr, vr, k2, v2
+    torch.cuda.empty_cache()
     return rows
+
+
+def phase1_rope(torch, dev, gen) -> list:
+    """The solo K5 launch: T = 1 at pos 700 (timed) and T = 4 at pos 1022,
+    whose rows clamp to 1020..1023, angles with them."""
+    _, kv, hd = ROPE_HEADS
+    shape = (4, 1024, kv, hd)
+    return rope_launches(torch, dev, gen, "solo", [((1,), 700, shape), ((4,), 1022, shape)], 0)
 
 
 #: mixed row positions of S = 1024 for the batched forms (first slot, the
@@ -682,114 +777,24 @@ def phase1_flash_batched(torch, dev, gen) -> list:
 
 
 def phase1_rope_batched(torch, dev, gen) -> list:
-    """Batched K5 bit-equal to its plain version for bf16 and f8 caches in
-    both rope styles at B = 8, a row at S - 1 and one past it (clamped);
-    timed at B = 8 (bf16, interleaved) beside its bound and plain version."""
-    from dllama_tpu_torch.ops import fused_rope_cache
-    from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
-
-    rows = []
+    """The batched K5 launch at B = 8 (timed), a row at S - 1 and one past it
+    (written at S - 1, rotated with table row S - 1)."""
     L, S, kv, _, hd = BATCH_SHAPE
-    B = 8
-    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
-    pos_l = [0, 116, 1000, S - 1, S + 5, 32, 500, 7]  # S + 5 clamps to S - 1
-    pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-    idx = pos.clamp(max=S - 1).long()
-    c, s = cos[idx][:, None], sin[idx][:, None]
-    for style in (INTERLEAVED, HALF):
-        for dtype in (torch.bfloat16, torch.float8_e4m3fn):
-            k = torch.randn((B, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
-            v = torch.randn((B, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
-            kc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
-            vc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
-            kr, vr = kc.clone(), vc.clone()
-            fused_rope_cache.rope_cache_update_batched(k, v, c, s, kc, vc, pos, 1, style)
-            torch.cuda.synchronize()
-            fused_rope_cache.rope_cache_update_batched_ref(k, v, c, s, kr, vr, pos, 1, style)
-            diff = int((kc.view(torch.uint8) != kr.view(torch.uint8)).sum()
-                       + (vc.view(torch.uint8) != vr.view(torch.uint8)).sum())
-            err = max((kc.float() - kr.float()).abs().max().item(),
-                      (vc.float() - vr.float()).abs().max().item())
-            log(f"  rope_cache_update_batched {style:11s} B={B} pos={pos_l} "
-                f"cache={str(dtype).split('.')[-1]}: {diff} cache bytes differ (tol 0)")
-            if diff:
-                fail(f"rope_cache_update_batched {style} {dtype}: {diff} bytes differ")
-            row = {"style": style, "B": B, "pos": pos_l, "cache": str(dtype),
-                   "bytes_differ": diff, "max_abs_err": err}
-            if style == INTERLEAVED and dtype == torch.bfloat16:
-                row["ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update_batched(
-                    k, v, c, s, kc, vc, pos, 1, style))
-                row["plain_ms"] = time_ms(
-                    torch, lambda: fused_rope_cache.rope_cache_update_batched_ref(
-                        k, v, c, s, kr, vr, pos, 1, style))
-                nbytes = 2 * (2 * B * kv * hd * 2) + 2 * B * hd // 2 * 4
-                b_ms, by = bound_ms(nbytes, 6.0 * B * kv * hd // 2, F32_FLOPS)
-                row["bound_ms"], row["bound_by"], row["library_ms"] = b_ms, by, None
-                log(f"    B=8 time {row['ms']:.4f} ms per launch  bound {b_ms:.6f} ms ({by})  "
-                    f"plain {row['plain_ms']:.4f} ms  (no single PyTorch call)")
-            rows.append(row)
-    return rows
+    pos_l = [0, 116, 1000, S - 1, S + 5, 32, 500, 7]
+    return rope_launches(torch, dev, gen, "batched", [((8,), pos_l, (L, 8, S, kv, hd))], 0)
 
 
 def phase1_rope_verify(torch, dev, gen) -> list:
-    """The verify form of K5 (B = 8 sequences of T rows) bit-equal to its
-    plain version for bf16 and f8 caches in both rope styles at T = 9 (draft
-    8) and 16 (``MAX_T``), rows at pos 0, in the middle, at S - T and past
-    it (clamped to S - T); a second launch on the same inputs must give the
-    same bits. Timed at T = 9 (bf16, interleaved) beside its byte bound and
-    plain version."""
+    """The verify K5 launch, B = 8 sequences of T = 9 (draft 8, timed) and 16
+    (``MAX_T``) rows at pos 0, in the middle, at S - T and past it: rows at
+    S - T + 4 and S + 5 write at S - T.. but rotate with table rows
+    min(pos + t, S - 1), where angle and write row part."""
     from dllama_tpu_torch.ops import fused_rope_cache
-    from dllama_tpu_torch.ops.rope import HALF, INTERLEAVED, rope_table
 
-    rows = []
     L, S, kv, _, hd = BATCH_SHAPE
-    B = 8
-    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
-    for T in (9, fused_rope_cache.MAX_T):
-        pos_l = [0, 116, 500, S - T, S - T + 4, S + 5, 31, 7]  # the last three of S clamp
-        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
-        idx = (pos.long()[:, None] + torch.arange(T, device=dev)).clamp(max=S - 1)
-        c, s = cos[idx][:, :, None], sin[idx][:, :, None]
-        for style in (INTERLEAVED, HALF):
-            for dtype in (torch.bfloat16, torch.float8_e4m3fn):
-                k = torch.randn((B, T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
-                v = torch.randn((B, T, kv, hd), device=dev, generator=gen).to(torch.bfloat16)
-                kc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
-                vc = torch.randn((L, B, S, kv, hd), device=dev, generator=gen).to(dtype)
-                kr, vr, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-                fused_rope_cache.rope_cache_update_verify(k, v, c, s, kc, vc, pos, 1, style)
-                fused_rope_cache.rope_cache_update_verify(k, v, c, s, k2, v2, pos, 1, style)
-                torch.cuda.synchronize()
-                fused_rope_cache.rope_cache_update_verify_ref(k, v, c, s, kr, vr, pos, 1, style)
-                diff = int((kc.view(torch.uint8) != kr.view(torch.uint8)).sum()
-                           + (vc.view(torch.uint8) != vr.view(torch.uint8)).sum())
-                repeat = bool(torch.equal(kc.view(torch.uint8), k2.view(torch.uint8))
-                              and torch.equal(vc.view(torch.uint8), v2.view(torch.uint8)))
-                err = max((kc.float() - kr.float()).abs().max().item(),
-                          (vc.float() - vr.float()).abs().max().item())
-                log(f"  rope_cache_update_verify {style:11s} B={B} T={T} pos={pos_l} "
-                    f"cache={str(dtype).split('.')[-1]}: {diff} cache bytes differ (tol 0); "
-                    f"repeat bit-equal: {repeat}")
-                if diff or not repeat:
-                    fail(f"rope_cache_update_verify {style} T={T} {dtype}: {diff} bytes differ "
-                         f"or two launches differ")
-                row = {"style": style, "B": B, "T": T, "pos": pos_l, "cache": str(dtype),
-                       "bytes_differ": diff, "repeat_bit_equal": repeat, "max_abs_err": err}
-                if style == INTERLEAVED and dtype == torch.bfloat16 and T == 9:
-                    row["ms"] = time_ms(torch, lambda: fused_rope_cache.rope_cache_update_verify(
-                        k, v, c, s, kc, vc, pos, 1, style))
-                    row["plain_ms"] = time_ms(
-                        torch, lambda: fused_rope_cache.rope_cache_update_verify_ref(
-                            k, v, c, s, kr, vr, pos, 1, style))
-                    nbytes = 2 * (2 * B * T * kv * hd * 2) + 2 * B * T * hd // 2 * 4
-                    b_ms, by = bound_ms(nbytes, 6.0 * B * T * kv * hd // 2, F32_FLOPS)
-                    row["bound_ms"], row["bound_by"], row["library_ms"] = b_ms, by, None
-                    log(f"    B=8 T=9 time {row['ms']:.4f} ms per launch  bound {b_ms:.6f} ms "
-                        f"({by})  plain {row['plain_ms']:.4f} ms  (no single PyTorch call)")
-                rows.append(row)
-                del kc, vc, kr, vr, k2, v2
-    torch.cuda.empty_cache()
-    return rows
+    cases = [((8, T), [0, 116, 500, S - T, S - T + 4, S + 5, 31, 7], (L, 8, S, kv, hd))
+             for T in (9, fused_rope_cache.MAX_T)]
+    return rope_launches(torch, dev, gen, "verify", cases, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -1015,16 +1020,16 @@ def phase2(torch, dev, kind: str) -> dict:
         for k, v in list(out["profile_ms_per_token"].items())[:6]:
             log(f"    {v:.4f} ms  {k}")
         # one CUDA launch per wrapper call: no split-sum pass after the decode
-        # GEMV, no merge kernel after flash decode
+        # GEMV, no merge kernel after flash decode, one rope launch a layer
         want = {"flash_decode_kernel": cfg.n_layers, f"{kind}_gemv_kernel": 4 * cfg.n_layers + 1,
-                "sum_splits_kernel": 0}
+                "sum_splits_kernel": 0, "rope_cache_kernel": cfg.n_layers}
         for fam, n in want.items():
             if abs(families[fam]["launches"] - n) > 1e-6:
                 fail(f"{kind} decode token: {families[fam]['launches']} CUDA launches of "
                      f"{fam}, want {n}")
     else:
-        out["profile_idle_share"] = "not measured"
-        log("  profiler showed no device time: idle share not measured")
+        fail(f"{kind} decode token: the profiler showed no device time, so one launch per "
+             f"wrapper call and one rope launch a layer are unchecked")
 
     # where a prefill's device time goes (the 100-token prompt, bucket 128)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1959,6 +1964,19 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool, mixed: bool) ->
     r = graph_window(torch, solo_chunk)
     log_window(r, "graphed token")
     out["graphed_token_profile"] = r
+    # (g) one rope launch a layer in place of q's rope, the table gathers and
+    # the k/v copies: at least 15 kernels a layer fewer than before
+    if r["device_busy_ms"] == "not measured":
+        fail(f"{kind} graphed token: the profiler showed no device time, so gate (g) is "
+             f"unchecked")
+    rope = r["kernels"]["rope_cache_kernel"]["launches"]
+    most = GRAPHED_KERNELS_BEFORE - 15 * cfg.n_layers
+    log(f"  (g) graphed token: {r['cuda_launches']:.0f} kernels (before: "
+        f"{GRAPHED_KERNELS_BEFORE}; at most {most}), {rope:.0f} rope launches, PyTorch's "
+        f"{r['kernels']['other']['launches']:.0f} kernels in "
+        f"{r['kernels']['other']['ms']:.3f} ms")
+    if abs(rope - cfg.n_layers) > 1e-6 or (kind == "q40" and r["cuda_launches"] > most):
+        fail(f"{kind} graphed token: {r['cuda_launches']} kernels, {rope} rope launches")
 
     # (f) solo: a chunk's replays make no host sync and allocate nothing
     torch.cuda.synchronize()
@@ -2193,10 +2211,11 @@ def main() -> None:
     log(f"  kernels built and loaded in {build_s:.1f} s: {so.relative_to(ROOT)}")
     ptxas = ptxas_report(kernels.build_log().read_text()) if kernels.build_log().exists() else []
     for r in ptxas:
-        if "gemv_kernel" in r["kernel"] or r.get("spill_stores") or r.get("spill_loads"):
-            log(f"  ptxas: {r['registers']:3d} registers, {r.get('stack')} B stack, "
-                f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} B spill loads  "
-                f"{r['kernel'].split('(')[0]}")
+        if (any(n in r["kernel"] for n in ("gemv_kernel", "rope_cache_kernel", "int8_kernel"))
+                or r.get("spill_stores") or r.get("spill_loads")):
+            log(f"  ptxas: {r['registers']:3d} registers, {r['static_smem']} B static shared "
+                f"memory, {r.get('stack')} B stack, {r.get('spill_stores')} B spill stores, "
+                f"{r.get('spill_loads')} B spill loads  {r['kernel'].split('(')[0]}")
 
     header("phase 1: kernels vs plain versions (Llama-3-8B shapes)")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2303,17 +2322,19 @@ def main() -> None:
          "max_abs_err": max(r["max_abs_err"] for r in flash),
          "ms": fl["ms"], "plain_ms": fl["plain_ms"], "bound_ms": fl["bound_ms"],
          "bound_by": fl["bound_by"], "library_ms": fl["library_ms"], "grid": fl["grid"],
-         "at_pos_116": next(t for t in fl_row["timed"] if t["pos"] == 116),
+         "at_pos_116": {k: v for k, v in next(t for t in fl_row["timed"] if t["pos"] == 116)
+                        .items() if k not in ("before_ms", "change")},
          "per": "one launch: S=1024 bf16 cache, kv=8, group 4, hd=128, pos 1000, T=1"},
         {"name": "rope_cache_update", "route": "cuda",
          "source": "dllama_tpu_torch/csrc/rope_cache.cu",
          "replaces": "dllama_tpu/ops/fused_rope_cache.py:86 (_kernel)", "tpu_kernels": ["K5"],
+         "entry": "dllama_rope_cache_update (rope_cache_kernel: q's rope, K's rope, K/V write)",
          "launches": launches["rope_cache_update"],
          "launches_q80_decode": launches80["rope_cache_update"],
          "max_abs_err": max(r["max_abs_err"] for r in rope),
          "ms": rp["ms"], "plain_ms": rp["plain_ms"], "bound_ms": rp["bound_ms"],
          "bound_by": rp["bound_by"], "library_ms": None,
-         "per": "one launch: T=1, kv=8, hd=128, bf16 activations and cache"},
+         "per": "one launch: T=1, 32 q heads, 8 kv heads, hd=128, bf16 activations and cache"},
         {"name": "flash_decode_batched", "route": "cuda",
          "source": "dllama_tpu_torch/csrc/flash_decode.cu",
          "replaces": "dllama_tpu/ops/flash_decode.py:263 (flash_decode_attention_batched) via "
@@ -2329,29 +2350,32 @@ def main() -> None:
          "source": "dllama_tpu_torch/csrc/rope_cache.cu",
          "replaces": "dllama_tpu/ops/fused_rope_cache.py:235 (rope_cache_update_batched) via "
                      "_launch :132", "tpu_kernels": ["K5"],
+         "entry": "dllama_rope_cache_update (rope_cache_kernel)",
          "launches": launches_b["rope_cache_update_batched"],
          "launches_q80_decode": batch80["B8"]["launches"]["rope_cache_update_batched"],
          "max_abs_err": max(r["max_abs_err"] for r in rope_b),
          "ms": rpb["ms"], "plain_ms": rpb["plain_ms"], "bound_ms": rpb["bound_ms"],
          "bound_by": rpb["bound_by"], "library_ms": None,
-         "per": "one launch: B=8 rows, kv=8, hd=128, bf16 activations and cache; launches: "
-                "phase 4's B=8 generate_batch (32 steps)"},
+         "per": "one launch: B=8 rows, 32 q heads, 8 kv heads, hd=128, bf16 activations and "
+                "cache; launches: phase 4's B=8 generate_batch (32 steps)"},
         {"name": "rope_cache_update_verify", "route": "cuda",
          "source": "dllama_tpu_torch/csrc/rope_cache.cu",
          "replaces": "dllama_tpu/ops/fused_rope_cache.py:209 (rope_cache_update_verify) -> "
                      "_launch :132", "tpu_kernels": ["K5"],
+         "entry": "dllama_rope_cache_update (rope_cache_kernel)",
          "launches": spec["batched"]["launches"]["rope_cache_update_verify"],
          "max_abs_err": max(r["max_abs_err"] for r in rope_v),
          "ms": rpv["ms"], "plain_ms": rpv["plain_ms"], "bound_ms": rpv["bound_ms"],
          "bound_by": rpv["bound_by"], "library_ms": None,
-         "per": "one launch: B=8 sequences of T=9 rows, kv=8, hd=128, bf16 activations and "
-                "cache; launches: phase 5's B=8 generate_batch_spec (32 tokens a row)"},
+         "per": "one launch: B=8 sequences of T=9 rows, 32 q heads, 8 kv heads, hd=128, bf16 "
+                "activations and cache; launches: phase 5's B=8 generate_batch_spec (32 tokens "
+                "a row)"},
         variant_entry("q40_nosub_matmul", "dllama_tpu_torch/csrc/q40_matmul.cu",
                       "scripts/qkernel_experiments.py:60 (_q40_nosub_kernel)", ["K6"],
                       "dllama_q40_gemv mode 2 (q40_gemv_kernel)"),
         variant_entry("q40_int8_matmul", "dllama_tpu_torch/csrc/q40_int8_matmul.cu",
                       "scripts/qkernel_experiments.py:138 (_q40_int8_kernel)", ["K7"],
-                      "dllama_q40_int8_matmul (q40_int8_kernel + sum_splits_kernel)"),
+                      "dllama_q40_int8_matmul (q40_int8_kernel)"),
     ]}
     # phase 6's graphed solo run (prefill, the graph's warm-up step, 32
     # replays): the kernels a replay launches

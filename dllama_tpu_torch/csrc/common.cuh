@@ -56,6 +56,34 @@ __device__ __forceinline__ float act_bf16(const XT* x, int K, int t, size_t k,
   return round_bf16(v);
 }
 
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
+// reads nothing. The decode GEMVs stream weights through L2 only (.cg) and
+// keep scales, which the chunks of a superblock read again, in L1 (.ca).
+// The "memory" clobbers keep the compiler from moving shared memory reads
+// across the copies and the waits.
+__device__ __forceinline__ void copy16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy16_l1(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // out[i] = sum over splits of partials[split][i], in split order (defined in
 // common.cu): the split-K kernels' fixed-order second pass.
 void sum_splits(const float* partials, int ksplit, size_t n, float* out, cudaStream_t st);

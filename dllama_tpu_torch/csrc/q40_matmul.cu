@@ -103,33 +103,10 @@ constexpr int kStages = 4;  // ring slots a warp: chunks in flight + the one in 
 constexpr int kGroupWords = 36;
 constexpr int kSlotWords = 2 * 32 * 4 + 8 * kGroupWords;
 
-using dllama::tile::smem_addr;
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
-// reads nothing. Weights stream through L2 only (.cg); scales, which the
-// 4 chunks of a superblock read again, are kept in L1 (.ca). The "memory"
-// clobbers keep the compiler from moving shared memory reads across the
-// copies and the waits.
-__device__ __forceinline__ void copy16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy16_l1(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using dllama::copy16;
+using dllama::copy16_l1;
+using dllama::copy_commit;
+using dllama::copy_wait;
 
 // the 16 bytes of packed row prow at columns o0..o0+15 (zeros past O)
 __device__ __forceinline__ uint4 load_row16(const uint8_t* __restrict__ w, size_t prow, int O,

@@ -53,6 +53,7 @@ launches = {"q40_matmul": 0, "q80_matmul": 0, "flash_decode": 0, "rope_cache_upd
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C entry points and their argument types (every pointer and the stream
 #: as c_void_p, so ctypes never truncates one to 32 bits)
@@ -69,8 +70,10 @@ _SIGNATURES = {
     # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, sb_per_split, partials, out,
     # stream
     "dllama_q80_tile": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P),
-    # xq, sx, T, K, w, s_lo, s_hi, O, ksplit, sb_per_split, partials, out, stream
-    "dllama_q40_int8_matmul": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    # xq, sx, T, K, w, s_lo, s_hi, O, ksplit, rows_per_split, partials, counters, out, stream
+    "dllama_q40_int8_matmul": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # T -> resident K7 blocks per SM
+    "dllama_q40_int8_blocks_per_sm": (_I,),
     # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, rows_per_split, partials,
     # counters, out, stream
     "dllama_q80_gemv": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
@@ -80,10 +83,10 @@ _SIGNATURES = {
     # cache_kind, n_split, max_split, part_acc, part_ml, counters, stream
     "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I,
                             _I, _I, _P, _P, _P, _P),
-    # k, v, cos, sin, k_cache, v_cache, B, T, kv, hd, S, pos_dev, pos, layer, half_style,
-    # act_kind, cache_kind, stream
-    "dllama_rope_cache_update": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I,
-                                 _I, _I, _I, _P),
+    # q, q_rs, k, k_rs, v, v_rs, cos, sin, q_out, k_cache, v_cache, B, T, H, kv, hd, S, R,
+    # pos_dev, pos, layer, half_style, angle_at_write, act_kind, cache_kind, stream
+    "dllama_rope_cache_update": (_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # CUDA error code -> its message
     "dllama_error_string": (_I,),
 }

@@ -14,10 +14,11 @@ Math parity notes:
 * logits: final rmsnorm then ``wcls`` matmul — `distributed-llama/src/llama2-tasks.cpp:222-241`.
 
 Weights use kernel layout ``[in_features, out_features]`` (transposed from the
-file's ``[out, in]`` rows). Decode steps (T <= 16) take the rope + cache-write
-kernel and flash-decode attention; prefill (T > 16) takes ``apply_rope``, a
-slice assignment and ``gqa_attention`` — the split the JAX package's kernel
-gates make.
+file's ``[out, in]`` rows). Decode steps (T <= 16) take one launch for q's
+rope, K's rope and the cache write (reading q, k and v straight from the
+projection output) and flash-decode attention; prefill (T > 16) takes
+``apply_rope``, a slice assignment and ``gqa_attention`` — the split the JAX
+package's kernel gates make.
 
 ``forward_batched`` is one decode step for B independent sequences over a
 batch cache ``[L, B, S, kv, hd]``, each at its own position (a device
@@ -371,21 +372,19 @@ def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
     """One attention sub-block of layer ``layer``; writes this step's K/V
     into the stacked caches in place and returns the output [T, dim]."""
     T = x.shape[0]
-    q, k, v = _qkv(cfg, lp, x)
-    q = q.reshape(T, -1, cfg.head_size)
-    k = k.reshape(T, -1, cfg.head_size)
-    v = v.reshape(T, -1, cfg.head_size)
-
-    # the table slice start clamps like the JAX dynamic_slice
-    r0 = min(max(pos, 0), cfg.seq_len - T)
-    cos = rope["cos"][r0:r0 + T, None, :]
-    sin = rope["sin"][r0:r0 + T, None, :]
-    q = apply_rope(q, cos, sin, cfg.rope_style)
-
+    q, k, v = (t.reshape(T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
     if T <= DECODE_MAX_T:
-        rope_cache_update(k, v, cos, sin, k_cache, v_cache, pos, layer, cfg.rope_style)
+        # q's rope, K's rope and the cache write: one launch, reading q, k
+        # and v where the projection left them
+        q = rope_cache_update(q, k, v, rope["cos"], rope["sin"], k_cache, v_cache, pos, layer,
+                              cfg.rope_style)
         out = flash_decode.flash_decode_attention(q, k_cache, v_cache, pos, layer)
     else:
+        # the table slice start clamps like the JAX dynamic_slice
+        r0 = min(max(pos, 0), cfg.seq_len - T)
+        cos = rope["cos"][r0:r0 + T, None, :]
+        sin = rope["sin"][r0:r0 + T, None, :]
+        q = apply_rope(q, cos, sin, cfg.rope_style)
         k = apply_rope(k, cos, sin, cfg.rope_style)
         k_cache[layer, pos:pos + T] = cast_cache(k, k_cache.dtype)
         v_cache[layer, pos:pos + T] = cast_cache(v, v_cache.dtype)
@@ -408,16 +407,14 @@ def _attn_block_batched(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
                         layer: int, bound: int | None) -> torch.Tensor:
     """Batched-decode attention of layer ``layer``: x [B, dim] carries B
     independent sequences, row b at ``pos[b]`` (int32 [B] on x's device).
-    The projections are [B, K] matmuls (K1/K3 at T = B); rope takes each
-    row's own angle; the batched rope + cache-write kernel lands row b at
-    (layer, b, pos[b]) and the batched flash decode reads row b's own
+    The projections are [B, K] matmuls (K1/K3 at T = B); the batched rope +
+    cache-write launch rotates q and K with each row's own angle and lands
+    row b at (layer, b, pos[b]); the batched flash decode reads row b's own
     prefix. Returns the output [B, dim]."""
     B = x.shape[0]
     q, k, v = (t.reshape(B, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
-    cos = rope["cos"][pos][:, None, :]  # per-row angle: [B, 1, hd/2]
-    sin = rope["sin"][pos][:, None, :]
-    q = apply_rope(q, cos, sin, cfg.rope_style)
-    rope_cache_update_batched(k, v, cos, sin, k_cache, v_cache, pos, layer, cfg.rope_style)
+    q = rope_cache_update_batched(q, k, v, rope["cos"], rope["sin"], k_cache, v_cache, pos,
+                                  layer, cfg.rope_style)
     out = flash_decode.flash_decode_attention_batched(q, k_cache, v_cache, pos, layer, bound)
     return matmul_any(out.reshape(B, -1), lp["wo"])
 
@@ -428,18 +425,16 @@ def _attn_block_verify(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
     """Verify-step attention of layer ``layer``: x [B*T, dim] holds B
     sequences of T candidate rows, sequence b's first row at ``pos[b]``
     (int32 [B] on x's device). The projections run on all B*T rows at once;
-    the verify rope + cache-write kernel lands row b's T rows at (layer, b,
-    pos[b]..); attention is dense over each row's slab. Returns [B*T, dim]."""
+    the verify rope + cache-write launch rotates q and K and lands row b's T
+    rows at (layer, b, pos[b]..); attention is dense over each row's slab.
+    Returns [B*T, dim]."""
     T = x.shape[0] // B
     q, k, v = (t.reshape(B, T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
-    # per-row angles of positions pos[b]..pos[b]+T-1; JAX's gather clamps an
-    # index past the table, torch's would fault, so the clamp is explicit
-    # (a row that close to the end is emission-capped by the caller)
-    ppos = (pos.long()[:, None] + torch.arange(T, device=x.device)).clamp(max=cfg.seq_len - 1)
-    cos = rope["cos"][ppos][:, :, None, :]  # [B, T, 1, hd/2]
-    sin = rope["sin"][ppos][:, :, None, :]
-    q = apply_rope(q, cos, sin, cfg.rope_style)
-    rope_cache_update_verify(k, v, cos, sin, k_cache, v_cache, pos, layer, cfg.rope_style)
+    # angles of positions pos[b]..pos[b]+T-1, clamped at the table's end as
+    # JAX's gather clamps (a row that close to the end is emission-capped
+    # by the caller)
+    q = rope_cache_update_verify(q, k, v, rope["cos"], rope["sin"], k_cache, v_cache, pos,
+                                 layer, cfg.rope_style)
     out = gqa_attention_batched(q, k_cache[layer], v_cache[layer], pos)
     return matmul_any(out.reshape(B * T, -1), lp["wo"])
 
@@ -505,10 +500,10 @@ def forward_decode(cfg: ModelConfig, params: dict, rope: dict, token: torch.Tens
     a host integer and a CUDA graph can capture it.
 
     Bit-equal to ``forward`` at T = 1: the rope angle is the same table row
-    (gathered, not sliced), the batched rope + cache write and flash decode
-    at B = 1 are the solo launches' kernel, and flash decode plans each
-    row's chunks from its own position, whatever the grid bound (empty
-    chunks weigh 0 in the merge)."""
+    (row pos, the solo form's clamped slice at T = 1), the batched rope +
+    cache write and flash decode at B = 1 are the solo launches' kernels,
+    and flash decode plans each row's chunks from its own position, whatever
+    the grid bound (empty chunks weigh 0 in the merge)."""
     view = {"k": cache["k"][:, None], "v": cache["v"][:, None]}
     logits, _ = forward_batched(cfg, params, rope, token, view, pos, cfg.seq_len)
     return logits, cache

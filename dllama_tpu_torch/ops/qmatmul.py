@@ -60,10 +60,6 @@ Q40_NOSUB = os.environ.get("DLLAMA_Q40_NOSUB", "1") != "0"
 #: input-dim padding unit per kind, as the JAX package packs it
 K_MULTIPLE = {"q40": 512, "q80": 256}
 
-#: output columns one block of K7 (``csrc/q40_int8_matmul.cu``) covers: 128
-#: threads x 4 columns
-_BLOCK_COLS = 512
-
 #: the most activation rows the decode kernels (K1's, K3's GEMV) take; more
 #: go to the tensor-core tile (``DECODE_MAX_T`` is 16, the smallest prefill
 #: bucket 8)
@@ -244,34 +240,21 @@ def q80_matmul_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 # The kernels' wrappers
 # ---------------------------------------------------------------------------
 
-def split_plan(T: int, K: int, O: int, n_sm: int,
-               block_cols: int = _BLOCK_COLS) -> tuple[int, int]:
-    """(ksplit, 64-row superblocks per split) for K7 alone (the decode
-    GEMVs take :func:`gemv_plan`): split K across blocks until about four
-    blocks per SM are in flight, so a launch with few output columns still
-    fills the card; ``dllama::sum_splits`` adds the splits after it."""
-    nsb = K // 64
-    tt = 8 if T > 8 else next(t for t in (1, 2, 4, 8) if t >= T)
-    blocks_ = math.ceil(O / block_cols) * math.ceil(T / tt)
-    want = max(1, min(nsb, math.ceil(4 * n_sm / blocks_)))
-    sb_per = math.ceil(nsb / want)
-    return math.ceil(nsb / sb_per), sb_per
-
-
 def gemv_plan(T: int, K: int, O: int, n_sm: int, per_sm: int,
-              cols: int = _GEMV_COLS) -> tuple[int, int]:
-    """(ksplit, rows per split) for a decode GEMV (Q80's, and Q40's through
-    :func:`q40_plan`) whose blocks cover ``cols`` output columns: split K,
-    in 64-row units, as far as one wave of resident blocks (``n_sm *
-    per_sm``) holds the column blocks times the splits — a second wave would
-    take as long as the first — and at least far enough that a block's
-    staged activation (rows x T rounded up to a power of two) fits
+              cols: int = _GEMV_COLS, row_tiles: int = 1) -> tuple[int, int]:
+    """(ksplit, rows per split) for a decode GEMV (Q80's, Q40's through
+    :func:`q40_plan`, K7's) whose blocks cover ``cols`` output columns of
+    T <= 8 rows, ``row_tiles`` such tiles of rows side by side: split K, in
+    64-row units, as far as one wave of resident blocks (``n_sm * per_sm``)
+    holds the column blocks times the row tiles times the splits — a second
+    wave would take as long as the first — and at least far enough that a
+    block's staged activation (rows x T rounded up to a power of two) fits
     :data:`_GEMV_X_FLOATS`. Split s takes rows ``[s * rows, min((s + 1) *
     rows, K))``, so each 32-row scale block and each 64-row Q40 superblock
     lies in exactly one split."""
     tt = next(t for t in (1, 2, 4, 8) if t >= T)
     units = K // _GEMV_UNIT
-    tiles = math.ceil(O / cols)
+    tiles = math.ceil(O / cols) * row_tiles
     want = max(n_sm * per_sm // tiles, math.ceil(K * tt / _GEMV_X_FLOATS), 1)
     per = math.ceil(units / min(units, want))
     return math.ceil(units / per), per * _GEMV_UNIT
@@ -340,18 +323,20 @@ def q80_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[str, int, 
     return "tile", ksplit, TILE_K * per
 
 
-#: (kind, T rounded up to a power of two, x is f32 or the Q40 GEMV is wide)
-#: -> the GEMV's blocks per SM
+#: (C entry point, T rounded up to a power of two, its flags) -> the decode
+#: kernel's blocks per SM
 _gemv_occupancy: dict = {}
 
 
-def _occupancy(kind: str, T: int, flag: bool) -> int:
-    key = (kind, next(t for t in (1, 2, 4, 8) if t >= T), int(flag))
+def occupancy(entry: str, T: int, *flags: int) -> int:
+    """A decode kernel's resident blocks per SM for T <= 8 rows, from its C
+    entry point ``entry`` (the CUDA occupancy calculator; cached)."""
+    key = (entry, next(t for t in (1, 2, 4, 8) if t >= T), *flags)
     n = _gemv_occupancy.get(key)
     if n is None:
-        n = getattr(kernels.lib(), f"dllama_{kind}_gemv_blocks_per_sm")(*key[1:])
+        n = getattr(kernels.lib(), entry)(*key[1:])
         if n <= 0:
-            kernels.check(-n, f"{kind} GEMV occupancy")
+            kernels.check(-n, f"{entry} occupancy")
         _gemv_occupancy[key] = n
     return n
 
@@ -359,7 +344,7 @@ def _occupancy(kind: str, T: int, flag: bool) -> int:
 def gemv_blocks_per_sm(T: int, x_f32: bool) -> int:
     """The Q80 GEMV's resident blocks per SM for T rows, from the CUDA
     occupancy calculator (cached)."""
-    return _occupancy("q80", T, x_f32)
+    return occupancy("dllama_q80_gemv_blocks_per_sm", T, int(x_f32))
 
 
 def q40_gemv_blocks_per_sm(T: int, wide: bool = False) -> int:
@@ -367,7 +352,7 @@ def q40_gemv_blocks_per_sm(T: int, wide: bool = False) -> int:
     blocks), from the CUDA occupancy calculator (cached): the fewer of its
     bf16 and f32 activation instances', so a fused-norm launch on f32 x
     splits K as the unfused bf16 launch does and gives its bits."""
-    return _occupancy("q40", T, wide)
+    return occupancy("dllama_q40_gemv_blocks_per_sm", T, int(wide))
 
 
 def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int,
@@ -380,14 +365,6 @@ def check_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int,
         raise ValueError(f"{name}: activation {tuple(x.shape)} vs packed K {K}")
     if x.device != w.device:
         raise ValueError(f"{name}: x on {x.device}, weights on {w.device}")
-
-
-def launch_buffers(T: int, K: int, O: int, device,
-                   block_cols: int = _BLOCK_COLS) -> tuple:
-    """(out [T, O] f32, partials [ksplit, T, O] f32, ksplit, sb_per_split):
-    the outputs a K7 launch writes, per :func:`split_plan`."""
-    ksplit, sb_per = split_plan(T, K, O, kernels.sm_count(device), block_cols)
-    return (*_split_outputs(T, O, ksplit, device), ksplit, sb_per)
 
 
 def _kernel_activation(x: torch.Tensor, K: int, norm_w, norm_inv) -> tuple:

@@ -15,7 +15,11 @@ the 50 MB L2, as a decode step finds its weights (:func:`timed`).
      reads f32 planes, so D moves the f32 bytes
   E  K7 — Q80-quantized activations times Q40 nibbles as an int32 dot per
      32-block, scaled afterwards (the reference's matmulQ40vQ80) — plus the
-     same correction against the quantized x, in torch
+     same correction against the quantized x, in torch. On the card K7 is
+     ``csrc/q40_int8_matmul.cu``: K1's decode-GEMV skeleton (a per-warp
+     cp.async ring, 4 warps along K per 128-column strip, split-K summed
+     in the kernel by :func:`int8_plan`) with each block's dot on the int8
+     tensor cores, one launch a call, any T in row tiles of 8
   F  B with twice the output columns per CUDA block (1024; the card's
      stand-in for the TPU's 2048-lane tile)
   G  B with the correction reading cached bf16 copies of the scale planes
@@ -97,11 +101,34 @@ def q40_int8_matmul_ref(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor
             + d_hi * (sxr[:, :, 1:2] * s_hi[:, None])).sum(0)
 
 
+#: output columns one K7 block covers: one 128-column strip, 4 warps along K
+INT8_COLS = 128
+
+
+def int8_plan(T: int, K: int, O: int, n_sm: int, per_sm: int) -> tuple[int, int, int]:
+    """(row tiles, ksplit, rows per split) for K7 over T rows: tiles of up to
+    ``GEMV_MAX_T`` rows (the mma's n of 8), each with
+    ``qmatmul.gemv_plan``'s split of K over :data:`INT8_COLS`-column blocks,
+    one wave of ``n_sm * per_sm`` resident blocks holding all tiles and
+    splits. A function of the shape alone, so two calls sum alike."""
+    tiles = math.ceil(T / qmatmul.GEMV_MAX_T)
+    ksplit, rows = qmatmul.gemv_plan(min(T, qmatmul.GEMV_MAX_T), K, O, n_sm, per_sm,
+                                     INT8_COLS, tiles)
+    return tiles, ksplit, rows
+
+
+def int8_blocks_per_sm(T: int) -> int:
+    """K7's resident blocks per SM for T rows (a row tile of at most 8),
+    from the CUDA occupancy calculator (cached)."""
+    return qmatmul.occupancy("dllama_q40_int8_blocks_per_sm", min(T, qmatmul.GEMV_MAX_T))
+
+
 def q40_int8_matmul(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
                     s_lo: torch.Tensor, s_hi: torch.Tensor) -> torch.Tensor:
-    """K7: ``csrc/q40_int8_matmul.cu`` for a CUDA ``packed``,
-    :func:`q40_int8_matmul_ref` for a CPU one. ``xq`` int8 [T, K] and ``sx``
-    f32 [T, K/32] at the packed K."""
+    """K7: ``csrc/q40_int8_matmul.cu`` for a CUDA ``packed`` (one launch:
+    the int8 tensor-core GEMV, K split by :func:`int8_plan` and the splits
+    added in the kernel), :func:`q40_int8_matmul_ref` for a CPU one. ``xq``
+    int8 [T, K] and ``sx`` f32 [T, K/32] at the packed K."""
     if packed.device.type == "cpu":
         return q40_int8_matmul_ref(xq, sx, packed, s_lo, s_hi)
     if packed.device.type != "cuda":
@@ -115,13 +142,16 @@ def q40_int8_matmul(xq: torch.Tensor, sx: torch.Tensor, packed: torch.Tensor,
     if s_lo.shape != (K // 64, O) or s_hi.shape != (K // 64, O) or packed.dtype != torch.uint8:
         raise ValueError("q40_int8_matmul: planes disagree")
     qmatmul.check_operands("q40_int8_matmul", xq, packed, K, [s_lo, s_hi])
-    xq, sx = xq.contiguous(), sx.float().contiguous()
-    out, partials, ksplit, sb_per = qmatmul.launch_buffers(T, K, O, packed.device)
+    xq, sx = qmatmul._aligned(xq.contiguous()), sx.float().contiguous()
+    tiles, ksplit, rows = int8_plan(T, K, O, kernels.sm_count(packed.device),
+                                    int8_blocks_per_sm(T))
+    out, partials = qmatmul._split_outputs(T, O, ksplit, packed.device)
+    counters = kernels.counters(packed.device, tiles * math.ceil(O / INT8_COLS))
     with torch.cuda.device(packed.device):
         rc = kernels.lib().dllama_q40_int8_matmul(
             xq.data_ptr(), sx.data_ptr(), T, K, packed.data_ptr(), s_lo.data_ptr(),
-            s_hi.data_ptr(), O, ksplit, sb_per, partials.data_ptr(), out.data_ptr(),
-            kernels.stream_of(packed))
+            s_hi.data_ptr(), O, ksplit, rows, partials.data_ptr(), counters.data_ptr(),
+            out.data_ptr(), kernels.stream_of(packed))
     kernels.check(rc, "q40_int8_matmul")
     kernels.launches["q40_int8_matmul"] += 1
     return out

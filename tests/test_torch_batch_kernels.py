@@ -10,7 +10,8 @@ against the JAX package's (CPU; Pallas in interpret mode).
   by step (each row cut into its own chunks), agrees with the unsplit plain
   version to f32 rounding for any chunk cap; each row's plan is
   ``split_plan`` of its own live length.
-* ``rope_cache_update_batched_ref`` writes the caches bit for bit as JAX's
+* ``rope_cache_update_batched`` on CPU tensors rotates q as JAX's
+  ``apply_rope`` does and writes the caches bit for bit as JAX's
   ``rope_cache_update_batched`` does, a row at pos >= S clamped to S - 1.
 * The solo wrappers, the one-row launches of the same kernels, still equal
   their JAX counterparts on CPU tensors and launch nothing.
@@ -18,6 +19,7 @@ against the JAX package's (CPU; Pallas in interpret mode).
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ import torch
 from dllama_tpu.ops import flash_decode as j_fd
 from dllama_tpu.ops import fused_rope_cache as j_frc
 from dllama_tpu.ops.rope import HALF, INTERLEAVED, rope_table
+from dllama_tpu.ops.rope import apply_rope as j_apply_rope
 from dllama_tpu_torch import kernels
 from dllama_tpu_torch.ops import flash_decode as t_fd
 from dllama_tpu_torch.ops import fused_rope_cache as t_frc
@@ -135,11 +138,15 @@ def test_rope_cache_batched_ref_bit_equal_to_jax_kernel(style, act, cache):
         jnp.array(base).astype(jc), jnp.array(base + 1).astype(jc), jnp.asarray(pos),
         jnp.int32(1), style)
     kt, vt = torch.from_numpy(base).to(tc), torch.from_numpy(base + 1).to(tc)
+    q = rng.standard_normal((B, 2 * kv, hd)).astype(np.float32) * 4
+    qj = jax.jit(j_apply_rope, static_argnums=3)(jnp.asarray(q).astype(ja), jnp.asarray(c),
+                                                 jnp.asarray(s), style)
     kernels.reset_launches()
-    t_frc.rope_cache_update_batched(
-        torch.from_numpy(k).to(ta), torch.from_numpy(v).to(ta), torch.from_numpy(c),
-        torch.from_numpy(s), kt, vt, torch.from_numpy(pos), 1, style)
+    qt = t_frc.rope_cache_update_batched(
+        torch.from_numpy(q).to(ta), torch.from_numpy(k).to(ta), torch.from_numpy(v).to(ta),
+        torch.from_numpy(cos), torch.from_numpy(sin), kt, vt, torch.from_numpy(pos), 1, style)
     assert set(kernels.launches.values()) == {0}  # CPU tensors: the plain version
+    np.testing.assert_array_equal(_bits(qj), _bits(qt))
     np.testing.assert_array_equal(_bits(kj), _bits(kt))
     np.testing.assert_array_equal(_bits(vj), _bits(vt))
 
@@ -168,9 +175,13 @@ def test_solo_wrappers_still_equal_jax(cache):
     kj, vj = j_frc.rope_cache_update(
         jnp.asarray(k), jnp.asarray(k + 1), jnp.asarray(c), jnp.asarray(s),
         jnp.asarray(kc).astype(jd), jnp.asarray(vc).astype(jd), jnp.int32(pos), jnp.int32(1))
-    kt, vt = torch.from_numpy(kc).to(td), torch.from_numpy(vc).to(td)
-    t_frc.rope_cache_update(torch.from_numpy(k), torch.from_numpy(k + 1), torch.from_numpy(c),
-                            torch.from_numpy(s), kt, vt, pos, 1)
+    kt, vt = torch.from_numpy(kc).to(td, copy=True), torch.from_numpy(vc).to(td, copy=True)
+    qt = t_frc.rope_cache_update(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(k + 1), torch.from_numpy(cos),
+                                 torch.from_numpy(sin), kt, vt, pos, 1)
+    qj = jax.jit(j_apply_rope, static_argnums=3)(jnp.asarray(q), jnp.asarray(c), jnp.asarray(s),
+                                                 INTERLEAVED)
+    np.testing.assert_array_equal(_bits(qj), _bits(qt))
     np.testing.assert_array_equal(_bits(kj), _bits(kt))
     np.testing.assert_array_equal(_bits(vj), _bits(vt))
     assert set(kernels.launches.values()) == {0}

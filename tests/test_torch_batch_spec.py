@@ -3,7 +3,8 @@
 ``Engine.generate_batch_spec``) against the JAX package's (CPU), mirroring
 ``tests/test_batch_spec.py`` without its MoE and mesh cases.
 
-* ``rope_cache_update_verify_ref`` writes the caches bit for bit as JAX's
+* ``rope_cache_update_verify`` on CPU tensors rotates q as JAX's
+  ``apply_rope`` does and writes the caches bit for bit as JAX's
   ``rope_cache_update_verify`` (Pallas, interpret mode) does, for f32, bf16
   and f8 caches, both rope styles, a row clamped to S - T.
 * ``gqa_attention_batched`` equals JAX's ``vmap(gqa_attention)`` (the
@@ -33,6 +34,7 @@ from dllama_tpu.ops import attention as j_att
 from dllama_tpu.models.config import ModelConfig as JConfig
 from dllama_tpu.ops import fused_rope_cache as j_frc
 from dllama_tpu.ops.rope import HALF, INTERLEAVED, rope_table
+from dllama_tpu.ops.rope import apply_rope as j_apply_rope
 from dllama_tpu.runtime import generate as jgen
 from dllama_tpu.runtime import sampler as jsampler
 from dllama_tpu_torch import kernels
@@ -92,11 +94,16 @@ def test_rope_cache_verify_ref_bit_equal_to_jax_kernel(style, act, cache):
         jnp.array(base).astype(jc), jnp.array(base + 1).astype(jc), jnp.asarray(pos),
         jnp.int32(1), style)
     kt, vt = torch.from_numpy(base).to(tc), torch.from_numpy(base + 1).to(tc)
+    q = rng.standard_normal((B, T, 2 * kv, hd)).astype(np.float32) * 4
+    qj = jax.jit(j_apply_rope, static_argnums=3)(jnp.asarray(q).astype(ja), jnp.asarray(c),
+                                                 jnp.asarray(s), style)
     before = dict(kernels.launches)
-    t_frc.rope_cache_update_verify(torch.from_numpy(k).to(ta), torch.from_numpy(v).to(ta),
-                                   torch.from_numpy(c), torch.from_numpy(s), kt, vt,
-                                   torch.from_numpy(pos), 1, style)
+    qt = t_frc.rope_cache_update_verify(
+        torch.from_numpy(q).to(ta), torch.from_numpy(k).to(ta), torch.from_numpy(v).to(ta),
+        torch.from_numpy(cos_t), torch.from_numpy(sin_t), kt, vt, torch.from_numpy(pos), 1,
+        style)
     assert kernels.launches == before  # CPU tensors: the plain version, no launch
+    np.testing.assert_array_equal(_bits(qj), _bits(qt))
     np.testing.assert_array_equal(_bits(kj), _bits(kt))
     np.testing.assert_array_equal(_bits(vj), _bits(vt))
 

@@ -127,16 +127,43 @@ def test_q40_nosub_kernel_matches_ref(cuda, wide, T, K, O):
     _close(got, qkernel_experiments.q40_nosub_matmul_ref(x, qt.w, qt.s, qt.s2))
 
 
-@pytest.mark.parametrize("T,K,O", [(1, 4096, 11008), (2, 512, 256), (5, 14336, 4100)])
+@pytest.mark.parametrize("T", [1, 2, 3, 5, 8, 9, 12])
+@pytest.mark.parametrize("K,O", [(4096, 11008), (512, 256), (14336, 4100), (1024, 100)])
 def test_q40_int8_kernel_matches_ref(cuda, T, K, O):
+    """Within 1e-5 of the output's magnitude (exact block dots, f32 sums in
+    another order), and the same bits on a second call (splits added in
+    split order); O 4100 and 100 take the unvectorized loads."""
     rng = np.random.default_rng(T + K + O)
     qt = qmatmul.quantize_tensor(rng.standard_normal((K, O)).astype(np.float32) * 0.1, "q40",
                                  cuda)
     x = torch.from_numpy(rng.standard_normal((T, K)).astype(np.float32)).to(cuda)
     xq, sx = qkernel_experiments.quantize_q80_rows(x, qt.k_padded)
     got = qkernel_experiments.q40_int8_matmul(xq, sx, qt.w, qt.s, qt.s2)
+    again = qkernel_experiments.q40_int8_matmul(xq, sx, qt.w, qt.s, qt.s2)
     torch.cuda.synchronize()
     _close(got, qkernel_experiments.q40_int8_matmul_ref(xq, sx, qt.w, qt.s, qt.s2))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("T", [1, 12])
+def test_q40_int8_kernel_call_is_one_cuda_launch(cuda, T):
+    """K7 splits K at the shootout's width and adds the splits in the
+    kernel: one ``q40_int8_kernel`` a call, no ``sum_splits_kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K, O = 4096, 11008
+    assert qkernel_experiments.int8_plan(T, K, O, kernels.sm_count(cuda),
+                                         qkernel_experiments.int8_blocks_per_sm(T))[1] > 1
+    qt = _q40(np.random.default_rng(T), K, O, cuda)
+    xq, sx = qkernel_experiments.quantize_q80_rows(torch.randn((T, K), device=cuda), K)
+    qkernel_experiments.q40_int8_matmul(xq, sx, qt.w, qt.s, qt.s2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        qkernel_experiments.q40_int8_matmul(xq, sx, qt.w, qt.s, qt.s2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    assert sum("q40_int8_kernel" in n for n in names) == 1, names
+    assert not any("sum_splits" in n for n in names), names
 
 
 def test_every_variant_passes_its_check_on_the_card(cuda):
@@ -162,26 +189,57 @@ def test_flash_decode_kernel_matches_ref(cuda, cache_dtype, T, pos, S, hd):
     assert err <= 1e-5 * ref.abs().max().item(), err
 
 
+def _rope_step(cuda, form, style, act, cache_dtype, rows, pos, hd=64, S=32, seed=0):
+    """The form's wrapper on the card, twice, and its plain version, on q, k
+    and v sliced from one fused qkv projection [rows, (H + 2 kv) hd] as the
+    decode step hands them over; asserts q rotated and both caches bit-equal,
+    the second launch's bits equal to the first's, one launch counted each.
+    ``rows``: the leading dims, (T,) solo, (B,) batched, (B, T) verify."""
+    L, H, kv = 2, 4, 2
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(rows))
+    qkv = torch.from_numpy(rng.standard_normal((n, (H + 2 * kv) * hd)).astype(np.float32) * 4)
+    qkv = qkv.to(cuda, act)
+    q, k, v = (t.reshape(*rows, -1, hd) for t in (qkv[:, :H * hd], qkv[:, H * hd:(H + kv) * hd],
+                                                  qkv[:, (H + kv) * hd:]))
+    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
+    shape = (L, S, kv, hd) if form == "solo" else (L, rows[0], S, kv, hd)
+    base = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    kc, vc = base.to(cache_dtype), (base + 1).to(cache_dtype)
+    kr, vr, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    name = {"solo": "rope_cache_update", "batched": "rope_cache_update_batched",
+            "verify": "rope_cache_update_verify"}[form]
+    fn, ref = getattr(fused_rope_cache, name), getattr(fused_rope_cache, name + "_ref")
+    if form != "solo":
+        pos = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = kernels.launches[name]
+    got = fn(q, k, v, cos, sin, kc, vc, pos, 1, style)
+    again = fn(q, k, v, cos, sin, k2, v2, pos, 1, style)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 2
+    want = ref(q, k, v, cos, sin, kr, vr, pos, 1, style)
+    assert got.is_contiguous() and got.shape == q.shape and got.dtype == act
+    for a, b in ((got, want), (kc, kr), (vc, vr), (got, again), (kc, k2), (vc, v2)):
+        assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
 @pytest.mark.parametrize("style", [INTERLEAVED, HALF])
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
 @pytest.mark.parametrize("T,pos", [(1, 7), (3, 30)])  # pos 30 of S 32: start clamps to 29
 def test_rope_cache_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype, T, pos):
-    rng = np.random.default_rng(T + pos)
-    L, S, kv, hd = 2, 32, 2, 64
-    k = torch.from_numpy(rng.standard_normal((T, kv, hd)).astype(np.float32)).to(cuda, act)
-    v = torch.from_numpy(rng.standard_normal((T, kv, hd)).astype(np.float32)).to(cuda, act)
-    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
-    r0 = min(pos, S - T)
-    c, s = cos[r0:r0 + T, None], sin[r0:r0 + T, None]
-    base = torch.from_numpy(rng.standard_normal((L, S, kv, hd)).astype(np.float32))
-    kc, vc = (base.to(cuda).to(cache_dtype) for _ in range(2))
-    kr, vr = kc.clone(), vc.clone()
-    fused_rope_cache.rope_cache_update(k, v, c, s, kc, vc, pos, 1, style)
-    torch.cuda.synchronize()
-    fused_rope_cache.rope_cache_update_ref(k, v, c, s, kr, vr, pos, 1, style)
-    assert torch.equal(kc.view(torch.uint8), kr.view(torch.uint8))
-    assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
+    _rope_step(cuda, "solo", style, act, cache_dtype, (T,), pos, seed=T + pos)
+
+
+@pytest.mark.parametrize("form,rows,pos", [("solo", (2,), 5), ("batched", (3,), [0, 9, 40]),
+                                           ("verify", (2, 9), [3, 30])])
+@pytest.mark.parametrize("hd", [24, 128])
+def test_rope_cache_kernel_unvectorized_and_wide_heads(cuda, form, rows, pos, hd):
+    """hd 24 takes the kernel's scalar loads (runs not 16-byte aligned), hd
+    128 the Llama widths; f8 cache, both styles."""
+    for style in (INTERLEAVED, HALF):
+        _rope_step(cuda, form, style, torch.bfloat16, torch.float8_e4m3fn, rows, pos, hd=hd,
+                   seed=hd)
 
 
 #: Llama-3-8B projection widths (K, O)
@@ -500,24 +558,9 @@ def test_flash_decode_batched_rows_ignore_other_rows_and_nan_past_prefix(cuda):
 @pytest.mark.parametrize("act", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
 def test_rope_cache_batched_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype):
-    L, B, S, kv, hd = 2, 5, 32, 2, 64
-    rng = np.random.default_rng(B + hd)
-    pos = torch.tensor([0, 7, S - 1, S + 3, 20], dtype=torch.int32, device=cuda)  # S + 3 clamps
-    k = torch.from_numpy(rng.standard_normal((B, kv, hd)).astype(np.float32)).to(cuda, act)
-    v = torch.from_numpy(rng.standard_normal((B, kv, hd)).astype(np.float32)).to(cuda, act)
-    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
-    idx = pos.clamp(max=S - 1).long()
-    c, s = cos[idx][:, None], sin[idx][:, None]
-    base = torch.from_numpy(rng.standard_normal((L, B, S, kv, hd)).astype(np.float32))
-    kc, vc = (base.to(cuda).to(cache_dtype) for _ in range(2))
-    kr, vr = kc.clone(), vc.clone()
-    before = kernels.launches["rope_cache_update_batched"]
-    fused_rope_cache.rope_cache_update_batched(k, v, c, s, kc, vc, pos, 1, style)
-    torch.cuda.synchronize()
-    assert kernels.launches["rope_cache_update_batched"] == before + 1
-    fused_rope_cache.rope_cache_update_batched_ref(k, v, c, s, kr, vr, pos, 1, style)
-    assert torch.equal(kc.view(torch.uint8), kr.view(torch.uint8))
-    assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
+    S = 32
+    _rope_step(cuda, "batched", style, act, cache_dtype, (5,), [0, 7, S - 1, S + 3, 20], S=S,
+               seed=5)  # S + 3 clamps to S - 1, its angle to row S - 1
 
 
 @pytest.mark.parametrize("style", [INTERLEAVED, HALF])
@@ -525,27 +568,11 @@ def test_rope_cache_batched_kernel_bit_equal_to_ref(cuda, style, act, cache_dtyp
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
 @pytest.mark.parametrize("T", [9, 16])
 def test_rope_cache_verify_kernel_bit_equal_to_ref(cuda, style, act, cache_dtype, T):
-    L, B, S, kv, hd = 2, 5, 48, 2, 64
-    rng = np.random.default_rng(T + hd)
-    # first slot, middle, S - T, past S - T and past S (both clamp to S - T)
-    pos = torch.tensor([0, 20, S - T, S - T + 3, S + 2], dtype=torch.int32, device=cuda)
-    k = torch.from_numpy(rng.standard_normal((B, T, kv, hd)).astype(np.float32)).to(cuda, act)
-    v = torch.from_numpy(rng.standard_normal((B, T, kv, hd)).astype(np.float32)).to(cuda, act)
-    cos, sin = (torch.from_numpy(t).to(cuda) for t in rope_table(S, hd, 10000.0))
-    idx = (pos.long()[:, None] + torch.arange(T, device=cuda)).clamp(max=S - 1)
-    c, s = cos[idx][:, :, None], sin[idx][:, :, None]
-    base = torch.from_numpy(rng.standard_normal((L, B, S, kv, hd)).astype(np.float32))
-    kc, vc = (base.to(cuda).to(cache_dtype) for _ in range(2))
-    kr, vr, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-    before = kernels.launches["rope_cache_update_verify"]
-    fused_rope_cache.rope_cache_update_verify(k, v, c, s, kc, vc, pos, 1, style)
-    fused_rope_cache.rope_cache_update_verify(k, v, c, s, k2, v2, pos, 1, style)
-    torch.cuda.synchronize()
-    assert kernels.launches["rope_cache_update_verify"] == before + 2
-    fused_rope_cache.rope_cache_update_verify_ref(k, v, c, s, kr, vr, pos, 1, style)
-    assert torch.equal(kc.view(torch.uint8), kr.view(torch.uint8))
-    assert torch.equal(vc.view(torch.uint8), vr.view(torch.uint8))
-    assert torch.equal(kc.view(torch.uint8), k2.view(torch.uint8))
+    # first slot, middle, S - T, past S - T and past S (both write at S - T;
+    # their angles run on to min(pos + t, S - 1))
+    S = 48
+    _rope_step(cuda, "verify", style, act, cache_dtype, (5, T),
+               [0, 20, S - T, S - T + 3, S + 2], S=S, seed=T)
 
 
 @pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float8_e4m3fn])
@@ -570,17 +597,17 @@ def test_batched_wrappers_want_device_int32_positions(cuda):
     kc = torch.zeros((1, 2, 64, 1, 64), device=cuda)
     q = torch.zeros((2, 4, 64), device=cuda)
     k = torch.zeros((2, 1, 64), device=cuda)
-    cs = torch.zeros((2, 1, 32), device=cuda)
+    tab = torch.zeros((64, 32), device=cuda)
     for bad in ([0, 1], torch.tensor([0, 1], device=cuda),  # a list; int64
                 torch.tensor([0, 1], dtype=torch.int32),  # on the host
                 torch.tensor([0], dtype=torch.int32, device=cuda)):  # one row short
         with pytest.raises(ValueError):
             flash_decode.flash_decode_attention_batched(q, kc, kc, bad, 0)
         with pytest.raises(ValueError):
-            fused_rope_cache.rope_cache_update_batched(k, k, cs, cs, kc, kc, bad, 0)
+            fused_rope_cache.rope_cache_update_batched(q, k, k, tab, tab, kc, kc, bad, 0)
         with pytest.raises(ValueError):
-            fused_rope_cache.rope_cache_update_verify(k[:, None], k[:, None], cs[:, None],
-                                                      cs[:, None], kc, kc, bad, 0)
+            fused_rope_cache.rope_cache_update_verify(q[:, None], k[:, None], k[:, None], tab,
+                                                      tab, kc, kc, bad, 0)
 
 
 def test_wrappers_raise_on_unsupported_cuda_input(cuda):
@@ -603,6 +630,14 @@ def test_wrappers_raise_on_unsupported_cuda_input(cuda):
     with pytest.raises(ValueError):  # the fused norm's operands come together
         qmatmul.q80_matmul(torch.zeros((1, 256), device=cuda), w, s,
                            norm_w=torch.ones(256, device=cuda))
+    c12, t6 = torch.zeros((1, 64, 1, 12), device=cuda), torch.zeros((64, 6), device=cuda)
+    with pytest.raises(ValueError):  # rope: a head size that is not a multiple of 8
+        fused_rope_cache.rope_cache_update(torch.zeros((1, 2, 12), device=cuda), c12[0, :1],
+                                           c12[0, :1], t6, t6, c12, c12, 0, 0)
+    t32 = torch.zeros((64, 32), device=cuda)
+    with pytest.raises(ValueError):  # rope: q's heads not adjacent within a row
+        fused_rope_cache.rope_cache_update(torch.zeros((4, 3, 64), device=cuda).transpose(0, 1),
+                                           kc[0, :3], kc[0, :3], t32, t32, kc, kc, 0, 0)
 
 
 def _graph_engines(dev, kind):

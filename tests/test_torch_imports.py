@@ -84,13 +84,13 @@ def test_kernel_wrappers_run_their_plain_versions_on_cpu_tensors():
     assert torch.equal(flash_decode.flash_decode_attention(q, kc, vc, 5, 1),
                        flash_decode.flash_decode_attention_ref(q, kc, vc, 5, 1))
 
-    cos, sin = (torch.from_numpy(t[3:4, None]) for t in rope_table(16, 16, 10000.0))
+    cos, sin = (torch.from_numpy(t) for t in rope_table(16, 16, 10000.0))
     k, v = q[:, :2], q[:, 2:]
     a = (kc.clone(), vc.clone())
     b = (kc.clone(), vc.clone())
-    fused_rope_cache.rope_cache_update(k, v, cos, sin, *a, 3, 0)
-    fused_rope_cache.rope_cache_update_ref(k, v, cos, sin, *b, 3, 0)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    qa = fused_rope_cache.rope_cache_update(q, k, v, cos, sin, *a, 3, 0)
+    qb = fused_rope_cache.rope_cache_update_ref(q, k, v, cos, sin, *b, 3, 0)
+    assert torch.equal(qa, qb) and torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert not torch.equal(a[0], kc)  # it did write
     assert set(kernels.launches.values()) == {0}
 

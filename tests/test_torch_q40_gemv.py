@@ -182,6 +182,6 @@ def test_every_entry_point_has_its_signature():
     found = _extern_c_functions()
     assert set(found) == set(kernels._SIGNATURES)
     for name, params in found.items():
-        want = [kernels._P if "*" in p else kernels._F if p.startswith("float") else kernels._I
-                for p in params]
+        want = [kernels._P if "*" in p else kernels._F if p.startswith("float")
+                else kernels._L if p.startswith("long long") else kernels._I for p in params]
         assert list(kernels._SIGNATURES[name]) == want, name

@@ -105,3 +105,40 @@ def test_variant_f_past_the_decode_rows_matches_the_jax_script(jax_script, matri
     got = qe.VARIANTS["F"][0](torch.from_numpy(x).to(torch.bfloat16), qt_t)
     assert got.shape == (rows, O)
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("rows", [3, 8, 12])
+def test_variant_e_at_more_rows_matches_the_jax_script(jax_script, matrix, rows):
+    """K7 takes any T, as the script's ``variant_e`` does: up to 8 rows in
+    one row tile of the kernel on the card, 12 in two; on the CPU the plain
+    version."""
+    qt_j, qt_t, _ = matrix
+    x = np.random.default_rng(rows).standard_normal((rows, K)).astype(np.float32)
+    ref = np.asarray(jax_script.variant_e(jnp.asarray(x, jnp.bfloat16), qt_j))
+    got = qe.VARIANTS["E"][0](torch.from_numpy(x).to(torch.bfloat16), qt_t)
+    assert got.shape == (rows, O)
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("T", [1, 3, 8, 9, 12, 20])
+@pytest.mark.parametrize("K,O", [(4096, 11008), (14336, 4096), (512, 256), (4096, 100)])
+def test_int8_plan_covers_k_in_superblocks_within_one_wave(T, K, O):
+    """K7's plan: row tiles of 8, splits of whole superblocks that cover K
+    exactly once, a staged activation that fits the kernel's 16384 bytes,
+    and no more splits than one wave of 2 blocks on each of 132 SMs holds
+    (unless the staging forces them)."""
+    n_sm, per_sm = 132, 2
+    tiles, ksplit, rows = qe.int8_plan(T, K, O, n_sm, per_sm)
+    assert tiles == -(-T // 8)
+    assert rows % 64 == 0 and (ksplit - 1) * rows < K <= ksplit * rows
+    tt = next(t for t in (1, 2, 4, 8) if t >= min(T, 8))
+    assert rows * tt <= 16384
+    blocks = -(-O // qe.INT8_COLS) * tiles
+    assert ksplit <= max(n_sm * per_sm // blocks, -(-K * tt // 16384), 1)
+
+
+def test_int8_plan_at_the_shootout_width():
+    # 86 strips of 128 columns: 3 splits of 22, 22 and 20 superblocks fill 258 of 264 slots
+    assert qe.int8_plan(1, 4096, 11008, 132, 2) == (1, 3, 1408)
+    # two row tiles of 8: 8 staged rows of 4096 would be 32 KB, so 2 splits of 2048
+    assert qe.int8_plan(12, 4096, 11008, 132, 2) == (2, 2, 2048)
