@@ -125,6 +125,27 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    profiler's device busy, idle share and host launch calls per token or
    step, capture ms and pool memory per graph.
 
+7. Mixture-of-experts. (a) K1's and K3's expert-indexed GEMVs
+   (``dllama_{q40,q80}_gemv_indexed``: the expert ids read from device
+   memory) at the Mixtral-8x7B and Grok-1 expert widths (up|gate and down),
+   T = 1, 2 and 3, 2 and 6 experts a launch, on layer 1 of a 2-layer stack
+   of 8: within 1e-5 * max|ref| of the plain version, output j bit-equal to
+   the plain launch on the view of its expert, repeat bits; timed beside
+   the experts' bytes at 3.35 TB/s and bf16 ``torch.matmul`` on the
+   dequantized experts. (b) A Mixtral-8x7B-shape model (random Q40 made on
+   the card, 29 GB of experts, seq_len 1024; phases 2-6's models freed):
+   a 100-token prefill; the first decode step within phase 2's tolerance of
+   the plain versions; the first graphed step bit-equal to eager
+   ``forward``, one replay launching 65 K1, 64 indexed, 32 K4 and 32 K5;
+   33 greedy tokens graphed = eager; a graphed chunk with no host sync;
+   graphed ``generate_batch`` at B = 2 (the selected experts) and 8 (the
+   dense combine) = eager. Logged: ms per token graphed and eager beside
+   the bound (the bytes a token must read: attention, 2 of 8 experts a
+   layer and wcls), device busy, idle share and kernels per graphed token,
+   tokens/s per B. (c) Grok-1 at full width, 4 of its 64 layers, the same
+   gates solo. (d) Mixtral in Q80 at 8 layers, the same gates with 8
+   tokens.
+
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json``.
@@ -820,6 +841,8 @@ class plain_versions:
 
         self.saved = [(qmatmul, "q40_matmul", qmatmul.q40_matmul),
                       (qmatmul, "q80_matmul", qmatmul.q80_matmul),
+                      (qmatmul, "q40_matmul_stacked", qmatmul.q40_matmul_stacked),
+                      (qmatmul, "q80_matmul_stacked", qmatmul.q80_matmul_stacked),
                       (llama, "rope_cache_update", llama.rope_cache_update),
                       (llama, "rope_cache_update_batched", llama.rope_cache_update_batched),
                       (llama, "rope_cache_update_verify", llama.rope_cache_update_verify),
@@ -829,6 +852,8 @@ class plain_versions:
                        flash_decode.flash_decode_attention_batched)]
         qmatmul.q40_matmul = qmatmul.q40_matmul_ref
         qmatmul.q80_matmul = qmatmul.q80_matmul_ref
+        qmatmul.q40_matmul_stacked = qmatmul.q40_matmul_stacked_ref
+        qmatmul.q80_matmul_stacked = qmatmul.q80_matmul_stacked_ref
         llama.rope_cache_update = fused_rope_cache.rope_cache_update_ref
         llama.rope_cache_update_batched = fused_rope_cache.rope_cache_update_batched_ref
         llama.rope_cache_update_verify = fused_rope_cache.rope_cache_update_verify_ref
@@ -2174,6 +2199,315 @@ def phase6(torch, dev, kind: str, batches: tuple, sampled: bool, mixed: bool) ->
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: mixture-of-experts (Mixtral, Grok-1) and the expert-indexed GEMVs
+# ---------------------------------------------------------------------------
+
+#: the expert widths (K -> O) of the indexed launch: each arch's fused
+#: up|gate and its down
+MOE_WIDTHS = [("mixtral_upgate", 4096, 28672), ("mixtral_down", 14336, 4096),
+              ("grok1_upgate", 6144, 65536), ("grok1_down", 32768, 6144)]
+MIXTRAL_8X7B = dict(arch="mixtral", dim=4096, hidden_dim=14336, n_layers=32, n_heads=32,
+                    n_kv_heads=8, vocab_size=32000, seq_len=1024, head_size=128, kv_dim=1024,
+                    n_experts=8, n_active_experts=2, rope_theta=1e6, dtype="bfloat16")
+#: Grok-1 at full width, 4 of its 64 layers
+GROK1_CUT = dict(arch="grok1", dim=6144, hidden_dim=32768, n_layers=4, n_heads=48,
+                 n_kv_heads=8, vocab_size=131072, seq_len=1024, head_size=128, kv_dim=1024,
+                 n_experts=8, n_active_experts=2, hidden_act="gelu", dtype="bfloat16")
+
+
+def stacked_launch(qmatmul, kind, x, planes, ids, base, n_ids, plain=False):
+    """The expert-indexed launch of ``kind`` (or its plain version)."""
+    if kind == "q40":
+        fn = qmatmul.q40_matmul_stacked_ref if plain else qmatmul.q40_matmul_stacked
+    else:
+        fn = qmatmul.q80_matmul_stacked_ref if plain else qmatmul.q80_matmul_stacked
+    return fn(x, *planes, ids, base, n_ids)
+
+
+def phase7a(torch, dev, gen) -> list:
+    """K1's and K3's expert-indexed GEMVs at the Mixtral and Grok-1 expert
+    widths, over a 2-layer stack of 8 experts (the launch reads layer 1's,
+    ``base`` 8), T = 1, 2, 3 and n_sel = 2 and 6: within 1e-5 * max|ref| of
+    the plain version, output j bit-equal to the plain launch on the view
+    ``w[8 + ids[j]]``, and two launches bit-equal. Timed (ids rotating over
+    the stack, so no launch finds its planes in L2) beside the bound — the
+    n_sel planes' bytes at 3.35 TB/s — and bf16 ``torch.matmul`` on the
+    n_sel dequantized planes (one batched call); the plain version at T =
+    1."""
+    from dllama_tpu_torch.ops import qmatmul
+
+    E = 8
+    rows = []
+    for kind in ("q40", "q80"):
+        for name, K, O in MOE_WIDTHS:
+            stack = [torch.stack(p) for p in zip(*(quant_planes(torch, dev, gen, kind, K, O)
+                                                   for _ in range(2 * E)))]
+            per_plane = plane_bytes([p[0] for p in stack])
+            for n_sel in (2, 6):
+                id_sets = [torch.tensor([(r * n_sel + j) % E for j in range(n_sel)],
+                                        dtype=torch.int32, device=dev) for r in range(E)]
+                for T in (1, 2, 3):
+                    x = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
+                    xs = torch.randn((n_sel, T, K), device=dev, generator=gen).to(torch.bfloat16)
+                    shared = name.endswith("upgate")  # up|gate shares x; each down its own
+                    xin = x if shared else xs
+                    ids = id_sets[1]
+                    got = stacked_launch(qmatmul, kind, xin, stack, ids, E, E)
+                    again = stacked_launch(qmatmul, kind, xin, stack, ids, E, E)
+                    torch.cuda.synchronize()
+                    ref = stacked_launch(qmatmul, kind, xin, stack, ids, E, E, plain=True)
+                    err = (got - ref).abs().max().item()
+                    tol = 1e-5 * ref.abs().max().item()
+                    views = all(
+                        torch.equal(got[j], (qmatmul.q40_matmul if kind == "q40"
+                                             else qmatmul.q80_matmul)(
+                            x if shared else xs[j], *(p[E + e] for p in stack)))
+                        for j, e in enumerate(ids.tolist()))
+                    repeat = bool(torch.equal(got, again))
+                    row = {"kind": kind, "matrix": name, "K": K, "O": O, "T": T,
+                           "n_sel": n_sel, "max_abs_err": err, "tol": tol,
+                           "view_bit_equal": views, "repeat_bit_equal": repeat}
+                    nxt = itertools.count()
+                    row["ms"] = time_ms(torch, lambda: stacked_launch(
+                        qmatmul, kind, xin, stack, id_sets[next(nxt) % E], E, E))
+                    b, by = bound_ms(n_sel * per_plane + xin.numel() * 2 + n_sel * T * O * 4,
+                                     2.0 * n_sel * T * K * O, BF16_FLOPS)
+                    row["bound_ms"], row["bound_by"] = b, by
+                    extra = ""
+                    if T == 1:
+                        wd = torch.stack([dequant_bf16(torch, kind, [p[E + e] for p in stack])
+                                          for e in ids.tolist()])
+                        copies = [wd] + [wd.clone() for _ in range(
+                            math.ceil(200e6 / (wd.numel() * 2)) - 1)]
+                        nw = rotating(copies)
+                        row["library_ms"] = time_ms(torch, lambda: torch.matmul(xin, nw()))
+                        del wd, copies
+                        row["plain_ms"] = time_ms(torch, lambda: stacked_launch(
+                            qmatmul, kind, xin, stack, ids, E, E, plain=True), 5)
+                        extra = (f"; plain {row['plain_ms']:.3f} ms, bf16 torch.matmul "
+                                 f"{row['library_ms']:.4f} ms")
+                    log(f"  {kind} indexed GEMV {name:14s} {K:5d}->{O:5d} T={T} n_sel={n_sel}: "
+                        f"err {err:.3e} (tol {tol:.3e}), views bit-equal {views}, repeat "
+                        f"{repeat}; {row['ms']:.4f} ms (bound {b:.4f}, "
+                        f"{b / row['ms']:.2f} of it){extra}")
+                    if not (err <= tol and views and repeat):
+                        fail(f"{kind} indexed GEMV {name} T={T} n_sel={n_sel}: err {err} > "
+                             f"{tol}, views bit-equal {views} or repeat {repeat}")
+                    rows.append(row)
+            del stack
+            torch.cuda.empty_cache()
+    return rows
+
+
+def moe_bound(cfg, params) -> tuple:
+    """(bytes a decode token must read, ms at 3.35 TB/s): the attention
+    planes, ``k`` experts' up|gate and down planes per layer, and wcls."""
+    from dllama_tpu_torch.ops.qmatmul import QuantTensor
+
+    lay = params["layers"]
+    n = plane_bytes([params["wcls"].w, params["wcls"].s, params["wcls"].s2])
+    for name in ("wqkv", "wo"):
+        n += plane_bytes([lay[name].w, lay[name].s, lay[name].s2])
+    for name in ("moe_upgate", "moe_down"):
+        qt = lay[name]
+        assert isinstance(qt, QuantTensor)
+        n += plane_bytes([qt.w, qt.s, qt.s2]) * cfg.n_active_experts // cfg.n_experts
+    return n, n / HBM_BYTES_PER_S * 1e3
+
+
+def phase7_model(torch, dev, what: str, cfg_kw: dict, kind: str, batches: tuple,
+                 steps: int = 32) -> dict:
+    """A MoE model of ``cfg_kw`` with random ``kind`` params made on the
+    card (expert stacks filled a layer at a time), one graphed and one eager
+    engine on them. Gates: a 100-token prefill, finite; the first decode
+    step within phase 2's tolerance of the plain versions (and the same
+    argmax); the first graphed step's logits and cache ([:S - 1]) bit-equal
+    to eager ``forward``; ``steps`` + 1 greedy tokens of graphed
+    ``generate`` = eager, the run counting the expert-indexed launches; a
+    graphed chunk with no host sync; and graphed ``generate_batch`` rows at
+    each B = eager rows. Logged: ms per token eager and graphed, the
+    profiler's device busy, idle share and kernels per graphed token, the
+    bound (``moe_bound``), tokens/s per B."""
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    cfg = ModelConfig(**cfg_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = llama.random_quant_params(cfg, dev, torch.Generator(device=dev).manual_seed(0), kind)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    q_bytes, bound = moe_bound(cfg, params)
+    greedy = SamplerConfig(temperature=0.0, seed=0)
+    graphed = Engine(cfg, params, greedy, cache_dtype=torch.bfloat16, device=dev)
+    eager = Engine(cfg, graphed.params, greedy, cache_dtype=torch.bfloat16, device=dev,
+                   cuda_graphs=False)
+    out = {"what": what, "kind": kind, "build_s": build_s,
+           "peak_gb_after_build": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "bytes_per_token": q_bytes, "bound_ms": bound}
+    log(f"  {what}: random {kind.upper()} params built on the card in {build_s:.2f} s; peak "
+        f"memory {out['peak_gb_after_build']:.2f} GB; a decode token reads {q_bytes / 1e9:.3f} "
+        f"GB (attention, {cfg.n_active_experts} of {cfg.n_experts} experts a layer, wcls): "
+        f"bound {bound:.3f} ms at 3.35 TB/s")
+    prompt = torch.randint(0, cfg.vocab_size, (100,),
+                           generator=torch.Generator().manual_seed(1)).tolist()
+    S = cfg.seq_len
+
+    cache = eager.new_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = eager.prefill(cache, prompt)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    if last.shape != (cfg.vocab_size,) or not bool(torch.isfinite(last).all()):
+        fail(f"{what} prefill logits: shape {tuple(last.shape)}, finite "
+             f"{bool(torch.isfinite(last).all())}")
+    log(f"  prefill of {len(prompt)} tokens (bucket 128, every expert through the tile): "
+        f"{out['prefill_ms']:.1f} ms, logits finite")
+    nxt = torch.argmax(last).reshape(1)
+    pos = len(prompt)
+    snap = {n: c.clone() for n, c in cache.items()}
+    le, _ = llama.forward(cfg, eager.params, eager.rope, nxt, cache, pos)
+    with plain_versions():
+        lr, _ = llama.forward(cfg, eager.params, eager.rope, nxt,
+                              {n: c.clone() for n, c in snap.items()}, pos)
+    err = (le - lr).abs().max().item()
+    tol = 5e-2 * lr.abs().max().item()
+    log(f"  decode step vs plain versions: max |dlogit| {err:.4e} (tol 5e-2*max|logit| = "
+        f"{tol:.4e}), argmax {int(le.argmax())} vs {int(lr.argmax())}")
+    if not (bool(torch.isfinite(le).all()) and err <= tol
+            and int(le.argmax()) == int(lr.argmax())):
+        fail(f"{what} decode step vs plain versions: {err} > {tol} or argmax differs")
+    out["decode_vs_plain_max_abs_err"] = err
+    del lr
+
+    # the first graphed step against eager forward at T = 1
+    g = graphed.step_graph(snap, False, graphed.decode_chunk)
+    g.load(nxt, pos)
+    g.run(1)
+    torch.cuda.synchronize()
+    a_equal = bool(torch.equal(g.logits, le))
+    cache_equal = all(torch.equal(snap[n][:, :S - 1], cache[n][:, :S - 1]) for n in ("k", "v"))
+    want = {f"{kind}_matmul": 2 * cfg.n_layers + 1, f"{kind}_matmul_stacked": 2 * cfg.n_layers,
+            "flash_decode_batched": cfg.n_layers, "rope_cache_update_batched": cfg.n_layers}
+    log(f"  first graphed step vs eager forward: logits bit-equal {a_equal}, cache bit-equal "
+        f"{cache_equal}; a replay launches {g.counts} (want {want})")
+    if not (a_equal and cache_equal and g.counts == want):
+        fail(f"{what} graphed step: logits {a_equal}, cache {cache_equal}, counts {g.counts}")
+    del g, snap, cache, le
+    torch.cuda.empty_cache()
+
+    def stream(engine, n):
+        toks, ms = [], []
+        for tok, st in engine.generate(prompt, n):
+            toks.append(tok)
+            ms.append(st.generation_ms)
+        return toks, ms[1:]
+
+    stream(graphed, 2)  # the resident cache's graph, captured
+    kernels.reset_launches()
+    tg, ms_g = stream(graphed, steps + 1)
+    launches = {k: v for k, v in kernels.launches.items() if v}
+    te, ms_e = stream(eager, steps + 1)
+    log(f"  {steps + 1} greedy tokens, graphed == eager: {tg == te}; ms per token graphed "
+        f"{statistics.median(ms_g):.3f} (min {min(ms_g):.3f}), eager "
+        f"{statistics.median(ms_e):.3f}; bound {bound:.3f}; the graphed run's launches "
+        f"(prefill + {steps} replays): {launches}")
+    if tg != te:
+        fail(f"{what} graphed tokens {tg} != eager {te}")
+    for k in (f"{kind}_matmul", f"{kind}_matmul_stacked", "flash_decode_batched",
+              "rope_cache_update_batched"):
+        if launches.get(k, 0) < steps * want[k]:
+            fail(f"{what}: the graphed run launched {k} {launches.get(k, 0)} times")
+    out.update(tokens_equal=True, ms_per_token_graphed=statistics.median(ms_g),
+               ms_per_token_eager=statistics.median(ms_e), ms_graphed=ms_g, ms_eager=ms_e,
+               launches=launches)
+
+    # device time of graphed tokens, and a chunk with no host sync
+    sess = graphed.final_session
+    tok = torch.tensor(sess.pending_token, device=dev)
+
+    def chunk():
+        graphed._decode_chunk_solo(sess.cache, tok, sess.pos, 8, greedy, None)
+        return 8
+
+    r = graph_window(torch, chunk)
+    log_window(r, "graphed token")
+    out["graphed_token_profile"] = r
+    fg = graphed.step_graph(sess.cache, False, graphed.decode_chunk)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fg.load(tok, sess.pos)
+        fg.run(8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("  a graphed chunk of 8 replays under sync debug 'error': no host sync")
+    del fg, sess
+    graphed.final_session = eager.final_session = None
+    torch.cuda.empty_cache()
+
+    prompts = batch_prompts(cfg, max(batches or (1,)), 2)
+    for B in batches:
+        rows = {}
+        for name, engine in (("eager", eager), ("graphed", graphed)):
+            t0 = time.perf_counter()
+            rows[name] = engine.generate_batch(prompts[:B], 16)
+            rows[name + "_decode_ms"] = engine.decode_ms
+            rows[name + "_s"] = time.perf_counter() - t0
+        same = rows["graphed"] == rows["eager"]
+        tps = {n: B * 16 * 1e3 / rows[n + "_decode_ms"] for n in ("graphed", "eager")}
+        log(f"  generate_batch B={B} ({'selected' if B * cfg.n_active_experts < cfg.n_experts else 'dense combine'}): "
+            f"graphed rows == eager: {same}; decode tokens/s graphed {tps['graphed']:.1f}, "
+            f"eager {tps['eager']:.1f}")
+        if not same:
+            fail(f"{what} graphed generate_batch B={B} differs from eager")
+        out[f"B{B}"] = {"bit_equal": True, "tokens_per_s_graphed": tps["graphed"],
+                        "tokens_per_s_eager": tps["eager"]}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del graphed, eager, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def indexed_entry(kind: str, rows: list, launches: int) -> dict:
+    """The summary entry of ``kind``'s expert-indexed GEMV: numbers for one
+    Mixtral decode token's launches (32 x up|gate and down, T = 1, n_sel =
+    2), ``launches`` from phase 7's main-path run."""
+    mine = [r for r in rows if r["kind"] == kind]
+    tok = [r for r in mine if r["T"] == 1 and r["n_sel"] == 2
+           and r["matrix"].startswith("mixtral")]
+
+    def per_tok(key):
+        return 32 * sum(r[key] for r in tok)
+
+    return {"name": f"{kind}_matmul_stacked", "route": "cuda",
+            "source": f"dllama_tpu_torch/csrc/{kind}_matmul.cu",
+            "replaces": ("dllama_tpu/ops/qmatmul.py:573 (q40_matmul_stacked, pallas_call :625) "
+                         "-> :361 (_q40_kernel) + :412 (_q40_corr_kernel)" if kind == "q40" else
+                         "dllama_tpu/ops/qmatmul.py:293 (q80_matmul_stacked, pallas_call :344) "
+                         "-> :179 (_q80_kernel)"),
+            "tpu_kernels": ["K1", "K2"] if kind == "q40" else ["K3"],
+            "entry": f"dllama_{kind}_gemv_indexed ({kind}_gemv_kernel, indexed)",
+            "launches": launches, "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": per_tok("ms"), "plain_ms": per_tok("plain_ms"), "bound_ms": per_tok("bound_ms"),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in tok)
+                         else "operations"),
+            "library_ms": per_tok("library_ms"),
+            "per_launch_ms": {f"{r['matrix']}@T{r['T']}x{r['n_sel']}": r["ms"] for r in mine},
+            "per": ("one Mixtral decode token: 32 x (up|gate K 4096 -> O 28672, down K 14336 -> "
+                    "O 4096), T=1, 2 experts a launch; launches: phase 7b's graphed run" if
+                    kind == "q40" else
+                    "one Mixtral decode token: 32 x (up|gate, down), T=1, 2 experts a launch; "
+                    "launches: phase 7d's graphed run (8 layers)")}
+
+
 def per_token(rows: list, key: str) -> float:
     """A per-launch number summed over one decode token's launches."""
     return sum(r[key] * r["launches_per_token"] for r in rows)
@@ -2255,6 +2589,20 @@ def main() -> None:
     graphs = phase6(torch, dev, "q40", (1, 4, 8), sampled=True, mixed=True)
     header("phase 6: CUDA-graphed decode, Llama-3-8B shape, random Q80, solo and B = 8")
     graphs80 = phase6(torch, dev, "q80", (8,), sampled=True, mixed=False)
+
+    header("phase 7a: K1's and K3's expert-indexed GEMVs at the Mixtral and Grok-1 expert "
+           "widths")
+    log(f"  card memory allocated before phase 7: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+    moe_k = phase7a(torch, dev, gen)
+    header("phase 7b: Mixtral-8x7B shape, random Q40, 100 + 32 tokens, graphed and eager, "
+           "B = 2 and 8")
+    mix = phase7_model(torch, dev, "Mixtral-8x7B", MIXTRAL_8X7B, "q40", (2, 8))
+    header("phase 7c: Grok-1 at full width, 4 of its 64 layers, random Q40, 100 + 32 tokens")
+    grok = phase7_model(torch, dev, "Grok-1 (4 layers)", GROK1_CUT, "q40", ())
+    header("phase 7d: Mixtral-8x7B shape at 8 of its 32 layers, random Q80, 100 + 8 tokens")
+    mix80 = phase7_model(torch, dev, "Mixtral-8x7B Q80 (8 layers)",
+                         {**MIXTRAL_8X7B, "n_layers": 8}, "q80", (), steps=8)
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
@@ -2376,6 +2724,8 @@ def main() -> None:
         variant_entry("q40_int8_matmul", "dllama_tpu_torch/csrc/q40_int8_matmul.cu",
                       "scripts/qkernel_experiments.py:138 (_q40_int8_kernel)", ["K7"],
                       "dllama_q40_int8_matmul (q40_int8_kernel)"),
+        indexed_entry("q40", moe_k, mix["launches"]["q40_matmul_stacked"]),
+        indexed_entry("q80", moe_k, mix80["launches"]["q80_matmul_stacked"]),
     ]}
     # phase 6's graphed solo run (prefill, the graph's warm-up step, 32
     # replays): the kernels a replay launches
@@ -2390,7 +2740,8 @@ def main() -> None:
                "rope_cache_batched": rope_b, "rope_cache_verify": rope_v, "e2e": e2e,
                "e2e_q80": e2e80, "batch_q40": batch, "batch_q80": batch80, "spec": spec,
                "graphs_q40": graphs, "graphs_q80": graphs80, "k4_bound_S": k4_fixed,
-               "experiments": exp, "cli": cli, "summary": summary,
+               "experiments": exp, "cli": cli, "moe_indexed": moe_k, "mixtral_q40": mix,
+               "grok1_q40": grok, "mixtral_q80": mix80, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernels dllama_tpu/ops/qmatmul.py::_q40_kernel (K1, the
 // dequant-matmul, with its fused-rmsnorm epilogue) and ::_q40_corr_kernel
-// (K2, the nosub correction), with the layer-stacked launchers reduced to a
-// pointer offset (the caller passes the view w[layer]); and, as a launch
+// (K2, the nosub correction), with the stacked launchers reduced to a
+// pointer offset where the index is a host number (the caller passes the
+// view w[layer]) and to the expert-indexed form below where it lies in
+// device memory; and, as a launch
 // mode, scripts/qkernel_experiments.py::_q40_nosub_kernel (K6: the nosub
 // dot with no correction at all, which the experiment applies outside).
 //
@@ -76,6 +78,17 @@
 // Prefill (T > 8): the tensor-core tile of dq_tile.cuh with the Q40 front
 // end (nibble dequant; the nosub correction added per superblock from the
 // staged block sums and scales), dllama_q40_tile below.
+//
+// Expert-indexed decode (dllama_q40_gemv_indexed): the GEMV over n_sel
+// planes of a stack [N, K/2, O] (a mixture-of-experts layer's experts)
+// whose indices ids[j] lie in device memory — the port of the JAX
+// package's q40_matmul_stacked, which takes a traced plane index through
+// scalar prefetch. A third grid axis runs over j, where the TPU scans: each
+// block reads ids[j] once and offsets its plane, activation, output,
+// partial and counter pointers; the arithmetic, split plan and split-K sum
+// are the GEMV's own, so output j is bit for bit the launch on the view
+// w[base + ids[j]]. An id outside [0, n_ids) reads nothing and gives NaN
+// in output j.
 #include "common.cuh"
 #include "dq_tile.cuh"
 
@@ -233,17 +246,39 @@ constexpr size_t gemv_smem_words(int T, int rows) {
 }
 
 // kRows warps take interleaved chunks of one 128-column strip: kRowWarps
-// (K1's blocks of 256 columns), or 1 (K6's wide blocks of 1024)
-template <typename XT, bool kVec, int kRows>
+// (K1's blocks of 256 columns), or 1 (K6's wide blocks of 1024). kIndexed:
+// the expert-indexed form, plane base + ids[blockIdx.z] of the stack (see
+// the file's head); otherwise ids and the strides are unused.
+template <typename XT, bool kVec, int kRows, bool kIndexed>
 __global__ void __launch_bounds__(kThreads, 2)
 q40_gemv_kernel(const XT* __restrict__ x, int T, int K, const uint8_t* __restrict__ w,
                 const float* __restrict__ s_lo, const float* __restrict__ s_hi, int O,
                 int rows_per_split, int mode, const float* __restrict__ inv,
                 const float* __restrict__ nw, float* __restrict__ partials,
-                int* __restrict__ counters, float* __restrict__ out) {
+                int* __restrict__ counters, float* __restrict__ out,
+                const int* __restrict__ ids, int base, int n_ids, size_t w_stride,
+                size_t s_stride, size_t x_stride) {
   constexpr int kBlockCols = kWarpCols * (kWarps / kRows);
   extern __shared__ __align__(16) float gsm[];
   const int block = blockIdx.x, split = blockIdx.y, ksplit = gridDim.y;
+  if (kIndexed) {
+    const int j = blockIdx.z, e = ids[j];
+    out += (size_t)j * T * O;
+    if (e < 0 || e >= n_ids) {  // no such expert: read nothing, output j is NaN
+      for (int i = threadIdx.x; i < T * kBlockCols; i += kThreads) {
+        const int o = block * kBlockCols + i % kBlockCols;
+        if (o < O) out[(size_t)(i / kBlockCols) * O + o] = __int_as_float(0x7fc00000);
+      }
+      return;
+    }
+    const size_t plane = (size_t)base + e;
+    w += plane * w_stride;
+    s_lo += plane * s_stride;
+    s_hi += plane * s_stride;
+    x += j * x_stride;
+    partials += (size_t)j * ksplit * T * O;
+    counters += j * gridDim.x;
+  }
   const int k0 = split * rows_per_split;  // logical rows, a multiple of 64
   const int nprow = min(rows_per_split, K - k0) / 2;
   const int xstride = rows_per_split / 2 + 4;
@@ -370,26 +405,30 @@ struct GemvArgs {
   float* partials;
   int* counters;
   float* out;
+  // the expert-indexed form's: n_sel planes base + ids[j] of n_ids
+  const int* ids = nullptr;
+  int base = 0, n_ids = 0, n_sel = 1;
+  size_t w_stride = 0, s_stride = 0, x_stride = 0;
 };
 
-template <typename XT, bool kVec, int kRows>
+template <typename XT, bool kVec, int kRows, bool kIndexed>
 int launch_gemv(int ksplit, cudaStream_t st, const XT* x, const GemvArgs& a) {
   constexpr int kBlockCols = kWarpCols * (kWarps / kRows);
-  auto kernel = q40_gemv_kernel<XT, kVec, kRows>;
+  auto kernel = q40_gemv_kernel<XT, kVec, kRows, kIndexed>;
   const size_t smem = sizeof(float) * gemv_smem_words(a.T, a.rows_per_split);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((a.O + kBlockCols - 1) / kBlockCols, ksplit), kThreads, smem, st>>>(
+  kernel<<<dim3((a.O + kBlockCols - 1) / kBlockCols, ksplit, a.n_sel), kThreads, smem, st>>>(
       x, a.T, a.K, a.w, a.s_lo, a.s_hi, a.O, a.rows_per_split, a.mode, a.inv, a.nw, a.partials,
-      a.counters, a.out);
+      a.counters, a.out, a.ids, a.base, a.n_ids, a.w_stride, a.s_stride, a.x_stride);
   return 0;
 }
 
-template <typename XT, int kRows>
+template <typename XT, int kRows, bool kIndexed = false>
 int launch_gemv_vec(bool vec, int ksplit, cudaStream_t st, const XT* x, const GemvArgs& a) {
-  return vec ? launch_gemv<XT, true, kRows>(ksplit, st, x, a)
-             : launch_gemv<XT, false, kRows>(ksplit, st, x, a);
+  return vec ? launch_gemv<XT, true, kRows, kIndexed>(ksplit, st, x, a)
+             : launch_gemv<XT, false, kRows, kIndexed>(ksplit, st, x, a);
 }
 
 // resident blocks per SM of one instance for T rows at its largest shared
@@ -397,7 +436,7 @@ int launch_gemv_vec(bool vec, int ksplit, cudaStream_t st, const XT* x, const Ge
 template <typename XT, int kRows>
 int gemv_occupancy(int T) {
   const size_t smem = sizeof(float) * gemv_smem_words(T, 16384 / T);
-  auto kernel = q40_gemv_kernel<XT, true, kRows>;
+  auto kernel = q40_gemv_kernel<XT, true, kRows, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
@@ -458,6 +497,48 @@ extern "C" int dllama_q40_gemv(const void* x, int x_f32, int T, int K, const voi
   else
     rc = launch_gemv_vec<__nv_bfloat16, kRowWarps>(vec, ksplit, st,
                                                    static_cast<const __nv_bfloat16*>(x), a);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1 (+K2), the expert-indexed decode GEMV, 1 <= T <= 8: out[j] = x_j @
+// dequant(plane base + ids[j]) for j < n_sel. x: bf16 [n_sel, T, K] at
+// x_stride elements per j (0: one x for every j); w: uint8 [N, K/2, O],
+// s_lo, s_hi: f32 [N, K/64, O], at w_stride bytes and s_stride floats per
+// plane; ids: int32 [n_sel] in device memory, each in [0, n_ids) (else
+// output j is NaN), base + n_ids <= N; mode as for dllama_q40_gemv (0 or
+// 1); ksplit and rows_per_split from ops/qmatmul.py q40_plan for one
+// plane; partials: f32 [n_sel, ksplit, T, O] (unused when ksplit == 1);
+// counters: int32 [>= n_sel * the column blocks], zero, left zero; out:
+// f32 [n_sel, T, O].
+extern "C" int dllama_q40_gemv_indexed(const void* x, long long x_stride, int T, int K,
+                                       const void* w, const void* s_lo, const void* s_hi, int O,
+                                       long long w_stride, long long s_stride, const void* ids,
+                                       int base, int n_ids, int n_sel, int mode, int ksplit,
+                                       int rows_per_split, void* partials, void* counters,
+                                       void* out, void* stream) {
+  const int tt = T > 4 ? 8 : T > 2 ? 4 : T;
+  if (T < 1 || T > kMaxT || rows_per_split % 64 || mode < kSub || mode > kNosubCorrect ||
+      (size_t)tt * rows_per_split > 16384 || n_sel < 1 || n_sel > 65535 || n_ids < 1 ||
+      base < 0 || x_stride < 0 || w_stride < 0 || s_stride < 0 || ids == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = (O % kLaneCols) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(w) | (uintptr_t)w_stride) % 16) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(s_lo) | reinterpret_cast<uintptr_t>(s_hi) |
+                     (uintptr_t)(4 * s_stride)) % 16) == 0;
+  GemvArgs a{T, K, O, rows_per_split, mode, static_cast<const uint8_t*>(w),
+             static_cast<const float*>(s_lo), static_cast<const float*>(s_hi), nullptr, nullptr,
+             static_cast<float*>(partials), static_cast<int*>(counters),
+             static_cast<float*>(out)};
+  a.ids = static_cast<const int*>(ids);
+  a.base = base;
+  a.n_ids = n_ids;
+  a.n_sel = n_sel;
+  a.w_stride = (size_t)w_stride;
+  a.s_stride = (size_t)s_stride;
+  a.x_stride = (size_t)x_stride;
+  const int rc = launch_gemv_vec<__nv_bfloat16, kRowWarps, true>(
+      vec, ksplit, static_cast<cudaStream_t>(stream), static_cast<const __nv_bfloat16*>(x), a);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

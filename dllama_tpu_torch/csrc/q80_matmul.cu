@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel dllama_tpu/ops/qmatmul.py::_q80_kernel (K3, via
 // q80_matmul and q80_matmul_stacked, with its fused-rmsnorm epilogue); the
-// layer-stacked launcher is a pointer offset (the caller passes w[layer]).
+// stacked launcher is a pointer offset where the index is a host number
+// (the caller passes w[layer]) and the expert-indexed form below where it
+// lies in device memory.
 //
 // Function: out[t, o] (f32) = sum_k bf16(x[t, k]) * bf16(f32(w[k, o]) *
 // delta[k / 32, o]), accumulated in f32. w is int8 [K, O] (O contiguous),
@@ -39,6 +41,14 @@
 //
 // Prefill (T > 8): the tensor-core tile of dq_tile.cuh with the Q80 front
 // end (int8 * delta to bf16), dllama_q80_tile below.
+//
+// Expert-indexed decode (dllama_q80_gemv_indexed): the GEMV over n_sel
+// planes of a stack [N, K, O] whose indices ids[j] lie in device memory —
+// the port of q80_matmul_stacked's traced plane index. A third grid axis
+// runs over j; each block reads ids[j] once and offsets its pointers, and
+// the arithmetic, split plan and split-K sum are the GEMV's own, so output
+// j is bit for bit the launch on the view w[base + ids[j]]. An id outside
+// [0, n_ids) reads nothing and gives NaN in output j.
 #include "common.cuh"
 #include "dq_tile.cuh"
 
@@ -121,15 +131,35 @@ __device__ __forceinline__ void gemv_fma(const float* xs, int xstride, int r,
   }
 }
 
-template <typename XT, int TT, bool kVec>
+// kIndexed: the expert-indexed form, plane base + ids[blockIdx.z] of the
+// stack (see the file's head); otherwise ids and the strides are unused.
+template <typename XT, int TT, bool kVec, bool kIndexed>
 __global__ void __launch_bounds__(kGemvThreads, TT == 1 ? 2 : 1)
 q80_gemv_kernel(const XT* __restrict__ x, int T, int K, const int8_t* __restrict__ w,
                 const float* __restrict__ s, int O, int rows_per_split,
                 const float* __restrict__ inv, const float* __restrict__ nw,
                 float* __restrict__ partials, int* __restrict__ counters,
-                float* __restrict__ out) {
+                float* __restrict__ out, const int* __restrict__ ids, int base, int n_ids,
+                size_t w_stride, size_t s_stride, size_t x_stride) {
   extern __shared__ __align__(16) float gsm[];
   const int tile = blockIdx.x, split = blockIdx.y, ksplit = gridDim.y;
+  if (kIndexed) {
+    const int j = blockIdx.z, e = ids[j];
+    out += (size_t)j * T * O;
+    if (e < 0 || e >= n_ids) {  // no such expert: read nothing, output j is NaN
+      for (int i = threadIdx.x; i < T * kGemvTileCols; i += kGemvThreads) {
+        const int o = tile * kGemvTileCols + i % kGemvTileCols;
+        if (o < O) out[(size_t)(i / kGemvTileCols) * O + o] = __int_as_float(0x7fc00000);
+      }
+      return;
+    }
+    const size_t plane = (size_t)base + e;
+    w += plane * w_stride;
+    s += plane * s_stride;
+    x += j * x_stride;
+    partials += (size_t)j * ksplit * T * O;
+    counters += j * gridDim.x;
+  }
   const int k0 = split * rows_per_split;
   const int nrows = min(rows_per_split, K - k0);
   float* xs = gsm;                            // [TT, rows_per_split]
@@ -217,34 +247,39 @@ struct GemvArgs {
   float* partials;
   int* counters;
   float* out;
+  // the expert-indexed form's: planes base + ids[j] of n_ids
+  const int* ids = nullptr;
+  int base = 0, n_ids = 0;
+  size_t w_stride = 0, s_stride = 0, x_stride = 0;
 };
 
-template <typename XT, int TT, bool kVec>
+template <typename XT, int TT, bool kVec, bool kIndexed>
 int launch_gemv(dim3 grid, size_t smem, cudaStream_t st, const XT* x, const GemvArgs& a) {
-  cudaError_t err = cudaFuncSetAttribute(q80_gemv_kernel<XT, TT, kVec>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = q80_gemv_kernel<XT, TT, kVec, kIndexed>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  q80_gemv_kernel<XT, TT, kVec><<<grid, kGemvThreads, smem, st>>>(
-      x, a.T, a.K, a.w, a.s, a.O, a.rows_per_split, a.inv, a.nw, a.partials, a.counters,
-      a.out);
+  kernel<<<grid, kGemvThreads, smem, st>>>(x, a.T, a.K, a.w, a.s, a.O, a.rows_per_split, a.inv,
+                                           a.nw, a.partials, a.counters, a.out, a.ids, a.base,
+                                           a.n_ids, a.w_stride, a.s_stride, a.x_stride);
   return 0;
 }
 
-template <typename XT, int TT>
+template <typename XT, int TT, bool kIndexed>
 int launch_gemv_vec(bool vec, dim3 grid, size_t smem, cudaStream_t st, const XT* x,
                     const GemvArgs& a) {
-  return vec ? launch_gemv<XT, TT, true>(grid, smem, st, x, a)
-             : launch_gemv<XT, TT, false>(grid, smem, st, x, a);
+  return vec ? launch_gemv<XT, TT, true, kIndexed>(grid, smem, st, x, a)
+             : launch_gemv<XT, TT, false, kIndexed>(grid, smem, st, x, a);
 }
 
-template <typename XT>
+template <typename XT, bool kIndexed = false>
 int launch_gemv_tt(int tt, bool vec, dim3 grid, size_t smem, cudaStream_t st, const XT* x,
                    const GemvArgs& a) {
   switch (tt) {
-    case 1: return launch_gemv_vec<XT, 1>(vec, grid, smem, st, x, a);
-    case 2: return launch_gemv_vec<XT, 2>(vec, grid, smem, st, x, a);
-    case 4: return launch_gemv_vec<XT, 4>(vec, grid, smem, st, x, a);
-    default: return launch_gemv_vec<XT, 8>(vec, grid, smem, st, x, a);
+    case 1: return launch_gemv_vec<XT, 1, kIndexed>(vec, grid, smem, st, x, a);
+    case 2: return launch_gemv_vec<XT, 2, kIndexed>(vec, grid, smem, st, x, a);
+    case 4: return launch_gemv_vec<XT, 4, kIndexed>(vec, grid, smem, st, x, a);
+    default: return launch_gemv_vec<XT, 8, kIndexed>(vec, grid, smem, st, x, a);
   }
 }
 
@@ -252,7 +287,7 @@ int launch_gemv_tt(int tt, bool vec, dim3 grid, size_t smem, cudaStream_t st, co
 template <typename XT, int TT>
 int gemv_occupancy() {
   const size_t smem = sizeof(float) * (16384 + kGemvWarps * kGemvTileCols);
-  auto kernel = q80_gemv_kernel<XT, TT, true>;
+  auto kernel = q80_gemv_kernel<XT, TT, true, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int n = 0;
@@ -300,6 +335,46 @@ extern "C" int dllama_q80_gemv(const void* x, int x_f32, int T, int K, const voi
                                                static_cast<const float*>(x), a)
                        : launch_gemv_tt<__nv_bfloat16>(tt, vec, grid, smem, st,
                                                        static_cast<const __nv_bfloat16*>(x), a);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3, the expert-indexed decode GEMV, 1 <= T <= 8: out[j] = x_j @
+// dequant(plane base + ids[j]) for j < n_sel. x: bf16 [n_sel, T, K] at
+// x_stride elements per j (0: one x for every j); w: int8 [N, K, O],
+// scales: f32 [N, K/32, O], at w_stride bytes and s_stride floats per
+// plane; ids: int32 [n_sel] in device memory, each in [0, n_ids) (else
+// output j is NaN), base + n_ids <= N; ksplit and rows_per_split from
+// ops/qmatmul.py q80_plan for one plane; partials: f32 [n_sel, ksplit, T,
+// O] (unused when ksplit == 1); counters: int32 [>= n_sel * ceil(O /
+// 512)], zero, left zero; out: f32 [n_sel, T, O].
+extern "C" int dllama_q80_gemv_indexed(const void* x, long long x_stride, int T, int K,
+                                       const void* w, const void* scales, int O,
+                                       long long w_stride, long long s_stride, const void* ids,
+                                       int base, int n_ids, int n_sel, int ksplit,
+                                       int rows_per_split, void* partials, void* counters,
+                                       void* out, void* stream) {
+  if (T < 1 || T > 8 || rows_per_split % 64 || n_sel < 1 || n_sel > 65535 || n_ids < 1 ||
+      base < 0 || x_stride < 0 || w_stride < 0 || s_stride < 0 || ids == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tt = T > 4 ? 8 : T > 2 ? 4 : T;
+  const bool vec = (O % kGemvCols) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(w) | (uintptr_t)w_stride) % 16) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(scales) | (uintptr_t)(4 * s_stride)) % 16) == 0;
+  const dim3 grid((O + kGemvTileCols - 1) / kGemvTileCols, ksplit, n_sel);
+  const size_t smem = sizeof(float) * ((size_t)tt * rows_per_split + kGemvWarps * kGemvTileCols);
+  GemvArgs a{T, K, O, rows_per_split, static_cast<const int8_t*>(w),
+             static_cast<const float*>(scales), nullptr, nullptr, static_cast<float*>(partials),
+             static_cast<int*>(counters), static_cast<float*>(out)};
+  a.ids = static_cast<const int*>(ids);
+  a.base = base;
+  a.n_ids = n_ids;
+  a.w_stride = (size_t)w_stride;
+  a.s_stride = (size_t)s_stride;
+  a.x_stride = (size_t)x_stride;
+  const int rc = launch_gemv_tt<__nv_bfloat16, true>(tt, vec, grid, smem,
+                                                     static_cast<cudaStream_t>(stream),
+                                                     static_cast<const __nv_bfloat16*>(x), a);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

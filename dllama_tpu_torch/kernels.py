@@ -16,7 +16,8 @@ entry in :data:`launches` where it launches its kernel, and nowhere else, so a
 run can show which kernels the main path went through.
 
 Kernels that split work across blocks and merge it in the last block to
-arrive — the Q40 and Q80 decode GEMVs (K1, K3, K6) and flash decode (K4) —
+arrive — the Q40 and Q80 decode GEMVs (K1, K3, K6, and their
+expert-indexed forms, a run of counters per expert) and flash decode (K4) —
 share one buffer of arrival counters per device (:func:`counters`):
 it starts zeroed, each such kernel leaves every counter it used at 0 again,
 and so launches that use it must not overlap — the port issues them on one
@@ -46,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
-launches = {"q40_matmul": 0, "q80_matmul": 0, "flash_decode": 0, "rope_cache_update": 0,
+launches = {"q40_matmul": 0, "q80_matmul": 0, "q40_matmul_stacked": 0,
+            "q80_matmul_stacked": 0, "flash_decode": 0, "rope_cache_update": 0,
             "flash_decode_batched": 0, "rope_cache_update_batched": 0,
             "rope_cache_update_verify": 0,
             "q40_nosub_matmul": 0, "q40_int8_matmul": 0}
@@ -62,6 +64,10 @@ _SIGNATURES = {
     # partials, counters, out, stream
     "dllama_q40_gemv": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P,
                         _P),
+    # x, x_stride, T, K, w, s_lo, s_hi, O, w_stride, s_stride, ids, base, n_ids, n_sel,
+    # mode, ksplit, rows_per_split, partials, counters, out, stream
+    "dllama_q40_gemv_indexed": (_P, _L, _I, _I, _P, _P, _P, _I, _L, _L, _P, _I, _I, _I, _I,
+                                _I, _I, _P, _P, _P, _P),
     # T, wide -> resident Q40 GEMV blocks per SM
     "dllama_q40_gemv_blocks_per_sm": (_I, _I),
     # x, x_f32, T, K, w, s_lo, s_hi, O, mode, inv, norm_w, ksplit, sb_per_split,
@@ -77,6 +83,10 @@ _SIGNATURES = {
     # x, x_f32, T, K, w, scales, O, inv, norm_w, ksplit, rows_per_split, partials,
     # counters, out, stream
     "dllama_q80_gemv": (_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P),
+    # x, x_stride, T, K, w, scales, O, w_stride, s_stride, ids, base, n_ids, n_sel, ksplit,
+    # rows_per_split, partials, counters, out, stream
+    "dllama_q80_gemv_indexed": (_P, _L, _I, _I, _P, _P, _I, _L, _L, _P, _I, _I, _I, _I, _I,
+                                _P, _P, _P, _P),
     # T, x_f32 -> resident GEMV blocks per SM
     "dllama_q80_gemv_blocks_per_sm": (_I, _I),
     # q, k_cache, v_cache, out, B, T, H, hd, S, kv, pos_dev, pos, layer, scale, act_kind,

@@ -1,4 +1,5 @@
-"""Dense Llama-family transformer — the solo forward pass.
+"""Llama-family transformer — dense Llama and the mixture-of-experts archs
+Mixtral and Grok-1 — the solo, batched and verify forward passes.
 
 The JAX package scans a jitted layer step over stacked parameters; here the
 forward is a Python loop over a layer index, with stacked parameter leaves
@@ -11,6 +12,8 @@ Math parity notes:
 * rmsnorm eps semantics: `distributed-llama/src/funcs.cpp:94-123`.
 * attention: `distributed-llama/src/llama2-tasks.cpp:54-94` (see ops.attention).
 * SwiGLU: ``w2( act(w1 x) * (w3 x) )`` — `distributed-llama/src/llama2-tasks.cpp:158-189`.
+* MoE FFN (mixtral, grok1): ``models.moe`` — its expert stacks are ``[L,
+  E, ...]`` leaves, each layer's ``[E, ...]`` view handed to ``moe_ffn``.
 * logits: final rmsnorm then ``wcls`` matmul — `distributed-llama/src/llama2-tasks.cpp:222-241`.
 
 Weights use kernel layout ``[in_features, out_features]`` (transposed from the
@@ -46,6 +49,7 @@ import torch
 from dllama_tpu_torch import resolve_device
 from dllama_tpu_torch.formats.weights import WeightFileReader
 from dllama_tpu_torch.models.config import ModelConfig
+from dllama_tpu_torch.models.moe import moe_ffn
 from dllama_tpu_torch.ops import flash_decode
 from dllama_tpu_torch.ops.activations import ACTIVATIONS
 from dllama_tpu_torch.ops.attention import gqa_attention, gqa_attention_batched
@@ -62,14 +66,17 @@ from dllama_tpu_torch.quants import blocks
 
 #: per-layer matrices eligible for quantized storage
 QUANTIZABLE = ("wq", "wk", "wv", "wo", "w1", "w2", "w3")
+#: expert stacks [L, E, in, out] eligible for quantized storage
+MOE_QUANTIZABLE = ("moe_up", "moe_gate", "moe_down")
+#: the attention matrices (every arch; the dense FFN adds w1, w2, w3)
+ATTN_MATRICES = ("wq", "wk", "wv", "wo")
 #: decode-sized steps take the kernels (the JAX flash/rope-cache gates' bound)
 DECODE_MAX_T = 16
 
 
-def _check_dense_arch(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.arch}: MoE models are not ported yet (dense Llama only)")
+def _layer_vectors(cfg: ModelConfig) -> tuple:
+    """The per-layer norm weights of ``cfg``'s arch (Grok-1 adds two)."""
+    return ("rms_att", "rms_ffn") + (("rms_moe", "rms_ffn2") if cfg.post_norms else ())
 
 
 # ---------------------------------------------------------------------------
@@ -94,9 +101,9 @@ def params_to(params: dict, device) -> dict:
 def params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
                        dtype=None) -> dict:
     """Load `.m` tensors into the stacked-layer dict, dense, on ``device``.
-    Matrices take ``dtype`` (default the compute dtype); the embedding and
-    norms stay f32, as in the reference."""
-    _check_dense_arch(cfg)
+    Matrices (the MoE router and expert stacks ``[L, E, in, out]`` too)
+    take ``dtype`` (default the compute dtype); the embedding and norms stay
+    f32, as in the reference."""
     dtype = dtype or cfg.torch_dtype
 
     def mat(name):
@@ -112,17 +119,24 @@ def params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
         "wcls": mat("wcls"),
         "layers": {},
     }
-    for n in QUANTIZABLE:
-        p["layers"][n] = torch.stack([mat(f"layers.{i}.{n}") for i in range(cfg.n_layers)])
-    for n in ("rms_att", "rms_ffn"):
-        p["layers"][n] = torch.stack([vec(f"layers.{i}.{n}") for i in range(cfg.n_layers)])
+    L = range(cfg.n_layers)
+    for n in ATTN_MATRICES if cfg.is_moe else QUANTIZABLE:
+        p["layers"][n] = torch.stack([mat(f"layers.{i}.{n}") for i in L])
+    if cfg.is_moe:
+        p["layers"]["moe_router"] = torch.stack([mat(f"layers.{i}.moe_router") for i in L])
+        for kind in ("up", "gate", "down"):
+            p["layers"][f"moe_{kind}"] = torch.stack([
+                torch.stack([mat(f"layers.{i}.experts.{e}.{kind}")
+                             for e in range(cfg.n_experts)]) for i in L])
+    for n in _layer_vectors(cfg):
+        p["layers"][n] = torch.stack([vec(f"layers.{i}.{n}") for i in L])
     return p
 
 
 def quantize_params(params: dict, kind: str) -> dict:
-    """Dense layer matrices (and wcls) -> stacked QuantTensors with the
-    reference's block math. Embedding and norms stay dense f32. Leaves stay on
-    the device they came from."""
+    """Dense layer matrices, expert stacks (and wcls) -> stacked
+    QuantTensors with the reference's block math. Embedding, norms and the
+    MoE router stay dense. Leaves stay on the device they came from."""
     def quant(w: torch.Tensor) -> QuantTensor:
         return quantize_tensor(w.float().cpu().numpy(), kind, w.device)
 
@@ -132,6 +146,10 @@ def quantize_params(params: dict, kind: str) -> dict:
         if name in out["layers"]:
             stacked = out["layers"][name]
             out["layers"][name] = _stack([quant(stacked[i]) for i in range(stacked.shape[0])])
+    for name in MOE_QUANTIZABLE:
+        if name in out["layers"]:
+            stacked = out["layers"][name]  # [L, E, in, out]
+            out["layers"][name] = _stack([_stack([quant(w) for w in layer]) for layer in stacked])
     out["wcls"] = quant(params["wcls"])
     return out
 
@@ -151,9 +169,11 @@ def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
     """Load a `.m` file with the big matrices block-quantized for the
     kernels. When the file's own float type matches ``kind`` the file bits
     are repacked losslessly. Planes are staged and fused on the host, then
-    placed, so the unfused originals never reach the device. Single device
-    only."""
-    _check_dense_arch(cfg)
+    placed, so the unfused originals never reach the device. The expert
+    stacks of a MoE arch are staged one layer at a time — each layer's
+    ``moe_up|moe_gate`` fused to ``moe_upgate`` and copied into its slot of
+    the stack on the device — so the host holds one layer of them. The
+    router stays dense in the compute dtype. Single device only."""
     file_ft = reader.spec.weights_float_type
     lossless = (kind == "q40" and file_ft == blocks.Q40) or (
         kind == "q80" and file_ft == blocks.Q80)
@@ -170,27 +190,60 @@ def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
             return repack(reader.read_raw(name), e.d, e.n)
         return quantize_tensor(reader.read_tensor(name, np.float32).T, kind)
 
+    def stacked(leaves: list):
+        return (_stack(leaves) if isinstance(leaves[0], QuantTensor)
+                else torch.stack(leaves))
+
+    def experts(i: int, kind: str):
+        return stacked([load_matrix(f"layers.{i}.experts.{e}.{kind}")
+                        for e in range(cfg.n_experts)])
+
     p = {
         "embedding": reader.read_tensor("token_embedding", np.float32),
         "rms_final": reader.read_tensor("rms_final", np.float32),
         "wcls": load_matrix("wcls"),
         "layers": {},
     }
-    for n in QUANTIZABLE:
-        leaves = [load_matrix(f"layers.{i}.{n}") for i in range(cfg.n_layers)]
-        p["layers"][n] = (_stack(leaves) if isinstance(leaves[0], QuantTensor)
-                          else torch.stack(leaves))
-    for n in ("rms_att", "rms_ffn"):
+    for n in ATTN_MATRICES if cfg.is_moe else QUANTIZABLE:
+        p["layers"][n] = stacked([load_matrix(f"layers.{i}.{n}") for i in range(cfg.n_layers)])
+    for n in _layer_vectors(cfg):
         p["layers"][n] = np.stack([reader.read_tensor(f"layers.{i}.{n}", np.float32)
                                    for i in range(cfg.n_layers)])
-    return params_to(fuse_qkv_ffn(p), device)
+    out = params_to(fuse_qkv_ffn(p), device)
+    if cfg.is_moe:
+        out["layers"]["moe_router"] = torch.stack([
+            torch.from_numpy(reader.read_tensor(f"layers.{i}.moe_router", np.float32).T.copy())
+            for i in range(cfg.n_layers)]).to(device=device, dtype=cfg.torch_dtype)
+        stacks: dict = {}
+        for i in range(cfg.n_layers):
+            layer = fuse_qkv_ffn({"layers": {f"moe_{k}": experts(i, k)
+                                             for k in ("up", "gate", "down")}})["layers"]
+            for name, leaf in layer.items():
+                _place_layer(stacks, name, leaf, i, cfg.n_layers, device)
+        out["layers"].update(stacks)
+    return out
+
+
+def _place_layer(stacks: dict, name: str, leaf, i: int, n_layers: int, device) -> None:
+    """Copy layer ``i``'s leaf (a host QuantTensor or a tensor) into slot
+    ``i`` of ``stacks[name]``, a stack on ``device`` made at layer 0."""
+    planes = (leaf.w, leaf.s, leaf.s2) if isinstance(leaf, QuantTensor) else (leaf,)
+    planes = [p if isinstance(p, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(p))
+              for p in planes]
+    if name not in stacks:
+        made = [torch.empty((n_layers, *p.shape), dtype=p.dtype, device=device) for p in planes]
+        stacks[name] = (QuantTensor(*made, leaf.kind, leaf.k_logical)
+                        if isinstance(leaf, QuantTensor) else made[0])
+    st = stacks[name]
+    for dst, src in zip((st.w, st.s, st.s2) if isinstance(st, QuantTensor) else (st,), planes):
+        dst[i].copy_(src)
 
 
 def fuse_qkv_ffn(params: dict) -> dict:
     """Concatenate quantized projections that share an input into one kernel
-    call each: wq|wk|wv -> ``wqkv`` [D, D+2KV], w1|w3 -> ``w13`` [D, 2H].
-    Exact: planes concatenate along the output axis, scales travel with
-    their columns."""
+    call each: wq|wk|wv -> ``wqkv`` [D, D+2KV], w1|w3 -> ``w13`` [D, 2H],
+    moe_up|moe_gate -> ``moe_upgate`` [E, D, 2H]. Exact: planes concatenate
+    along the output axis, scales travel with their columns."""
     out = dict(params)
     out["layers"] = layers = dict(params["layers"])
 
@@ -202,10 +255,10 @@ def fuse_qkv_ffn(params: dict) -> dict:
         return QuantTensor(c([q.w for q in qts]), c([q.s for q in qts]),
                            c([q.s2 for q in qts]), qts[0].kind, qts[0].k_logical)
 
-    if all(isinstance(layers.get(n), QuantTensor) for n in ("wq", "wk", "wv")):
-        layers["wqkv"] = cat(layers.pop("wq"), layers.pop("wk"), layers.pop("wv"))
-    if all(isinstance(layers.get(n), QuantTensor) for n in ("w1", "w3")):
-        layers["w13"] = cat(layers.pop("w1"), layers.pop("w3"))
+    for fused, parts in (("wqkv", ("wq", "wk", "wv")), ("w13", ("w1", "w3")),
+                         ("moe_upgate", ("moe_up", "moe_gate"))):
+        if all(isinstance(layers.get(n), QuantTensor) for n in parts):
+            layers[fused] = cat(*(layers.pop(n) for n in parts))
     return out
 
 
@@ -223,9 +276,11 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
     with scales ``U[0,1) * 0.004``; Q80 planes are int8 in [-127, 127] with
     scales ``U[0,1) * 0.0003``. The model is numerically plausible but
     meaningless. The projections are made already fused (``wqkv``,
-    ``w13``), which is how ``fuse_qkv_ffn`` would lay out independent random
-    parts."""
-    _check_dense_arch(cfg)
+    ``w13``, ``moe_upgate``), which is how ``fuse_qkv_ffn`` would lay out
+    independent random parts. A MoE arch gets expert stacks [L, E, ...],
+    filled one layer at a time in place (a full Mixtral never holds a
+    second copy of a stack on the card), and a dense f32 router ``N(0,
+    0.02)``."""
     if kind not in K_MULTIPLE:
         raise ValueError(f"unknown quant kind {kind!r}")
     L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
@@ -247,14 +302,37 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
         s2 = rand(*prefix, kp // 64, O_, scale=0.004)
         return QuantTensor(w=w, s=s, s2=s2, kind="q40", k_logical=K_)
 
+    def qrand_experts(K_, O_):
+        E, kp = cfg.n_experts, _pad_up(K_, K_MULTIPLE[kind])
+        if kind == "q80":
+            qt = QuantTensor(w=torch.empty((L, E, kp, O_), dtype=torch.int8, device=device),
+                             s=torch.empty((L, E, kp // 32, O_), device=device),
+                             s2=torch.zeros((L, E, 0), device=device), kind="q80", k_logical=K_)
+            for i in range(L):
+                qt.w[i].random_(-127, 128, generator=generator)
+                qt.s[i].uniform_(0.0, 0.0003, generator=generator)
+            return qt
+        qt = QuantTensor(w=torch.empty((L, E, kp // 2, O_), dtype=torch.uint8, device=device),
+                         s=torch.empty((L, E, kp // 64, O_), device=device),
+                         s2=torch.empty((L, E, kp // 64, O_), device=device), kind="q40",
+                         k_logical=K_)
+        for i in range(L):
+            qt.w[i].random_(0, 256, generator=generator)
+            qt.s[i].uniform_(0.0, 0.004, generator=generator)
+            qt.s2[i].uniform_(0.0, 0.004, generator=generator)
+        return qt
+
     layers = {
         "wqkv": qrand(D, D + 2 * KV),
         "wo": qrand(D, D),
-        "w13": qrand(D, 2 * H),
-        "w2": qrand(H, D),
-        "rms_att": torch.ones((L, D), device=device),
-        "rms_ffn": torch.ones((L, D), device=device),
+        **({} if cfg.is_moe else {"w13": qrand(D, 2 * H), "w2": qrand(H, D)}),
+        **{n: torch.ones((L, D), device=device) for n in _layer_vectors(cfg)},
     }
+    if cfg.is_moe:
+        layers["moe_router"] = torch.randn((L, D, cfg.n_experts), device=device,
+                                           generator=generator) * 0.02
+        layers["moe_upgate"] = qrand_experts(D, 2 * H)
+        layers["moe_down"] = qrand_experts(H, D)
     return {
         "embedding": torch.randn((cfg.vocab_size, D), device=device, generator=generator) * 0.02,
         "rms_final": torch.ones(D, device=device),
@@ -268,7 +346,6 @@ def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     in the same order, as the JAX package's ``random_params``, so one seed
     gives both packages the same model. On the card unless ``device`` says
     otherwise."""
-    _check_dense_arch(cfg)
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
 
@@ -282,10 +359,14 @@ def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         "wk": w(L, D, KV),
         "wv": w(L, D, KV),
         "wo": w(L, D, D),
-        "rms_att": torch.ones((L, D), device=device),
-        "rms_ffn": torch.ones((L, D), device=device),
+        **{n: torch.ones((L, D), device=device) for n in _layer_vectors(cfg)},
     }
-    layers.update({"w1": w(L, D, H), "w2": w(L, H, D), "w3": w(L, D, H)})
+    if cfg.is_moe:
+        E = cfg.n_experts
+        layers.update({"moe_router": w(L, D, E), "moe_up": w(L, E, D, H),
+                       "moe_gate": w(L, E, D, H), "moe_down": w(L, E, H, D)})
+    else:
+        layers.update({"w1": w(L, D, H), "w2": w(L, H, D), "w3": w(L, D, H)})
     return {
         "embedding": w(cfg.vocab_size, D).float(),
         "rms_final": torch.ones(D, device=device),
@@ -326,10 +407,13 @@ def rope_tables(cfg: ModelConfig, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 def embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embedding lookup (+ Grok's input scale) in the compute dtype."""
+    """Token embedding lookup (+ Grok's input scale) in the compute dtype.
+    The scale is rounded to the compute dtype first, as the JAX package's
+    ``jnp.asarray(scale, dtype)``, and made by a fill on the device (a
+    tensor copied from the host cannot be captured in a CUDA graph)."""
     x = params["embedding"][tokens].to(cfg.torch_dtype)
     if cfg.embedding_scale != 1.0:
-        x = x * torch.tensor(cfg.embedding_scale, dtype=cfg.torch_dtype, device=x.device)
+        x = x * torch.full((), cfg.embedding_scale, dtype=cfg.torch_dtype, device=x.device)
     return x
 
 
@@ -359,10 +443,24 @@ def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w) -> torch.Ten
 
 def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor,
                   att_out: torch.Tensor) -> torch.Tensor:
-    """Post-attention half of a dense Llama layer:
-    ``x += att; x += dense_ffn(rmsnorm(x, rms_ffn))``
-    (`distributed-llama/src/llama2-tasks.cpp:125-212`)."""
+    """Post-attention half of a layer, all three archs:
+
+    * llama: ``x += att; x += dense_ffn(rmsnorm(x, rms_ffn))``
+      (`distributed-llama/src/llama2-tasks.cpp:125-212`)
+    * mixtral: the same joins with the MoE FFN
+      (`distributed-llama/src/mixtral-tasks.cpp:24-46`)
+    * grok1: the attention output and the MoE output are each rmsnorm'd
+      before their residual adds, with an extra pre-MoE norm:
+      ``x += rmsnorm(att, rms_ffn); x += rmsnorm(moe(rmsnorm(x, rms_moe)), rms_ffn2)``
+      (`distributed-llama/src/grok1-tasks.cpp:16-54,239-262,280-320`)"""
+    eps = cfg.norm_eps
+    if cfg.is_moe and cfg.post_norms:  # grok1
+        x = x + rmsnorm(att_out, lp["rms_ffn"], eps)
+        xb = rmsnorm(x, lp["rms_moe"], eps)
+        return x + rmsnorm(moe_ffn(cfg, lp, xb), lp["rms_ffn2"], eps)
     x = x + att_out
+    if cfg.is_moe:
+        return x + moe_ffn(cfg, lp, rmsnorm(x, lp["rms_ffn"], eps))
     return x + _dense_ffn(cfg, lp, x, lp["rms_ffn"])
 
 
@@ -515,9 +613,9 @@ def forward_batched_verify(cfg: ModelConfig, params: dict, rope: dict, tokens: t
     f32, cache): the batched speculative-verify step, the cache ``{"k", "v":
     [L, B, S, kv, hd]}`` updated in place. ``tokens`` [B, T] and ``pos``
     int32 [B] (the position of ``tokens[b, 0]``) stay on the device. Row b's
-    math is ``forward`` at (T, pos[b]), summed in the order of B*T rows.
-    Single device, dense Llama."""
-    _check_dense_arch(cfg)
+    math is ``forward`` at (T, pos[b]), summed in the order of B*T rows
+    (a MoE layer routes all B*T rows at once, as the JAX package's does).
+    Single device."""
     B, T = tokens.shape
     x = embed(cfg, params, tokens.reshape(B * T))
     layers = params["layers"]

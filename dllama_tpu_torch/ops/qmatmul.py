@@ -35,6 +35,14 @@ launch a call, K split by :func:`gemv_plan` and summed in the kernel — and
 more take the tensor-core prefill tile both share (``csrc/dq_tile.cuh``):
 :func:`q40_plan` and :func:`q80_plan` decide, :func:`tile_plan` cuts the
 tile's grid.
+
+``q40_matmul_stacked``/``q80_matmul_stacked`` are the expert-indexed forms
+of the decode GEMVs: one launch multiplies by the planes ``base + ids[j]``
+of a stack, ``ids`` an int32 tensor the kernel reads from device memory —
+the JAX package's stacked launchers with a traced index, which a
+mixture-of-experts decode step needs (its experts are picked on the
+device). A host index needs no kernel of its own: the planes' view
+``w[i]`` goes to the plain launch (:func:`matmul_any`).
 """
 
 from __future__ import annotations
@@ -234,6 +242,44 @@ def q80_matmul_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     xb = _bf16_activation(x, w.shape[0], norm_w, norm_inv)
     wd = (w.float() * scales.repeat_interleave(QK, dim=0)).to(torch.bfloat16).float()
     return xb @ wd
+
+
+def _stacked_ref(one, x: torch.Tensor, stacks: tuple, ids: torch.Tensor, base: int,
+                 n_ids: int) -> torch.Tensor:
+    """``[one(x_j, *plane base + ids[j] of each stack) for j]`` -> [n, T, O]
+    f32, where ``one`` is a kernel's plain version; an id outside [0,
+    n_ids) gives NaN, as the indexed kernels define it. No host reads: the
+    planes are gathered on ``ids``' device."""
+    ids = ids.reshape(-1).long()
+    valid = (ids >= 0) & (ids < n_ids)
+    idx = base + ids.clamp(0, n_ids - 1)
+    outs = []
+    for j in range(ids.shape[0]):
+        xj = x[j] if x.dim() == 3 else x
+        outs.append(one(xj, *(p.index_select(0, idx[j:j + 1]).squeeze(0) for p in stacks)))
+    out = torch.stack(outs)
+    return torch.where(valid[:, None, None], out, torch.full_like(out, float("nan")))
+
+
+def q40_matmul_stacked_ref(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
+                           s_hi: torch.Tensor, ids: torch.Tensor, base: int = 0,
+                           n_ids: int | None = None, nosub: bool | None = None) -> torch.Tensor:
+    """The expert-indexed Q40 kernel's function: ``x_j @ dequant(packed[base
+    + ids[j]])`` for each j -> [n, T, O] f32 (:func:`q40_matmul_ref` on
+    each plane), ``x`` [T, K] shared or [n, T, K] one per j; an id outside
+    [0, n_ids) (default: the planes past ``base``) gives NaN."""
+    n_ids = packed.shape[0] - base if n_ids is None else n_ids
+    return _stacked_ref(lambda xj, w, a, b: q40_matmul_ref(xj, w, a, b, nosub), x,
+                        (packed, s_lo, s_hi), ids, base, n_ids)
+
+
+def q80_matmul_stacked_ref(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+                           ids: torch.Tensor, base: int = 0,
+                           n_ids: int | None = None) -> torch.Tensor:
+    """The expert-indexed Q80 kernel's function: ``x_j @ dequant(w[base +
+    ids[j]])`` for each j -> [n, T, O] f32, as :func:`q40_matmul_stacked_ref`."""
+    n_ids = w.shape[0] - base if n_ids is None else n_ids
+    return _stacked_ref(q80_matmul_ref, x, (w, scales), ids, base, n_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -520,6 +566,124 @@ def q80_matmul(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def _stacked_operands(name: str, x: torch.Tensor, w: torch.Tensor, K: int, planes: list,
+                      ids: torch.Tensor, base: int, n_ids: int) -> tuple:
+    """Check an expert-indexed launch's operands: stacks [N, ...] on one
+    CUDA device, int32 ``ids`` [n] there, planes base..base + n_ids - 1 in
+    the stack, and x [T, <= K] or [n, T, <= K] with T <= GEMV_MAX_T.
+    Returns (x as bf16 [., T, K], its stride per j — 0 when shared — T)."""
+    if w.dim() != 3 or not all(p.is_contiguous() for p in (w, *planes)):
+        raise ValueError(f"{name}: want contiguous stacked planes [N, ., O], got "
+                         f"{tuple(w.shape)}")
+    if ids.dtype != torch.int32 or ids.dim() != 1 or ids.device != w.device:
+        raise ValueError(f"{name}: ids must be int32 [n] on {w.device}, got {ids.dtype} "
+                         f"{tuple(ids.shape)} on {ids.device}")
+    if not (0 <= base and 1 <= n_ids and base + n_ids <= w.shape[0]):
+        raise ValueError(f"{name}: planes {base}..{base + n_ids - 1} of a stack of "
+                         f"{w.shape[0]}")
+    n = ids.shape[0]
+    shared = x.dim() == 2
+    if x.dim() not in (2, 3) or (not shared and x.shape[0] != n) or x.shape[-1] > K:
+        raise ValueError(f"{name}: activation {tuple(x.shape)} vs {n} planes of packed K {K}")
+    T = x.shape[-2]
+    if not 1 <= T <= GEMV_MAX_T:
+        raise ValueError(f"{name}: the indexed launch takes 1..{GEMV_MAX_T} rows, got {T}")
+    if x.device != w.device:
+        raise ValueError(f"{name}: x on {x.device}, weights on {w.device}")
+    xk = x.to(torch.bfloat16)
+    if xk.shape[-1] != K:
+        xk = torch.nn.functional.pad(xk, (0, K - xk.shape[-1]))
+    return xk.contiguous(), 0 if shared else T * K, T
+
+
+def q40_matmul_stacked(x: torch.Tensor, packed: torch.Tensor, s_lo: torch.Tensor,
+                       s_hi: torch.Tensor, ids: torch.Tensor, base: int = 0,
+                       n_ids: int | None = None, nosub: bool | None = None) -> torch.Tensor:
+    """``x_j @ dequant(packed[base + ids[j]])`` for every j of int32 ``ids``
+    [n] -> [n, T, O] f32, over stacked planes ``packed uint8 [N, K/2, O]``,
+    ``s_lo``/``s_hi`` f32 [N, K/64, O]; ``x`` [T, K] shared by every j or
+    [n, T, K] one per j, T <= :data:`GEMV_MAX_T`; ids in [0, ``n_ids``)
+    (default: the planes past ``base``), else output j is NaN.
+
+    CUDA planes: one launch of the Q40 decode GEMV's expert-indexed form
+    (``dllama_q40_gemv_indexed``), which reads ``ids`` from device memory —
+    nothing waits for the host — with one plane's split plan, so output j
+    equals :func:`q40_matmul` on the view ``packed[base + ids[j]]`` bit for
+    bit. CPU planes: :func:`q40_matmul_stacked_ref`."""
+    if nosub is None:
+        nosub = Q40_NOSUB
+    n_ids = packed.shape[0] - base if n_ids is None else n_ids
+    if packed.device.type == "cpu":
+        return q40_matmul_stacked_ref(x, packed, s_lo, s_hi, ids, base, n_ids, nosub)
+    if packed.device.type != "cuda":
+        raise ValueError(f"q40_matmul_stacked: unsupported device {packed.device}")
+    if packed.dtype != torch.uint8 or s_lo.dtype != torch.float32 or s_hi.dtype != torch.float32:
+        raise TypeError("q40_matmul_stacked: want uint8 packed and f32 scale planes")
+    N, K2, O = packed.shape
+    K = 2 * K2
+    if s_lo.shape != (N, K // 64, O) or s_hi.shape != (N, K // 64, O) or K % 64:
+        raise ValueError(f"q40_matmul_stacked: planes {tuple(packed.shape)}, "
+                         f"{tuple(s_lo.shape)}, {tuple(s_hi.shape)} disagree")
+    xk, x_stride, T = _stacked_operands("q40_matmul_stacked", x, packed, K, [s_lo, s_hi], ids,
+                                        base, n_ids)
+    n = ids.shape[0]
+    _, ksplit, rows = q40_plan(T, K, O, kernels.sm_count(packed.device),
+                               q40_gemv_blocks_per_sm(T))
+    out = torch.empty((n, T, O), dtype=torch.float32, device=packed.device)
+    partials = (torch.empty((n, ksplit, T, O), dtype=torch.float32, device=packed.device)
+                if ksplit > 1 else out)
+    counters = kernels.counters(packed.device, n * math.ceil(O / Q40_GEMV_COLS))
+    with torch.cuda.device(packed.device):
+        rc = kernels.lib().dllama_q40_gemv_indexed(
+            xk.data_ptr(), x_stride, T, K, packed.data_ptr(), s_lo.data_ptr(), s_hi.data_ptr(),
+            O, K2 * O, (K // 64) * O, ids.data_ptr(), base, n_ids, n,
+            Q40_NOSUB_CORRECT if nosub else Q40_SUB, ksplit, rows, partials.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), kernels.stream_of(packed))
+    kernels.check(rc, "q40 indexed GEMV")
+    kernels.launches["q40_matmul_stacked"] += 1
+    return out
+
+
+def q80_matmul_stacked(x: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+                       ids: torch.Tensor, base: int = 0,
+                       n_ids: int | None = None) -> torch.Tensor:
+    """``x_j @ dequant(w[base + ids[j]])`` for every j of int32 ``ids`` [n]
+    -> [n, T, O] f32, over stacked planes ``w int8 [N, K, O]``, ``scales``
+    f32 [N, K/32, O]; operands and ids as for :func:`q40_matmul_stacked`.
+    CUDA planes: one launch of the Q80 decode GEMV's expert-indexed form
+    (``dllama_q80_gemv_indexed``), output j bit-equal to
+    :func:`q80_matmul` on the view ``w[base + ids[j]]``. CPU planes:
+    :func:`q80_matmul_stacked_ref`."""
+    n_ids = w.shape[0] - base if n_ids is None else n_ids
+    if w.device.type == "cpu":
+        return q80_matmul_stacked_ref(x, w, scales, ids, base, n_ids)
+    if w.device.type != "cuda":
+        raise ValueError(f"q80_matmul_stacked: unsupported device {w.device}")
+    if w.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError("q80_matmul_stacked: want int8 quants and an f32 scale plane")
+    N, K, O = w.shape
+    if scales.shape != (N, K // QK, O) or K % 64:
+        raise ValueError(f"q80_matmul_stacked: planes {tuple(w.shape)}, "
+                         f"{tuple(scales.shape)} disagree")
+    xk, x_stride, T = _stacked_operands("q80_matmul_stacked", x, w, K, [scales], ids, base,
+                                        n_ids)
+    n = ids.shape[0]
+    _, ksplit, rows = q80_plan(T, K, O, kernels.sm_count(w.device),
+                               gemv_blocks_per_sm(T, False))
+    out = torch.empty((n, T, O), dtype=torch.float32, device=w.device)
+    partials = (torch.empty((n, ksplit, T, O), dtype=torch.float32, device=w.device)
+                if ksplit > 1 else out)
+    counters = kernels.counters(w.device, n * math.ceil(O / _GEMV_COLS))
+    with torch.cuda.device(w.device):
+        rc = kernels.lib().dllama_q80_gemv_indexed(
+            xk.data_ptr(), x_stride, T, K, w.data_ptr(), scales.data_ptr(), O, K * O,
+            (K // QK) * O, ids.data_ptr(), base, n_ids, n, ksplit, rows, partials.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), kernels.stream_of(w))
+    kernels.check(rc, "q80 indexed GEMV")
+    kernels.launches["q80_matmul_stacked"] += 1
+    return out
+
+
 def _quant_matmul(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_inv=None):
     if qt.kind == "q40":
         return q40_matmul(x, qt.w, qt.s, qt.s2, norm_w=norm_w, norm_inv=norm_inv)
@@ -544,9 +708,35 @@ def qmatmul_norm(x: torch.Tensor, norm_w: torch.Tensor, qt: QuantTensor,
     return _quant_matmul(x, qt, norm_w, rmsnorm_inv(x, eps)).to(x.dtype)
 
 
-def matmul_any(x: torch.Tensor, w) -> torch.Tensor:
+def qmatmul_stacked(x: torch.Tensor, qt: QuantTensor, ids: torch.Tensor, base: int = 0,
+                    n_ids: int | None = None) -> torch.Tensor:
+    """``x_j @ dequant(qt[base + ids[j]])`` -> [n, T, O] through the
+    expert-indexed kernel of ``qt.kind`` (``qt`` a stack [N, ...]); the
+    output dtype follows ``x``."""
+    if not isinstance(qt, QuantTensor):
+        raise TypeError(f"a device index selects from a QuantTensor stack, got {type(qt)}")
+    if qt.kind == "q40":
+        out = q40_matmul_stacked(x, qt.w, qt.s, qt.s2, ids, base, n_ids)
+    elif qt.kind == "q80":
+        out = q80_matmul_stacked(x, qt.w, qt.s, ids, base, n_ids)
+    else:
+        raise ValueError(f"unknown QuantTensor kind {qt.kind!r}")
+    return out.to(x.dtype)
+
+
+def matmul_any(x: torch.Tensor, w, index=None, base: int = 0) -> torch.Tensor:
     """``x @ w`` where w is a dense tensor or a QuantTensor. Mixed dense
-    dtypes promote like jnp (bf16 @ f16 -> f32)."""
+    dtypes promote like jnp (bf16 @ f16 -> f32).
+
+    ``index`` selects from a stack ``w`` [N, ...], as the JAX package's
+    ``matmul_any(x, w, layer)``: a host int takes the view ``w[index]``; an
+    int32 tensor [n] on the device gives ``x_j @ w[base + index[j]]`` ->
+    [n, T, O] (``x`` [T, K] or [n, T, K]) through the expert-indexed
+    kernels, without reading it back (a QuantTensor stack only)."""
+    if isinstance(index, int):
+        w = w.layer(index) if isinstance(w, QuantTensor) else w[index]
+    elif index is not None:
+        return qmatmul_stacked(x, w, index, base)
     if isinstance(w, QuantTensor):
         return qmatmul(x, w)
     if w.dtype != x.dtype:

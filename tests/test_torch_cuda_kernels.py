@@ -746,3 +746,125 @@ def test_graphed_batch_session_mixed_traffic_equals_eager(cuda):
         got[name] = log
     assert got["graphed"] == got["eager"]
     assert graphed.graphs.made == 2
+
+
+# ---------------------------------------------------------------------------
+# The expert-indexed GEMVs (K1, K3) and a graphed mixture-of-experts step
+# ---------------------------------------------------------------------------
+
+def _stack_planes(kind, N, K, O, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "q40":
+        return (torch.randint(0, 256, (N, K // 2, O), dtype=torch.uint8, device=dev,
+                              generator=gen),
+                torch.rand((N, K // 64, O), device=dev, generator=gen) * 0.004,
+                torch.rand((N, K // 64, O), device=dev, generator=gen) * 0.004)
+    return (torch.randint(-127, 128, (N, K, O), dtype=torch.int8, device=dev, generator=gen),
+            torch.rand((N, K // 32, O), device=dev, generator=gen) * 0.0003)
+
+
+def _indexed(kind, x, planes, ids, base, n_ids):
+    if kind == "q40":
+        return qmatmul.q40_matmul_stacked(x, *planes, ids, base, n_ids)
+    return qmatmul.q80_matmul_stacked(x, *planes, ids, base, n_ids)
+
+
+def _indexed_ref(kind, x, planes, ids, base, n_ids):
+    if kind == "q40":
+        return qmatmul.q40_matmul_stacked_ref(x, *planes, ids, base, n_ids)
+    return qmatmul.q80_matmul_stacked_ref(x, *planes, ids, base, n_ids)
+
+
+def _view(kind, x, planes, i):
+    if kind == "q40":
+        return qmatmul.q40_matmul(x, *(p[i] for p in planes))
+    return qmatmul.q80_matmul(x, *(p[i] for p in planes))
+
+
+@pytest.mark.parametrize("kind", ["q40", "q80"])
+@pytest.mark.parametrize("T", [1, 2, 3, 8])
+@pytest.mark.parametrize("K,O,shared", [(4096, 2048, True), (1024, 4096, False),
+                                        (512, 100, True), (14336, 512, False)])
+def test_indexed_gemv_matches_ref_and_the_view_launch(cuda, kind, T, K, O, shared):
+    """Output j is the plain launch on the view ``w[base + ids[j]]`` bit for
+    bit, within 1e-5 of the plain version's magnitude, and repeats its
+    bits; one launch per call."""
+    E, base = 4, 4  # layer 1 of two
+    planes = _stack_planes(kind, 2 * E, K, O, cuda, K + O + T)
+    gen = torch.Generator(device=cuda).manual_seed(T)
+    ids = torch.tensor([2, 0, 3], dtype=torch.int32, device=cuda)
+    shape = (T, K) if shared else (3, T, K - 64)
+    x = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    before = kernels.launches[f"{kind}_matmul_stacked"]
+    got = _indexed(kind, x, planes, ids, base, E)
+    again = _indexed(kind, x, planes, ids, base, E)
+    torch.cuda.synchronize()
+    assert kernels.launches[f"{kind}_matmul_stacked"] == before + 2
+    assert got.shape == (3, T, O) and torch.equal(got, again)
+    _close(got, _indexed_ref(kind, x, planes, ids, base, E))
+    for j, e in enumerate(ids.tolist()):
+        assert torch.equal(got[j], _view(kind, x if shared else x[j], planes, base + e)), j
+
+
+@pytest.mark.parametrize("kind", ["q40", "q80"])
+def test_indexed_gemv_id_out_of_range_gives_nan(cuda, kind):
+    planes = _stack_planes(kind, 4, 1024, 512, cuda, 3)
+    x = torch.randn((2, 1024), device=cuda).to(torch.bfloat16)
+    ids = torch.tensor([1, 4, -1, 3], dtype=torch.int32, device=cuda)
+    got = _indexed(kind, x, planes, ids, 0, 4)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1]).all() and torch.isnan(got[2]).all()
+    assert torch.equal(got[0], _view(kind, x, planes, 1))
+    assert torch.equal(got[3], _view(kind, x, planes, 3))
+    with pytest.raises(ValueError):
+        _indexed(kind, x, planes, ids.long(), 0, 4)  # ids must be int32
+    with pytest.raises(ValueError):
+        _indexed(kind, x, planes, ids, 2, 4)  # planes 2..5 of 4
+
+
+@pytest.mark.parametrize("arch,kind", [("mixtral", "q40"), ("mixtral", "q80"),
+                                       ("grok1", "q40")])
+def test_graphed_moe_steps_replay_eager_bits(cuda, arch, kind):
+    """A small Mixtral or Grok-1 on the card: the graphed solo step (the
+    selected path through the indexed launches) gives eager ``forward``'s
+    logits bit for bit with no host sync; graphed tokens equal eager ones,
+    solo and batched at B = 2 (selected) and B = 4 (the dense combine)."""
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    cfg = ModelConfig(arch=arch, dim=256, hidden_dim=512, n_layers=2, n_heads=8,
+                      n_kv_heads=4, vocab_size=512, seq_len=128, head_size=32, kv_dim=128,
+                      n_experts=8, n_active_experts=2, dtype="bfloat16",
+                      hidden_act="gelu" if arch == "grok1" else "silu")
+    params = llama.random_quant_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(0),
+                                       kind)
+    greedy = SamplerConfig(temperature=0.0)
+    graphed = Engine(cfg, params, greedy, cache_dtype=torch.bfloat16, device=cuda,
+                     decode_chunk=8)
+    eager = Engine(cfg, graphed.params, greedy, cache_dtype=torch.bfloat16, device=cuda,
+                   cuda_graphs=False)
+    prompt = list(range(1, 20))
+    cache = eager.new_cache()
+    last, cache = eager.prefill(cache, prompt)
+    nxt = torch.argmax(last).reshape(1)
+    twin = {n: c.clone() for n, c in cache.items()}
+    want, _ = llama.forward(cfg, eager.params, eager.rope, nxt, cache, len(prompt))
+    g = graphed.step_graph(twin, False, 8)
+    assert g.counts == {f"{kind}_matmul": 2 * cfg.n_layers + 1,
+                        f"{kind}_matmul_stacked": 2 * cfg.n_layers,
+                        "flash_decode_batched": cfg.n_layers,
+                        "rope_cache_update_batched": cfg.n_layers}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.load(nxt, len(prompt))
+        g.run(1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(g.logits, want)
+    want = [t for t, _ in eager.generate(prompt, 12)]
+    assert [t for t, _ in graphed.generate(prompt, 12)] == want
+    assert graphed.generate_fused(prompt, 12)[0] == want
+    for rows in ([prompt, [7]], [prompt, [7], list(range(40, 60)), [5, 6]]):
+        assert graphed.generate_batch(rows, 10) == eager.generate_batch(rows, 10)

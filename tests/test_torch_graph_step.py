@@ -19,6 +19,8 @@ it).
   (one graph per engine) unless a live Session holds it; a
   ``BatchSession`` serves sampled and greedy admissions and releases with
   one greedy and one sampled graph, its tokens the eager session's.
+* The same for a tiny Mixtral: the MoE step's body (the selected path
+  solo and at B = 2, the dense combine at B = 4) advances as eager steps.
 * ``cli --decode-chunk N`` reaches ``Engine``; an explicit 0 raises there;
   ``cli generate`` decodes in chunks of N.
 """
@@ -113,6 +115,55 @@ def test_step_graph_body_advances_like_eager_steps(quant):
     gc.collect()
     with pytest.raises(RuntimeError, match="cache was freed"):
         g.run(1)
+
+
+MIXTRAL = dict(SHAPE, arch="mixtral", n_experts=8, n_active_experts=2)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Tiny tensors: one intra-op thread (several test processes share the
+    CPU, and spinning thread pools would oversubscribe it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("quant", [None, "q40", "q80"])
+def test_moe_step_graph_body_advances_like_eager_steps(quant, one_torch_thread):
+    """A tiny Mixtral (E 8, k 2): ``forward_decode`` is ``forward`` at T = 1
+    bit for bit, and the graph's body advances as eager steps do — solo on
+    the selected path (quantized experts, one row), and batched at B = 2
+    (selected) and 4 (the dense combine)."""
+    cfg = ModelConfig(**MIXTRAL, dtype="float32")
+    p = llama.random_params(cfg, seed=3, device="cpu")
+    if quant:
+        p = llama.fuse_qkv_ffn(llama.quantize_params(p, quant))
+    rope = llama.rope_tables(cfg, "cpu")
+    a = _stale_cache(cfg, torch.float32)
+    b = {n: c.clone() for n, c in a.items()}
+    want_logits, _ = llama.forward(cfg, p, rope, torch.tensor([11]),
+                                   {n: c.clone() for n, c in a.items()}, 20)
+    got_logits, _ = llama.forward_decode(cfg, p, rope, torch.tensor([11]),
+                                         {n: c.clone() for n, c in a.items()},
+                                         torch.tensor([20], dtype=torch.int32))
+    assert torch.equal(got_logits, want_logits)
+    want, end = _eager_steps(cfg, p, rope, a, 11, 20, 5)
+
+    def step(cache, tok, pos):
+        return llama.forward_decode(cfg, p, rope, tok, cache, pos)[0]
+
+    g = StepGraph(step, b, cfg.seq_len, False, ring_len=8)
+    g.load(11, 20)
+    toks, ok = g.run(5)
+    assert toks[:, 0].tolist() == want and bool(ok.all()) and int(g.pos) == end
+    for n in ("k", "v"):
+        assert torch.equal(a[n][:, :end], b[n][:, :end])
+    eng = tgen.Engine(cfg, p, GREEDY, device="cpu", decode_chunk=4)
+    eager = tgen.Engine(cfg, eng.params, GREEDY, device="cpu", cuda_graphs=False)
+    for prompts in ([[5, 9, 3], [7]], [[5, 9, 3], [7], [1, 2, 3, 4], [8, 8]]):
+        assert eng.generate_batch(prompts, 6) == eager.generate_batch(prompts, 6)
 
 
 def test_batched_step_graph_matches_eager_chunk():

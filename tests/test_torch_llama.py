@@ -122,6 +122,11 @@ def test_last_pos_and_moe_refusal():
     last, _ = tl.forward(tc, tp, rope, toks, tl.init_cache(tc, device="cpu"), 0, last_pos=7)
     assert last.shape == (1, tc.vocab_size)
     torch.testing.assert_close(last[0], full[7], rtol=1e-5, atol=1e-6)
+    # MoE is no longer refused: a Mixtral config builds the JAX package's
+    # params (expert stacks in place of w1/w2/w3) and runs the forward
     moe = TConfig(**{**SHAPE, "arch": "mixtral", "n_experts": 4, "n_active_experts": 2})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.random_params(moe, device="cpu")
+    mp = tl.random_params(moe, seed=2, device="cpu")
+    assert {"moe_router", "moe_up", "moe_gate", "moe_down"} <= set(mp["layers"])
+    assert not {"w1", "w2", "w3"} & set(mp["layers"])
+    logits, _ = tl.forward(moe, mp, rope, toks, tl.init_cache(moe, device="cpu"), 0, last_pos=7)
+    assert logits.shape == (1, moe.vocab_size) and bool(torch.isfinite(logits).all())
