@@ -17,12 +17,28 @@ it is made, for its per-token times and its stop. ``--spec-draft K`` decodes wit
 prompt-lookup speculative drafting (up to K drafted tokens verified in one
 step); on the CPU the tokens are the plain run's, on the card up to the
 low-bit logit differences of a drafted step (see ``Engine.generate_spec``).
+``--profile DIR`` writes a ``torch.profiler`` trace of the run
+(``DIR/trace.json``, Chrome trace format: host ops and, on the card, every
+kernel).
+
+``serve`` is the OpenAI-compatible HTTP server (``serving.api_server``)
+with the JAX package's flags and defaults. Before it loads the model it
+refuses the configurations the port does not run yet (``--kv-pages``,
+``--role prefill|decode``, ``--batch-window`` with ``--kv-buckets 1``).
+``verify`` checks a `.m` file's integrity checksums without a model or a
+device:
+
+    python -m dllama_tpu_torch.cli serve --model m.m --tokenizer t.t --port 8189 \\
+        --batch-window 30 --kv-buckets 0
+    python -m dllama_tpu_torch.cli verify --model m.m
 """
 
 from __future__ import annotations
 
 import argparse
 import codecs
+import contextlib
+import os
 import sys
 import time
 
@@ -30,8 +46,223 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="dllama_tpu_torch")
     sub = p.add_subparsers(dest="mode", required=True)
-    for mode in ("inference", "generate", "chat"):
+    # offline artifact check: no tokenizer, no engine, no device
+    vp = sub.add_parser(
+        "verify", help="verify a .m weight file's integrity checksums")
+    vp.add_argument("--model", required=True)
+    vp.add_argument("--json", action="store_true",
+                    help="print the full verification report as JSON")
+    vp.add_argument("--shard", default=None, metavar="I/N",
+                    help="verify only the row stripe host I of N actually "
+                    "loads (tensor-parallel sharded verify): with a DLRB "
+                    "row-band section the check reads ~1/N of the file's "
+                    "bytes; replicated 1-D tensors are always fully "
+                    "checked. Run once per host, e.g. --shard 0/4 ... 3/4")
+    for mode in ("inference", "generate", "chat", "serve"):
         sp = sub.add_parser(mode)
+        if mode == "serve":  # the dllama-api surface (`src/apps/dllama-api`)
+            sp.add_argument("--host", default="0.0.0.0")
+            sp.add_argument("--port", type=int, default=9990)
+            sp.add_argument(
+                "--session-cache",
+                type=int,
+                default=2,
+                metavar="N",
+                help="conversation KV states kept resident (LRU): N "
+                "interleaved chats each reuse their own prefix instead of "
+                "re-prefilling; every slot holds a full KV cache in HBM",
+            )
+            sp.add_argument(
+                "--batch-window",
+                type=float,
+                default=0.0,
+                metavar="MS",
+                help="arrival window in milliseconds before the scheduler "
+                "routes a batch: concurrent requests share every "
+                "weight-streaming pass (~Kx throughput under K-way "
+                "concurrency, same tokens as solo runs), and later "
+                "arrivals join the running pool mid-flight (continuous "
+                "batching; streaming rows emit chunk-sized SSE bursts); "
+                "0 disables batching entirely",
+            )
+            sp.add_argument(
+                "--batch-max",
+                type=int,
+                default=8,
+                metavar="B",
+                help="slot-pool size for continuous batching (HBM bound: "
+                "the resident batch cache holds B full-context rows); "
+                "requests beyond B queue and are admitted into slots as "
+                "earlier rows finish — mid-flight, between decode chunks",
+            )
+            sp.add_argument(
+                "--batch-chunk",
+                type=int,
+                default=8,
+                metavar="N",
+                help="fused decode steps per scheduler pass: smaller N "
+                "admits queued arrivals into free slots sooner (lower "
+                "time-to-first-token under load) at more host round trips; "
+                "larger N amortizes dispatch overhead",
+            )
+            sp.add_argument(
+                "--prefill-chunk",
+                type=int,
+                default=-1,
+                metavar="N",
+                help="prompt tokens consumed per scheduler tick during "
+                "pooled admission: a long prompt no longer stalls resident "
+                "rows for its whole prefill — the pool keeps decoding "
+                "between N-token pieces, and each piece is bit-identical "
+                "to monolithic prefill; -1 = auto (batch-chunk x "
+                "batch-max, one decode-chunk's worth of compute), "
+                "0 = monolithic",
+            )
+            sp.add_argument(
+                "--kv-buckets",
+                type=int,
+                default=1,
+                metavar="0|1",
+                help="length-bucketed KV slot pools (power-of-two ladders "
+                "up to seq-len) instead of one uniform full-context slab: "
+                "short rows occupy small slabs, so strictly more rows fit "
+                "the same HBM budget; rows that outgrow a bucket migrate "
+                "to the next slab mid-flight; 0 = uniform full-context "
+                "slots (pre-bucketing behavior). The port serves only the uniform "
+                "pool: batching with 1 is refused at start",
+            )
+            sp.add_argument(
+                "--kv-bucket-min",
+                type=int,
+                default=0,
+                metavar="N",
+                help="smallest KV bucket context length (rounded up to a "
+                "power of two); 0 = auto (max(16, 2x batch-chunk))",
+            )
+            sp.add_argument(
+                "--kv-pages",
+                type=int,
+                default=0,
+                metavar="N",
+                help="paged KV: tokens per page of one preallocated arena "
+                "(halved until it divides seq-len) with per-row page "
+                "tables and a copy-on-write radix prefix cache — admits "
+                "alias cached shared-prompt pages and prefill only the "
+                "uncached tail, growing rows append pages (no slab "
+                "migration copies), eviction is LRU under the same "
+                "modeled HBM budget; overrides --kv-buckets; 0 = slab "
+                "modes (pre-paging behavior). Not ported yet: > 0 is refused at start",
+            )
+            sp.add_argument(
+                "--request-timeout",
+                type=float,
+                default=0.0,
+                metavar="S",
+                help="per-request wall-clock budget in seconds, counted "
+                "from admission (queue time included): an expired request "
+                "gets 504 and its decode row is released at the next chunk "
+                "boundary; 0 = unlimited",
+            )
+            sp.add_argument(
+                "--queue-depth",
+                type=int,
+                default=64,
+                metavar="N",
+                help="max requests in flight (decoding + waiting): overflow "
+                "is rejected immediately with 429 + Retry-After instead of "
+                "queuing unboundedly",
+            )
+            sp.add_argument(
+                "--slo-classes",
+                default=None,
+                metavar="SPEC",
+                help="per-class SLO lanes for the admission gate and "
+                "batch scheduler, e.g. 'interactive:depth=48,deadline=30;"
+                "batch:depth=16,resident=2'. Requests pick their lane "
+                "with X-Dllama-Class (default interactive). depth bounds "
+                "the lane's in-flight count (429 + lane-scoped "
+                "Retry-After past it), deadline is the lane's default "
+                "wall-clock budget in seconds (outranks "
+                "--request-timeout), resident caps the lane's decoding "
+                "rows — interactive arrivals preempt batch rows at chunk "
+                "boundaries and resume them bit-identically when "
+                "pressure drops. Unset = one classless lane "
+                "(pre-SLO behavior). Burn-rate targets ride the same "
+                "spec: ttft=MS / tpot=MS (per-class p95 latency SLO "
+                "targets) and err=FRACTION (5xx error budget) arm the "
+                "multi-window burn-rate alert engine behind GET /alerts",
+            )
+            sp.add_argument(
+                "--ts-interval", type=float, default=1.0, metavar="S",
+                help="metrics-history sampling cadence in seconds "
+                "(see `router --ts-interval`); the sampler also drives "
+                "SLO burn-rate evaluation; 0 disables both",
+            )
+            sp.add_argument(
+                "--burn-short", type=float, default=60.0, metavar="S",
+                help="short burn-rate window: an SLO alert fires only "
+                "when BOTH the short and long windows burn past the "
+                "threshold (short reacts, long filters blips)",
+            )
+            sp.add_argument(
+                "--burn-long", type=float, default=300.0, metavar="S",
+                help="long burn-rate window (see --burn-short)",
+            )
+            sp.add_argument(
+                "--drain-timeout",
+                type=float,
+                default=30.0,
+                metavar="S",
+                help="SIGTERM grace: stop admitting (503), finish live "
+                "requests up to S seconds, then exit",
+            )
+            sp.add_argument(
+                "--pid-file",
+                default=None,
+                metavar="PATH",
+                help="write the server pid here (atomic tmp+rename); "
+                "removed on shutdown",
+            )
+            sp.add_argument(
+                "--log-json",
+                action="store_true",
+                help="emit one structured JSON line per finished request "
+                "(request id, path, TTFT/TPOT, token counts, finish "
+                "reason) to stderr; prompt TEXT is never logged — only "
+                "token counts and a sha256 digest — unless --log-prompts",
+            )
+            sp.add_argument(
+                "--log-prompts",
+                action="store_true",
+                help="include raw prompt text in --log-json records "
+                "(privacy default is OFF: logs carry counts and hashes "
+                "only)",
+            )
+            sp.add_argument(
+                "--role",
+                default="both",
+                choices=["prefill", "decode", "both"],
+                help="disaggregation role this replica declares on /ready: "
+                "'prefill' replicas serve POST /v1/prefill (prompt + first "
+                "decode chunk, then export the row's KV pages on the "
+                "wire), 'decode' replicas serve POST /v1/kv/import (admit "
+                "the migrated row warm and stream the rest); 'both' (the "
+                "default) serves end-to-end. Needs --kv-pages for the "
+                "migration endpoints; the role is advisory — the router "
+                "enforces placement. Not ported yet: prefill and decode are refused "
+                "at start",
+            )
+            sp.add_argument(
+                "--ckpt-interval",
+                type=int,
+                default=32,
+                metavar="K",
+                help="mid-stream failover: default checkpoint cadence (in "
+                "emitted tokens) for streams the router opts in via the "
+                "X-Dllama-Ckpt header without naming its own K; 0 refuses "
+                "checkpointing entirely on this replica. Checkpoints need "
+                "--kv-pages (the paged pool is what export_row snapshots)",
+            )
         sp.add_argument("--model", required=True)
         sp.add_argument("--tokenizer", required=True)
         sp.add_argument("--prompt", default=None)
@@ -64,11 +295,54 @@ def build_parser() -> argparse.ArgumentParser:
             "CUDA graph replay; the text is printed a chunk at a time and a stop token "
             "ends the run after its chunk. inference and chat read each token as it is "
             "made and do not chunk")
+        if mode != "serve":
+            sp.add_argument(
+                "--profile", default=None, metavar="DIR",
+                help="write a torch.profiler trace of the run to DIR/trace.json (Chrome "
+                "trace format: host ops and, on the card, every kernel with its device "
+                "time)")
         sp.add_argument(
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
             "plain PyTorch versions)")
     return p
+
+
+def write_pid_file(path: str) -> None:
+    """Write this process's pid to ``path`` ATOMICALLY (tmp + rename in the
+    same directory): a monitor polling the file never reads a half-written
+    pid, and a crash mid-write leaves the old file intact."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write(f"{os.getpid()}\n")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+@contextlib.contextmanager
+def profiled(profile_dir, device):
+    """Trace the body with ``torch.profiler`` into ``profile_dir/trace.json``
+    when ``profile_dir`` is set: the host's ops, and the card's kernels when
+    ``device`` is CUDA. The trace is written even when the body fails."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"🔬 profiler trace written to {path}")
 
 
 def load_engine(args):
@@ -121,7 +395,11 @@ def run_generate(args, show_stats: bool) -> None:
     prompt = args.prompt if args.prompt is not None else "Hello"
     tokens = tok.encode(prompt, add_bos=True)
     print(f"📄 prompt tokens: {len(tokens)}")
+    with profiled(args.profile, engine.device):
+        _generate(args, show_stats, engine, tok, tokens)
 
+
+def _generate(args, show_stats: bool, engine, tok, tokens: list) -> None:
     prev = tokens[-1]
     produced = []
     # incremental decode: multi-byte chars can span byte-fallback tokens
@@ -190,9 +468,14 @@ def run_generate(args, show_stats: bool) -> None:
 
 
 def run_chat(args) -> None:
+    engine, tok, cfg = load_engine(args)
+    with profiled(args.profile, engine.device):
+        _chat(args, engine, tok, cfg)
+
+
+def _chat(args, engine, tok, cfg) -> None:
     from dllama_tpu_torch.serving.templates import render_llama2_turn, render_llama3_chat
 
-    engine, tok, cfg = load_engine(args)
     system = args.system_prompt
     if system is None:
         system = input("💻 Enter system prompt (optional): ")
@@ -241,9 +524,84 @@ def run_chat(args) -> None:
             break
 
 
+def run_verify(args) -> int:
+    """``verify`` mode: open + fully checksum a `.m` file, exit 0/1.
+
+    Three outcomes:
+    * structural rejection (truncated/hostile file) — the open itself
+      raises, we print the FormatError (which names the first bad tensor
+      and byte offset for truncation) and exit 1;
+    * checksum mismatch — the report names every failing tensor with its
+      byte offset and both CRCs, first corrupt tensor first; exit 1;
+    * clean — exit 0 (a legacy file without an integrity section passes
+      with the size/offset guarantee only, and says so).
+
+    ``--shard I/N`` restricts the check to host I's row stripe (the bytes
+    that host would actually map under N-way tensor parallelism), using the
+    DLRB row-band table when the file carries one.
+    """
+    import json as json_mod
+
+    from dllama_tpu_torch.formats.spec import FormatError
+    from dllama_tpu_torch.formats.weights import WeightFileReader
+
+    shard = None
+    if getattr(args, "shard", None):
+        try:
+            i, n = (int(v) for v in args.shard.split("/", 1))
+            if not 0 <= i < n:
+                raise ValueError
+        except ValueError:
+            print(f"❌ bad --shard {args.shard!r}: want I/N with 0 <= I < N")
+            return 1
+        shard = (i, n)
+    try:
+        with WeightFileReader(args.model) as reader:
+            report = reader.verify(shard=shard)
+    except FormatError as e:
+        if args.json:
+            print(json_mod.dumps(
+                {"path": args.model, "ok": False, "error": str(e)}))
+        else:
+            print(f"❌ {args.model}: {e}")
+        return 1
+    if args.json:
+        print(json_mod.dumps(report))
+        return 0 if report["ok"] else 1
+    if not report["has_integrity"]:
+        print(f"⚠️  {args.model}: no integrity section (legacy file) — "
+              f"size/offset layout of {report['tensors']} tensors "
+              f"({report['payload_bytes']} payload bytes) is consistent, "
+              "but payload bytes are UNVERIFIED")
+        return 0
+    if report["ok"]:
+        if shard is not None:
+            print(f"✅ {args.model}: shard {report['shard']} — "
+                  f"{report.get('bands_checked', 0)} row bands checked "
+                  f"({report['tensors']} tensors), all checksums OK")
+        else:
+            print(f"✅ {args.model}: {report['tensors']} tensors, "
+                  f"{report['payload_bytes']} payload bytes, all checksums OK")
+        return 0
+    for f in report["failures"]:
+        where = (f" row band {f['band']}" if "band" in f else "")
+        print(f"❌ {args.model}: tensor {f['name']!r}{where} corrupt at byte "
+              f"offset {f['offset']} ({f['nbytes']} bytes): stored "
+              f"crc32 {f['expected_crc32']}, "
+              f"computed {f['actual_crc32']}")
+    print(f"{len(report['failures'])} of {report['tensors']} tensors failed")
+    return 1
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mode == "chat":
+    if args.mode == "verify":  # a host-side file check: no device
+        raise SystemExit(run_verify(args))
+    if args.mode == "serve":
+        from dllama_tpu_torch.serving.api_server import serve
+
+        serve(args)
+    elif args.mode == "chat":
         run_chat(args)
     else:
         run_generate(args, show_stats=args.mode == "inference")

@@ -48,7 +48,7 @@ section simply see trailing bytes. This reader validates sizes/offsets at open
 (truncation is caught before any mmap read, naming the first cut tensor) and
 CRC-checks each tensor lazily on first read (disable with
 ``DLLAMA_WEIGHTS_VERIFY=0``). :meth:`WeightFileReader.verify` checks the whole
-file.
+file — that is what ``python -m dllama_tpu_torch.cli verify`` drives.
 
 **Row-band section (sharded verify).** After the DLCK section the writer
 appends a second trailing section::
@@ -77,6 +77,7 @@ from typing import Iterator
 
 import numpy as np
 
+from dllama_tpu_torch import faults, observability
 from dllama_tpu_torch.formats.spec import (
     MAX_HEADER_SIZE,
     ArchType,
@@ -98,6 +99,18 @@ ROW_BAND_VERSION = 1
 #: stays a rounding error next to the payload
 DEFAULT_ROW_BAND = 64
 _RB_FIXED = struct.calcsize("<4sIII")  # tag + version + n_tensors + band_rows
+
+_REG = observability.default_registry()
+_M_CRC_FAIL = _REG.counter(
+    "dllama_weights_checksum_failures_total",
+    "Tensors whose bytes failed the recorded CRC32 (lazy read or verify)")
+_M_OPEN_FAIL = _REG.counter(
+    "dllama_weights_open_failures_total",
+    "Weight files rejected at open (empty/truncated/hostile header)")
+_M_VERIFIED = _REG.counter(
+    "dllama_weights_tensors_verified_total",
+    "Tensors that passed their CRC32 check")
+
 
 class ChecksumError(FormatError):
     """A tensor's bytes do not match the CRC recorded at write time."""
@@ -261,12 +274,16 @@ class WeightFileReader:
             try:
                 self._mm = mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_READ)
             except ValueError:
+                _M_OPEN_FAIL.inc()
                 raise FormatError(f"empty weight file: {path}") from None
         except BaseException:
             self._file.close()
             raise
         try:
             self._buf = np.frombuffer(self._mm, dtype=np.uint8)
+            fv = faults.fire("weights_open")
+            if fv is not None and fv["action"] == "truncate":
+                self._buf = self._buf[: max(0, len(self._buf) - max(1, fv["drop"]))]
             # a bytes COPY of the header region: if parse_header raises, its
             # traceback (held by the caller) must not pin a view of the mmap
             # and turn the cleanup close() into a BufferError
@@ -302,7 +319,9 @@ class WeightFileReader:
             self._lazy_verify = (
                 self.tensor_crcs is not None
                 and os.environ.get("DLLAMA_WEIGHTS_VERIFY", "1") != "0")
-        except BaseException:
+        except BaseException as e:
+            if isinstance(e, FormatError):
+                _M_OPEN_FAIL.inc()
             self.close()
             raise
 
@@ -325,8 +344,14 @@ class WeightFileReader:
         return self._by_name[name]
 
     def _raw_view(self, e: TensorEntry) -> np.ndarray:
-        """The tensor's file bytes (a view into the mmap)."""
-        return self._buf[e.offset : e.offset + e.nbytes]
+        """The tensor's file bytes, with the ``weights_read:bitflip`` fault
+        seam applied (on a copy) so corruption drills exercise detection."""
+        raw = self._buf[e.offset : e.offset + e.nbytes]
+        fv = faults.fire("weights_read")
+        if fv is not None and fv["action"] == "bitflip":
+            raw = raw.copy()
+            raw[min(max(0, fv["byte"]), e.nbytes - 1)] ^= 1
+        return raw
 
     def _checked_raw(self, e: TensorEntry) -> np.ndarray:
         """Raw bytes after the lazy first-read CRC check (whole tensor, even
@@ -341,8 +366,10 @@ class WeightFileReader:
                 # exception (and so this frame) must not pin the buffer and
                 # turn a later close() into a BufferError
                 del raw
+                _M_CRC_FAIL.inc()
                 raise ChecksumError(self.path, e.name, e.offset, expected, actual)
             self._verified.add(e.name)
+            _M_VERIFIED.inc()
         return raw
 
     def read_tensor(self, name: str, dtype=np.float32) -> np.ndarray:
@@ -358,8 +385,16 @@ class WeightFileReader:
         return self._checked_raw(self._by_name[name])
 
     def _rows_raw(self, e: TensorEntry, b0: int, b1: int) -> np.ndarray:
-        """Tensor bytes [b0, b1) (a view into the mmap)."""
-        return self._buf[e.offset + b0 : e.offset + b1]
+        """Tensor bytes [b0, b1) with the ``weights_read:bitflip`` seam
+        applied when its (tensor-relative) target byte falls in range."""
+        raw = self._buf[e.offset + b0 : e.offset + b1]
+        fv = faults.fire("weights_read")
+        if fv is not None and fv["action"] == "bitflip":
+            k = min(max(0, fv["byte"]), e.nbytes - 1)
+            if b0 <= k < b1:
+                raw = raw.copy()
+                raw[k - b0] ^= 1
+        return raw
 
     def _check_bands(self, e: TensorEntry, start: int, stop: int,
                      failures: list | None = None) -> int:
@@ -384,6 +419,7 @@ class WeightFileReader:
             checked += 1
             if actual != crcs[b]:
                 del raw
+                _M_CRC_FAIL.inc()
                 if failures is None:
                     raise ChecksumError(self.path, e.name, e.offset + r0 * rb,
                                         crcs[b], actual)
@@ -397,6 +433,7 @@ class WeightFileReader:
             done.add(b)
             if len(done) == len(crcs):
                 self._verified.add(e.name)
+                _M_VERIFIED.inc()
         return checked
 
     def read_tensor_rows(self, name: str, rows: slice, dtype=np.float32) -> np.ndarray:
@@ -460,6 +497,7 @@ class WeightFileReader:
             actual = zlib.crc32(self._raw_view(e))
             expected = self.tensor_crcs[i]
             if actual != expected:
+                _M_CRC_FAIL.inc()
                 failures.append({
                     "name": e.name, "offset": e.offset, "nbytes": e.nbytes,
                     "expected_crc32": f"{expected:#010x}",
@@ -467,6 +505,7 @@ class WeightFileReader:
                 })
             else:
                 self._verified.add(e.name)
+                _M_VERIFIED.inc()
         report = {
             "path": self.path,
             "ok": not failures,

@@ -19,6 +19,16 @@ host position) for comparison; on the CPU the graph's body runs eagerly.
 Prefill and the speculative verify steps are eager. The KV cache is updated
 in place, where the JAX programs donate it.
 
+Telemetry and fault seams are the reference's: ``Engine(metrics=...)``
+registers the same metric names on an ``observability.MetricsRegistry``
+(the port's default registry unless told otherwise; ``None`` turns them
+off), observed on the host once per call, chunk or prefill piece, never
+inside a captured graph. The ``prefill``, ``prefill_chunk``, ``admit``,
+``step_chunk`` and ``logits`` seams of ``faults`` fire where the
+reference fires them; ``logits:nan`` poisons a decode row through the
+graph's static ``poison`` flags (``StepGraph.load``), which every replay
+reads.
+
 Batched rows and solo runs: a batched row sums in the order K1/K3 and flash
 decode take at B rows, which is not the solo order (the dequant-matmuls'
 split plans depend on the row count), so a row agrees with its solo run
@@ -45,7 +55,7 @@ from typing import Iterator, Optional
 
 import torch
 
-from dllama_tpu_torch import resolve_device
+from dllama_tpu_torch import faults, observability, resolve_device
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.runtime.graphs import GraphCache, StepGraph
@@ -58,10 +68,15 @@ PREFILL_BUCKETS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 #: of the chunk's tokens)
 DECODE_CHUNK = 64
 
+#: sentinel for Engine(metrics=...): "the port's default registry"
+DEFAULT_METRICS = object()
+
 
 class NumericHealthError(RuntimeError):
     """The decode-step watchdog saw non-finite logits (NaN/Inf from corrupt
-    weights, a bad kernel, or a hardware error). Solo decode fails fast."""
+    weights, a bad kernel, or a hardware error). Solo decode fails fast; a
+    BatchSession quarantines the row instead (finish reason ``"error"``)
+    and the server maps it to a 500 / ``finish_reason: "error"``."""
 
     def __init__(self, where: str):
         super().__init__(f"non-finite logits detected {where}; "
@@ -115,7 +130,7 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params: dict,
                  sampler_cfg: SamplerConfig = SamplerConfig(),
                  cache_dtype=torch.float32, device=None, decode_chunk: int = DECODE_CHUNK,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, metrics=DEFAULT_METRICS):
         """Quantized projections that share an input are fused
         (``llama.fuse_qkv_ffn``) if they are not already. Every solo decode
         step checks ``isfinite(logits)`` and ``generate`` raises
@@ -124,9 +139,13 @@ class Engine:
         (``row_health``). ``decode_chunk``: decode steps between host syncs
         in ``generate_fused`` and batched decode. ``cuda_graphs``: decode
         steps replay captured graphs (:class:`StepGraph`, on the CPU their
-        body runs eagerly); False keeps the eager steps."""
+        body runs eagerly); False keeps the eager steps. ``metrics``: the
+        registry the engine's histograms and counters go to (the default
+        registry unless given; ``None`` disables them)."""
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
+        self._register_metrics(
+            observability.default_registry() if metrics is DEFAULT_METRICS else metrics)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sampler_cfg = sampler_cfg
@@ -143,13 +162,108 @@ class Engine:
         # Sessions and running calls that hold it
         self._resident: Optional[dict] = None
         self._holders: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+        # the batch cache BatchSessions decode in, and the open session using it
+        self._pool: Optional[dict] = None
+        self._pool_user = None
+        #: generate_batch_spec runs on this engine (the server's spec route)
+        self.supports_batch_spec = True
         self.prefill_ms = 0.0
         self.decode_ms = 0.0
         self.row_health: list = []
         self.final_session: Optional[Session] = None
 
+    def _register_metrics(self, metrics) -> None:
+        """The reference Engine's metric names (``None``: no telemetry). The
+        port has no KV-bucket migration, paged prefix cache or
+        tensor-parallel programs yet: those counters stay at 0, so that
+        ``/metrics`` lists the same names as the reference's."""
+        self.metrics = metrics
+        if metrics is None:
+            self._m_prefill = self._m_step = self._m_chunk = None
+            self._m_prefill_chunk = self._m_quarantine = None
+            self._m_spec_steps = self._m_spec_accepted = self._m_spec_emitted = None
+            return
+        h, c = metrics.histogram, metrics.counter
+        self._m_prefill = h("dllama_prefill_ms", "Prompt prefill wall time per request")
+        self._m_step = h("dllama_decode_step_ms",
+                         "Per-token decode wall time (solo streaming path)")
+        self._m_chunk = h("dllama_decode_chunk_ms",
+                          "Fused decode-chunk wall time (fused/batched/pooled paths)")
+        self._m_prefill_chunk = h("dllama_prefill_chunk_ms",
+                                  "Incremental prefill chunk wall time (chunked admission)")
+        c("dllama_kv_migrations_total", "Pooled rows migrated to the next larger KV bucket")
+        self._m_quarantine = c("dllama_numeric_quarantines_total",
+                               "Rows/streams stopped by the numeric-health watchdog")
+        self._m_spec_steps = c("dllama_spec_verify_steps_total",
+                               "Speculative-decode verify launches")
+        self._m_spec_accepted = c("dllama_spec_drafts_accepted_total",
+                                  "Draft tokens accepted by speculative verify")
+        self._m_spec_emitted = c("dllama_spec_tokens_emitted_total",
+                                 "Tokens emitted by speculative decode paths")
+        c("dllama_prefix_cache_hits_total",
+          "Paged admissions that aliased at least one cached KV page")
+        c("dllama_prefix_cache_misses_total",
+          "Paged admissions with no cached prefix page to alias")
+        c("dllama_prefix_tokens_matched_total",
+          "Prompt tokens served from the radix prefix cache instead of being re-prefilled")
+        c("dllama_kv_cow_copies_total",
+          "Boundary KV pages copied (copy-on-write) at paged admission")
+        c("dllama_prefix_evictions_total",
+          "Refcount-zero prefix-cache pages evicted (LRU) to satisfy an allocation")
+        c("dllama_tp_overlap_chunks_total",
+          "Decode/verify dispatches routed through the microbatch "
+          "compute/communication-overlap TP programs")
+        c("dllama_tp_reduce_chunks_total",
+          "Decode/verify dispatches served by the row-parallel "
+          "(K-sharded wo/w2, ring reduce-scatter) TP programs")
+
+    def _poison_flag(self) -> bool:
+        """The solo ``logits:nan`` fault seam: True poisons this dispatch."""
+        fv = faults.fire("logits")
+        return fv is not None and fv["action"] == "nan"
+
+    def _poison_rows(self, batch: int) -> tuple:
+        """The batched ``logits:nan`` seam: the rows (``row=N``, clamped to
+        the batch) this dispatch poisons."""
+        fv = faults.fire("logits")
+        if fv is not None and fv["action"] == "nan":
+            return (min(max(fv["row"], 0), batch - 1),)
+        return ()
+
     def new_cache(self) -> dict:
         return llama.init_cache(self.cfg, self.cache_dtype, self.device)
+
+    def free_cache(self, cache: dict) -> None:
+        """Free ``cache`` now rather than at the next collection: the
+        engine forgets it (as its resident solo or pool cache, or its
+        ``final_session``'s), its step graphs go, and ``cache`` is emptied,
+        so the memory returns to the allocator once no other reference to
+        its tensors is left. The dict must not be used afterwards."""
+        if cache is self._resident:
+            self._resident = None
+        if cache is self._pool:
+            self._pool, self._pool_user = None, None
+        if self.final_session is not None and self.final_session.cache is cache:
+            self.final_session = None
+        if "k" in cache:
+            self.graphs.drop(cache["k"])
+        cache.clear()
+
+    def _pool_cache(self, sess: "BatchSession", batch: int) -> dict:
+        """The batch cache [L, batch, S, kv, hd] for a new BatchSession: the
+        engine's resident one, unless an open session uses it (then a new
+        one). Consecutive sessions of one pool size thus replay the decode
+        graphs captured on it; a session of another size replaces it.
+        Slot reuse needs no clearing (see BatchSession)."""
+        user = self._pool_user() if self._pool_user is not None else None
+        if user is not None and not user._closed:
+            return self._batch_cache_init(batch)
+        if self._pool is not None and self._pool["k"].shape[1] != batch:
+            self.free_cache(self._pool)
+        if self._pool is None:
+            self._pool = self._batch_cache_init(batch)
+        self._pool_user = weakref.ref(sess)
+        return self._pool
 
     def _solo_cache(self) -> dict:
         """A zeroed solo cache for a ``generate`` or ``generate_fused`` call
@@ -204,12 +318,14 @@ class Engine:
         if not 0 < pos + len(tokens) <= self.cfg.seq_len:
             raise ValueError(
                 f"prompt of {len(tokens)} tokens at pos {pos} exceeds seq_len {self.cfg.seq_len}")
+        faults.fire("prefill")
         if chunk is not None and chunk < 1:
             raise ValueError(f"prefill chunk must be >= 1, got {chunk}")
         if chunk is None or chunk >= len(tokens):
             return self._prefill_piece(cache, tokens, pos)
         logits = None
         for i in range(0, len(tokens), chunk):
+            faults.fire("prefill_chunk")
             logits, cache = self._prefill_piece(cache, tokens[i:i + chunk], pos + i)
         return logits, cache
 
@@ -233,11 +349,14 @@ class Engine:
         return sampler, torch.Generator(device=self.device).manual_seed(sampler.seed)
 
     def _decode_step(self, cache: dict, token: torch.Tensor, pos: int, scfg: SamplerConfig,
-                     gen: torch.Generator) -> tuple:
+                     gen: torch.Generator, poison: bool = False) -> tuple:
         """Enqueue one decode step; returns (next token, finite flag), both
-        device tensors the host has not waited for yet."""
+        device tensors the host has not waited for yet. ``poison``: the
+        logits are NaN (the ``logits`` fault seam)."""
         logits, _ = llama.forward(self.cfg, self.params, self.rope,
                                   token.reshape(1), cache, pos)
+        if poison:
+            logits = torch.full_like(logits, float("nan"))
         nxt = sample_dynamic(logits[0], scfg.temperature, scfg.topp, gen)
         return nxt, torch.isfinite(logits).all()
 
@@ -263,19 +382,21 @@ class Engine:
         return self.graphs.get(cache["k"], key, make)
 
     def _decode_chunk_solo(self, cache: dict, token: torch.Tensor, pos: int, n: int,
-                           scfg: SamplerConfig, gen: torch.Generator) -> tuple:
+                           scfg: SamplerConfig, gen: torch.Generator,
+                           poison: bool = False) -> tuple:
         """``n`` solo decode steps from ``token`` (a device tensor) at host
         ``pos`` with no host sync: one graph replay each (eager steps with
         ``cuda_graphs=False``). Returns the sampled tokens int64 [n] and the
-        finite flag [1], device tensors."""
+        finite flag [1], device tensors. ``poison``: every step's logits are
+        NaN (the ``logits`` fault seam)."""
         if self.cuda_graphs:
             g = self.step_graph(cache, scfg.temperature > 0.0, self.decode_chunk)
-            g.load(token, pos, [scfg.temperature], [scfg.topp])
+            g.load(token, pos, [scfg.temperature], [scfg.topp], poison=(0,) if poison else ())
             toks, ok = g.run(n, [gen])
             return toks[:, 0], ok
         out, ok = [], torch.ones(1, dtype=torch.bool, device=self.device)
         for i in range(n):
-            token, finite = self._decode_step(cache, token, pos + i, scfg, gen)
+            token, finite = self._decode_step(cache, token, pos + i, scfg, gen, poison)
             ok &= finite
             out.append(token)
         return torch.stack(out), ok
@@ -311,6 +432,8 @@ class Engine:
             token = torch.tensor(prompt_tokens[0], dtype=torch.long, device=self.device)
         _sync(self.device)
         self.prefill_ms = (time.perf_counter() - t0) * 1000.0
+        if self._m_prefill is not None and len(prompt_tokens) > 1:
+            self._m_prefill.observe(self.prefill_ms)
 
         tok_int: Optional[int] = None
         if len(prompt_tokens) > 1:
@@ -326,20 +449,25 @@ class Engine:
                 return
         for _ in range(max(steps, 0)):
             t1 = time.perf_counter()
+            poison = self._poison_flag()
             if self.cuda_graphs:
-                toks, ok = self._decode_chunk_solo(cache, token, pos, 1, scfg, gen)
+                toks, ok = self._decode_chunk_solo(cache, token, pos, 1, scfg, gen, poison)
                 token = toks[0]
             else:
-                token, ok = self._decode_step(cache, token, pos, scfg, gen)
+                token, ok = self._decode_step(cache, token, pos, scfg, gen, poison)
             # the step returns once its kernels are enqueued: the wait from
             # here to the result is device execution ("inference")
             t2 = time.perf_counter()
             _sync(self.device)
             t3 = time.perf_counter()
             if not bool(ok.all()):
+                if self._m_quarantine is not None:
+                    self._m_quarantine.inc()
                 raise NumericHealthError(f"at decode position {pos}")
             tok_int = int(token)
             t4 = time.perf_counter()
+            if self._m_step is not None:
+                self._m_step.observe((t4 - t1) * 1000.0)
             pos += 1
             self.final_session = self._session(cache, pos, pending_token=tok_int)
             yield tok_int, TokenStats(
@@ -408,6 +536,8 @@ class Engine:
             first = []
         _sync(self.device)
         self.prefill_ms = prefill_ms = (time.perf_counter() - t0) * 1000.0
+        if self._m_prefill is not None and len(prompt_tokens) > 1:
+            self._m_prefill.observe(prefill_ms)
         if first and on_chunk is not None:
             on_chunk(first)
 
@@ -415,11 +545,17 @@ class Engine:
         toks: list = []
         remaining = steps
         while remaining > 0:
+            tc = time.perf_counter()
             n = min(self.decode_chunk, remaining)
-            chunk, ok = self._decode_chunk_solo(cache, token, pos, n, scfg, gen)
+            chunk, ok = self._decode_chunk_solo(cache, token, pos, n, scfg, gen,
+                                                self._poison_flag())
             *got, finite = torch.cat([chunk, ok.long()]).tolist()  # the chunk's one sync
             if not finite:
+                if self._m_quarantine is not None:
+                    self._m_quarantine.inc()
                 raise NumericHealthError(f"in fused decode chunk starting at position {pos}")
+            if self._m_chunk is not None:
+                self._m_chunk.observe((time.perf_counter() - tc) * 1000.0)
             cut = next((i + 1 for i, t in enumerate(got) if t in stop_tokens), n)
             toks.extend(got[:cut])
             if on_chunk is not None:
@@ -535,6 +671,10 @@ class Engine:
                 m, out = accept(draft, g, steps - emitted, stop_tokens)
                 if sampled:  # back to the state after the last emitted token's draw
                     gen.set_state(states[len(out) - 1])
+                if self._m_spec_steps is not None:
+                    self._m_spec_steps.inc()
+                    self._m_spec_accepted.inc(m)
+                    self._m_spec_emitted.inc(len(out))
                 index.extend([token] + draft[:m])
                 token, base = out[-1], pos
                 pos += m + 1
@@ -554,7 +694,7 @@ class Engine:
     # -- batched decode -------------------------------------------------------
     def _decode_chunk_batch(self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
                             n: int, temps: list, topps: list, generators: list,
-                            host_pos: list) -> tuple:
+                            host_pos: list, poison: tuple = ()) -> tuple:
         """``n`` batched decode steps with no host sync: tokens, positions
         and the per-row finite flags stay on the device. Row b samples with
         its own settings and generator; a row whose context fills pins at
@@ -562,20 +702,28 @@ class Engine:
         One graph replay per step, the graph's grid bound seq_len (a row's
         bits do not depend on the bound); eager with ``cuda_graphs=False``,
         where ``host_pos``, the host's mirror of ``pos``, bounds flash
-        decode's grid for the whole chunk. Returns (tokens [n, B], ok [B],
-        the positions after the chunk)."""
+        decode's grid for the whole chunk. ``poison``: the rows whose logits
+        are NaN in every step (the ``logits`` fault seam). Returns (tokens
+        [n, B], ok [B], the positions after the chunk)."""
         if self.cuda_graphs:
             g = self.step_graph(cache, any(t > 0.0 for t in temps), max(n, self.decode_chunk))
-            g.load(tokens, pos, temps, topps)
+            g.load(tokens, pos, temps, topps, poison=poison)
             toks, ok = g.run(n, generators)
             return toks.clone(), ok.clone(), g.pos.clone()
         S = self.cfg.seq_len
         bound = min(max(host_pos) + n, S)
         ok = torch.ones(tokens.shape, dtype=torch.bool, device=self.device)
+        mask = None
+        if poison:
+            mask = torch.zeros(tokens.shape, dtype=torch.bool)
+            mask[list(poison)] = True
+            mask = mask.to(self.device)
         out = []
         for _ in range(n):
             logits, _ = llama.forward_batched(self.cfg, self.params, self.rope, tokens, cache,
                                               pos, bound)
+            if mask is not None:
+                logits = logits.masked_fill(mask[:, None], float("nan"))
             ok &= torch.isfinite(logits).all(dim=-1)
             tokens = sample_rows(logits, temps, topps, generators)
             out.append(tokens)
@@ -602,6 +750,8 @@ class Engine:
             del single  # 1-token-prompt rows keep their zero slots
         _sync(self.device)
         self.prefill_ms = (time.perf_counter() - t0) * 1000.0
+        if self._m_prefill is not None:
+            self._m_prefill.observe(self.prefill_ms)
         return cache, [int(p[-1]) for p in prompts], [len(p) - 1 for p in prompts]
 
     def generate_batch(self, prompts: list, steps: int,
@@ -664,15 +814,20 @@ class Engine:
         host_pos = list(poss)
         t1 = time.perf_counter()
         while remaining > 0:
+            tc = time.perf_counter()
             n = min(self.decode_chunk, remaining)
             chunk, ok, pos = self._decode_chunk_batch(cache, tokens, pos, n, temps, topps, gens,
-                                                      host_pos)
+                                                      host_pos, self._poison_rows(B))
             arr = chunk.cpu().tolist()  # the chunk's one host sync
             okh = ok.cpu().tolist()
+            if self._m_chunk is not None:
+                self._m_chunk.observe((time.perf_counter() - tc) * 1000.0)
             tokens = chunk[-1]
             host_pos = [min(p + n, S - 1) for p in host_pos]
             fresh: list = [[] for _ in range(B)]
             for b in range(B):
+                if self.row_health[b] and not okh[b] and self._m_quarantine is not None:
+                    self._m_quarantine.inc()
                 self.row_health[b] = self.row_health[b] and bool(okh[b])
                 # a context-exhausted row pinned at its last slot: keep only
                 # the tokens its room allows
@@ -774,20 +929,31 @@ class Engine:
             if on_step is not None:
                 on_step(fresh)
         self.decode_ms = (time.perf_counter() - t1) * 1000.0
+        emitted = sum(len(r) for r in out)
+        if self._m_spec_steps is not None:
+            self._m_spec_steps.inc(verify_steps)
+            self._m_spec_accepted.inc(accepted)
+            self._m_spec_emitted.inc(emitted)
         return out, {"verify_steps": verify_steps, "accepted_drafts": accepted,
-                     "emitted": sum(len(r) for r in out)}
+                     "emitted": emitted}
 
     def batch_session(self, max_batch: int, chunk: Optional[int] = None,
-                      bucket_kv: bool = False, prefill_chunk: int = 0,
+                      bucket_kv: bool = False, min_bucket: Optional[int] = None,
+                      prefill_chunk: int = 0, kv_budget=None,
                       kv_pages: int = 0) -> "BatchSession":
         """Open a slot-pool decode session (continuous batching) over one
-        resident batch cache [L, max_batch, S, kv, hd]: rows are admitted,
-        stepped and released independently between chunks of ``chunk``
-        steps (default ``decode_chunk``). Only the uniform mode is ported:
-        ``bucket_kv``, ``prefill_chunk`` and ``kv_pages`` raise
-        NotImplementedError."""
+        batch cache [L, max_batch, S, kv, hd]: rows are admitted, stepped
+        and released independently between chunks of ``chunk`` steps
+        (default ``decode_chunk``). ``prefill_chunk`` > 0 sets the default
+        token budget of ``prefill_step`` for chunked (``admit_begin``)
+        admissions; ``kv_budget`` is an optional external accountant
+        (``serving.lifecycle.KVBudget``) that mirrors reservations into
+        gauges. ``min_bucket`` is accepted as the reference accepts it; it
+        sizes bucketed pools only. Bucketed pools (``bucket_kv``) and paged
+        KV (``kv_pages``) are not ported yet and raise NotImplementedError."""
         return BatchSession(self, max_batch, chunk, bucket_kv=bucket_kv,
-                            prefill_chunk=prefill_chunk, kv_pages=kv_pages)
+                            min_bucket=min_bucket, prefill_chunk=prefill_chunk,
+                            kv_budget=kv_budget, kv_pages=kv_pages)
 
 
 @dataclasses.dataclass
@@ -797,43 +963,70 @@ class _SlotState:
     room: int  # feeds the row's remaining context allows (S - admit pos)
     budget: int  # min(room, the caller's step budget)
     stop_tokens: tuple
+    reserved: int  # KV token-slots reserved against the session budget
     offered: int = 0  # tokens the chunks have offered this row so far
     done: bool = False  # budget/stop reached; pinned in place until release()
     emitted: int = 0  # tokens actually kept (after budget/stop truncation)
     finish: Optional[str] = None  # "stop" | "length" | "error" once done
-    prefill_ms: float = 0.0  # admission-prefill wall time
+    prefilling: bool = False  # admit_begin()ed, prompt not fully consumed
+    prefill_ms: float = 0.0  # accumulated admission-prefill wall time
+
+
+@dataclasses.dataclass
+class _PendingPrefill:
+    """A chunked admission's prompt in flight (``admit_begin``)."""
+
+    prompt: list
+    scfg: SamplerConfig
+    cache: dict  # the solo staging cache [L, S, kv, hd] being filled
+    cursor: int = 0  # prompt-prefix tokens already prefilled
 
 
 class BatchSession:
-    """Slot-pool decode over one resident batch cache [L, max_batch, S, kv,
-    hd] — the continuous-batching primitive, uniform mode. Rows join
-    (``admit``), step (``step_chunk``) and leave (``release``) independently
-    between chunks; handles are slot indices 0..max_batch-1.
+    """Slot-pool decode over one batch cache [L, max_batch, S, kv, hd] — the
+    continuous-batching primitive, uniform mode. Rows join (``admit``, or
+    ``admit_begin`` and ``prefill_step``), step (``step_chunk``) and leave
+    (``release``) independently between chunks; handles are slot indices
+    0..max_batch-1. The cache is the engine's resident pool cache when no
+    other open session uses it (``Engine._pool_cache``), so a later session
+    of the same size replays the graphs captured for an earlier one.
 
     Every chunk runs the whole fixed-size pool through the engine's batched
-    decode chunk. Free and finished rows ride along pinned at slot S - 1
-    (free rows greedy, feeding token 0), so the batch size never changes
+    decode chunk. Free, finished and mid-prefill rows ride along pinned at
+    slot S - 1 (greedy, feeding token 0), so the batch size never changes
     and a row's arithmetic never depends on who else is in the pool: a row
     admitted mid-flight emits, bit for bit, the tokens it would emit
-    admitted at the start. Slot reuse needs no clearing: admission
+    admitted at the start. Slot reuse needs no clearing: going live
     overwrites the row's whole slab with its prefilled cache (a 1-token
     prompt writes position 0 before attending it), and positions past a
     row's own pos are never attended.
 
-    Not ported yet (ROADMAP Queue 1, items 3b and 4): bucketed slot pools
-    (``bucket_kv``), chunked admission (``prefill_chunk``,
-    ``admit_begin``/``prefill_step``), paged KV (``kv_pages``), the
-    ``kv_budget`` accountant and row export/import."""
+    Chunked admission: ``admit_begin`` reserves a row and ``prefill_step``
+    advances the oldest pending prompt by at most ``prefill_chunk`` tokens
+    into its own solo staging cache, which is copied into the row's slab
+    when the prompt is done. The pieces run the decode kernels where the
+    monolithic prefill runs the prefill ones (K1/K3 take the GEMV at up to
+    8 rows, K4/K5 their decode launches at up to 16), so a chunked row's
+    logits agree with a monolithic admission's within float rounding, not
+    bit for bit; at one ``prefill_chunk`` a row's tokens do not depend on
+    when its pieces ran.
+
+    Every row reserves the full context (``reserved_tokens``) against
+    ``budget_tokens`` = max_batch * seq_len and the optional external
+    ``kv_budget``. Not ported yet (ROADMAP Queue 1, items 5 and 6):
+    bucketed slot pools (``bucket_kv``), paged KV (``kv_pages``) and row
+    export/import."""
 
     def __init__(self, eng: Engine, max_batch: int, chunk: Optional[int] = None,
-                 bucket_kv: bool = False, prefill_chunk: int = 0, kv_pages: int = 0):
-        if bucket_kv or prefill_chunk > 0:
+                 bucket_kv: bool = False, min_bucket: Optional[int] = None,
+                 prefill_chunk: int = 0, kv_budget=None, kv_pages: int = 0):
+        if bucket_kv:
             raise NotImplementedError(
-                "bucketed slot pools and chunked admission are not ported yet "
-                "(ROADMAP Queue 1, item 3b): use the uniform session")
+                "bucketed slot pools are not ported yet (ROADMAP Queue 1, item 5): use "
+                "the uniform session")
         if kv_pages > 0:
             raise NotImplementedError(
-                "paged KV is not ported yet (ROADMAP Queue 1, item 4): use the uniform "
+                "paged KV is not ported yet (ROADMAP Queue 1, item 6): use the uniform "
                 "session")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -843,8 +1036,14 @@ class BatchSession:
         self.eng = eng
         self.max_batch = max_batch
         self.chunk = chunk
-        self._cache: Optional[dict] = eng._batch_cache_init(max_batch)
+        self.prefill_chunk = max(0, int(prefill_chunk))
         S = eng.cfg.seq_len
+        #: KV token-slots the pool holds: max_batch full-context rows
+        self.budget_tokens = max_batch * S
+        self._reserved_tokens = 0
+        self._budget = kv_budget  # duck-typed lifecycle.KVBudget mirror
+        self._closed = False
+        self._cache: Optional[dict] = eng._pool_cache(self, max_batch)
         # per-row decode state, host mirrors shipped to the device per chunk;
         # free rows pin at the last slot, greedy, feeding token 0
         self._tokens = [0] * max_batch
@@ -853,14 +1052,14 @@ class BatchSession:
         self._topps = [1.0] * max_batch
         self._gens: list = [None] * max_batch
         self._slots: dict = {}  # handle (= row) -> _SlotState
-        self._closed = False
+        self._prefills: dict = {}  # handle -> _PendingPrefill, oldest first
         self.decode_ms = 0.0  # cumulative chunk wall time
         self.prefill_ms = 0.0  # cumulative admission-prefill wall time
 
     # -- introspection ----------------------------------------------------
     @property
     def cache(self) -> Optional[dict]:
-        """The resident batch cache (None once closed)."""
+        """The batch cache (None once closed)."""
         return self._cache
 
     @property
@@ -872,13 +1071,25 @@ class BatchSession:
 
     @property
     def occupied(self) -> list:
-        """Admitted-and-not-released handles (done rows included)."""
+        """Admitted-and-not-released handles (done and mid-prefill rows
+        included)."""
         return sorted(self._slots)
 
     @property
     def num_live(self) -> int:
         """Rows the next step_chunk will advance."""
-        return sum(1 for st in self._slots.values() if not st.done)
+        return sum(1 for st in self._slots.values() if not st.done and not st.prefilling)
+
+    @property
+    def pending_prefills(self) -> list:
+        """Handles admitted with ``admit_begin`` whose prompts are still
+        being consumed, oldest first."""
+        return list(self._prefills)
+
+    @property
+    def reserved_tokens(self) -> int:
+        """KV token-slots currently reserved against ``budget_tokens``."""
+        return self._reserved_tokens
 
     def _state(self, slot: int) -> _SlotState:
         st = self._slots.get(slot)
@@ -897,24 +1108,45 @@ class BatchSession:
         return self._state(slot).finish
 
     def prefill_ms_of(self, slot: int) -> float:
+        """Wall time this row's admission prefill has taken so far."""
         return self._state(slot).prefill_ms
 
-    def can_admit(self, prompt_len: int, steps: int) -> bool:
-        """True when a slot is free (uniform mode: every row reserves the
-        full context)."""
-        return bool(self.free_slots)
+    def can_admit(self, prompt_len: int, steps: int,
+                  prompt_tokens: Optional[list] = None) -> bool:
+        """True when the pool's KV budget (and the external ``kv_budget``,
+        if any) has room for one more row: every row reserves the full
+        context, so this is a free slot that the accountant still allows.
+        ``prompt_tokens`` is accepted for the paged mode's prefix match."""
+        if self._closed:
+            return False
+        need = self.eng.cfg.seq_len
+        if self._reserved_tokens + need > self.budget_tokens:
+            return False
+        return self._budget is None or self._budget.can_fit(need)
 
     # -- lifecycle --------------------------------------------------------
     def admit(self, prompt_tokens: list, steps: int, sampler: Optional[SamplerConfig] = None,
               stop_tokens: tuple = ()) -> int:
         """Prefill ``prompt_tokens`` into the lowest free row and return its
-        handle (the slot index). The prompt's prefix runs through the
-        engine's bucketed prefill into a fresh single cache, copied into the
-        row's slab; the last prompt token stays pending for the row's first
-        step, which samples with a generator freshly seeded from
-        ``sampler.seed`` (``sampler`` defaults to the engine's). ``steps`` and
-        ``stop_tokens`` are the row's own budget and stop set. Raises
-        RuntimeError when the session is closed or full."""
+        handle (the slot index): ``admit_begin``, then one ``prefill_step``
+        over the whole prefix. The last prompt token stays pending for the
+        row's first step, which samples with a generator freshly seeded
+        from ``sampler.seed`` (``sampler`` defaults to the engine's).
+        ``steps`` and ``stop_tokens`` are the row's own budget and stop set.
+        Raises RuntimeError when the session is closed or full."""
+        handle = self.admit_begin(prompt_tokens, steps, sampler=sampler,
+                                  stop_tokens=stop_tokens)
+        while self._slots[handle].prefilling:
+            self.prefill_step(handle, budget=len(prompt_tokens))
+        return handle
+
+    def admit_begin(self, prompt_tokens: list, steps: int,
+                    sampler: Optional[SamplerConfig] = None, stop_tokens: tuple = ()) -> int:
+        """Reserve the lowest free row for the prompt without prefilling
+        it: ``prefill_step`` calls, interleaved with ``step_chunk``, consume
+        the prompt, so resident rows keep decoding while a long prompt
+        fills its staging cache. A 1-token prompt has nothing to prefill
+        and goes live at once."""
         if self._closed:
             raise RuntimeError("batch session is closed")
         if not prompt_tokens:
@@ -922,64 +1154,128 @@ class BatchSession:
         S = self.eng.cfg.seq_len
         if len(prompt_tokens) > S:
             raise ValueError(f"prompt of {len(prompt_tokens)} tokens exceeds seq_len {S}")
-        free = self.free_slots
-        if not free:
-            raise RuntimeError(f"no free slot (max_batch={self.max_batch}); "
-                               "release a finished row first")
+        if not self.can_admit(len(prompt_tokens), steps):
+            raise RuntimeError(
+                f"no free slot (max_batch={self.max_batch}, KV budget "
+                f"{self._reserved_tokens}/{self.budget_tokens} tokens); "
+                "release a finished row first")
+        faults.fire("admit")
         scfg = sampler if sampler is not None else self.eng.sampler_cfg
-        row = free[0]
+        row = self.free_slots[0]
+        self._reserved_tokens += S
+        if self._budget is not None:
+            self._budget.reserve(S)
+            self._budget.place(S)
         plen = len(prompt_tokens)
         room = S - (plen - 1)
         budget = min(room, steps)
-        st = _SlotState(room=room, budget=budget, stop_tokens=tuple(stop_tokens),
+        st = _SlotState(room=room, budget=budget, stop_tokens=tuple(stop_tokens), reserved=S,
                         done=budget <= 0, finish="length" if budget <= 0 else None)
         self._slots[row] = st
         if budget <= 0:
             return row  # never decodes; skip the prefill
-        if plen > 1:
-            t0 = time.perf_counter()
-            _, single = self.eng._prefill_piece(self.eng.new_cache(), list(prompt_tokens[:-1]),
-                                                0)
-            Engine._batch_cache_insert(self._cache, single, row)
-            _sync(self.eng.device)
-            st.prefill_ms = (time.perf_counter() - t0) * 1000.0
-            self.prefill_ms += st.prefill_ms
+        if plen == 1:
+            self._go_live(row, prompt_tokens, scfg)
+        else:
+            faults.fire("prefill")
+            st.prefilling = True
+            self._prefills[row] = _PendingPrefill(list(prompt_tokens), scfg,
+                                                  self.eng.new_cache())
+        return row
+
+    def prefill_step(self, handle: Optional[int] = None,
+                     budget: Optional[int] = None) -> Optional[tuple]:
+        """Advance ONE pending admission by up to ``budget`` prompt tokens
+        (default: the session's ``prefill_chunk``; the whole remaining
+        prefix when neither is set): one bucketed prefill forward into its
+        staging cache, synced before returning. Returns (handle, finished);
+        ``finished`` means the row just went live (its slab is written; the
+        next step_chunk decodes it). Returns None when nothing is pending.
+        Without ``handle`` it takes the oldest pending admission."""
+        if self._closed:
+            raise RuntimeError("batch session is closed")
+        if handle is None:
+            handle = next((h for h in self._prefills if not self._slots[h].done), None)
+            if handle is None:
+                return None
+        pf = self._prefills.get(handle)
+        if pf is None:
+            raise ValueError(f"slot {handle} has no pending prefill")
+        st = self._slots[handle]
+        prefix = pf.prompt[:-1]
+        n = budget if budget is not None else self.prefill_chunk
+        if n <= 0:
+            n = len(prefix) - pf.cursor
+        piece = prefix[pf.cursor:pf.cursor + n]
+        faults.fire("prefill_chunk")
+        t0 = time.perf_counter()
+        _, pf.cache = self.eng._prefill_piece(pf.cache, piece, pf.cursor)
+        pf.cursor += len(piece)
+        done = pf.cursor >= len(prefix)
+        if done:  # land the staging cache in the row's slab
+            Engine._batch_cache_insert(self._cache, pf.cache, handle)
+        _sync(self.eng.device)
+        dt = (time.perf_counter() - t0) * 1000.0
+        self.prefill_ms += dt
+        st.prefill_ms += dt
+        if self.eng._m_prefill_chunk is not None:
+            self.eng._m_prefill_chunk.observe(dt)
+        if not done:
+            return handle, False
+        del self._prefills[handle]
+        st.prefilling = False
+        self._go_live(handle, pf.prompt, pf.scfg)
+        if self.eng._m_prefill is not None:
+            self.eng._m_prefill.observe(st.prefill_ms)
+        return handle, True
+
+    def _go_live(self, row: int, prompt_tokens: list, scfg: SamplerConfig) -> None:
+        """Arm the row's decode state: the pending last prompt token, its
+        position and a freshly seeded generator."""
         self._tokens[row] = int(prompt_tokens[-1])
-        self._pos[row] = plen - 1
+        self._pos[row] = len(prompt_tokens) - 1
         self._temps[row] = float(scfg.temperature)
         self._topps[row] = float(scfg.topp)
         self._gens[row] = self.eng._row_generator(scfg.temperature, scfg.seed)
-        return row
 
     def step_chunk(self) -> dict:
         """Run ONE chunk over the whole pool and return {handle: fresh
         tokens} for every live row, each truncated at the row's budget and
         (inclusively) at its first stop token — never empty unless the row's
         logits went non-finite (then it is done with finish reason
-        ``"error"`` and gets nothing from the chunk). Rows that finish are
-        marked done and skip later chunks until released. Returns {} without
-        touching the device when nothing is live."""
+        ``"error"`` and gets nothing from the chunk; the other rows are
+        untouched). Rows that finish are marked done and skip later chunks
+        until released; mid-prefill rows are skipped until they go live.
+        Returns {} without touching the device when nothing is live."""
         if self._closed:
             raise RuntimeError("batch session is closed")
-        live = [r for r, st in sorted(self._slots.items()) if not st.done]
+        live = [r for r, st in sorted(self._slots.items())
+                if not st.done and not st.prefilling]
         if not live:
             return {}
+        faults.fire("step_chunk")
         eng, S, dev = self.eng, self.eng.cfg.seq_len, self.eng.device
         t1 = time.perf_counter()
         chunk, ok, _ = eng._decode_chunk_batch(
             self._cache, torch.tensor(self._tokens, dtype=torch.long, device=dev),
             torch.tensor(self._pos, dtype=torch.int32, device=dev), self.chunk, self._temps,
-            self._topps, self._gens, self._pos)
+            self._topps, self._gens, self._pos, eng._poison_rows(self.max_batch))
         arr = chunk.cpu().tolist()  # the chunk's one host sync
         okh = ok.cpu().tolist()
-        self._tokens = [t if r in self._slots else 0 for r, t in enumerate(arr[-1])]
+        self._tokens = [t if r in self._slots and r not in self._prefills else 0
+                        for r, t in enumerate(arr[-1])]
         self._pos = [min(p + self.chunk, S - 1) for p in self._pos]
-        self.decode_ms += (time.perf_counter() - t1) * 1000.0
+        chunk_ms = (time.perf_counter() - t1) * 1000.0
+        self.decode_ms += chunk_ms
+        if eng._m_chunk is not None:
+            eng._m_chunk.observe(chunk_ms)
         fresh: dict = {}
         for r in live:
             st = self._slots[r]
             if not okh[r]:
                 st.done, st.finish = True, "error"
+                if eng._m_quarantine is not None:
+                    eng._m_quarantine.inc()
                 fresh[r] = []
                 continue
             # a context-exhausted row pinned at its last slot: tokens past
@@ -1003,24 +1299,44 @@ class BatchSession:
 
     def cancel(self, slot: int) -> None:
         """Stop decoding the row now: it is marked done and rides along
-        pinned until ``release()``. Idempotent."""
-        self._state(slot).done = True
+        pinned until ``release()``. A mid-prefill admission's staging cache
+        is dropped at once. Idempotent."""
+        st = self._state(slot)
+        st.done = True
+        if self._prefills.pop(slot, None) is not None:
+            st.prefilling = False
 
     def release(self, slot: int) -> None:
-        """Free the row for the next admission. The slab is not cleared (see
-        the class docstring); the row re-pins at the last slot, greedy,
-        feeding token 0."""
-        if self._slots.pop(slot, None) is None:
+        """Free the row for the next admission and return its reservation
+        to the budget. The slab is not cleared (see the class docstring);
+        the row re-pins at the last slot, greedy, feeding token 0."""
+        st = self._slots.pop(slot, None)
+        if st is None:
             raise ValueError(f"slot {slot} is not occupied")
+        self._prefills.pop(slot, None)
         self._tokens[slot] = 0
         self._pos[slot] = self.eng.cfg.seq_len - 1
         self._temps[slot], self._topps[slot], self._gens[slot] = 0.0, 1.0, None
+        self._reserved_tokens -= st.reserved
+        if self._budget is not None:
+            self._budget.release(st.reserved)
+            self._budget.unplace(self.eng.cfg.seq_len)
 
     def close(self) -> None:
-        """Drop the resident cache and every row. Idempotent."""
+        """Drop every row and pending prefill, hand every reservation back
+        to the external budget and let go of the batch cache (the engine
+        keeps its resident one for the next session). Idempotent."""
+        if self._closed:
+            return
         self._closed = True
+        if self._budget is not None:
+            for st in self._slots.values():
+                self._budget.release(st.reserved)
+                self._budget.unplace(self.eng.cfg.seq_len)
         self._cache = None
         self._slots = {}
+        self._prefills = {}
+        self._reserved_tokens = 0
 
 
 def accept(draft: list, picks: list, room: int, stop_tokens) -> tuple:

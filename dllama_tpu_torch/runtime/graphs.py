@@ -47,6 +47,10 @@ class StepGraph:
       current :meth:`run`.
     * ``ring`` int64 [ring_len, B]: step i of a run writes its tokens to row
       i (a device index, reset by :meth:`run`).
+    * ``poison`` bool [B]: the ``logits:nan`` fault seam. A flagged row's
+      logits are set to NaN before the watchdog reads them, in every step
+      of a run; :meth:`load` sets the flags. Each replay reads the tensor,
+      so a graph captured clean runs poisoned once a row is flagged.
     * ``logits``: the last step's logits (CUDA: the capture's output).
 
     A greedy graph (``sampled`` False) takes each row's argmax. A sampled one
@@ -73,6 +77,8 @@ class StepGraph:
         self.ok = torch.ones(batch, dtype=torch.bool, device=device)
         self.ring = torch.zeros((ring_len, batch), dtype=torch.long, device=device)
         self.idx = torch.zeros(1, dtype=torch.long, device=device)
+        self.poison = torch.zeros(batch, dtype=torch.bool, device=device)
+        self._poisoned: tuple = ()  # the host's mirror of ``poison``'s True rows
         self.sampling = (RowSampling.prepare([1.0] * batch, [1.0] * batch, device)
                          if sampled else None)
         self.generators = [torch.Generator(device=device) for _ in range(batch if sampled else 0)]
@@ -94,7 +100,8 @@ class StepGraph:
         return cache
 
     def _body(self, cache: dict) -> torch.Tensor:
-        logits = self._step(cache, self.tokens, self.pos)
+        logits = torch.where(self.poison[:, None], float("nan"),
+                             self._step(cache, self.tokens, self.pos))
         self.ok &= torch.isfinite(logits).all(dim=-1)
         if self.sampling is None:
             nxt = torch.argmax(logits.float(), dim=-1)
@@ -126,10 +133,19 @@ class StepGraph:
         self.graph, self.counts = graph, captured.counts
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
-    def load(self, tokens, pos, temps: list | None = None, topps: list | None = None) -> None:
+    def load(self, tokens, pos, temps: list | None = None, topps: list | None = None,
+             poison: tuple = ()) -> None:
         """Set each row's token, position and sampler settings (greedy where
         ``temps`` is None) before a run, with no host sync: ``tokens`` and
-        ``pos`` are device tensors ([B]) or one host int for every row."""
+        ``pos`` are device tensors ([B]) or one host int for every row.
+        ``poison``: the rows whose logits the run sets to NaN (the device
+        flags are written only when the set changes)."""
+        poison = tuple(poison)
+        if poison != self._poisoned:
+            self.poison.zero_()
+            for b in poison:
+                self.poison[b].fill_(True)
+            self._poisoned = poison
         for dst, src in ((self.tokens, tokens), (self.pos, pos)):
             if isinstance(src, torch.Tensor):
                 dst.copy_(src.reshape(dst.shape))
@@ -195,6 +211,13 @@ class GraphCache:
             self.made += 1
             weakref.finalize(owner, self._drop, full, weakref.ref(g))
         return g
+
+    def drop(self, owner: torch.Tensor) -> None:
+        """Forget every graph captured on ``owner`` now (its private
+        memory goes with it), before the cache itself is freed."""
+        ptr = owner.data_ptr()
+        for key in [k for k in self._graphs if k[0] == ptr]:
+            del self._graphs[key]
 
     def _drop(self, key: tuple, ref) -> None:
         if self._graphs.get(key) is ref():

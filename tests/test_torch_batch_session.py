@@ -201,7 +201,7 @@ def test_staggered_arrivals_drain():
     assert [got[i] for i in range(len(queue))] == want
 
 
-@pytest.mark.parametrize("mode", [dict(bucket_kv=True), dict(prefill_chunk=16),
+@pytest.mark.parametrize("mode", [dict(bucket_kv=True), dict(bucket_kv=True, prefill_chunk=16),
                                   dict(kv_pages=16)])
 def test_unported_modes_raise(mode):
     _, tp, _, tc = _model(0)

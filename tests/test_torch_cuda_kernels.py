@@ -26,8 +26,11 @@ step captured in a CUDA graph (``runtime.graphs.StepGraph``) replays the
 eager step's bits: logits, cache, greedy and sampled tokens, solo and
 batched; its replays make no host sync and count the launches they
 captured; one greedy and one sampled graph serve a session's every mix of
-admitted rows.
+admitted rows; the ``logits`` fault seam's flags are read on every replay,
+so a graph captured clean poisons exactly the flagged row.
 """
+
+import gc
 
 import numpy as np
 import pytest
@@ -746,6 +749,54 @@ def test_graphed_batch_session_mixed_traffic_equals_eager(cuda):
         got[name] = log
     assert got["graphed"] == got["eager"]
     assert graphed.graphs.made == 2
+
+
+def test_graphed_step_poisons_only_the_flagged_row(cuda):
+    """The ``logits`` seam's static flags: a batched graph captured clean,
+    then replayed with row 2 flagged, gives non-finite logits in row 2 only
+    (its ``ok`` flag drops, the others' logits are the clean replay's bits);
+    clearing the flag makes the next replay clean again."""
+    cfg, graphed, _ = _graph_engines(cuda, "q40")
+    cache = llama.init_batch_cache(cfg, 4, torch.bfloat16, cuda)
+    g = graphed.step_graph(cache, False, 8)  # captured with no row flagged
+    tokens = torch.tensor([3, 5, 7, 9], device=cuda)
+    pos = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=cuda)
+    twin = {n: c.clone() for n, c in cache.items()}
+    g.load(tokens, pos)
+    g.run(1)
+    clean = g.logits.clone()
+    for n in cache:  # back to the state before the clean step
+        cache[n].copy_(twin[n])
+    g.load(tokens, pos, poison=(2,))
+    _, ok = g.run(1)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(g.logits).all(dim=-1).tolist()
+    assert finite == [True, True, False, True] and ok.tolist() == finite
+    assert torch.equal(g.logits[[0, 1, 3]], clean[[0, 1, 3]])
+    g.load(tokens, pos)
+    _, ok = g.run(1)
+    assert bool(ok.all())
+
+
+def test_graphed_solo_generate_fails_on_the_logits_seam(cuda):
+    """A solo decode graph captured clean and replayed under
+    ``logits:nan`` trips the watchdog; without the fault the same engine's
+    next call decodes cleanly on the same graph."""
+    from dllama_tpu_torch import faults
+    from dllama_tpu_torch.runtime.generate import NumericHealthError
+
+    _, graphed, _ = _graph_engines(cuda, "q40")
+    want = [t for t, _ in graphed.generate([3, 4, 5], 6)]
+    made = graphed.graphs.made
+    faults.install("logits:nan:after=2,times=1")
+    try:
+        with pytest.raises(NumericHealthError):
+            list(graphed.generate([3, 4, 5], 6))
+    finally:
+        faults.clear()
+    gc.collect()  # the failed call's traceback held its Session: the resident cache is free
+    assert [t for t, _ in graphed.generate([3, 4, 5], 6)] == want
+    assert graphed.graphs.made == made
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dllama_tpu"))
 print(len(names), "modules;", "foreign:", bad)
-new = {"dllama_tpu_torch.qkernel_experiments", "dllama_tpu_torch.ops.qmatmul"}
+new = {"dllama_tpu_torch.qkernel_experiments", "dllama_tpu_torch.ops.qmatmul",
+       "dllama_tpu_torch.serving.api_server", "dllama_tpu_torch.faults"}
 sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)
 """
 
