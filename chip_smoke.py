@@ -167,6 +167,50 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    first token and ms/token through HTTP against phase 6's ``generate``,
    the wave's tokens/s and p50/p99 latency, prefill pieces per admission.
 
+   (e) ``--batch-window 30 --batch-max 8`` with the default ``--kv-buckets
+   1``: (b)'s wave; every session the server opened, replayed call by call
+   on a direct bucketed ``BatchSession`` with the same seeds, returns the
+   same tokens bit for bit, and a second wave captures no graph; tokens/s
+   and p50/p99 beside (b)'s. (f) ``--kv-pages 16``: two waves sharing a
+   system prompt (the prefix hit rate on ``/ready``, time to first token
+   per wave); then a 1-row paged pool where an interactive prompt that
+   does not fit preempts a batch-class row, which resumes with the ids of
+   an unpreempted run. (g) a ``--role prefill`` and a ``--role decode``
+   server (the second engine shares the first's weight tensors): one
+   streamed request through ``/v1/prefill`` then ``/v1/kv/import`` gives
+   the colocated server's ids and text, and a checkpoint frame of the
+   colocated stream resumed through ``/v1/kv/resume`` on the decode server
+   splices to it byte for byte.
+
+9. Bucketed KV slot pools and paged KV (run after phase 7 and before
+   phase 8) on phase 6's graphed Q40 engine, full width and depth, seq_len
+   1024. (a) ``batch_session(max_batch=8, chunk=8, bucket_kv=True,
+   prefill_chunk=64)``: eight 60-token prompts admitted before the first
+   chunk, 200 greedy tokens each (every row migrates twice, all in one
+   tick, so every pool decodes at capacity 8): every token, every chunk's
+   last-step logits and each row's KV equal the uniform pool of 8's bit
+   for bit, and every migrated slab prefix equals its source; then 16
+   requests (phase 4's eight prompts and eight of 8-40 tokens, 8-200
+   tokens each) admitted as the budget allows: greedy tokens equal solo
+   ``generate_fused`` (a row may part from it only at a near-tie, where
+   the solo logits of the two picks are within the decode-step tolerance,
+   logged), each row's first full chunk's logits within 5e-2 of max of a
+   solo prefill of the same tokens, and more rows resident than the
+   uniform pool's 8, tokens/s beside the uniform pool's. (b) paged
+   (``kv_pages=16``): (a)'s exact gate with regroups; the B = 8 step
+   beside the uniform pool's and the profiler's gather and scatter time
+   beside their bytes over 3.35 TB/s; ``page_stats()`` holds no page after
+   ``close()``; two waves of 4 requests sharing a 64-token prefix: the
+   second wave aliases at least 48 prefix tokens an admission, its greedy
+   tokens equal cold admissions' (a bucketed pool of the same capacity;
+   near-ties logged) with logits within tolerance, and its admissions'
+   prefill time beside the cold one's. (c) a live paged row exported after
+   two chunks, greedy and sampled, through ``kv_transfer``'s f32 wire into
+   a second paged session: the continued stream and its logits equal the
+   row kept in the first session bit for bit; over the q80 wire the import
+   completes with logits within tolerance. Wire bytes, export and import
+   ms logged. Graphs made per shape with their capture ms and pool bytes.
+
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json``.
@@ -1784,14 +1828,24 @@ LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
 def graph_window(torch, run) -> dict:
     """``run()`` (returns its step count) under the profiler: device busy
     and wall ms per step, the idle share, the split by kernel family, and
-    the host's launch calls per step (one ``cudaGraphLaunch`` a replay)."""
-    from torch.profiler import ProfilerActivity, profile
+    the host's launch calls per step (one ``cudaGraphLaunch`` a replay).
+    ``run()`` runs twice: the profiler's warm-up step, whose records are
+    dropped, then the measured one. A window's first kernel records can be
+    lost on the card (seen in whole runs of this script: a rope launch of
+    the first replay), which an exact launch-count gate cannot take."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 acc_events=True) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
         t1 = time.perf_counter()
         n = run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t1) * 1e3 / n
+        prof.step()
     by_name, families = device_time(prof, n)
     calls = {}
     for ev in prof.key_averages():
@@ -2897,12 +2951,720 @@ def phase8(torch, dev, engine, generate_ms: float) -> dict:
     out["poisoned"] = c_checks
     drain_and_shutdown(state, srv, 10.0)
     srv.server_close()
+    out["modes"] = phase8_modes(torch, dev, engine, tok, out["batched"])
     launched = {k: v for k, v in kernels.launches.items() if v}
     log(f"  kernel launches over phase 8's requests: {launched}")
     need = ("q40_matmul", "flash_decode_batched", "rope_cache_update_batched")
     if any(not launched.get(k) for k in need):
         fail(f"phase 8: the server's path launched {launched}, want each of {need}")
     out["launches"] = launched
+    return out
+
+
+P9_CHUNK = 8  # decode steps per step_chunk in phase 9
+P9_TOL = 5e-2  # phase 2's decode-step tolerance, of max |logit|
+P9_STEPS = 200  # tokens of each row of the exact gates
+P9_PROMPT = 60  # tokens of each prompt of the exact gates
+
+
+def graph_of(eng, sess, h, sampled: bool):
+    """The step graph row ``h``'s decode shape replayed last (looked up,
+    never made) and the row's index in it."""
+    shape, r = sess._where[h]
+    ring = max(P9_CHUNK, eng.decode_chunk)
+    if sess.paged:
+        owner = sess._arena
+        key = (owner["v"].data_ptr(), ("paged", shape.nb, shape.cap), sampled, ring)
+    else:
+        owner = shape.cache
+        key = (owner["v"].data_ptr(), tuple(owner["k"].shape), sampled, ring)
+    g = eng.graphs._graphs.get((owner["k"].data_ptr(), *key))
+    if g is None:
+        fail(f"phase 9: no graph for row {h}'s shape {key}")
+    return g, r
+
+
+def row_kv(torch, sess, h, n: int):
+    """Row ``h``'s KV at positions [0, n): [2, L, n, kv, hd]."""
+    shape, r = sess._where[h]
+    if sess.paged:
+        idx = torch.tensor(sess._rowpages[h].blocks, dtype=torch.long,
+                           device=sess._arena["k"].device)
+        return torch.stack([sess._arena[nm].index_select(1, idx).flatten(1, 2)[:, :n]
+                            for nm in ("k", "v")])
+    return torch.stack([shape.cache[nm][:, r, :n] for nm in ("k", "v")])
+
+
+def graphs_made(eng, before: set, peaks: dict) -> list:
+    """The graphs made since the key set ``before``: shape key, capture ms
+    and the peak memory allocated above the start of the chunk that made
+    it (``peaks``: graph key -> MiB; the capture's pool at its fullest,
+    with any other graph the chunk made)."""
+    return [{"key": str(k[2:]), "capture_ms": round(g.capture_ms, 1),
+             "chunk_peak_MiB": peaks.get(k)}
+            for k, g in eng.graphs._graphs.items() if k not in before]
+
+
+def near_tie(eng, prompt: list, want: list, got: list) -> dict:
+    """Where a batched greedy stream ``got`` leaves the solo one ``want``:
+    the solo prefill's logits at that position, and whether the two picks
+    there are within the decode-step tolerance of each other (a near-tie
+    that the kernels' summation order may break either way)."""
+    i = leading_equal(want, got)
+    if i >= min(len(want), len(got)):
+        return {"equal": len(want) == len(got)}
+    logits, _ = eng.prefill(eng.new_cache(), prompt + want[:i])
+    logits = logits.float()
+    gap, scale = float((logits[want[i]] - logits[got[i]]).abs()), float(logits.abs().max())
+    return {"equal": False, "at": i, "gap": gap, "scale": scale,
+            "near_tie": gap <= P9_TOL * scale}
+
+
+def p9_run(torch, eng, sess, reqs: list, all_first: bool = False, profile_at: int = -1,
+           logits_rows: bool = False) -> dict:
+    """Drive ``sess`` with ``reqs`` [(prompt, steps)] (greedy): admit in
+    order while ``can_admit`` (``all_first``: every request before the
+    first chunk), one chunk a tick, release finished rows. Returns each
+    request's tokens, rows resident at peak, wall ms, each chunk's wall
+    ms, ms per admission, the profiler's window of chunk ``profile_at``,
+    and (``logits_rows``) every chunk's last-step logits of each row live
+    through it, with the tokens it had then."""
+    pending, live, got = list(enumerate(reqs)), {}, {i: [] for i in range(len(reqs))}
+    out = {"chunk_ms": [], "admit_ms": {}, "logits": {i: [] for i in range(len(reqs))},
+           "profile": None, "peak": 0, "handles": {}, "graph_peaks": {}}
+    box: dict = {}
+
+    def one():
+        box["fresh"] = sess.step_chunk()
+        return P9_CHUNK
+
+    t_start = time.perf_counter()
+    k = 0
+    while pending or live:
+        while pending and sess.can_admit(len(pending[0][1][0]), pending[0][1][1]):
+            i, (p, steps) = pending.pop(0)
+            t0 = time.perf_counter()
+            h = sess.admit(p, steps)
+            out["admit_ms"][i] = (time.perf_counter() - t0) * 1e3
+            live[h], out["handles"][i] = i, h
+        if all_first and pending:
+            fail(f"phase 9: {len(pending)} requests did not fit before the first chunk")
+        out["peak"] = max(out["peak"], len(sess.occupied))
+        if k == profile_at:
+            h0 = next(iter(live))
+            shape, r = sess._where[h0]
+            window = shape.nb * sess.page if sess.paged else shape.ctx
+            busy, wall, by_name, fams, _ = profile_window(torch, one)
+            out["profile"] = {"busy_ms": busy, "wall_ms": wall, "by_name": by_name,
+                              "families": fams, "window": window, "rows": shape.cap,
+                              "pos": shape.pos[r]}
+            out["chunk_ms"].append(wall * P9_CHUNK)
+        else:
+            keys = set(eng.graphs._graphs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            one()
+            out["chunk_ms"].append((time.perf_counter() - t0) * 1e3)
+            peak = round((torch.cuda.max_memory_allocated() - a0) / 2 ** 20, 1)
+            for key in set(eng.graphs._graphs) - keys:
+                out["graph_peaks"][key] = peak
+        k += 1
+        if k == 1:  # every row admitted so far has its first token now
+            out["first_token_ms"] = (time.perf_counter() - t_start) * 1e3
+        for h, burst in box["fresh"].items():
+            got[live[h]] += burst
+            if logits_rows and len(burst) == P9_CHUNK:
+                g, r = graph_of(eng, sess, h, False)
+                out["logits"][live[h]].append((len(got[live[h]]), g.logits[r].clone()))
+        for h in [h for h in live if sess.is_done(h)]:
+            if not all_first:
+                sess.release(h)
+                del live[h]
+        if all_first and all(sess.is_done(h) for h in live):
+            break
+    torch.cuda.synchronize()
+    out["wall_ms"] = (time.perf_counter() - t_start) * 1e3
+    out["tokens"] = [got[i] for i in range(len(reqs))]
+    return out
+
+
+def p9_exact(torch, eng, sess, prompts: list, uniform: dict, what: str,
+             profile_at: int = -1) -> dict:
+    """9a's and 9b's exact gate: ``prompts`` (equal lengths), all admitted
+    before the first chunk, greedy, ``P9_STEPS`` tokens each; every
+    chunk's last-step logits, every token and each row's KV must equal
+    ``uniform``'s (the same run on the uniform pool of 8) bit for bit."""
+    before = set(eng.graphs._graphs)
+    r = p9_run(torch, eng, sess, [(p, P9_STEPS) for p in prompts], all_first=True,
+               profile_at=profile_at, logits_rows=True)
+    n = P9_PROMPT - 1 + P9_STEPS
+    hs = [r["handles"][i] for i in range(len(prompts))]
+    r["kv"] = [row_kv(torch, sess, h, n) for h in hs]
+    r["graphs"] = graphs_made(eng, before, r["graph_peaks"])
+    if uniform is not None:
+        checks = {
+            "tokens": r["tokens"] == uniform["tokens"],
+            "chunk logits": all(
+                len(a) == len(b) and all(x[0] == y[0] and torch.equal(x[1], y[1])
+                                         for x, y in zip(a, b))
+                for a, b in zip(r["logits"].values(), uniform["logits"].values())),
+            "KV": all(torch.equal(a, b) for a, b in zip(r["kv"], uniform["kv"])),
+        }
+        r["checks"] = checks
+        log(f"    {what} exact gate (8 x {P9_PROMPT}-token prompts, {P9_STEPS} tokens, all "
+            f"admitted before the first chunk) against the uniform pool of 8: {checks}")
+        if not all(checks.values()):
+            fail(f"phase 9 {what}: not bit-equal to the uniform pool: "
+                 f"{[k for k, v in checks.items() if not v]}")
+    return r
+
+
+def p9_mixed(torch, eng, sess, reqs: list, solo: list, what: str) -> dict:
+    """9a's mixed gate: ``reqs`` [(prompt, steps)] admitted as the budget
+    allows; every row's greedy tokens equal its solo ``generate`` (or part
+    from it only at a near-tie, logged), and each row's first full chunk's
+    last-step logits are within the decode-step tolerance of a solo
+    prefill of the same tokens."""
+    before = set(eng.graphs._graphs)
+    r = p9_run(torch, eng, sess, reqs, logits_rows=True)
+    r["graphs"] = graphs_made(eng, before, r["graph_peaks"])
+    ties, errs = [], []
+    for i, ((p, _), want) in enumerate(zip(reqs, solo)):
+        got = r["tokens"][i]
+        if got != want:
+            t = near_tie(eng, p, want, got)
+            t["request"] = i
+            ties.append(t)
+        if r["logits"][i]:
+            n, lg = r["logits"][i][0]
+            ref, _ = eng.prefill(eng.new_cache(), p + got[:n - 1])
+            ref = ref.float()
+            errs.append(float((lg.float() - ref).abs().max()) / float(ref.abs().max()))
+    r["near_ties"], r["logit_err_over_max"] = ties, max(errs) if errs else 0.0
+    n_tok = sum(len(t) for t in r["tokens"])
+    r["tokens_per_s"] = n_tok / r["wall_ms"] * 1e3
+    checks = {"tokens = solo (or a logged near-tie)": all(t.get("near_tie") for t in ties),
+              f"logits within {P9_TOL} of max": r["logit_err_over_max"] <= P9_TOL}
+    r["checks"] = checks
+    log(f"    {what} mixed ({len(reqs)} requests): {n_tok} tokens in {r['wall_ms']:.1f} ms = "
+        f"{r['tokens_per_s']:.1f} tokens/s; rows resident at peak {r['peak']}; "
+        f"{len(ties)} rows part from solo ({ties}); worst first-chunk logit error "
+        f"{r['logit_err_over_max']:.2e} of max; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 9 {what} mixed: {[k for k, v in checks.items() if not v]}")
+    return r
+
+
+def index_ms(by_name: dict) -> float:
+    """Device ms of the gather and scatter kernels (index_select,
+    index_copy, advanced indexing) in a profiler split."""
+    return sum(ms for name, ms in by_name.items()
+               if any(w in name.lower() for w in ("index", "gather", "scatter")))
+
+
+def phase9(torch, dev, engine) -> dict:
+    """Bucketed KV slot pools and paged KV on phase 6's graphed Q40 engine
+    (Llama-3-8B shape, full depth, seq_len 1024); see the module docstring."""
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+    from dllama_tpu_torch.serving import kv_transfer
+
+    cfg, card = engine.cfg, gpu_line()
+    out: dict = {"card": card}
+    log(f"  {card}")
+    g = torch.Generator().manual_seed(9)
+    exact = [torch.randint(0, cfg.vocab_size, (P9_PROMPT,), generator=g).tolist()
+             for _ in range(8)]
+    kw = dict(max_batch=8, chunk=P9_CHUNK, prefill_chunk=64)
+
+    # -- 9a, bucketed ----------------------------------------------------------
+    kernels.reset_launches()
+    sess = engine.batch_session(**kw)
+    uni = p9_exact(torch, engine, sess, exact, None, "uniform", profile_at=12)
+    sess.close()
+    launches_uniform = {k: v for k, v in kernels.launches.items() if v}
+    copies = []
+    orig = engine._bucket_cache_migrate
+
+    def spy(dst, src, sb, db):
+        orig(dst, src, sb, db)
+        copies.append(all(torch.equal(dst[n][:, db, :src[n].shape[2]], src[n][:, sb])
+                          for n in ("k", "v")))
+
+    engine._bucket_cache_migrate = spy
+    kernels.reset_launches()
+    sess = engine.batch_session(bucket_kv=True, **kw)
+    bkt = p9_exact(torch, engine, sess, exact, uni, "9a bucketed")
+    bkt["migrations"] = sess.migrations
+    sess.close()
+    del engine._bucket_cache_migrate
+    launches_bucketed = {k: v for k, v in kernels.launches.items() if v}
+    if not (copies and all(copies) and bkt["migrations"] >= 16):
+        fail(f"phase 9a: {bkt['migrations']} migrations, slab copies exact {copies}")
+    log(f"    9a: {bkt['migrations']} migrations (each migrated slab prefix = its source, bit "
+        f"for bit); graphs made {bkt['graphs']}")
+    short = [torch.randint(0, cfg.vocab_size, (int(n),), generator=g).tolist()
+             for n in torch.randint(8, 41, (8,), generator=g)]
+    reqs = list(zip(batch_prompts(cfg, 8, 2) + short,
+                    [int(n) for n in torch.randint(8, 201, (16,), generator=g)]))
+    greedy = SamplerConfig(temperature=0.0, seed=0)
+    solo = [engine.generate_fused(p, n, sampler=greedy)[0] for p, n in reqs]
+    sess = engine.batch_session(bucket_kv=True, **kw)
+    mixed_b = p9_mixed(torch, engine, sess, reqs, solo, "9a bucketed")
+    mixed_b["migrations"] = sess.migrations
+    sess.close()
+    sess = engine.batch_session(**kw)
+    mixed_u = p9_mixed(torch, engine, sess, reqs, solo, "uniform")
+    sess.close()
+    if mixed_b["peak"] <= mixed_u["peak"]:
+        fail(f"phase 9a: {mixed_b['peak']} rows resident bucketed, {mixed_u['peak']} uniform")
+    log(f"    9a mixed: bucketed {mixed_b['tokens_per_s']:.1f} tokens/s with {mixed_b['peak']} "
+        f"rows at peak ({mixed_b['migrations']} migrations) against the uniform pool's "
+        f"{mixed_u['tokens_per_s']:.1f} with {mixed_u['peak']}; graphs made bucketed "
+        f"{mixed_b['graphs']}; uniform {mixed_u['graphs']}")
+    out["bucketed"] = {"exact": {k: bkt[k] for k in ("checks", "migrations", "graphs",
+                                                     "chunk_ms", "wall_ms")},
+                       "uniform_exact": {k: uni[k] for k in ("chunk_ms", "wall_ms", "graphs")},
+                       "mixed": {k: mixed_b[k] for k in ("checks", "peak", "tokens_per_s",
+                                                         "wall_ms", "near_ties", "graphs",
+                                                         "migrations", "logit_err_over_max")},
+                       "mixed_uniform": {k: mixed_u[k] for k in (
+                           "peak", "tokens_per_s", "wall_ms", "near_ties",
+                           "logit_err_over_max")},
+                       "launches": launches_bucketed, "launches_uniform": launches_uniform}
+
+    # -- 9b, paged -------------------------------------------------------------
+    kernels.reset_launches()
+    sess = engine.batch_session(kv_pages=16, **kw)
+    pgd = p9_exact(torch, engine, sess, exact, uni, "9b paged", profile_at=12)
+    pgd["regroups"] = sess.regroups
+    sess.close()
+    launches_paged = {k: v for k, v in kernels.launches.items() if v}
+    stats = sess.page_stats()
+    if pgd["regroups"] < 16:
+        fail(f"phase 9b: {pgd['regroups']} regroups")
+    up, pp = uni["profile"], pgd["profile"]
+    L, kvh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_size
+    W = pp["window"]
+    # a step gathers each row's window (read + write) and scatters one page
+    # per row (read + write), for K and V, bf16
+    gather_bytes = 2 * 2 * L * 8 * W * kvh * hd * 2
+    scatter_bytes = 2 * 2 * L * 8 * 16 * kvh * hd * 2
+    idx_ms = index_ms(pp["by_name"]) if pp["busy_ms"] > 0 else None
+    step = {"uniform_ms": statistics.median(uni["chunk_ms"]) / P9_CHUNK,
+            "paged_ms": statistics.median(pgd["chunk_ms"]) / P9_CHUNK,
+            "profiled_uniform_busy_ms": up["busy_ms"], "profiled_paged_busy_ms": pp["busy_ms"],
+            "profiled_window": W, "profiled_pos": pp["pos"],
+            "gather_scatter_ms": idx_ms,
+            "gather_scatter_bound_ms": (gather_bytes + scatter_bytes) / HBM_BYTES_PER_S * 1e3}
+    log(f"    9b: {pgd['regroups']} regroups; page_stats after close {stats}; graphs made "
+        f"{pgd['graphs']}")
+    log(f"    9b B = 8 step, median over the run's chunks: paged {step['paged_ms']:.3f} ms "
+        f"against the uniform pool's graphed {step['uniform_ms']:.3f} ms (the same positions); "
+        f"profiled chunk at pos {pp['pos']} (window {W}): device busy paged "
+        f"{pp['busy_ms']:.3f} ms a step, uniform {up['busy_ms']:.3f}; gather + scatter "
+        f"{idx_ms if idx_ms is None else round(idx_ms, 4)} ms a step against "
+        f"{gather_bytes + scatter_bytes} bytes over 3.35 TB/s = "
+        f"{step['gather_scatter_bound_ms']:.4f} ms")
+    extra = sorted(((ms - up["by_name"].get(name, 0.0), name)
+                    for name, ms in pp["by_name"].items()), reverse=True)[:6]
+    step["paged_minus_uniform_by_kernel"] = {name: round(ms, 4) for ms, name in extra}
+    step["paged_by_name"], step["uniform_by_name"] = pp["by_name"], up["by_name"]
+    log(f"    9b the profiled paged step's largest excess over the uniform step, ms by kernel: "
+        f"{step['paged_minus_uniform_by_kernel']}")
+    if stats["pages_free"] != stats["pages_total"] or stats.get("pages_cached"):
+        fail(f"phase 9b: pages leaked after close: {stats}")
+
+    prefix = torch.randint(0, cfg.vocab_size, (64,), generator=g).tolist()
+    waves = [[prefix + torch.randint(0, cfg.vocab_size, (int(n),), generator=g).tolist()
+              for n in torch.randint(10, 21, (4,), generator=g)] for _ in range(2)]
+    sess = engine.batch_session(kv_pages=16, **kw)
+    got_w, matched = [], []
+    for w in waves:
+        m0, h0 = sess.prefix_tokens_matched, sess.prefix_hits
+        matched.append([])
+        orig_admit = sess.admit
+
+        def admit(p, steps, **k):
+            m = sess.prefix_tokens_matched
+            h = orig_admit(p, steps, **k)
+            matched[-1].append(sess.prefix_tokens_matched - m)
+            return h
+
+        sess.admit = admit
+        got_w.append(p9_run(torch, engine, sess, [(p, 24) for p in w], logits_rows=True))
+        del sess.admit
+    hit_rate = sess.prefix_hit_rate
+    sess.close()
+    # cold: a bucketed pool (no prefix cache) of the same capacity
+    cold_sess = engine.batch_session(bucket_kv=True, **kw)
+    cold = p9_run(torch, engine, cold_sess, [(p, 24) for p in waves[1]], logits_rows=True)
+    cold_sess.close()
+    ties = [near_tie(engine, p, c, w) for p, c, w in zip(waves[1], cold["tokens"],
+                                                        got_w[1]["tokens"])]
+    errs = [float((a[0][1].float() - b[0][1].float()).abs().max())
+            / float(b[0][1].float().abs().max())
+            for a, b in zip(got_w[1]["logits"].values(), cold["logits"].values()) if a and b]
+    p_checks = {"hit rate > 0": hit_rate > 0, "wave 2 matched >= 48 each":
+                min(matched[1]) >= 48,
+                "warm tokens = cold (or a logged near-tie)":
+                    all(t.get("equal") or t.get("near_tie") for t in ties),
+                f"warm logits within {P9_TOL} of cold": max(errs) <= P9_TOL}
+    ttft = {"cold_ms": [round(v, 1) for v in cold["admit_ms"].values()],
+            "wave1_ms": [round(v, 1) for v in got_w[0]["admit_ms"].values()],
+            "wave2_ms": [round(v, 1) for v in got_w[1]["admit_ms"].values()],
+            "first_token_ms": {"cold": round(cold["first_token_ms"], 1),
+                               "wave1": round(got_w[0]["first_token_ms"], 1),
+                               "wave2": round(got_w[1]["first_token_ms"], 1)}}
+    log(f"    9b prefix: 64-token system prefix, two waves of 4: hit rate {hit_rate:.3f}, "
+        f"matched tokens per admission {matched}; admission prefill ms each, and the wave's "
+        f"time to first token (4 admissions and the first chunk) {ttft}; warm/cold logit error {max(errs):.2e} of max; "
+        f"near-ties {[t for t in ties if not t.get('equal')]}; checks {p_checks}")
+    if not all(p_checks.values()):
+        fail(f"phase 9b prefix: {[k for k, v in p_checks.items() if not v]}")
+    out["paged"] = {"exact": {k: pgd[k] for k in ("checks", "regroups", "graphs", "chunk_ms",
+                                                  "wall_ms")},
+                    "stats_after_close": stats, "step": step, "prefix": {
+                        "checks": p_checks, "hit_rate": hit_rate, "matched": matched,
+                        "admit_ms": ttft, "logit_err": max(errs)},
+                    "launches": launches_paged}
+
+    # -- 9c, migration ---------------------------------------------------------
+    mig = {}
+    for name, scfg, mode in (("greedy f32", greedy, "f32"),
+                             ("sampled f32", SamplerConfig(temperature=0.8, topp=0.9, seed=5),
+                              "f32"),
+                             ("greedy q80", greedy, "q80")):
+        src = engine.batch_session(kv_pages=16, **kw)
+        h = src.admit(exact[0], 48, sampler=scfg)
+        first = src.step_chunk()[h] + src.step_chunk()[h]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = src.export_row(h)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        wire = kv_transfer.encode_snapshot(snap, exact[0], mode=mode)
+        kept, kept_logits = list(first), []
+        while not src.is_done(h):
+            kept += src.step_chunk()[h]
+            g_, r_ = graph_of(engine, src, h, scfg.temperature > 0)
+            kept_logits.append(g_.logits[r_].clone())
+        src.close()
+        dst = engine.batch_session(kv_pages=16, **kw)
+        t0 = time.perf_counter()
+        back = kv_transfer.decode_snapshot(wire)
+        h2 = dst.admit_from_export(back["prompt"], back)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3
+        cont, cont_logits = list(first), []
+        while not dst.is_done(h2):
+            cont += dst.step_chunk()[h2]
+            g_, r_ = graph_of(engine, dst, h2, scfg.temperature > 0)
+            cont_logits.append(g_.logits[r_].clone())
+        dst.close()
+        # the chunks whose inputs are still the kept row's (the q80 wire's
+        # rounding may flip a later greedy pick)
+        same = [i for i in range(len(cont_logits))
+                if cont[:len(first) + P9_CHUNK * (i + 1) - 1]
+                == kept[:len(first) + P9_CHUNK * (i + 1) - 1]]
+        err = max(float((cont_logits[i].float() - kept_logits[i].float()).abs().max())
+                  / float(kept_logits[i].float().abs().max()) for i in same) if same else None
+        ok = (cont == kept and all(torch.equal(a, b) for a, b in zip(cont_logits, kept_logits))
+              if mode == "f32" else (len(cont) == len(kept) and err is not None
+                                     and err <= P9_TOL))
+        mig[name] = {"ok": ok, "wire_bytes": len(wire), "export_ms": export_ms,
+                     "import_ms": import_ms, "logit_err_over_max": err,
+                     "tokens_equal": leading_equal(cont, kept), "tokens": len(kept)}
+        log(f"    9c {name}: exported after 2 chunks ({len(snap['keys'])} state words), "
+            f"{len(wire)} wire bytes, export {export_ms:.1f} ms, decode + import "
+            f"{import_ms:.1f} ms; continued stream {'=' if cont == kept else '!='} the kept "
+            f"row ({leading_equal(cont, kept)} of {len(kept)} leading tokens equal), logit "
+            f"error {err} of max over {len(same)} chunks; {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"phase 9c {name}: the migrated row does not continue the kept one")
+    out["migration"] = mig
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_sessions(engine) -> list:
+    """Record every BatchSession the engine opens from now on: its options
+    and each admit_begin / prefill_step / step_chunk / release / cancel /
+    export_row / admit_from_export call with its arguments and result, in
+    order. ``del engine.batch_session`` stops it."""
+    orig = type(engine).batch_session.__get__(engine)
+    traces: list = []
+
+    def traced(max_batch, chunk=None, **kw):
+        sess = orig(max_batch, chunk, **kw)
+        rec = {"kw": dict(kw, max_batch=max_batch, chunk=chunk, kv_budget=None), "calls": []}
+        traces.append(rec)
+        for name in ("admit_begin", "prefill_step", "step_chunk", "release", "cancel",
+                     "export_row", "admit_from_export"):
+            def wrap(*a, _fn=getattr(sess, name), _name=name, **k):
+                r = _fn(*a, **k)
+                rec["calls"].append((_name, a, k, r))
+                return r
+
+            setattr(sess, name, wrap)
+        return sess
+
+    engine.batch_session = traced
+    return traces
+
+
+def replay(engine, rec: dict) -> bool:
+    """Replay one traced session's calls on a direct session of the same
+    options: True when every call returns what the server's did (handles,
+    prefill progress, every chunk's tokens)."""
+    sess = type(engine).batch_session(engine, **rec["kw"])
+    same = True
+    for name, a, k, r in rec["calls"]:
+        if name == "export_row":
+            continue
+        got = getattr(sess, name)(*a, **k)
+        if name != "admit_from_export":
+            same = same and got == r
+    sess.close()
+    return same
+
+
+def phase8_modes(torch, dev, engine, tok, batched: dict) -> dict:
+    """8e-8g: the server's bucketed, paged and role modes on phase 6's
+    graphed Q40 engine (see the module docstring)."""
+    import threading
+
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.serving import kv_transfer
+    from dllama_tpu_torch.serving.api_server import ServerState, drain_and_shutdown
+
+    cfg, card = engine.cfg, gpu_line()
+    out: dict = {}
+
+    def serve(**kw):
+        state = ServerState(engine if "engine" not in kw else kw.pop("engine"), tok, cfg,
+                            model_name="llama3-8b-shape", template="llama3", ts_interval=0.0,
+                            **kw)
+        srv, port = start_server(state)
+        return state, srv, port
+
+    def stop(state, srv):
+        drain_and_shutdown(state, srv, 10.0)
+        srv.server_close()
+
+    # -- (e) --batch-window 30 --batch-max 8, the default --kv-buckets 1 -------
+    bodies = [{"messages": [{"role": "user", "content": p}], "max_tokens": WAVE_TOKENS,
+               "temperature": 0.8 if i % 2 else 0.0, "top_p": 0.9, "seed": 100 + i}
+              for i, p in enumerate(wave_prompts(8, 3))]
+    traces = traced_sessions(engine)
+    state, srv, port = serve(batch_window_ms=30.0, batch_max=8)
+    try:
+        made1 = engine.graphs.made
+        wave1, wall1 = send_wave(port, bodies)
+        made = engine.graphs.made
+        made1 = made - made1
+        wave2, wall2 = send_wave(port, bodies)
+        made = engine.graphs.made - made
+    finally:
+        stop(state, srv)
+        del engine.batch_session
+    with state.lock:
+        direct = [replay(engine, rec) for rec in traces]
+    n_tok = sum(r["json"]["usage"]["completion_tokens"] for r in wave1)
+    lat = [r["seconds"] * 1e3 for r in wave1]
+    texts = [[c["message"]["content"] for c in r["json"]["choices"]] for r in wave1]
+    e_checks = {"statuses": [r["status"] for r in wave1 + wave2] == [200] * 16,
+                "bucketed sessions": all(rec["kw"].get("bucket_kv") for rec in traces),
+                "ids = a direct bucketed BatchSession": bool(direct) and all(direct),
+                "wave 2 = wave 1": texts == [[c["message"]["content"]
+                                              for c in r["json"]["choices"]] for r in wave2],
+                "wave 2 captures": made == 0}
+    out["bucketed"] = {"checks": e_checks, "tokens_per_s": n_tok / wall1, "wall_ms": wall1 * 1e3,
+                       "p50_ms": percentile(lat, 50), "p99_ms": percentile(lat, 99),
+                       "second_wave_ms": wall2 * 1e3, "sessions": len(traces),
+                       "captures": [made1, made]}
+    log(f"  (e) --batch-window 30 --batch-max 8 (--kv-buckets 1, the default): 8b's wave; "
+        f"checks {e_checks}")
+    log(f"    wave: {n_tok} tokens in {wall1 * 1e3:.1f} ms = {n_tok / wall1:.1f} tokens/s "
+        f"(8b uniform: {batched['tokens_per_s']:.1f}); p50 {percentile(lat, 50):.1f} ms, p99 "
+        f"{percentile(lat, 99):.1f} ms (8b: {batched['p50_ms']:.1f} / {batched['p99_ms']:.1f}); "
+        f"second wave {wall2 * 1e3:.1f} ms; graphs made by wave 1 {made1}, wave 2 {made}; "
+        f"{len(traces)} sessions replayed")
+    if not all(e_checks.values()):
+        fail(f"phase 8e: {[k for k, v in e_checks.items() if not v]}")
+
+    # -- (f) --kv-pages 16: a shared system prompt, then preemption -------------
+    system = {"role": "system", "content": " ".join(wave_prompts(6, 11))}
+    state, srv, port = serve(batch_window_ms=30.0, batch_max=8, kv_pages=16)
+    try:
+        ttft, hit = [], []
+        for w, seed in ((0, 21), (1, 22)):
+            wb = [{"messages": [system, {"role": "user", "content": p}], "max_tokens": 16,
+                   "temperature": 0.0, "stream": True} for p in wave_prompts(4, seed)]
+            rs, _ = send_wave(port, wb)
+            if [r["status"] for r in rs] != [200] * 4:
+                fail(f"phase 8f wave {w}: {[r['status'] for r in rs]}")
+            ttft.append(statistics.median(r["content_times"][0] * 1e3 for r in rs))
+            hit.append(json.loads(http_get(port, "/ready")[1])["prefix_hit_rate"])
+    finally:
+        stop(state, srv)
+    log(f"  (f) --kv-pages 16, two waves of 4 sharing a system prompt: /ready prefix hit rate "
+        f"after each wave {hit}; median time to first token per wave {ttft} ms")
+    out["paged"] = {"hit_rate": hit, "ttft_ms": ttft}
+
+    state, srv, port = serve(batch_window_ms=5.0, batch_max=1, kv_pages=16,
+                             slo_classes="interactive:depth=8;batch:depth=4")
+    ids: list = []
+    orig_ss = state.batcher.submit_stream
+
+    def submit_stream(prompt_tokens, max_tokens, sampler, **kw):
+        rec = []
+        ids.append(rec)
+        for burst in orig_ss(prompt_tokens, max_tokens, sampler, **kw):
+            if isinstance(burst, list):
+                rec.extend(burst)
+            yield burst
+
+    state.batcher.submit_stream = submit_stream
+    pre = state.batcher._m_preemptions
+    batch_body = {"messages": [{"role": "user", "content": "Tell me a long story"}],
+                  "max_tokens": 300, "temperature": 0.0, "stream": True}
+    # the interactive prompt takes more pages than the batch row leaves free
+    # (the pool is one row's context, 1,024 tokens)
+    words = wave_prompts(60, 5)
+    content = ""
+    while len(tok.encode(state.build_prompt([{"role": "user", "content": content}]),
+                         add_bos=True)) < 800:
+        content += " " + words.pop()
+    inter_body = {"messages": [{"role": "user", "content": content}], "max_tokens": 4,
+                  "temperature": 0.0}
+    try:
+        import http.client
+
+        def post(body, cls):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                         headers={"Content-Type": "application/json", "X-Dllama-Class": cls})
+            resp = conn.getresponse()
+            data = resp.read()
+            conn.close()
+            return resp.status, data
+
+        control = post(batch_body, "batch")
+        ok0 = pre.value(outcome="ok")
+        res: dict = {}
+        t = threading.Thread(target=lambda: res.setdefault("batch", post(batch_body, "batch")))
+        t.start()
+        deadline = time.monotonic() + 60
+        while (time.monotonic() < deadline
+               and state.batcher.class_stats()["batch"]["resident"] < 1):
+            time.sleep(0.002)
+        res["inter"] = post(inter_body, "interactive")
+        t.join(timeout=600)
+        n_pre = pre.value(outcome="ok") - ok0
+    finally:
+        stop(state, srv)
+    f_checks = {"statuses": control[0] == res["batch"][0] == res["inter"][0] == 200,
+                "preempted": n_pre >= 1,
+                "resumed ids = unpreempted": len(ids) >= 2 and ids[0] == ids[1]
+                and len(ids[0]) == 300}
+    log(f"    preemption (1-row paged pool, batch row of 300 tokens, an interactive prompt "
+        f"that does not fit beside it): {n_pre} preemptions; checks {f_checks}")
+    if not all(f_checks.values()):
+        fail(f"phase 8f: {[k for k, v in f_checks.items() if not v]}")
+    out["preemption"] = {"checks": f_checks, "preemptions": n_pre}
+
+    # -- (g) --role prefill and --role decode, checkpoints ---------------------
+    torch.cuda.synchronize()
+    a0 = torch.cuda.memory_allocated(dev)
+    twin = Engine(cfg, engine.params, engine.sampler_cfg, cache_dtype=engine.cache_dtype,
+                  device=dev)
+    torch.cuda.synchronize()
+    twin_bytes = torch.cuda.memory_allocated(dev) - a0
+    shared = twin_bytes < 2 ** 28  # the weights are ~4.5 GB; the twin adds its rope tables
+    kw = dict(batch_window_ms=5.0, batch_max=8, kv_pages=16, ckpt_interval=8)
+    colo, pre_s, dec_s = (serve(**kw), serve(role="prefill", **kw),
+                          serve(engine=twin, role="decode", **kw))
+    rec: dict = {}
+    for name, (state, _, _) in (("colocated", colo), ("prefill", pre_s), ("decode", dec_s)):
+        rec[name] = []
+        for meth in ("submit_stream", "submit_import_stream"):
+            orig_m = getattr(state.batcher, meth)
+
+            def wrapped(*a, _orig=orig_m, _rec=rec[name], **k):
+                got = []
+                _rec.append(got)
+                for burst in _orig(*a, **k):
+                    if isinstance(burst, list):
+                        got.extend(burst)
+                    yield burst
+
+            setattr(state.batcher, meth, wrapped)
+    body = {"messages": [{"role": "user", "content": "Describe the moon"}], "max_tokens": 40,
+            "temperature": 0.0, "stream": True}
+    try:
+        import http.client
+
+        def raw(port, path, payload, headers):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", path, body=payload, headers=headers)
+            resp = conn.getresponse()
+            data = resp.read()
+            hdrs = dict(resp.getheaders())
+            conn.close()
+            return resp.status, hdrs, data
+
+        js = {"Content-Type": "application/json"}
+        st_c, _, colo_data = raw(colo[2], "/v1/chat/completions", json.dumps(body),
+                                 dict(js, **{"X-Dllama-Ckpt": "8"}))
+        t0 = time.perf_counter()
+        st_p, _, wire = raw(pre_s[2], "/v1/prefill", json.dumps(body), js)
+        t1 = time.perf_counter()
+        carried = kv_transfer.decode_snapshot(wire)["extra"]["emitted_tokens"]
+        st_d, _, dec_data = raw(dec_s[2], "/v1/kv/import", wire,
+                                {"Content-Type": kv_transfer.CONTENT_TYPE})
+        t2 = time.perf_counter()
+        visible, frames = [], []
+        for ev in colo_data.split(b"\n\n"):
+            if ev.startswith(b"event: dllama-ckpt"):
+                line = next(ln for ln in ev.split(b"\n") if ln.startswith(b"data: "))
+                off, _, b64 = line[6:].partition(b" ")
+                frames.append((int(off), __import__("base64").b64decode(b64)))
+            elif ev:
+                visible.append(ev + b"\n\n")
+        visible = b"".join(visible)
+        off, payload = frames[len(frames) // 2]
+        st_r, _, cont = raw(dec_s[2], "/v1/kv/resume", payload,
+                            {"Content-Type": kv_transfer.CONTENT_TYPE})
+    finally:
+        for state, srv, _ in (colo, pre_s, dec_s):
+            stop(state, srv)
+
+    def text(data):
+        parts = []
+        for line in data.split(b"\n"):
+            if line.startswith(b"data: {"):
+                for ch in json.loads(line[6:]).get("choices", []):
+                    parts.append((ch.get("delta") or {}).get("content") or "")
+        return "".join(parts)
+
+    colo_ids = rec["colocated"][0] if rec["colocated"] else []
+    dec_ids = carried + (rec["decode"][0] if rec["decode"] else [])
+    g_checks = {"statuses": [st_c, st_p, st_d, st_r] == [200] * 4,
+                "weights shared": shared,
+                "prefill -> import ids = colocated": dec_ids == colo_ids and len(colo_ids) == 40,
+                "prefill -> import text = colocated": text(dec_data) == text(visible),
+                "resume splices byte for byte": cont == visible[off:]}
+    log(f"  (g) --role prefill + --role decode (the decode engine shares the prefill engine's "
+        f"weight tensors: {shared}, it added {twin_bytes / 2 ** 20:.1f} MiB), one streamed request of 40 tokens: {len(wire)} wire bytes, "
+        f"/v1/prefill {(t1 - t0) * 1e3:.1f} ms, /v1/kv/import {(t2 - t1) * 1e3:.1f} ms; "
+        f"{len(frames)} checkpoint frames, resumed frame at byte {off}; checks {g_checks}")
+    if not all(g_checks.values()):
+        fail(f"phase 8g: {[k for k, v in g_checks.items() if not v]}")
+    out["roles"] = {"checks": g_checks, "wire_bytes": len(wire),
+                    "prefill_ms": (t1 - t0) * 1e3, "import_ms": (t2 - t1) * 1e3}
+    del twin
     return out
 
 
@@ -3072,8 +3834,13 @@ def main() -> None:
     mix80 = phase7_model(torch, dev, "Mixtral-8x7B Q80 (8 layers)",
                          {**MIXTRAL_8X7B, "n_layers": 8}, "q80", (), steps=8)
 
+    header("phase 9: bucketed KV slot pools, paged KV and row migration on phase 6's graphed "
+           "Q40 engine")
+    engine = kept.pop()
+    pools = phase9(torch, dev, engine)
     header("phase 8: the OpenAI-compatible server on phase 6's graphed Q40 engine")
-    serving = phase8(torch, dev, kept.pop(), graphs["generate_ms_per_token_graphed"])
+    serving = phase8(torch, dev, engine, graphs["generate_ms_per_token_graphed"])
+    del engine
     torch.cuda.empty_cache()
     header("phase 8d: cli verify and cli generate --profile on phase 3's small Q40 model")
     serving["cli"] = phase8d()
@@ -3208,6 +3975,10 @@ def main() -> None:
         if entry["name"] in ("q40_matmul", "q80_matmul", "flash_decode_batched",
                              "rope_cache_update_batched"):
             entry["launches_graphed_decode"] = run["launches_graphed"][entry["name"]]
+        if entry["name"] in ("q40_matmul", "flash_decode_batched", "rope_cache_update_batched"):
+            # phase 9's exact gates: 8 rows of 200 tokens through each layout
+            for layout in ("bucketed", "paged"):
+                entry[f"launches_{layout}"] = pools[layout]["launches"].get(entry["name"], 0)
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "q40": q40, "q80": q80, "variants": variants,
                "flash_decode": flash, "rope_cache": rope, "flash_decode_batched": flash_b,
@@ -3215,7 +3986,8 @@ def main() -> None:
                "e2e_q80": e2e80, "batch_q40": batch, "batch_q80": batch80, "spec": spec,
                "graphs_q40": graphs, "graphs_q80": graphs80, "k4_bound_S": k4_fixed,
                "experiments": exp, "cli": cli, "moe_indexed": moe_k, "mixtral_q40": mix,
-               "grok1_q40": grok, "mixtral_q80": mix80, "serving": serving, "summary": summary,
+               "grok1_q40": grok, "mixtral_q80": mix80, "pools": pools, "serving": serving,
+               "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")

@@ -22,14 +22,15 @@ low-bit logit differences of a drafted step (see ``Engine.generate_spec``).
 kernel).
 
 ``serve`` is the OpenAI-compatible HTTP server (``serving.api_server``)
-with the JAX package's flags and defaults. Before it loads the model it
-refuses the configurations the port does not run yet (``--kv-pages``,
-``--role prefill|decode``, ``--batch-window`` with ``--kv-buckets 1``).
-``verify`` checks a `.m` file's integrity checksums without a model or a
-device:
+with the JAX package's flags and defaults: ``--batch-window`` batches on
+bucketed KV slot pools (``--kv-buckets 1``, the default; 0 for the uniform
+pool), ``--kv-pages N`` on paged KV with the radix prefix cache, and the
+paged pool serves ``--role prefill|decode``, ``--ckpt-interval``
+checkpoints and preemption. ``verify`` checks a `.m` file's integrity
+checksums without a model or a device:
 
     python -m dllama_tpu_torch.cli serve --model m.m --tokenizer t.t --port 8189 \\
-        --batch-window 30 --kv-buckets 0
+        --batch-window 30 --kv-pages 16
     python -m dllama_tpu_torch.cli verify --model m.m
 """
 

@@ -3,14 +3,17 @@ cache, per-token timing and sampling on the device.
 
 The port of the JAX package's single-device ``Engine`` (prefill, generate,
 Session, TokenStats and the numeric-health watchdog), its batched decode
-(``generate_batch``), the uniform continuous-batching ``BatchSession`` and
-prompt-lookup speculative decoding, solo (``generate_spec``) and batched
+(``generate_batch``), the continuous-batching ``BatchSession`` in its three
+residency layouts (the uniform pool, bucketed KV slot pools and paged KV
+with the radix prefix cache and row export/import) and prompt-lookup
+speculative decoding, solo (``generate_spec``) and batched
 (``generate_batch_spec``).
 PyTorch runs eagerly, so where the JAX package compiles a decode step and
 fuses N of them into one program, the port captures one decode step in a
 CUDA graph (``runtime.graphs.StepGraph``) and replays it once per step:
 solo (``generate``, ``generate_fused``) and batched (``generate_batch``,
-``BatchSession``). Each replay feeds the next on the device, and the host
+``BatchSession``, whose bucket slabs and paged windows are graphs of their
+own). Each replay feeds the next on the device, and the host
 waits only when it reads the sampled tokens — once per token in
 ``generate``, which yields each one, and once per chunk of up to
 ``decode_chunk`` steps in ``generate_fused`` and batched decode.
@@ -53,11 +56,13 @@ import time
 import weakref
 from typing import Iterator, Optional
 
+import numpy as np
 import torch
 
 from dllama_tpu_torch import faults, observability, resolve_device
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import ModelConfig
+from dllama_tpu_torch.runtime import paged_kv
 from dllama_tpu_torch.runtime.graphs import GraphCache, StepGraph
 from dllama_tpu_torch.runtime.sampler import (
     SamplerConfig, gumbel_noise, row_seed, sample_dynamic, sample_rows,
@@ -165,6 +170,10 @@ class Engine:
         # the batch cache BatchSessions decode in, and the open session using it
         self._pool: Optional[dict] = None
         self._pool_user = None
+        # bucket slabs of closed bucketed sessions, oldest first: the next
+        # session's pools take them (and replay the graphs captured on
+        # them) instead of allocating new slabs
+        self._slabs: list = []
         #: generate_batch_spec runs on this engine (the server's spec route)
         self.supports_batch_spec = True
         self.prefill_ms = 0.0
@@ -174,14 +183,15 @@ class Engine:
 
     def _register_metrics(self, metrics) -> None:
         """The reference Engine's metric names (``None``: no telemetry). The
-        port has no KV-bucket migration, paged prefix cache or
-        tensor-parallel programs yet: those counters stay at 0, so that
-        ``/metrics`` lists the same names as the reference's."""
+        port has no tensor-parallel programs: those two counters stay at 0,
+        so that ``/metrics`` lists the same names as the reference's."""
         self.metrics = metrics
         if metrics is None:
             self._m_prefill = self._m_step = self._m_chunk = None
             self._m_prefill_chunk = self._m_quarantine = None
             self._m_spec_steps = self._m_spec_accepted = self._m_spec_emitted = None
+            self._m_migrations = self._m_prefix_hits = self._m_prefix_misses = None
+            self._m_prefix_tokens = self._m_cow = self._m_prefix_evictions = None
             return
         h, c = metrics.histogram, metrics.counter
         self._m_prefill = h("dllama_prefill_ms", "Prompt prefill wall time per request")
@@ -191,7 +201,8 @@ class Engine:
                           "Fused decode-chunk wall time (fused/batched/pooled paths)")
         self._m_prefill_chunk = h("dllama_prefill_chunk_ms",
                                   "Incremental prefill chunk wall time (chunked admission)")
-        c("dllama_kv_migrations_total", "Pooled rows migrated to the next larger KV bucket")
+        self._m_migrations = c("dllama_kv_migrations_total",
+                               "Pooled rows migrated to the next larger KV bucket")
         self._m_quarantine = c("dllama_numeric_quarantines_total",
                                "Rows/streams stopped by the numeric-health watchdog")
         self._m_spec_steps = c("dllama_spec_verify_steps_total",
@@ -200,16 +211,18 @@ class Engine:
                                   "Draft tokens accepted by speculative verify")
         self._m_spec_emitted = c("dllama_spec_tokens_emitted_total",
                                  "Tokens emitted by speculative decode paths")
-        c("dllama_prefix_cache_hits_total",
-          "Paged admissions that aliased at least one cached KV page")
-        c("dllama_prefix_cache_misses_total",
-          "Paged admissions with no cached prefix page to alias")
-        c("dllama_prefix_tokens_matched_total",
-          "Prompt tokens served from the radix prefix cache instead of being re-prefilled")
-        c("dllama_kv_cow_copies_total",
-          "Boundary KV pages copied (copy-on-write) at paged admission")
-        c("dllama_prefix_evictions_total",
-          "Refcount-zero prefix-cache pages evicted (LRU) to satisfy an allocation")
+        self._m_prefix_hits = c("dllama_prefix_cache_hits_total",
+                                "Paged admissions that aliased at least one cached KV page")
+        self._m_prefix_misses = c("dllama_prefix_cache_misses_total",
+                                  "Paged admissions with no cached prefix page to alias")
+        self._m_prefix_tokens = c(
+            "dllama_prefix_tokens_matched_total",
+            "Prompt tokens served from the radix prefix cache instead of being re-prefilled")
+        self._m_cow = c("dllama_kv_cow_copies_total",
+                        "Boundary KV pages copied (copy-on-write) at paged admission")
+        self._m_prefix_evictions = c(
+            "dllama_prefix_evictions_total",
+            "Refcount-zero prefix-cache pages evicted (LRU) to satisfy an allocation")
         c("dllama_tp_overlap_chunks_total",
           "Decode/verify dispatches routed through the microbatch "
           "compute/communication-overlap TP programs")
@@ -243,6 +256,7 @@ class Engine:
             self._resident = None
         if cache is self._pool:
             self._pool, self._pool_user = None, None
+        self._slabs = [c for c in self._slabs if c is not cache]
         if self.final_session is not None and self.final_session.cache is cache:
             self.final_session = None
         if "k" in cache:
@@ -293,12 +307,103 @@ class Engine:
     def _batch_cache_init(self, batch: int) -> dict:
         return llama.init_batch_cache(self.cfg, batch, self.cache_dtype, self.device)
 
+    def _bucket_cache_init(self, cap: int, ctx: int) -> dict:
+        """A zeroed slab [L, cap, ctx, kv, hd]: a bucket pool's cache, or
+        (cap pages of ctx tokens) a paged session's arena."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, cap, ctx, cfg.n_kv_heads, cfg.head_size)
+        return {n: torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
+                for n in ("k", "v")}
+
     @staticmethod
     def _batch_cache_insert(cache: dict, single: dict, b: int) -> None:
         """Copy a single-sequence cache [L, S, kv, hd] into row ``b`` of a
-        batch cache [L, B, S, kv, hd], in place."""
+        slot slab [L, B, ctx, kv, hd], in place. Only the slab's own context
+        is copied: admission places a row in a slab that covers its prompt,
+        so its prefill wrote nothing past it."""
         for n in ("k", "v"):
-            cache[n][:, b].copy_(single[n])
+            dst = cache[n]
+            dst[:, b].copy_(single[n][:, :dst.shape[2]])
+
+    @staticmethod
+    def _bucket_cache_migrate(dst: dict, src: dict, sb: int, db: int) -> None:
+        """Row ``sb`` of a bucket slab into row ``db`` of a longer one, in
+        place: the copy is the row's whole attended history (its position
+        is below the source's context); the slots past it are garbage the
+        row writes before it attends them, so migration is exact."""
+        for n in ("k", "v"):
+            dst[n][:, db, :src[n].shape[2]].copy_(src[n][:, sb])
+
+    @staticmethod
+    def _bucket_cache_grow(dst: dict, src: dict) -> None:
+        """A pool's rows into a slab of twice the capacity (same context):
+        rows keep their indices, the new rows are free."""
+        for n in ("k", "v"):
+            dst[n][:, :src[n].shape[1]].copy_(src[n])
+
+    def _take_slab(self, cap: int, ctx: int) -> dict:
+        """A bucket slab [L, cap, ctx, kv, hd]: the one a closed session
+        left last (its step graphs are still captured), else a new one.
+        Slot reuse needs no clearing (see BatchSession)."""
+        for i in range(len(self._slabs) - 1, -1, -1):  # the newest first
+            if tuple(self._slabs[i]["k"].shape[1:3]) == (cap, ctx):
+                return self._slabs.pop(i)
+        return self._bucket_cache_init(cap, ctx)
+
+    def _keep_slabs(self, caches: list, budget_tokens: int) -> None:
+        """Keep closed bucket slabs for the next session, newest last, and
+        free the oldest ones while the kept slabs hold more than
+        ``budget_tokens`` token-slots (the session's modeled budget)."""
+        self._slabs.extend(caches)
+        size = [c["k"].shape[1] * c["k"].shape[2] for c in self._slabs]
+        while self._slabs and sum(size) > budget_tokens:
+            size.pop(0)
+            self.free_cache(self._slabs[0])
+
+    # -- paged KV: one arena {k, v: [L, P, page, kv, hd]}, page 0 scratch ----
+    @staticmethod
+    def _pages_to_single(single: dict, arena: dict, pages: list, ntok: int) -> None:
+        """Arena pages ``pages`` into token positions [0, ntok) of a solo
+        staging cache, in one indexed copy per leaf: a paged admission
+        preloads its whole aliased prefix so."""
+        idx = torch.tensor(pages, dtype=torch.long, device=arena["k"].device)
+        for n in ("k", "v"):
+            a = arena[n]
+            w = a.index_select(1, idx).reshape(a.shape[0], -1, a.shape[3], a.shape[4])
+            single[n][:, :ntok].copy_(w[:, :ntok])
+
+    @staticmethod
+    def _single_to_pages(arena: dict, single: dict, pages: list, offs: list) -> None:
+        """Token blocks [offs[i], offs[i] + page) of a filled staging cache
+        into arena pages ``pages[i]``, in one indexed copy per leaf."""
+        dev = arena["k"].device
+        page = arena["k"].shape[2]
+        idx = torch.tensor(pages, dtype=torch.long, device=dev)
+        slots = (torch.tensor(offs, dtype=torch.long, device=dev)[:, None]
+                 + torch.arange(page, device=dev)).reshape(-1)
+        for n in ("k", "v"):
+            s = single[n].index_select(1, slots)  # [L, M * page, kv, hd]
+            arena[n].index_copy_(1, idx, s.reshape(s.shape[0], len(pages), page,
+                                                   *s.shape[2:]))
+
+    @staticmethod
+    def _pages_import(arena: dict, pages: list, blob: list) -> None:
+        """Imported page payloads (the arena's leaves in order, each
+        [L, M, page, kv, hd]) into arena pages ``pages`` [M], cast to the
+        arena's dtype, in one indexed copy per leaf."""
+        dev = arena["k"].device
+        idx = torch.tensor(pages, dtype=torch.long, device=dev)
+        for n, x in zip(("k", "v"), blob):
+            a = arena[n]
+            a.index_copy_(1, idx, torch.as_tensor(x).to(device=dev, dtype=a.dtype))
+
+    @staticmethod
+    def _page_copy(arena: dict, dst: int, src: int) -> None:
+        """Arena page ``src`` duplicated into page ``dst``: the
+        copy-on-write boundary of a paged admission whose prompt ends flush
+        on a cached block (its last slot is the pending token's write)."""
+        for n in ("k", "v"):
+            arena[n][:, dst].copy_(arena[n][:, src])
 
     def _row_generator(self, temperature: float, seed: int) -> Optional[torch.Generator]:
         """A sampled row's own generator (greedy rows draw nothing)."""
@@ -363,23 +468,69 @@ class Engine:
     def step_graph(self, cache: dict, sampled: bool, ring: int) -> StepGraph:
         """The captured decode step over ``cache`` (made on first use): the
         solo step (``llama.forward_decode``) for a cache [L, S, kv, hd], the
-        batched one at the grid bound seq_len for [L, B, S, kv, hd].
+        batched one at the grid bound ctx for a slot slab [L, B, ctx, kv,
+        hd] (the uniform pool's ctx is seq_len, a bucket's its own).
         ``sampled``: the graph samples (any mix of sampled and greedy rows;
         else every row is greedy); ``ring``: the most steps a run takes."""
-        cfg, params, rope, S = self.cfg, self.params, self.rope, self.cfg.seq_len
+        cfg, params, rope = self.cfg, self.params, self.rope
         solo = cache["k"].dim() == 4
+        ctx = cache["k"].shape[1 if solo else 2]
 
         def step(c, tok, pos):
             if solo:
                 return llama.forward_decode(cfg, params, rope, tok, c, pos)[0]
-            return llama.forward_batched(cfg, params, rope, tok, c, pos, S)[0]
+            return llama.forward_batched(cfg, params, rope, tok, c, pos, ctx)[0]
 
         def make() -> StepGraph:
-            return StepGraph(step, cache, S, sampled, ring)
+            return StepGraph(step, cache, ctx, sampled, ring)
 
-        # the storage and shape (B) of the cache, greedy or sampled, the ring
+        # the storage and shape (B, ctx) of the cache, greedy or sampled, the ring
         key = (cache["v"].data_ptr(), tuple(cache["k"].shape), sampled, ring)
         return self.graphs.get(cache["k"], key, make)
+
+    def _paged_step(self, arena: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
+        """One batched decode step over paged KV -> logits [B, vocab]. Each
+        row's pages (``table`` [B, nb], page 0 the scratch page) are
+        gathered into a window [L, B, nb * page, kv, hd], where logical
+        position i of a row is window slot i, so ``llama.forward_batched``
+        runs on it as on a bucket slab of ctx nb * page (grid bound the
+        window); then only the page holding each row's written position
+        goes back to the arena. An aliased prefix page is never that page (a
+        live row writes at or past its pending token, in a private page),
+        and rows on scratch write scratch."""
+        B, nb = table.shape
+        a = arena["k"]
+        L, page = a.shape[0], a.shape[2]
+        W = nb * page
+        flat = table.reshape(-1)
+        window = {n: arena[n].index_select(1, flat).reshape(L, B, W, *a.shape[3:])
+                  for n in ("k", "v")}
+        logits = llama.forward_batched(self.cfg, self.params, self.rope, tokens, window, pos,
+                                       W)[0]
+        blk = (pos.long().clamp(0, W - 1) // page)[:, None]  # [B, 1]
+        phys = table.gather(1, blk).reshape(-1)  # [B]
+        rows = torch.arange(B, device=table.device)
+        for n in ("k", "v"):
+            w = window[n].reshape(L, B, nb, page, *a.shape[3:])
+            arena[n].index_copy_(1, phys, w[:, rows, blk[:, 0]])
+        return logits
+
+    def paged_graph(self, arena: dict, cap: int, nb: int, sampled: bool,
+                    ring: int) -> StepGraph:
+        """The captured paged decode step (made on first use) of ``cap``
+        rows with tables of ``nb`` blocks over ``arena``: the window
+        ``nb * page`` is its grid bound and pinning slot. Keyed by the
+        arena's storage, nb, cap and greedy or sampled; the table is a
+        static input that ``load`` refills."""
+        W = nb * arena["k"].shape[2]
+
+        def make() -> StepGraph:
+            return StepGraph(self._paged_step, arena, W, sampled, ring, batch=cap,
+                             table_blocks=nb)
+
+        key = (arena["v"].data_ptr(), ("paged", nb, cap), sampled, ring)
+        return self.graphs.get(arena["k"], key, make)
 
     def _decode_chunk_solo(self, cache: dict, token: torch.Tensor, pos: int, n: int,
                            scfg: SamplerConfig, gen: torch.Generator,
@@ -694,24 +845,46 @@ class Engine:
     # -- batched decode -------------------------------------------------------
     def _decode_chunk_batch(self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
                             n: int, temps: list, topps: list, generators: list,
-                            host_pos: list, poison: tuple = ()) -> tuple:
+                            host_pos: list, poison: tuple = (),
+                            table: Optional[torch.Tensor] = None) -> tuple:
         """``n`` batched decode steps with no host sync: tokens, positions
         and the per-row finite flags stay on the device. Row b samples with
         its own settings and generator; a row whose context fills pins at
-        slot seq_len - 1 (its later tokens are garbage the caller drops).
-        One graph replay per step, the graph's grid bound seq_len (a row's
+        slot ctx - 1 (its later tokens are garbage the caller drops), ctx
+        the slab's context (seq_len for the uniform pool and generate_batch,
+        a bucket's own, or a paged window nb * page).
+        One graph replay per step, the graph's grid bound ctx (a row's
         bits do not depend on the bound); eager with ``cuda_graphs=False``,
         where ``host_pos``, the host's mirror of ``pos``, bounds flash
         decode's grid for the whole chunk. ``poison``: the rows whose logits
-        are NaN in every step (the ``logits`` fault seam). Returns (tokens
-        [n, B], ok [B], the positions after the chunk)."""
+        are NaN in every step (the ``logits`` fault seam). ``table``: the
+        page tables [B, nb] of a paged step over the arena ``cache``.
+        Returns (tokens [n, B], ok [B], the positions after the chunk)."""
+        sampled = any(t > 0.0 for t in temps)
+        ring = max(n, self.decode_chunk)
+        if table is None:
+            ctx = cache["k"].shape[2]
+        else:
+            ctx = table.shape[1] * cache["k"].shape[2]
         if self.cuda_graphs:
-            g = self.step_graph(cache, any(t > 0.0 for t in temps), max(n, self.decode_chunk))
-            g.load(tokens, pos, temps, topps, poison=poison)
+            if table is None:
+                g = self.step_graph(cache, sampled, ring)
+            else:
+                g = self.paged_graph(cache, table.shape[0], table.shape[1], sampled, ring)
+            g.load(tokens, pos, temps, topps, poison=poison, table=table)
             toks, ok = g.run(n, generators)
             return toks.clone(), ok.clone(), g.pos.clone()
-        S = self.cfg.seq_len
-        bound = min(max(host_pos) + n, S)
+        if table is None:
+            bound = min(max(host_pos) + n, ctx)
+
+            def step(tok, p):
+                return llama.forward_batched(self.cfg, self.params, self.rope, tok, cache, p,
+                                             bound)[0]
+        else:
+            table = table.to(self.device, torch.long)
+
+            def step(tok, p):
+                return self._paged_step(cache, tok, p, table)
         ok = torch.ones(tokens.shape, dtype=torch.bool, device=self.device)
         mask = None
         if poison:
@@ -720,14 +893,13 @@ class Engine:
             mask = mask.to(self.device)
         out = []
         for _ in range(n):
-            logits, _ = llama.forward_batched(self.cfg, self.params, self.rope, tokens, cache,
-                                              pos, bound)
+            logits = step(tokens, pos)
             if mask is not None:
                 logits = logits.masked_fill(mask[:, None], float("nan"))
             ok &= torch.isfinite(logits).all(dim=-1)
             tokens = sample_rows(logits, temps, topps, generators)
             out.append(tokens)
-            pos = torch.clamp(pos + 1, max=S - 1)
+            pos = torch.clamp(pos + 1, max=ctx - 1)
         return torch.stack(out), ok, pos
 
     def _prefill_batch_rows(self, prompts: list) -> tuple:
@@ -941,16 +1113,21 @@ class Engine:
                       bucket_kv: bool = False, min_bucket: Optional[int] = None,
                       prefill_chunk: int = 0, kv_budget=None,
                       kv_pages: int = 0) -> "BatchSession":
-        """Open a slot-pool decode session (continuous batching) over one
-        batch cache [L, max_batch, S, kv, hd]: rows are admitted, stepped
-        and released independently between chunks of ``chunk`` steps
-        (default ``decode_chunk``). ``prefill_chunk`` > 0 sets the default
-        token budget of ``prefill_step`` for chunked (``admit_begin``)
-        admissions; ``kv_budget`` is an optional external accountant
-        (``serving.lifecycle.KVBudget``) that mirrors reservations into
-        gauges. ``min_bucket`` is accepted as the reference accepts it; it
-        sizes bucketed pools only. Bucketed pools (``bucket_kv``) and paged
-        KV (``kv_pages``) are not ported yet and raise NotImplementedError."""
+        """Open a slot-pool decode session (continuous batching): rows are
+        admitted, stepped and released independently between chunks of
+        ``chunk`` steps (default ``decode_chunk``); see
+        :class:`BatchSession`. The default is one uniform batch cache [L,
+        max_batch, S, kv, hd]; ``bucket_kv`` shards it into power-of-two
+        context buckets from ``min_bucket`` up to S under the same modeled
+        budget of max_batch * S token-slots, so more short rows fit;
+        ``kv_pages`` > 0 (tokens a page) makes it one page arena under that
+        budget with per-row page tables and a copy-on-write radix prefix
+        cache (and takes precedence over ``bucket_kv``). ``prefill_chunk``
+        > 0 sets the default token budget of ``prefill_step`` for chunked
+        (``admit_begin``) admissions; ``kv_budget`` is an optional external
+        accountant (``serving.lifecycle.KVBudget``) that mirrors
+        reservations into gauges and, paged, owns the page free list
+        (``attach_pages``)."""
         return BatchSession(self, max_batch, chunk, bucket_kv=bucket_kv,
                             min_bucket=min_bucket, prefill_chunk=prefill_chunk,
                             kv_budget=kv_budget, kv_pages=kv_pages)
@@ -980,54 +1157,203 @@ class _PendingPrefill:
     scfg: SamplerConfig
     cache: dict  # the solo staging cache [L, S, kv, hd] being filled
     cursor: int = 0  # prompt-prefix tokens already prefilled
+    # paged publish-at-admit: the radix nodes this admission published
+    # ready=False (aligned with the row's blocks; None where another row's
+    # node was there first), and the tokens already scattered into pages
+    pub_nodes: list = dataclasses.field(default_factory=list)
+    scattered: int = 0
+
+
+class _Rows:
+    """Host-side decode state of one decode shape's rows, shipped to the
+    device per chunk: each row's pending token, position, sampler settings
+    and generator, and the handle occupying it. Free rows pin at ``pin``
+    (the shape's last slot), greedy, feeding token 0."""
+
+    def __init__(self, cap: int, pin: int):
+        self.cap, self.pin = cap, pin
+        self.tokens = [0] * cap
+        self.pos = [pin] * cap
+        self.temps = [0.0] * cap
+        self.topps = [1.0] * cap
+        self.gens: list = [None] * cap
+        self.rows: list = [None] * cap  # the handle occupying each row
+
+    def _grow_rows(self) -> None:
+        """Double the capacity: rows keep their indices, the new rows are free."""
+        pad = self.cap
+        self.tokens += [0] * pad
+        self.pos += [self.pin] * pad
+        self.temps += [0.0] * pad
+        self.topps += [1.0] * pad
+        self.gens += [None] * pad
+        self.rows += [None] * pad
+        self.cap *= 2
+
+    def move_row(self, r: int, dst: "_Rows", d: int) -> None:
+        """Carry row ``r``'s decode state to row ``d`` of ``dst`` and free
+        ``r`` (its position re-pins)."""
+        for name in ("tokens", "pos", "temps", "topps", "gens", "rows"):
+            getattr(dst, name)[d] = getattr(self, name)[r]
+        self.free_row(r)
+
+    def free_row(self, r: int) -> None:
+        self.rows[r] = None
+        self.tokens[r], self.pos[r] = 0, self.pin
+        self.temps[r], self.topps[r], self.gens[r] = 0.0, 1.0, None
+
+    def live(self, slots: dict) -> list:
+        """Rows whose handle is live (admitted, not done, not prefilling)."""
+        return [r for r, h in enumerate(self.rows)
+                if h is not None and not slots[h].done and not slots[h].prefilling]
+
+
+class _BucketPool(_Rows):
+    """One context bucket's slot pool: a slab [L, cap, ctx, kv, hd] and its
+    rows' host state. ``ctx`` may be shorter than the model's context: a
+    row's position stays inside its slab (the session migrates it out
+    before it outgrows it), and attention reads a row only up to its own
+    position, so a short slab is exact."""
+
+    def __init__(self, eng: Engine, ctx: int, cap: int, cache: Optional[dict] = None):
+        super().__init__(cap, ctx - 1)
+        self.ctx = ctx
+        self.cache = cache if cache is not None else eng._take_slab(cap, ctx)
+
+    def grow(self, eng: Engine, retired: list) -> None:
+        """Double the pool's capacity: rows keep their indices (no handle
+        moves), the new rows are free. The old slab goes to ``retired``."""
+        bigger = eng._take_slab(self.cap * 2, self.ctx)
+        eng._bucket_cache_grow(bigger, self.cache)
+        retired.append(self.cache)
+        self.cache = bigger
+        self._grow_rows()
+
+
+@dataclasses.dataclass
+class _RowPages:
+    """A paged row's page table: ``blocks[b]`` is the arena page of its
+    logical token block b (aliased prefix pages first, private pages
+    appended as it grows). ``outstanding``: private pages reserved and not
+    yet allocated (handed back at release); ``cap_tokens``: its worst-case
+    context, which its pages never pass."""
+
+    blocks: list
+    outstanding: int
+    cap_tokens: int
+    plen: int
+
+
+class _PagedGroup(_Rows):
+    """The rows whose page tables span ``nb`` blocks: one decode shape
+    (window nb * page). The KV lives in the session's arena, so moving a
+    growing row to a wider group rewrites host state only. Free rows pin
+    at the window's last slot with an all-scratch table."""
+
+    def __init__(self, nb: int, cap: int, page: int):
+        super().__init__(cap, nb * page - 1)
+        self.nb = nb
+        self.tables = torch.full((cap, nb), paged_kv.SCRATCH_PAGE, dtype=torch.int32)
+
+    def grow(self) -> None:
+        """Double the capacity (host state only)."""
+        self.tables = torch.cat([self.tables, torch.full_like(self.tables,
+                                                              paged_kv.SCRATCH_PAGE)])
+        self._grow_rows()
+
+    def free_row(self, r: int) -> None:
+        super().free_row(r)
+        self.tables[r] = paged_kv.SCRATCH_PAGE
+
+
+def _gen_words(gen: Optional[torch.Generator]) -> list:
+    """A row generator's state as little-endian uint32 words (``[]`` for a
+    greedy row): the ``keys`` of an exported row."""
+    if gen is None:
+        return []
+    raw = gen.get_state().numpy().tobytes()
+    return [int.from_bytes(raw[i:i + 4], "little") for i in range(0, len(raw), 4)]
+
+
+def _gen_from_words(words: list, device: torch.device) -> torch.Generator:
+    """A generator on ``device`` continuing from the state ``words``
+    (:func:`_gen_words`). Raises ValueError when the words are not a state
+    of this device's generator."""
+    gen = torch.Generator(device=device)
+    want = gen.get_state().numel()
+    raw = b"".join(int(w).to_bytes(4, "little") for w in words)
+    if len(raw) != want:
+        raise ValueError(
+            f"the snapshot's sampler state is {len(raw)} bytes, a {device.type} generator's "
+            f"state is {want}: a sampled row resumes only from a state of its own device's "
+            "generator (the reference's two-word JAX keys cannot be restored)")
+    try:
+        gen.set_state(torch.frombuffer(bytearray(raw), dtype=torch.uint8))
+    except RuntimeError as e:
+        raise ValueError(f"the snapshot's sampler state cannot be restored: {e}") from None
+    return gen
 
 
 class BatchSession:
-    """Slot-pool decode over one batch cache [L, max_batch, S, kv, hd] — the
-    continuous-batching primitive, uniform mode. Rows join (``admit``, or
-    ``admit_begin`` and ``prefill_step``), step (``step_chunk``) and leave
-    (``release``) independently between chunks; handles are slot indices
-    0..max_batch-1. The cache is the engine's resident pool cache when no
-    other open session uses it (``Engine._pool_cache``), so a later session
-    of the same size replays the graphs captured for an earlier one.
+    """Slot-pool decode, the continuous-batching primitive: rows join
+    (``admit``, or ``admit_begin`` and ``prefill_step``), step
+    (``step_chunk``) and leave (``release``) independently between chunks.
 
-    Every chunk runs the whole fixed-size pool through the engine's batched
-    decode chunk. Free, finished and mid-prefill rows ride along pinned at
-    slot S - 1 (greedy, feeding token 0), so the batch size never changes
-    and a row's arithmetic never depends on who else is in the pool: a row
+    Three residency layouts share the class:
+
+    * uniform (default): one slab [L, max_batch, S, kv, hd], handles are
+      its row indices 0..max_batch-1. The slab is the engine's resident
+      pool cache when no other open session uses it
+      (``Engine._pool_cache``), so a later session of the same size replays
+      the graphs captured for an earlier one.
+    * bucketed (``bucket_kv``): power-of-two context buckets from
+      ``min_bucket`` (default max(16, 2 * chunk)) up to S under the same
+      modeled budget of max_batch * S token-slots. A row reserves its
+      worst-case bucket (prompt + steps), is placed in the smallest slab
+      covering its prompt plus one chunk, and migrates to a longer bucket
+      before it outgrows its slab (an exact copy of its slab), so short
+      requests stop paying for the full context and more rows fit. One
+      decode shape per occupied (bucket, capacity); capacities double.
+      Closed sessions leave their slabs on the engine (``Engine._keep_slabs``)
+      for the next one, with the graphs captured on them.
+    * paged (``kv_pages`` > 0 tokens a page, halved until it divides S):
+      one arena of pages under the same budget (plus the scratch page 0),
+      per-row page tables, and a radix prefix cache whose full prompt
+      blocks later admissions alias (copy-on-write at the boundary block).
+      Each step gathers a group's pages into a window, decodes it as a
+      slab and scatters back the written page; growing a row appends a
+      page and, past its window, regroups it (host state only). Only this
+      layout exports a live row (``export_row``/``admit_from_export``).
+
+    Every chunk runs each occupied decode shape whole through the engine's
+    batched decode chunk. Free, finished and mid-prefill rows ride along
+    pinned at the shape's last slot (greedy, feeding token 0), and a row's
+    arithmetic never depends on its neighbours: at one capacity, a row
     admitted mid-flight emits, bit for bit, the tokens it would emit
-    admitted at the start. Slot reuse needs no clearing: going live
-    overwrites the row's whole slab with its prefilled cache (a 1-token
-    prompt writes position 0 before attending it), and positions past a
-    row's own pos are never attended.
+    admitted at the start. The dequant-matmuls' split plans depend on the
+    row count, so a row's bits equal the uniform pool's only while its
+    shape's capacity equals the uniform pool's; a bucket slab or paged
+    window gives the uniform slab's bits at equal capacity (the other
+    kernels plan and write each row from its own position). Slot reuse
+    needs no clearing: going live overwrites the row's attended window, a
+    1-token prompt writes position 0 before attending it, and positions
+    past a row's own are never attended.
 
     Chunked admission: ``admit_begin`` reserves a row and ``prefill_step``
     advances the oldest pending prompt by at most ``prefill_chunk`` tokens
-    into its own solo staging cache, which is copied into the row's slab
-    when the prompt is done. The pieces run the decode kernels where the
-    monolithic prefill runs the prefill ones (K1/K3 take the GEMV at up to
-    8 rows, K4/K5 their decode launches at up to 16), so a chunked row's
+    into its own solo staging cache, which lands in the row's slab (or
+    pages) when the prompt is done. The pieces run the decode kernels where
+    the monolithic prefill runs the prefill ones (K1/K3 take the GEMV at up
+    to 8 rows, K4/K5 their decode launches at up to 16), so a chunked row's
     logits agree with a monolithic admission's within float rounding, not
     bit for bit; at one ``prefill_chunk`` a row's tokens do not depend on
-    when its pieces ran.
-
-    Every row reserves the full context (``reserved_tokens``) against
-    ``budget_tokens`` = max_batch * seq_len and the optional external
-    ``kv_budget``. Not ported yet (ROADMAP Queue 1, items 5 and 6):
-    bucketed slot pools (``bucket_kv``), paged KV (``kv_pages``) and row
-    export/import."""
+    when its pieces ran. A warm paged admission prefills only the tail
+    past its aliased prefix, from the cursor, so it agrees with a cold one
+    within the same rounding."""
 
     def __init__(self, eng: Engine, max_batch: int, chunk: Optional[int] = None,
                  bucket_kv: bool = False, min_bucket: Optional[int] = None,
                  prefill_chunk: int = 0, kv_budget=None, kv_pages: int = 0):
-        if bucket_kv:
-            raise NotImplementedError(
-                "bucketed slot pools are not ported yet (ROADMAP Queue 1, item 5): use "
-                "the uniform session")
-        if kv_pages > 0:
-            raise NotImplementedError(
-                "paged KV is not ported yet (ROADMAP Queue 1, item 6): use the uniform "
-                "session")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         chunk = eng.decode_chunk if chunk is None else chunk
@@ -1036,38 +1362,99 @@ class BatchSession:
         self.eng = eng
         self.max_batch = max_batch
         self.chunk = chunk
+        self.paged = kv_pages > 0
+        self.bucket_kv = bool(bucket_kv) and not self.paged
         self.prefill_chunk = max(0, int(prefill_chunk))
         S = eng.cfg.seq_len
-        #: KV token-slots the pool holds: max_batch full-context rows
+        if self.paged:
+            # pages tile the context exactly: halve the size until it divides S
+            page = max(1, int(kv_pages))
+            while S % page:
+                page //= 2
+            self.page = page
+        if self.bucket_kv:
+            lo = int(min_bucket) if min_bucket else max(16, 2 * chunk)
+            lo = max(2, min(lo, S))
+            b = 1
+            while b < lo:
+                b *= 2
+            ladder = []
+            while b < S:
+                ladder.append(b)
+                b *= 2
+            ladder.append(S)
+            self.buckets = tuple(ladder)
+        else:
+            self.buckets = (S,)
+        #: KV token-slots the session may hold: max_batch full-context rows
         self.budget_tokens = max_batch * S
         self._reserved_tokens = 0
         self._budget = kv_budget  # duck-typed lifecycle.KVBudget mirror
-        self._closed = False
-        self._cache: Optional[dict] = eng._pool_cache(self, max_batch)
-        # per-row decode state, host mirrors shipped to the device per chunk;
-        # free rows pin at the last slot, greedy, feeding token 0
-        self._tokens = [0] * max_batch
-        self._pos = [S - 1] * max_batch
-        self._temps = [0.0] * max_batch
-        self._topps = [1.0] * max_batch
-        self._gens: list = [None] * max_batch
-        self._slots: dict = {}  # handle (= row) -> _SlotState
+        self._pools: dict = {}  # ctx -> _BucketPool
+        self._retired: list = []  # slabs grown out of, kept for the engine
+        self._slots: dict = {}  # handle -> _SlotState
+        self._where: dict = {}  # handle -> (pool or group, row)
         self._prefills: dict = {}  # handle -> _PendingPrefill, oldest first
+        self._next_handle = 0
+        self._closed = False
+        self.migrations = 0  # rows moved to a longer bucket
         self.decode_ms = 0.0  # cumulative chunk wall time
         self.prefill_ms = 0.0  # cumulative admission-prefill wall time
+        # paged-mode counters (0 in the slab modes)
+        self.prefix_hits = 0  # admissions that aliased at least one cached page
+        self.prefix_misses = 0  # admissions with nothing cached to alias
+        self.prefix_tokens_matched = 0  # prompt tokens served from the cache
+        self.cow_copies = 0  # boundary pages copied at admission
+        self.prefix_evictions = 0  # cached pages evicted for allocations
+        self.regroups = 0  # rows moved to a wider window (host state only)
+        if self.paged:
+            num_pages = self.budget_tokens // self.page + 1
+            self._arena = eng._bucket_cache_init(num_pages, self.page)
+            if kv_budget is not None and hasattr(kv_budget, "attach_pages"):
+                # the serving accountant owns the free list and refcounts
+                self._alloc = kv_budget.attach_pages(num_pages, self.page)
+            else:
+                self._alloc = paged_kv.PageAllocator(num_pages, self.page)
+            self._radix = paged_kv.RadixPrefixCache(self.page)
+            self._pgroups: dict = {}  # nb -> _PagedGroup
+            self._rowpages: dict = {}  # handle -> _RowPages
+            max_nb = S // self.page
+            ladder, nb = [], 1
+            while nb < max_nb:
+                ladder.append(nb)
+                nb *= 2
+            ladder.append(max_nb)
+            self._nb_ladder = tuple(ladder)
+        elif not self.bucket_kv:
+            self._pools[S] = _BucketPool(eng, S, max_batch, eng._pool_cache(self, max_batch))
 
     # -- introspection ----------------------------------------------------
     @property
     def cache(self) -> Optional[dict]:
-        """The batch cache (None once closed)."""
-        return self._cache
+        """The uniform pool's slab (None once closed, and in the bucketed
+        and paged layouts, which have no single cache)."""
+        if self._closed or self.bucket_kv or self.paged:
+            return None
+        return self._pools[self.eng.cfg.seq_len].cache
 
     @property
     def free_slots(self) -> list:
-        """Row indices ``admit`` can take right now."""
+        """The uniform pool's free row indices. The bucketed and paged
+        layouts admit by KV budget, not by row count (ask ``can_admit``):
+        there, pseudo-indices, one per smallest admission (a bucket, a page)
+        that still fits, so that ``if sess.free_slots:`` still means "can
+        admit something"."""
         if self._closed:
             return []
-        return [b for b in range(self.max_batch) if b not in self._slots]
+        if self.paged:
+            n = (self._alloc.free_count + self._alloc.evictable_count
+                 - self._alloc.reserved_pages)
+            return list(range(max(0, n)))
+        if not self.bucket_kv:
+            return [b for b, h in enumerate(self._pools[self.eng.cfg.seq_len].rows)
+                    if h is None]
+        n = (self.budget_tokens - self._reserved_tokens) // self.buckets[0]
+        return list(range(max(0, n)))
 
     @property
     def occupied(self) -> list:
@@ -1091,6 +1478,33 @@ class BatchSession:
         """KV token-slots currently reserved against ``budget_tokens``."""
         return self._reserved_tokens
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """The share of paged admissions that aliased at least one cached
+        page (0.0 in the slab layouts and before any admission)."""
+        n = self.prefix_hits + self.prefix_misses
+        return self.prefix_hits / n if n else 0.0
+
+    def page_stats(self) -> dict:
+        """The paged layout's occupancy for /stats and /ready ({} in the
+        slab layouts): the allocator's page counts, the radix tree's size,
+        resident rows per window and the prefix-cache counters."""
+        if not self.paged:
+            return {}
+        s = self._alloc.stats()
+        s["radix_nodes"] = len(self._radix)
+        s["rows_per_window"] = {
+            str(nb * self.page): sum(1 for h in g.rows if h is not None)
+            for nb, g in sorted(self._pgroups.items())}
+        s["prefix_hits"] = self.prefix_hits
+        s["prefix_misses"] = self.prefix_misses
+        s["prefix_hit_rate"] = self.prefix_hit_rate
+        s["prefix_tokens_matched"] = self.prefix_tokens_matched
+        s["cow_copies"] = self.cow_copies
+        s["prefix_evictions"] = self.prefix_evictions
+        s["regroups"] = self.regroups
+        return s
+
     def _state(self, slot: int) -> _SlotState:
         st = self._slots.get(slot)
         if st is None:
@@ -1111,29 +1525,165 @@ class BatchSession:
         """Wall time this row's admission prefill has taken so far."""
         return self._state(slot).prefill_ms
 
+    # -- capacity ---------------------------------------------------------
+    def _need_ctx(self, prompt_len: int, steps: int) -> int:
+        """Context slots the row can reach: its last write position + 1."""
+        S = self.eng.cfg.seq_len
+        return max(prompt_len, min(S, prompt_len - 1 + max(0, steps)))
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
     def can_admit(self, prompt_len: int, steps: int,
                   prompt_tokens: Optional[list] = None) -> bool:
-        """True when the pool's KV budget (and the external ``kv_budget``,
-        if any) has room for one more row: every row reserves the full
-        context, so this is a free slot that the accountant still allows.
-        ``prompt_tokens`` is accepted for the paged mode's prefix match."""
+        """True when the session's KV budget (and the external
+        ``kv_budget``, if any) has room for this request's worst case:
+        admission reserves the bucket (or the private pages) covering
+        prompt + steps, so later growth never oversubscribes. A paged
+        session reserves only the pages the radix cache cannot alias;
+        ``prompt_tokens`` lets the check count the match (without it, no
+        match is assumed)."""
         if self._closed:
             return False
-        need = self.eng.cfg.seq_len
+        if self.paged:
+            priv, full, _ = self._plan_pages(prompt_len, steps, prompt_tokens)
+            # matched evictable pages would be pinned by this admission,
+            # leaving the available pool: count them with the private need
+            pinned = sum(1 for n in full if self._alloc.refcount(n.page) == 0)
+            if not self._alloc.can_reserve(priv + pinned):
+                return False
+            return self._budget is None or self._budget.can_fit(priv * self.page)
+        need = self._bucket_for(self._need_ctx(prompt_len, steps))
         if self._reserved_tokens + need > self.budget_tokens:
             return False
         return self._budget is None or self._budget.can_fit(need)
 
+    # -- paged-mode internals ---------------------------------------------
+    def _plan_pages(self, prompt_len: int, steps: int,
+                    prompt_tokens: Optional[list]) -> tuple:
+        """(private pages to reserve, aliasable full-prefix nodes, the COW
+        boundary node or None) of a prospective paged admission. The full
+        nodes hold blocks strictly below position prompt_len - 1, which the
+        row never writes; a cached block that the prompt ends flush on is
+        copied instead (its last slot is the pending token's write)."""
+        need = paged_kv.pages_for(self._need_ctx(prompt_len, steps), self.page)
+        if prompt_tokens is None:
+            return need, [], None
+        path = self._radix.match(prompt_tokens)
+        nfull = min(len(path), (prompt_len - 1) // self.page)
+        full = path[:nfull]
+        cow = None
+        if len(path) > nfull and (nfull + 1) * self.page == prompt_len:
+            cow = path[nfull]
+        return need - nfull, full, cow
+
+    def _page_alloc(self, rp: _RowPages) -> int:
+        """One private arena page for ``rp``'s row, evicting LRU cached
+        prefix pages when the free list is dry (a reserved row always gets
+        one: admission counted free + evictable pages)."""
+        faults.fire("page_alloc")
+        p = self._alloc.alloc()
+        if p is None:
+            freed = self._radix.evict(1, self._alloc)
+            self.prefix_evictions += freed
+            if self.eng._m_prefix_evictions is not None and freed:
+                self.eng._m_prefix_evictions.inc(freed)
+            p = self._alloc.alloc()
+        if p is None:
+            raise RuntimeError("paged KV pool exhausted despite the admission's reservation")
+        rp.outstanding = max(0, rp.outstanding - 1)
+        return p
+
+    def _nb_for(self, blocks: int) -> int:
+        for nb in self._nb_ladder:
+            if nb >= blocks:
+                return nb
+        return self._nb_ladder[-1]
+
+    def _alloc_prow(self, nb: int) -> tuple:
+        """A free row in the ``nb``-block group, made or grown on demand."""
+        g = self._pgroups.get(nb)
+        if g is None:
+            g = self._pgroups[nb] = _PagedGroup(nb, 1, self.page)
+        for r in range(g.cap):
+            if g.rows[r] is None:
+                return g, r
+        r = g.cap
+        g.grow()
+        return g, r
+
+    def _sync_table(self, handle: int) -> None:
+        """Copy the row's block list into its group's page table
+        (scratch past its allocated tail)."""
+        g, r = self._where[handle]
+        blocks = self._rowpages[handle].blocks[:g.nb]
+        g.tables[r] = paged_kv.SCRATCH_PAGE
+        g.tables[r, :len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+
+    def _regroup(self, handle: int, nb: int) -> None:
+        """Move a growing row to a wider window group: host state only, the
+        KV stays in its pages."""
+        src, srow = self._where[handle]
+        dst, drow = self._alloc_prow(nb)
+        src.move_row(srow, dst, drow)
+        self._where[handle] = (dst, drow)
+        self.regroups += 1
+        self._sync_table(handle)
+
+    def _finish_pages(self, handle: int, prompt_tokens: list,
+                      staging: Optional[dict] = None) -> None:
+        """Complete a paged row's table through its pending token's block:
+        allocate the private tail pages, scatter the staging cache's
+        prefilled blocks into them in one call (``staging`` None where
+        nothing was prefilled: every attended block is aliased or copied,
+        or the prompt is one token), then publish every block the prompt
+        fills into the radix tree."""
+        rp = self._rowpages[handle]
+        plen = len(prompt_tokens)
+        total = (plen - 1) // self.page + 1
+        pages, offs = [], []
+        for b in range(len(rp.blocks), total):
+            p = self._page_alloc(rp)
+            if staging is not None and b * self.page < plen - 1:
+                pages.append(p)
+                offs.append(b * self.page)
+            rp.blocks.append(p)
+        if pages:
+            self.eng._single_to_pages(self._arena, staging, pages, offs)
+        # blocks (b + 1) * page <= plen - 1 hold prompt KV the row never
+        # writes again: cacheable for later admissions
+        nins = (plen - 1) // self.page
+        for p in self._radix.insert(prompt_tokens, rp.blocks[:nins]):
+            self._alloc.hold(p)
+        self._sync_table(handle)
+
+    def _alloc_row(self, ctx: int) -> tuple:
+        """A free row in the ``ctx`` pool, made or grown on demand (the
+        uniform pool is made full-size)."""
+        pool = self._pools.get(ctx)
+        if pool is None:
+            pool = self._pools[ctx] = _BucketPool(self.eng, ctx, 1)
+        for r in range(pool.cap):
+            if pool.rows[r] is None:
+                return pool, r
+        r = pool.cap
+        pool.grow(self.eng, self._retired)
+        return pool, r
+
     # -- lifecycle --------------------------------------------------------
     def admit(self, prompt_tokens: list, steps: int, sampler: Optional[SamplerConfig] = None,
               stop_tokens: tuple = ()) -> int:
-        """Prefill ``prompt_tokens`` into the lowest free row and return its
-        handle (the slot index): ``admit_begin``, then one ``prefill_step``
-        over the whole prefix. The last prompt token stays pending for the
-        row's first step, which samples with a generator freshly seeded
-        from ``sampler.seed`` (``sampler`` defaults to the engine's).
-        ``steps`` and ``stop_tokens`` are the row's own budget and stop set.
-        Raises RuntimeError when the session is closed or full."""
+        """Prefill ``prompt_tokens`` into a free row and return its handle
+        (the uniform pool's: the row index): ``admit_begin``, then one
+        ``prefill_step`` over the whole prefix. The last prompt token stays
+        pending for the row's first step, which samples with a generator
+        freshly seeded from ``sampler.seed`` (``sampler`` defaults to the
+        engine's). ``steps`` and ``stop_tokens`` are the row's own budget
+        and stop set. Raises RuntimeError when the session is closed or
+        nothing fits (ask ``can_admit``)."""
         handle = self.admit_begin(prompt_tokens, steps, sampler=sampler,
                                   stop_tokens=stop_tokens)
         while self._slots[handle].prefilling:
@@ -1142,8 +1692,8 @@ class BatchSession:
 
     def admit_begin(self, prompt_tokens: list, steps: int,
                     sampler: Optional[SamplerConfig] = None, stop_tokens: tuple = ()) -> int:
-        """Reserve the lowest free row for the prompt without prefilling
-        it: ``prefill_step`` calls, interleaved with ``step_chunk``, consume
+        """Reserve a row for the prompt without prefilling it:
+        ``prefill_step`` calls, interleaved with ``step_chunk``, consume
         the prompt, so resident rows keep decoding while a long prompt
         fills its staging cache. A 1-token prompt has nothing to prefill
         and goes live at once."""
@@ -1154,34 +1704,138 @@ class BatchSession:
         S = self.eng.cfg.seq_len
         if len(prompt_tokens) > S:
             raise ValueError(f"prompt of {len(prompt_tokens)} tokens exceeds seq_len {S}")
-        if not self.can_admit(len(prompt_tokens), steps):
+        if not self.can_admit(len(prompt_tokens), steps,
+                              list(prompt_tokens) if self.paged else None):
             raise RuntimeError(
                 f"no free slot (max_batch={self.max_batch}, KV budget "
                 f"{self._reserved_tokens}/{self.budget_tokens} tokens); "
                 "release a finished row first")
         faults.fire("admit")
         scfg = sampler if sampler is not None else self.eng.sampler_cfg
-        row = self.free_slots[0]
-        self._reserved_tokens += S
-        if self._budget is not None:
-            self._budget.reserve(S)
-            self._budget.place(S)
+        if self.paged:
+            return self._admit_begin_paged(list(prompt_tokens), steps, scfg,
+                                           tuple(stop_tokens))
         plen = len(prompt_tokens)
+        reserved = self._bucket_for(self._need_ctx(plen, steps))
+        # placed small, for the prompt plus one chunk: migration (covered by
+        # the reservation) grows the rows that live long
+        place = self._bucket_for(min(reserved, plen + self.chunk))
+        pool, row = self._alloc_row(place)
+        handle = self._next_handle if self.bucket_kv else row
+        self._next_handle += 1
+        self._reserved_tokens += reserved
+        if self._budget is not None:
+            self._budget.reserve(reserved)
+            self._budget.place(pool.ctx)
         room = S - (plen - 1)
         budget = min(room, steps)
-        st = _SlotState(room=room, budget=budget, stop_tokens=tuple(stop_tokens), reserved=S,
-                        done=budget <= 0, finish="length" if budget <= 0 else None)
-        self._slots[row] = st
+        st = _SlotState(room=room, budget=budget, stop_tokens=tuple(stop_tokens),
+                        reserved=reserved, done=budget <= 0,
+                        finish="length" if budget <= 0 else None)
+        self._slots[handle] = st
+        self._where[handle] = (pool, row)
+        pool.rows[row] = handle
         if budget <= 0:
-            return row  # never decodes; skip the prefill
+            return handle  # never decodes; skip the prefill
         if plen == 1:
-            self._go_live(row, prompt_tokens, scfg)
+            self._go_live(handle, prompt_tokens, scfg)
         else:
             faults.fire("prefill")
             st.prefilling = True
-            self._prefills[row] = _PendingPrefill(list(prompt_tokens), scfg,
-                                                  self.eng.new_cache())
-        return row
+            self._prefills[handle] = _PendingPrefill(list(prompt_tokens), scfg,
+                                                     self.eng.new_cache())
+        return handle
+
+    def _admit_begin_paged(self, prompt_tokens: list, steps: int, scfg: SamplerConfig,
+                           stop_tokens: tuple) -> int:
+        """Paged admission: match the radix tree, alias the cached full
+        blocks (all strictly below position plen - 1, which the row never
+        writes), copy a boundary block, reserve only the private tail and
+        prefill only what the cache cannot serve."""
+        S = self.eng.cfg.seq_len
+        plen = len(prompt_tokens)
+        faults.fire("prefix_match")
+        priv, full, cow = self._plan_pages(plen, steps, prompt_tokens)
+        # pin the aliased prefix first: pinning takes evictable pages out of
+        # the available pool, so the reservation check below is exact
+        for n in full:
+            self._alloc.ref(n.page)
+        if not self._alloc.can_reserve(priv) or (
+                self._budget is not None and not self._budget.can_fit(priv * self.page)):
+            for n in full:
+                self._alloc.unref(n.page)
+            raise RuntimeError(
+                f"no free KV pages ({self._alloc.free_count} free + "
+                f"{self._alloc.evictable_count} evictable, "
+                f"{self._alloc.reserved_pages} reserved, need {priv}); "
+                "release a finished row first")
+        self._alloc.reserve(priv)
+        reserved = priv * self.page
+        self._reserved_tokens += reserved
+        if self._budget is not None:
+            self._budget.reserve(reserved)
+        need_ctx = self._need_ctx(plen, steps)
+        rp = _RowPages([n.page for n in full], priv, need_ctx, plen)
+        # a window for the prompt plus one chunk; regrouping widens it
+        place = min(need_ctx, plen + self.chunk)
+        g, row = self._alloc_prow(self._nb_for(paged_kv.pages_for(place, self.page)))
+        handle = self._next_handle
+        self._next_handle += 1
+        room = S - (plen - 1)
+        budget = min(room, steps)
+        st = _SlotState(room=room, budget=budget, stop_tokens=stop_tokens, reserved=reserved,
+                        done=budget <= 0, finish="length" if budget <= 0 else None)
+        self._slots[handle] = st
+        self._where[handle] = (g, row)
+        self._rowpages[handle] = rp
+        g.rows[row] = handle
+        if budget <= 0:
+            return handle  # never decodes; its pages stay pinned until release
+        eng = self.eng
+        cached = len(full) * self.page
+        if cow is not None:
+            p = self._page_alloc(rp)
+            eng._page_copy(self._arena, p, cow.page)
+            rp.blocks.append(p)
+            cached = plen - 1
+            self.cow_copies += 1
+            if eng._m_cow is not None:
+                eng._m_cow.inc()
+        matched = min(cached, plen - 1)
+        if matched > 0:
+            self.prefix_hits += 1
+            self.prefix_tokens_matched += matched
+            if eng._m_prefix_hits is not None:
+                eng._m_prefix_hits.inc()
+                eng._m_prefix_tokens.inc(matched)
+        else:
+            self.prefix_misses += 1
+            if eng._m_prefix_misses is not None:
+                eng._m_prefix_misses.inc()
+        if plen == 1 or cached >= plen - 1:
+            # every attended prefix position is aliased or copied
+            self._finish_pages(handle, prompt_tokens)
+            self._go_live(handle, prompt_tokens, scfg)
+            return handle
+        faults.fire("prefill")
+        st.prefilling = True
+        staging = eng.new_cache()
+        if full:  # the aliased prefix, preloaded in one gather
+            eng._pages_to_single(staging, self._arena, [n.page for n in full], cached)
+        pf = _PendingPrefill(prompt_tokens, scfg, staging, cursor=cached, scattered=cached)
+        # publish-at-admit: the row's full prompt blocks hang in the radix
+        # tree ready=False now, and each turns ready when the piece that
+        # fills it lands, so a concurrent admission of the same prefix
+        # aliases it while both rows are live
+        nins = (plen - 1) // self.page
+        for _ in range(len(rp.blocks), nins):
+            rp.blocks.append(self._page_alloc(rp))
+        pf.pub_nodes = self._radix.publish_pending(prompt_tokens, rp.blocks[:nins])
+        for n in pf.pub_nodes:
+            if n is not None:
+                self._alloc.hold(n.page)
+        self._prefills[handle] = pf
+        return handle
 
     def prefill_step(self, handle: Optional[int] = None,
                      budget: Optional[int] = None) -> Optional[tuple]:
@@ -1189,9 +1843,10 @@ class BatchSession:
         (default: the session's ``prefill_chunk``; the whole remaining
         prefix when neither is set): one bucketed prefill forward into its
         staging cache, synced before returning. Returns (handle, finished);
-        ``finished`` means the row just went live (its slab is written; the
-        next step_chunk decodes it). Returns None when nothing is pending.
-        Without ``handle`` it takes the oldest pending admission."""
+        ``finished`` means the row just went live (its slab or pages are
+        written; the next step_chunk decodes it). Returns None when nothing
+        is pending. Without ``handle`` it takes the oldest pending
+        admission."""
         if self._closed:
             raise RuntimeError("batch session is closed")
         if handle is None:
@@ -1209,11 +1864,18 @@ class BatchSession:
         piece = prefix[pf.cursor:pf.cursor + n]
         faults.fire("prefill_chunk")
         t0 = time.perf_counter()
-        _, pf.cache = self.eng._prefill_piece(pf.cache, piece, pf.cursor)
+        if piece:  # empty when a fault stopped the last piece after its forward
+            _, pf.cache = self.eng._prefill_piece(pf.cache, piece, pf.cursor)
         pf.cursor += len(piece)
+        if self.paged:
+            self._scatter_published(handle, pf)
         done = pf.cursor >= len(prefix)
-        if done:  # land the staging cache in the row's slab
-            Engine._batch_cache_insert(self._cache, pf.cache, handle)
+        if done:  # land the staging cache in the row's slab or pages
+            if self.paged:
+                self._finish_pages(handle, pf.prompt, staging=pf.cache)
+            else:
+                pool, row = self._where[handle]
+                Engine._batch_cache_insert(pool.cache, pf.cache, row)
         _sync(self.eng.device)
         dt = (time.perf_counter() - t0) * 1000.0
         self.prefill_ms += dt
@@ -1229,54 +1891,275 @@ class BatchSession:
             self.eng._m_prefill.observe(st.prefill_ms)
         return handle, True
 
-    def _go_live(self, row: int, prompt_tokens: list, scfg: SamplerConfig) -> None:
-        """Arm the row's decode state: the pending last prompt token, its
-        position and a freshly seeded generator."""
-        self._tokens[row] = int(prompt_tokens[-1])
-        self._pos[row] = len(prompt_tokens) - 1
-        self._temps[row] = float(scfg.temperature)
-        self._topps[row] = float(scfg.topp)
-        self._gens[row] = self.eng._row_generator(scfg.temperature, scfg.seed)
+    def _scatter_published(self, handle: int, pf: _PendingPrefill) -> None:
+        """Land the staging cache's newly filled full blocks in their
+        published pages (one call) and mark their nodes ready. Blocks whose
+        node another row published first (``pub_nodes`` None) get their
+        private copy all the same and never become cache."""
+        rp = self._rowpages[handle]
+        nins = (len(pf.prompt) - 1) // self.page
+        done = min(pf.cursor // self.page, nins)
+        start = pf.scattered // self.page
+        if done <= start:
+            return
+        self.eng._single_to_pages(self._arena, pf.cache, rp.blocks[start:done],
+                                  [b * self.page for b in range(start, done)])
+        for b in range(start, done):
+            n = pf.pub_nodes[b] if b < len(pf.pub_nodes) else None
+            if n is not None:
+                n.ready = True
+        pf.scattered = done * self.page
 
-    def step_chunk(self) -> dict:
-        """Run ONE chunk over the whole pool and return {handle: fresh
-        tokens} for every live row, each truncated at the row's budget and
-        (inclusively) at its first stop token — never empty unless the row's
-        logits went non-finite (then it is done with finish reason
-        ``"error"`` and gets nothing from the chunk; the other rows are
-        untouched). Rows that finish are marked done and skip later chunks
-        until released; mid-prefill rows are skipped until they go live.
-        Returns {} without touching the device when nothing is live."""
+    # -- migration (disaggregated serving) --------------------------------
+    def export_row(self, handle: int, fire_fault: bool = True) -> dict:
+        """Snapshot a live paged row for a sibling replica: its page
+        payloads (f32 numpy in the arena's leaf order, ``k`` then ``v``,
+        [L, n_blocks, page, kv, hd]), its geometry, and the decode state
+        it carries across the next chunk boundary: pending token,
+        position, budget and stop accounting, and in ``keys`` its
+        generator's state as uint32 words (``[]`` for a greedy row), so a
+        sampled row resumes from the exact draw it would have made.
+        :meth:`admit_from_export` on a session of the same model, chunk and
+        capacity continues the stream bit for bit. The row itself is
+        untouched: the caller releases it once the transfer is
+        acknowledged. ``fire_fault=False`` skips the ``kv_export`` seam
+        (the checkpoint path fires its own)."""
+        if not self.paged:
+            raise RuntimeError("export_row needs a paged session (--kv-pages)")
+        st = self._state(handle)
+        if st.prefilling:
+            raise RuntimeError(f"slot {handle} is still prefilling")
+        if st.done:
+            raise RuntimeError(f"slot {handle} already finished — nothing to migrate")
+        if fire_fault:
+            faults.fire("kv_export")
+        g, r = self._where[handle]
+        rp = self._rowpages[handle]
+        idx = torch.tensor(rp.blocks, dtype=torch.long, device=self._arena["k"].device)
+        leaves = [self._arena[n].index_select(1, idx).float().cpu().numpy()
+                  for n in ("k", "v")]
+        return {
+            "page_tokens": self.page,
+            "n_blocks": len(rp.blocks),
+            "plen": rp.plen,
+            "pos": int(g.pos[r]),
+            "token": int(g.tokens[r]),
+            "keys": _gen_words(g.gens[r]),
+            "temp": float(g.temps[r]),
+            "topp": float(g.topps[r]),
+            "room": int(st.room),
+            "budget": int(st.budget),
+            "offered": int(st.offered),
+            "emitted": int(st.emitted),
+            "stop_tokens": list(st.stop_tokens),
+            "leaves": leaves,
+        }
+
+    def admit_from_export(self, prompt_tokens: list, snap: dict) -> int:
+        """Admit a row a sibling exported, warm: alias the full prompt
+        blocks the local radix cache holds (their wire payload is dropped),
+        import the rest into private pages in one call (cast to the arena's
+        dtype: bf16 and f8 pages round-trip an f32 wire exactly), publish
+        the prompt blocks and arm the row with the carried decode state.
+        Raises RuntimeError when the pool cannot fit the row (the caller
+        re-prefills), ValueError for a snapshot this session cannot resume,
+        among them a sampled row whose ``keys`` are not a state of this
+        device's generator."""
+        if not self.paged:
+            raise RuntimeError("admit_from_export needs a paged session (--kv-pages)")
         if self._closed:
             raise RuntimeError("batch session is closed")
-        live = [r for r, st in sorted(self._slots.items())
-                if not st.done and not st.prefilling]
-        if not live:
+        if int(snap["page_tokens"]) != self.page:
+            raise ValueError(f"page size mismatch: wire {snap['page_tokens']} vs "
+                             f"local {self.page}")
+        plen = int(snap["plen"])
+        if plen != len(prompt_tokens):
+            raise ValueError(f"snapshot prompt length {plen} != {len(prompt_tokens)}")
+        budget = int(snap["budget"])
+        if int(snap["emitted"]) >= budget:
+            raise ValueError("snapshot row already finished")
+        temp = float(snap["temp"])
+        gen = _gen_from_words(snap["keys"], self.eng.device) if temp > 0.0 else None
+        faults.fire("kv_import")
+        nblk = int(snap["n_blocks"])
+        cap_tokens = max(plen, plen - 1 + budget)
+        total = paged_kv.pages_for(cap_tokens, self.page)
+        # alias what the local cache holds (blocks strictly below plen - 1);
+        # everything else, the decoded tail included, imports privately
+        path = self._radix.match(prompt_tokens)
+        nfull = min(len(path), (plen - 1) // self.page, nblk)
+        full = path[:nfull]
+        priv = total - nfull
+        for n in full:
+            self._alloc.ref(n.page)
+        if not self._alloc.can_reserve(priv) or (
+                self._budget is not None and not self._budget.can_fit(priv * self.page)):
+            for n in full:
+                self._alloc.unref(n.page)
+            raise RuntimeError(
+                f"no free KV pages for imported row ({self._alloc.free_count} free + "
+                f"{self._alloc.evictable_count} evictable, need {priv})")
+        self._alloc.reserve(priv)
+        reserved = priv * self.page
+        self._reserved_tokens += reserved
+        if self._budget is not None:
+            self._budget.reserve(reserved)
+        rp = _RowPages([n.page for n in full], priv, cap_tokens, plen)
+        for _ in range(nfull, nblk):
+            rp.blocks.append(self._page_alloc(rp))
+        if nblk > nfull:
+            self.eng._pages_import(self._arena, rp.blocks[nfull:nblk],
+                                   [torch.from_numpy(np.ascontiguousarray(
+                                       np.asarray(leaf, np.float32)[:, nfull:nblk]))
+                                    for leaf in snap["leaves"]])
+        g, row = self._alloc_prow(self._nb_for(max(1, len(rp.blocks))))
+        handle = self._next_handle
+        self._next_handle += 1
+        self._slots[handle] = _SlotState(
+            room=int(snap["room"]), budget=budget, stop_tokens=tuple(snap["stop_tokens"]),
+            reserved=reserved, offered=int(snap["offered"]), emitted=int(snap["emitted"]))
+        self._where[handle] = (g, row)
+        self._rowpages[handle] = rp
+        g.rows[row] = handle
+        g.tokens[row] = int(snap["token"])
+        g.pos[row] = int(snap["pos"])
+        g.temps[row] = temp
+        g.topps[row] = float(snap["topp"])
+        g.gens[row] = gen
+        self._sync_table(handle)
+        # the imported prompt blocks are local KV now: later admissions of
+        # the same prefix alias them
+        nins = min((plen - 1) // self.page, len(rp.blocks))
+        for p in self._radix.insert(prompt_tokens, rp.blocks[:nins]):
+            self._alloc.hold(p)
+        matched = nfull * self.page
+        if matched > 0:
+            self.prefix_hits += 1
+            self.prefix_tokens_matched += matched
+            if self.eng._m_prefix_hits is not None:
+                self.eng._m_prefix_hits.inc()
+                self.eng._m_prefix_tokens.inc(matched)
+        else:
+            self.prefix_misses += 1
+            if self.eng._m_prefix_misses is not None:
+                self.eng._m_prefix_misses.inc()
+        return handle
+
+    def _go_live(self, handle: int, prompt_tokens: list, scfg: SamplerConfig) -> None:
+        """Arm the row's decode state: the pending last prompt token, its
+        position and a freshly seeded generator."""
+        pool, row = self._where[handle]
+        pool.tokens[row] = int(prompt_tokens[-1])
+        pool.pos[row] = len(prompt_tokens) - 1
+        pool.temps[row] = float(scfg.temperature)
+        pool.topps[row] = float(scfg.topp)
+        pool.gens[row] = self.eng._row_generator(scfg.temperature, scfg.seed)
+
+    def _migrate(self, handle: int) -> None:
+        """Move a live row into a longer bucket before it outgrows its
+        slab: an exact copy of its slab (its whole attended history) and
+        its host decode state, so its stream goes on unchanged. Admission
+        reserved the worst-case bucket, so migration never oversubscribes
+        the budget."""
+        src, srow = self._where[handle]
+        S = self.eng.cfg.seq_len
+        need = min(S, src.pos[srow] + self.chunk + 1)
+        new_ctx = min(b for b in self.buckets if b > src.ctx and b >= need)
+        dst, drow = self._alloc_row(new_ctx)
+        self.eng._bucket_cache_migrate(dst.cache, src.cache, srow, drow)
+        src.move_row(srow, dst, drow)
+        self._where[handle] = (dst, drow)
+        self.migrations += 1
+        if self.eng._m_migrations is not None:
+            self.eng._m_migrations.inc()
+        if self._budget is not None:
+            self._budget.migrate(src.ctx, dst.ctx)
+
+    def step_chunk(self) -> dict:
+        """Run ONE chunk over every occupied decode shape and return
+        {handle: fresh tokens} for every live row, each truncated at the
+        row's budget and (inclusively) at its first stop token — never empty
+        unless the row's logits went non-finite (then it is done with
+        finish reason ``"error"`` and gets nothing from the chunk; the other
+        rows are untouched). Rows that finish are marked done and skip later
+        chunks until released; mid-prefill rows are skipped until they go
+        live. Returns {} without touching the device when nothing is live.
+
+        Bucketed sessions step their pools smallest first, and migrate a
+        live row that would outgrow its slab within the chunk just before
+        its pool runs, so a row migrated this tick decodes this tick in its
+        new pool. Paged sessions first extend every live row's pages ahead
+        of the chunk's writes (regrouping a row that outgrew its window),
+        then run each window group."""
+        if self._closed:
+            raise RuntimeError("batch session is closed")
+        if not any(not st.done and not st.prefilling for st in self._slots.values()):
             return {}
         faults.fire("step_chunk")
-        eng, S, dev = self.eng, self.eng.cfg.seq_len, self.eng.device
+        if self.paged:
+            return self._step_chunk_paged()
+        S = self.eng.cfg.seq_len
+        fresh: dict = {}
+        stepped: set = set()
+        while True:
+            todo = [c for c in sorted(self._pools) if c not in stepped]
+            if not todo:
+                break
+            ctx = todo[0]
+            stepped.add(ctx)
+            pool = self._pools[ctx]
+            if ctx < S:
+                # rows that would outgrow the slab within the chunk move up;
+                # rows finishing inside it stay (their writes fit)
+                for h in [h for h in pool.rows if h is not None]:
+                    st = self._slots[h]
+                    if st.done or st.prefilling:
+                        continue
+                    useful = min(self.chunk, st.budget - st.emitted)
+                    p = pool.pos[self._where[h][1]]
+                    if ((useful >= self.chunk and p + self.chunk >= ctx)
+                            or (useful < self.chunk and p + useful > ctx)):
+                        self._migrate(h)
+            self._run_chunk(pool, pool.cache, None, fresh)
+        return fresh
+
+    def _run_chunk(self, shape: _Rows, cache: dict, table: Optional[torch.Tensor],
+                   fresh: dict) -> None:
+        """One chunk of one decode shape (a bucket pool, or a paged group
+        over the arena with its ``table``) if it has a live row, and its
+        rows' accounting into ``fresh``."""
+        live = shape.live(self._slots)
+        if not live:
+            return
+        eng, dev = self.eng, self.eng.device
         t1 = time.perf_counter()
         chunk, ok, _ = eng._decode_chunk_batch(
-            self._cache, torch.tensor(self._tokens, dtype=torch.long, device=dev),
-            torch.tensor(self._pos, dtype=torch.int32, device=dev), self.chunk, self._temps,
-            self._topps, self._gens, self._pos, eng._poison_rows(self.max_batch))
+            cache, torch.tensor(shape.tokens, dtype=torch.long, device=dev),
+            torch.tensor(shape.pos, dtype=torch.int32, device=dev), self.chunk, shape.temps,
+            shape.topps, shape.gens, shape.pos, eng._poison_rows(shape.cap), table=table)
         arr = chunk.cpu().tolist()  # the chunk's one host sync
         okh = ok.cpu().tolist()
-        self._tokens = [t if r in self._slots and r not in self._prefills else 0
-                        for r, t in enumerate(arr[-1])]
-        self._pos = [min(p + self.chunk, S - 1) for p in self._pos]
+        shape.tokens = [t if h is not None and h not in self._prefills else 0
+                        for h, t in zip(shape.rows, arr[-1])]
+        shape.pos = [min(p + self.chunk, shape.pin) for p in shape.pos]
         chunk_ms = (time.perf_counter() - t1) * 1000.0
         self.decode_ms += chunk_ms
         if eng._m_chunk is not None:
             eng._m_chunk.observe(chunk_ms)
-        fresh: dict = {}
+        self._account_chunk(shape, live, arr, okh, fresh)
+
+    def _account_chunk(self, shape: _Rows, live: list, arr: list, okh: list,
+                       fresh: dict) -> None:
+        """Per-row bookkeeping of one chunk's tokens, shared by the slab
+        and paged layouts."""
         for r in live:
-            st = self._slots[r]
+            h = shape.rows[r]
+            st = self._slots[h]
             if not okh[r]:
                 st.done, st.finish = True, "error"
-                if eng._m_quarantine is not None:
-                    eng._m_quarantine.inc()
-                fresh[r] = []
+                if self.eng._m_quarantine is not None:
+                    self.eng._m_quarantine.inc()
+                fresh[h] = []
                 continue
             # a context-exhausted row pinned at its last slot: tokens past
             # its room are garbage
@@ -1294,8 +2177,40 @@ class BatchSession:
                 st.done, st.finish = True, "length"
             elif st.stop_tokens and toks and toks[-1] in st.stop_tokens:
                 st.done, st.finish = True, "stop"
-            fresh[r] = toks
+            fresh[h] = toks
+
+    def _step_chunk_paged(self) -> dict:
+        """One chunk over every occupied window group: first every live
+        row's table grows ahead of the chunk's writes (a page appended, a
+        row past its window regrouped), so a live write target is always
+        allocated; then one gathered-window chunk per group."""
+        for h, st in list(self._slots.items()):
+            if st.done or st.prefilling:
+                continue
+            g, r = self._where[h]
+            rp = self._rowpages[h]
+            needed = min(g.pos[r] + self.chunk + 1, rp.cap_tokens)
+            while len(rp.blocks) < paged_kv.pages_for(needed, self.page):
+                rp.blocks.append(self._page_alloc(rp))
+            nb = self._nb_for(len(rp.blocks))
+            if nb > g.nb:
+                self._regroup(h, nb)
+            else:
+                self._sync_table(h)
+        fresh: dict = {}
+        for nb in sorted(self._pgroups):
+            g = self._pgroups[nb]
+            self._run_chunk(g, self._arena, g.tables, fresh)
         return fresh
+
+    def _drop_prefill(self, slot: int) -> Optional[_PendingPrefill]:
+        """Forget ``slot``'s pending prefill, retracting the radix nodes it
+        published and never filled (their pages hold garbage)."""
+        pf = self._prefills.pop(slot, None)
+        if pf is not None and self.paged:
+            self._radix.unpublish([n for n in pf.pub_nodes if n is not None and not n.ready],
+                                  self._alloc)
+        return pf
 
     def cancel(self, slot: int) -> None:
         """Stop decoding the row now: it is marked done and rides along
@@ -1303,38 +2218,66 @@ class BatchSession:
         is dropped at once. Idempotent."""
         st = self._state(slot)
         st.done = True
-        if self._prefills.pop(slot, None) is not None:
+        if self._drop_prefill(slot) is not None:
             st.prefilling = False
 
     def release(self, slot: int) -> None:
         """Free the row for the next admission and return its reservation
         to the budget. The slab is not cleared (see the class docstring);
-        the row re-pins at the last slot, greedy, feeding token 0."""
+        the row re-pins at its shape's last slot. A paged row's pages lose
+        its hold: published ones stay as evictable cache, the others go
+        back to the free list."""
         st = self._slots.pop(slot, None)
         if st is None:
             raise ValueError(f"slot {slot} is not occupied")
-        self._prefills.pop(slot, None)
-        self._tokens[slot] = 0
-        self._pos[slot] = self.eng.cfg.seq_len - 1
-        self._temps[slot], self._topps[slot], self._gens[slot] = 0.0, 1.0, None
+        self._drop_prefill(slot)
+        pool, row = self._where.pop(slot)
+        pool.free_row(row)
+        if self.paged:
+            rp = self._rowpages.pop(slot)
+            for p in rp.blocks:
+                self._alloc.unref(p)
+            self._alloc.unreserve(rp.outstanding)
         self._reserved_tokens -= st.reserved
         if self._budget is not None:
             self._budget.release(st.reserved)
-            self._budget.unplace(self.eng.cfg.seq_len)
+            if not self.paged:
+                self._budget.unplace(pool.ctx)
 
     def close(self) -> None:
-        """Drop every row and pending prefill, hand every reservation back
-        to the external budget and let go of the batch cache (the engine
-        keeps its resident one for the next session). Idempotent."""
+        """Drop every row and pending prefill and hand every reservation
+        back to the external budget. The uniform slab stays the engine's
+        resident pool cache, bucket slabs go to the engine for the next
+        session (bounded by the budget), and a paged session's pages go
+        back to its allocator before its arena is freed. Idempotent."""
         if self._closed:
             return
         self._closed = True
         if self._budget is not None:
             for st in self._slots.values():
                 self._budget.release(st.reserved)
-                self._budget.unplace(self.eng.cfg.seq_len)
-        self._cache = None
+            if not self.paged:
+                for pool, _ in self._where.values():
+                    self._budget.unplace(pool.ctx)
+        if self.bucket_kv:
+            self.eng._keep_slabs(self._retired + [p.cache for p in self._pools.values()],
+                                 self.budget_tokens)
+        if self.paged:
+            # the allocator may be the serving accountant's, whose gauges
+            # must not report pages of a freed arena
+            for rp in self._rowpages.values():
+                for p in rp.blocks:
+                    self._alloc.unref(p)
+                self._alloc.unreserve(rp.outstanding)
+            self._radix.evict(self._alloc.num_pages, self._alloc)
+            self.eng.free_cache(self._arena)
+            self._arena = None
+            self._pgroups = {}
+            self._rowpages = {}
+        self._pools = {}
+        self._retired = []
         self._slots = {}
+        self._where = {}
         self._prefills = {}
         self._reserved_tokens = 0
 

@@ -35,8 +35,10 @@ class StepGraph:
     """One decode step over ``cache``: ``step(cache, tokens, pos) -> logits
     [B, vocab]`` (``llama.forward_decode`` on a solo cache [L, S, kv, hd],
     B = 1; ``llama.forward_batched`` at the grid bound ``seq_len`` on a
-    batch cache [L, B, S, kv, hd]), then the watchdog and the sampler, over
-    static tensors:
+    slot slab [L, B, ctx, kv, hd], where ``seq_len`` is the slab's context
+    ctx; a paged step over a page arena, ``step(arena, tokens, pos,
+    table)``, with ``seq_len`` its window), then the watchdog and the
+    sampler, over static tensors:
 
     * ``tokens`` int64 [B]: the token each row feeds; a step writes the
       token it sampled back, so the next step feeds it.
@@ -52,6 +54,10 @@ class StepGraph:
       of a run; :meth:`load` sets the flags. Each replay reads the tensor,
       so a graph captured clean runs poisoned once a row is flagged.
     * ``logits``: the last step's logits (CUDA: the capture's output).
+    * ``table`` int64 [B, nb] (a paged step only, ``table_blocks`` = nb):
+      each row's page table, refilled by :meth:`load`. It is all page 0
+      (the scratch page) while the graph is warmed up and captured, so
+      making the graph writes no live or cached page.
 
     A greedy graph (``sampled`` False) takes each row's argmax. A sampled one
     runs :func:`sample_prepared` over every row, its settings
@@ -65,12 +71,18 @@ class StepGraph:
     slot ``seq_len - 1``, which every step at that position writes again
     before it attends it, so making a graph changes nothing a later step
     reads. The graph holds its cache weakly (a captured graph holds its
-    pointers): a run after the cache was freed raises."""
+    pointers): a run after the cache was freed raises. ``batch``: the row
+    count where the cache's shape does not give it (a paged step)."""
 
-    def __init__(self, step, cache: dict, seq_len: int, sampled: bool, ring_len: int):
+    def __init__(self, step, cache: dict, seq_len: int, sampled: bool, ring_len: int,
+                 batch: int | None = None, table_blocks: int = 0):
         k = cache["k"]
-        device, batch = k.device, 1 if k.dim() == 4 else k.shape[1]
+        device = k.device
+        if batch is None:
+            batch = 1 if k.dim() == 4 else k.shape[1]
         self.device, self.seq_len = device, seq_len
+        self.table = (torch.zeros((batch, table_blocks), dtype=torch.long, device=device)
+                      if table_blocks else None)
         self._cache = {n: weakref.ref(t) for n, t in cache.items()}
         self.tokens = torch.zeros(batch, dtype=torch.long, device=device)
         self.pos = torch.full((batch,), seq_len - 1, dtype=torch.int32, device=device)
@@ -100,8 +112,9 @@ class StepGraph:
         return cache
 
     def _body(self, cache: dict) -> torch.Tensor:
-        logits = torch.where(self.poison[:, None], float("nan"),
-                             self._step(cache, self.tokens, self.pos))
+        inputs = (self.tokens, self.pos) if self.table is None else (
+            self.tokens, self.pos, self.table)
+        logits = torch.where(self.poison[:, None], float("nan"), self._step(cache, *inputs))
         self.ok &= torch.isfinite(logits).all(dim=-1)
         if self.sampling is None:
             nxt = torch.argmax(logits.float(), dim=-1)
@@ -134,12 +147,15 @@ class StepGraph:
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def load(self, tokens, pos, temps: list | None = None, topps: list | None = None,
-             poison: tuple = ()) -> None:
+             poison: tuple = (), table=None) -> None:
         """Set each row's token, position and sampler settings (greedy where
         ``temps`` is None) before a run, with no host sync: ``tokens`` and
         ``pos`` are device tensors ([B]) or one host int for every row.
         ``poison``: the rows whose logits the run sets to NaN (the device
-        flags are written only when the set changes)."""
+        flags are written only when the set changes). ``table``: a paged
+        step's page tables [B, nb] (a tensor on any device)."""
+        if table is not None:
+            self.table.copy_(table)
         poison = tuple(poison)
         if poison != self._poisoned:
             self.poison.zero_()

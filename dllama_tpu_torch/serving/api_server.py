@@ -30,12 +30,14 @@ handler thread (the solo path) or the batcher's scheduler thread: a CUDA
 graph capture fails if another thread calls into CUDA while it runs.
 ``/health``, ``/ready``, ``/stats`` and ``/metrics`` read host mirrors only.
 
-Not ported yet, and refused when the server starts (:func:`unsupported`):
-bucketed KV slot pools (``--kv-buckets 1`` with ``--batch-window > 0``) and
-paged KV (``--kv-pages``, with the ``--role prefill|decode`` migration
-endpoints and mid-stream checkpoints, which only the paged pool serves).
-Their code paths are kept as the JAX package has them; without a paged pool
-the KV endpoints answer 400 as the reference's do.
+The batcher runs every residency layout of ``BatchSession``: bucketed KV
+slot pools (``--kv-buckets 1``, the default, with ``--batch-window > 0``),
+the uniform pool (``--kv-buckets 0``) and paged KV (``--kv-pages N``, the
+session kept across waves). The paged pool's row export serves the
+``--role prefill|decode`` migration endpoints (``/v1/prefill``,
+``/v1/kv/import``), mid-stream checkpoints (``--ckpt-interval``) with
+``/v1/kv/resume``, and batch-class preemption; without a paged pool the KV
+endpoints answer 400 as the reference's do.
 """
 
 from __future__ import annotations
@@ -137,24 +139,6 @@ class StopDetector:
         d.hold = str(state.get("hold", ""))
         d.stopped = bool(state.get("stopped", False))
         return d
-
-
-def unsupported(batch_window_ms: float = 0.0, kv_buckets: int = 1, kv_pages: int = 0,
-                role: str = "both"):
-    """Why the port cannot serve this configuration yet (None when it can).
-    ``cli serve`` asks before it loads the model and :class:`ServerState`
-    refuses with NotImplementedError; nothing falls back to another mode."""
-    if kv_pages > 0:
-        return ("paged KV (--kv-pages) is not ported yet (ROADMAP Queue 1, item 6); "
-                "pass --kv-pages 0")
-    if role in ("prefill", "decode"):
-        return (f"--role {role} needs paged KV, which is not ported yet (ROADMAP Queue 1, "
-                "item 6); pass --role both")
-    if batch_window_ms > 0 and kv_buckets:
-        return ("bucketed KV slot pools (--kv-buckets 1 with --batch-window > 0) are not "
-                "ported yet (ROADMAP Queue 1, item 5); pass --kv-buckets 0 for the "
-                "uniform pool")
-    return None
 
 
 def padded_batch(prompts: list, row_steps: list) -> tuple:
@@ -1251,9 +1235,6 @@ class ServerState:
         ``burn_short``/``burn_long``: the burn-rate engine's evaluation
         windows (--burn-short/--burn-long) against the class ``ttft=``/
         ``tpot=``/``err=`` targets."""
-        why = unsupported(batch_window_ms, kv_buckets, kv_pages, role)
-        if why is not None:
-            raise NotImplementedError(why)
         self.engine = engine
         self.tokenizer = tokenizer
         self.cfg = cfg
@@ -2801,9 +2782,6 @@ def serve(args) -> None:
 
     from dllama_tpu_torch.cli import load_engine, write_pid_file
 
-    why = unsupported(args.batch_window, args.kv_buckets, args.kv_pages, args.role)
-    if why is not None:  # refused before the model loads
-        raise SystemExit(f"❌ {why}")
     engine, tok, cfg = load_engine(args)
     state = ServerState(
         engine, tok, cfg,

@@ -8,8 +8,8 @@ completions; malformed requests (400), unknown paths (404), a full
 admission gate (429), a draining server (503) and an expired deadline
 (504); multi-turn prefix reuse; LRU eviction freeing the evicted cache's
 tensors and graphs at once; a ``--spec-draft`` server; concurrent greedy
-requests batched into one pool with ``--kv-buckets 0``; and the refusal of
-the configurations the port does not serve yet.
+requests batched into one pool with ``--kv-buckets 0``; and the bucketed,
+paged and role configurations answering as the JAX server's.
 """
 
 import gc
@@ -343,7 +343,22 @@ def test_lifecycle_statuses_match_jax(bits, scenario):
                                 dict(batch_window_ms=30.0),
                                 dict(batch_window_ms=30.0, kv_buckets=1)])
 def test_unported_configurations_are_refused(bits, kw):
-    make, tok, cfg, _ = bits[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        tapi.ServerState(make(), tok, cfg, model_name="tiny-test", **kw)
-    assert tapi.unsupported(batch_window_ms=30.0, kv_buckets=0) is None
+    """The configurations that were refused before they were ported (the
+    name is kept): each now serves, batched (the paged pool for pages and
+    roles), and answers a request as the JAX server in the same
+    configuration does; a paged server's /ready reports its pages."""
+    kw = dict(kw)
+    kw.setdefault("batch_window_ms", 30.0)
+    if "role" in kw:
+        kw["kv_pages"] = 16
+    out = []
+    for side in bits:
+        state, srv, port = _serve(side, **kw)
+        try:
+            answer = _answer(*request(port, "POST", "/v1/chat/completions", chat_body()))
+            ready = json.loads(request(port, "GET", "/ready")[1])
+        finally:
+            _stop(state, srv)
+        out.append((answer, ready.get("role"), "kv_pages" in ready))
+    assert out[1] == out[0] and out[1][0][0] == 200
+    assert out[1][2] == ("kv_pages" in kw)

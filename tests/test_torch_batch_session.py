@@ -6,7 +6,7 @@ a row admitted mid-flight, or into a slot a previous request just vacated,
 emits bit for bit the tokens it emits admitted at the start into an empty
 pool; greedy rows equal the JAX package's BatchSession rows. A live row nets
 at least one token per chunk, budgets and stop tokens truncate as the
-reference does, and the modes not ported yet raise.
+reference does, and the bucketed and paged layouts admit and equal JAX.
 """
 
 import jax
@@ -204,6 +204,20 @@ def test_staggered_arrivals_drain():
 @pytest.mark.parametrize("mode", [dict(bucket_kv=True), dict(bucket_kv=True, prefill_chunk=16),
                                   dict(kv_pages=16)])
 def test_unported_modes_raise(mode):
-    _, tp, _, tc = _model(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        _engine(tp, tc).batch_session(max_batch=2, **mode)
+    """The layouts that were refused before they were ported (the name is
+    kept): each session now admits mid-flight and its greedy rows equal the
+    JAX package's session in the same layout."""
+    jp, tp, jc, tc = _model(0)
+
+    def run(sess):
+        a = sess.admit(PROMPTS[0], steps=10)
+        first = dict(sess.step_chunk())
+        b = sess.admit(PROMPTS[2], steps=10)
+        rest = _drain(sess, [a, b])
+        sess.close()
+        return [a, b], [first[a] + rest[a], rest[b]]
+
+    want = run(jgen.Engine(jc, jp, jsampler.SamplerConfig(temperature=0.0),
+                           metrics=None).batch_session(max_batch=2, chunk=4, **mode))
+    got = run(_engine(tp, tc).batch_session(max_batch=2, chunk=4, **mode))
+    assert got == want and all(len(r) == 10 for r in got[1])

@@ -919,3 +919,71 @@ def test_graphed_moe_steps_replay_eager_bits(cuda, arch, kind):
     assert graphed.generate_fused(prompt, 12)[0] == want
     for rows in ([prompt, [7]], [prompt, [7], list(range(40, 60)), [5, 6]]):
         assert graphed.generate_batch(rows, 10) == eager.generate_batch(rows, 10)
+
+
+def test_graphed_bucket_slab_pins_at_ctx_and_equals_eager(cuda):
+    """A bucket slab [L, B, ctx, kv, hd] shorter than seq_len: its graph
+    pins rows at ctx - 1 and bounds flash decode's grid by ctx, and its
+    replays give the eager chunk's tokens and KV bit for bit (the KV below
+    ctx - 1, the slot the warm-up step writes)."""
+    cfg, graphed, eager = _graph_engines(cuda, "q40")
+    ctx, B = 32, 4
+    slab = graphed._bucket_cache_init(B, ctx)
+    for n in ("k", "v"):
+        slab[n].normal_(0.0, 0.5, generator=torch.Generator(device=cuda).manual_seed(1))
+    twin = {n: c.clone() for n, c in slab.items()}
+    tokens = torch.tensor([1, 2, 3, 4], device=cuda)
+    pos = torch.tensor([3, 20, 26, 30], dtype=torch.int32, device=cuda)
+    temps = [0.0] * B
+    want, _, wpos = eager._decode_chunk_batch(twin, tokens, pos, 8, temps, [1.0] * B,
+                                              [None] * B, pos.tolist())
+    g = graphed.step_graph(slab, False, 8)
+    assert g.seq_len == ctx
+    got, _, gpos = graphed._decode_chunk_batch(slab, tokens, pos, 8, temps, [1.0] * B,
+                                               [None] * B, pos.tolist())
+    assert torch.equal(got, want) and gpos.tolist() == wpos.tolist() == [11, 28, 31, 31]
+    for n in ("k", "v"):
+        assert torch.equal(slab[n][:, :, :ctx - 1], twin[n][:, :, :ctx - 1])
+
+
+def _paged_arena(graphed, cuda, pages=9, page=8):
+    arena = graphed._bucket_cache_init(pages, page)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for n in ("k", "v"):
+        arena[n].normal_(0.0, 0.5, generator=gen)
+    return arena
+
+
+def test_paged_graph_capture_touches_only_the_scratch_page(cuda):
+    """A paged graph is warmed up and captured with an all-scratch table:
+    making it writes page 0 and leaves every other page's bits alone."""
+    _, graphed, _ = _graph_engines(cuda, "q40")
+    arena = _paged_arena(graphed, cuda)
+    before = {n: c.clone() for n, c in arena.items()}
+    g = graphed.paged_graph(arena, 2, 4, True, 8)
+    torch.cuda.synchronize()
+    assert g.graph is not None
+    for n in ("k", "v"):
+        assert torch.equal(arena[n][:, 1:], before[n][:, 1:])
+
+
+def test_paged_graph_reads_the_table_load_gives(cuda):
+    """A paged graph replayed after ``load`` changes its table reads the new
+    table: each run equals the eager paged chunk over that table, bit for
+    bit, tokens and pages."""
+    _, graphed, eager = _graph_engines(cuda, "q40")
+    arena = _paged_arena(graphed, cuda)
+    twin = {n: c.clone() for n, c in arena.items()}
+    pos = [13, 27]
+    for table in ([[1, 2, 3, 4], [5, 6, 7, 8]], [[8, 7, 6, 5], [4, 3, 2, 1]]):
+        table = torch.tensor(table, dtype=torch.int32)
+        tokens = torch.tensor([5, 9], device=cuda)
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        want, _, _ = eager._decode_chunk_batch(twin, tokens, p, 4, [0.0, 0.0], [1.0, 1.0],
+                                               [None, None], pos, table=table)
+        got, _, _ = graphed._decode_chunk_batch(arena, tokens, p, 4, [0.0, 0.0], [1.0, 1.0],
+                                                [None, None], pos, table=table)
+        assert torch.equal(got, want)
+        for n in ("k", "v"):
+            assert torch.equal(arena[n][:, 1:], twin[n][:, 1:])
+    assert graphed.graphs.made == 1
