@@ -211,6 +211,31 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    completes with logits within tolerance. Wire bytes, export and import
    ms logged. Graphs made per shape with their capture ms and pool bytes.
 
+10. Tensor parallelism (``dllama_tpu_torch.parallel``, run last). K1's and
+   K3's decode GEMVs at the shard widths a tp 2 and a tp 4 rank of the
+   Llama-3-8B shape launches (wqkv O 3072 / 1536, wo and w2 2048 / 1024,
+   w13 14336 / 7168, wcls 64128 / 32128), each against its plain version,
+   timed beside its byte bound, the plain version and bf16 ``torch.matmul``,
+   with its grid's blocks against the card's block slots. Then a random Q40
+   `.m` file of the Llama-3-8B widths (32 layers) written once, and the
+   eager solo engine on it. (a) A one-rank NCCL world on this card runs the
+   whole TP path (shard load, gathers through NCCL): its first decode
+   step's logits and 32 greedy tokens bit-equal to the solo engine's. (b)
+   Ranks over gloo, every rank on this card (NCCL refuses two ranks on one
+   device; gloo takes CUDA tensors), at tp 2 and 4, each loading its shard
+   of the file: every rank's 32 greedy tokens equal and equal to the solo
+   engine's, the first decode step within 5e-2 * max|logit|, no token from
+   the padded vocab, the kB sent a token the analytic count; at tp 2
+   ``generate_batch`` at B = 4 equal to the solo batch. (c) The Q80 wire at
+   tp 2: one teacher-forced step within 0.05 * max|logit| of plain gathers
+   (correlation > 0.999), its bytes the analytic count. (d) Mixtral widths
+   at 4 layers, tp 2 (``random_quant_params(tp=)``): the first step within
+   5e-2 of the solo engine, the expert-indexed GEMVs launched. Each run's
+   launches are counted from 0 and K1, K4, K5 (and their batched forms, and
+   the indexed GEMV in d) must have launched. Logged beside the card: ms
+   per token a rank (gloo over one card: not tensor-parallel speed), kB sent
+   a token, load seconds and peak memory a rank.
+
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json``.
@@ -3700,6 +3725,403 @@ def phase8d() -> dict:
     return {"verify_rcs": rcs, "kernel_events": len(kern), "q40_gemv_events": gemv}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tensor parallelism
+# ---------------------------------------------------------------------------
+
+#: K1's and K3's decode GEMVs at the shard widths a rank of the Llama-3-8B
+#: shape launches: (matrix, K, O at tp 2, O at tp 4, launches per token)
+TP_WIDTHS = [("wqkv", 4096, 3072, 1536, 32), ("wo", 4096, 2048, 1024, 32),
+             ("w13", 4096, 14336, 7168, 32), ("w2", 14336, 2048, 1024, 32),
+             ("wcls", 4096, 64128, 32128, 1)]
+#: greedy decode tokens of phase 10's runs (after the prefill's token)
+TP_STEPS = 32
+#: phase 10b's batched run: B = 4 rows, this many steps
+TP_BATCH_STEPS = 8
+#: phase 10d: Mixtral widths at 4 of its 32 layers
+TP_MIXTRAL = {**MIXTRAL_8X7B, "n_layers": 4}
+
+
+def phase10_widths(torch, dev, gen) -> list:
+    """K1 (q40) and K3 (q80) decode GEMVs at T = 1 at the tp 2 and tp 4
+    shard widths: each against its plain version within 1e-5 * max|ref|,
+    timed (weights rotating past L2) beside its byte bound, its plain
+    version and bf16 ``torch.matmul``; the GEMV's plan and how many of the
+    card's block slots its grid fills."""
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.ops import qmatmul
+
+    n_sm = kernels.sm_count(dev)
+    rows = []
+    for kind in ("q40", "q80"):
+        kern = qmatmul.q40_matmul if kind == "q40" else qmatmul.q80_matmul
+        plain = qmatmul.q40_matmul_ref if kind == "q40" else qmatmul.q80_matmul_ref
+        per_sm = (qmatmul.q40_gemv_blocks_per_sm(1) if kind == "q40"
+                  else qmatmul.gemv_blocks_per_sm(1, False))
+        cols = qmatmul.q40_gemv_cols() if kind == "q40" else qmatmul._GEMV_COLS
+        for name, K, o2, o4, per_token in TP_WIDTHS:
+            for tp, O in ((2, o2), (4, o4)):
+                planes = [quant_planes(torch, dev, gen, kind, K, O)]
+                planes += [quant_planes(torch, dev, gen, kind, K, O)
+                           for _ in range(math.ceil(200e6 / plane_bytes(planes[0])) - 1)]
+                x = torch.randn((1, K), device=dev, generator=gen).to(torch.bfloat16)
+                got = kern(x, *planes[0])
+                ref = plain(x, *planes[0])
+                err = (got - ref).abs().max().item()
+                tol = 1e-5 * ref.abs().max().item()
+                if not err <= tol:
+                    fail(f"{kind}_matmul {name} at tp {tp} (K {K}, O {O}): {err} > {tol}")
+                route, ksplit, split_rows = (qmatmul.q40_plan if kind == "q40"
+                                             else qmatmul.q80_plan)(1, K, O, n_sm, per_sm)
+                blocks_ = math.ceil(O / cols) * ksplit
+                nxt = rotating(planes)
+                ms = time_ms(torch, lambda: kern(x, *nxt()))
+                b, by = bound_ms(plane_bytes(planes[0]) + K * 2 + O * 4, 2.0 * K * O, BF16_FLOPS)
+                row = {"kind": kind, "matrix": name, "tp": tp, "K": K, "O": O, "ms": ms,
+                       "bound_ms": b, "bound_by": by, "max_abs_err": err, "tol": tol,
+                       "plain_ms": time_ms(torch, lambda: plain(x, *planes[0]), 10),
+                       "library_ms": library_ms(torch, kind, planes, x), "route": route,
+                       "ksplit": ksplit, "rows_per_split": split_rows, "blocks": blocks_,
+                       "block_slots": n_sm * per_sm, "launches_per_token": per_token,
+                       "gb_per_s": plane_bytes(planes[0]) / ms / 1e6}
+                rows.append(row)
+                log(f"  {kind}_matmul {name:4s} tp {tp}: K {K:5d} -> O {O:5d}  {ms:.4f} ms "
+                    f"(bound {b:.4f} ms, {by}; {row['gb_per_s']:.0f} GB/s) plain "
+                    f"{row['plain_ms']:.3f} ms, bf16 torch.matmul {row['library_ms']:.4f} ms; "
+                    f"{route} ksplit={ksplit}: {blocks_} blocks for {n_sm * per_sm} slots; "
+                    f"err {err:.2e} (tol {tol:.2e})")
+                del planes
+        torch.cuda.empty_cache()
+    return rows
+
+
+def write_tp_model(path: Path, cfg_kw: dict, seed: int) -> float:
+    """A random Q40 `.m` file of ``cfg_kw``'s widths written straight in the
+    file's bytes (scales U[0, 0.004) as f16, random nibbles; the embedding
+    N(0, 0.02)), never held in f32. Returns its size in GB."""
+    import numpy as np
+
+    from dllama_tpu_torch.formats.spec import ArchType, ModelSpec
+    from dllama_tpu_torch.formats.weights import ModelWriter
+    from dllama_tpu_torch.quants import blocks
+
+    spec = ModelSpec(arch=ArchType.LLAMA, dim=cfg_kw["dim"], hidden_dim=cfg_kw["hidden_dim"],
+                     n_layers=cfg_kw["n_layers"], n_heads=cfg_kw["n_heads"],
+                     n_kv_heads=cfg_kw["n_kv_heads"], vocab_size=cfg_kw["vocab_size"],
+                     seq_len=cfg_kw["seq_len"], weights_float_type=blocks.Q40,
+                     rope_theta=cfg_kw["rope_theta"])
+    rng = np.random.default_rng(seed)
+    with ModelWriter(str(path), spec, checksums=False) as w:  # a throwaway file
+        for e in w.plan:
+            if e.float_type == blocks.F32:
+                x = (np.ones(e.d * e.n, np.float32) if "rms" in e.name
+                     else rng.standard_normal(e.d * e.n, dtype=np.float32) * 0.02)
+                w.write_next(e.name, x)
+                continue
+            nb = e.d * e.n // 32
+            raw = np.frombuffer(rng.bytes(nb * blocks.Q40_BLOCK_BYTES), np.uint8)
+            raw = raw.reshape(nb, blocks.Q40_BLOCK_BYTES).copy()
+            raw[:, :2] = (rng.random(nb, dtype=np.float32) * 0.004).astype(np.float16).view(
+                np.uint8).reshape(nb, 2)
+            w.write_next_raw(e.name, raw)
+    return path.stat().st_size / 1e9
+
+
+def first_step(torch, eng, prompt: list, tok=None) -> tuple:
+    """(f32 logits [vocab] of the first decode step after ``prompt``, the
+    token fed: ``tok``, or the prefill's greedy pick), on a fresh cache."""
+    from dllama_tpu_torch.models import llama
+
+    cache = eng.new_cache()
+    logits, cache = eng.prefill(cache, prompt)
+    tok = int(logits.argmax()) if tok is None else tok
+    step, _ = llama.forward(eng.cfg, eng.params, eng.rope,
+                            torch.tensor([tok], device=eng.device), cache, len(prompt),
+                            tp=eng.tp, tp_compress=eng.tp_wire == "q80")
+    return step[0].float(), tok
+
+
+def decode_run(torch, eng, prompt: list, steps: int) -> dict:
+    """``steps`` greedy tokens of ``generate`` (after the prefill's),
+    counted: tokens, ms and kB sent per decode token (median), launches."""
+    from dllama_tpu_torch import kernels
+
+    dev = eng.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    kernels.reset_launches()
+    toks, ms, kb = [], [], []
+    for tok, st in eng.generate(prompt, steps + 1):
+        toks.append(tok)
+        ms.append(st.generation_ms)
+        kb.append(st.sent_kb)
+    return {"tokens": toks, "ms_per_token": statistics.median(ms[1:]),
+            "kb_per_token": statistics.median(kb[1:]), "launches": dict(kernels.launches)}
+
+
+def tp_rank_llama(group, path: str, prompt: list, batch_prompts: list, q80_wire: bool) -> dict:
+    """One rank of phase 10b (and 10c with ``q80_wire``): its shard of the
+    `.m` file at ``path`` (load time, peak memory), the first decode step's
+    logits (rank 0 returns them), 32 greedy tokens, ``generate_batch`` at
+    B = 4; with ``q80_wire`` one teacher-forced step over the Q80 wire on
+    the same shards and the bytes that step sent."""
+    import torch
+
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.formats.weights import WeightFileReader
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    dev = group.device
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with WeightFileReader(path) as reader:
+        cfg = ModelConfig.from_spec(reader.spec, dtype="bfloat16")
+        params = llama.quant_params_from_reader(reader, cfg, dev, "q40", tp=group)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    eng = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
+                 cache_dtype=torch.bfloat16, tp=group, metrics=None)
+    del params
+    logits, tok = first_step(torch, eng, prompt)
+    out = {"rank": group.rank, "load_s": load_s,
+           "shapes": {n: list(v.w.shape) for n, v in eng.params["layers"].items()
+                      if hasattr(v, "kind")} | {"wcls": list(eng.params["wcls"].w.shape)},
+           "logits": logits.cpu().numpy() if group.rank == 0 else None,
+           **decode_run(torch, eng, prompt, TP_STEPS)}
+    if batch_prompts:
+        kernels.reset_launches()
+        out["batch"] = eng.generate_batch(batch_prompts, TP_BATCH_STEPS)
+        out["batch_launches"] = dict(kernels.launches)
+    if q80_wire:
+        wire = Engine(cfg, eng.params, SamplerConfig(temperature=0.0, seed=0),
+                      cache_dtype=torch.bfloat16, tp=group, tp_compress=True, metrics=None)
+        cache = wire.new_cache()
+        wire.prefill(cache, prompt)
+        before = group.sent_bytes
+        step, _ = llama.forward(cfg, wire.params, wire.rope, torch.tensor([tok], device=dev),
+                                cache, len(prompt), tp=group, tp_compress=True)
+        out["q80_step_bytes"] = group.sent_bytes - before
+        out["q80_logits"] = step[0].float().cpu().numpy() if group.rank == 0 else None
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    return out
+
+
+def tp_rank_moe(group, cfg_kw: dict, prompt: list, steps: int) -> dict:
+    """One rank of phase 10d: its shard of a random Q40 MoE model made from
+    seed 0 on its device (``random_quant_params(tp=)``), the first decode
+    step's logits (rank 0), ``steps`` greedy tokens and their launches."""
+    import torch
+
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    dev = group.device
+    cfg = ModelConfig(**cfg_kw)
+    params = llama.random_quant_params(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                                       "q40", tp=group)
+    eng = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
+                 cache_dtype=torch.bfloat16, tp=group, metrics=None)
+    logits, _ = first_step(torch, eng, prompt)
+    return {"logits": logits.cpu().numpy() if group.rank == 0 else None,
+            **decode_run(torch, eng, prompt, steps),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else None}
+
+
+def tp_wire_bytes(cfg, tp: int, per_feat: float, hidden: int, vocab_padded: int) -> float:
+    """The bytes one rank's gathers send in a decode step (one row): four
+    gathers a layer (heads, wo out, the padded hidden, w2 out) at
+    ``per_feat`` bytes a feature, then the f32 logits, each (tp - 1)/tp of
+    the whole vector — the JAX package's ``Engine._wire_bytes`` count."""
+    return (cfg.n_layers * (3 * cfg.dim + hidden) * per_feat + vocab_padded * 4.0) * (tp - 1) / tp
+
+
+def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
+            nccl: bool = True) -> dict:
+    """Tensor parallelism (``parallel``) on the card. (a) A one-rank NCCL
+    world runs the whole TP path (shard load, gathers through NCCL): logits
+    and tokens bit-equal to the eager solo engine on the same `.m` file.
+    (b) Ranks over gloo, every rank on this card (NCCL refuses two ranks on
+    one device), at tp 2 and 4, each loading its shard of the file: every
+    rank's 32 greedy tokens equal and equal to the solo engine's, the first
+    decode step within 5e-2 * max|logit|, the padded vocab never wins;
+    ``generate_batch`` at B = 4 under tp 2 = the solo batch. (c) The Q80
+    wire at tp 2: one teacher-forced step within JAX's compressed-against-
+    plain tolerance (0.05 * max|logit|, correlation > 0.999), its bytes the
+    analytic count. (d) Mixtral widths at tp 2 (4 layers): the first step
+    within tolerance of the solo engine, the expert-indexed GEMVs launched.
+    Each run's launches are counted from 0. ms per token here is gloo over
+    one card, not tensor-parallel speed."""
+    import numpy as np
+
+    from dllama_tpu_torch.formats.weights import WeightFileReader
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.ops.qmatmul import _pad_up
+    from dllama_tpu_torch.parallel import quant_tp
+    from dllama_tpu_torch.parallel.group import LocalWorld, close_tp, init_tp, local_init_method
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    out: dict = {"card": gpu_line() if dev.type == "cuda" else "cpu"}
+    # the ranks boot (spawn, CUDA context, gloo) while this process writes the file
+    world = LocalWorld(4, backend="gloo", devices=[dev] * 4, timeout_s=900,
+                       threads=1 if dev.type == "cpu" else None)
+    work = ROOT / "build" / "tp"
+    work.mkdir(parents=True, exist_ok=True)
+    path = work / "llama_q40.m"
+    try:
+        t0 = time.perf_counter()
+        out["file_gb"] = write_tp_model(path, cfg_kw, seed=3)
+        out["write_s"] = time.perf_counter() - t0
+        log(f"  random Q40 `.m` file of the Llama-3-8B widths ({cfg_kw['n_layers']} layers): "
+            f"{out['file_gb']:.2f} GB written in {out['write_s']:.1f} s")
+        prompt = torch.randint(0, cfg_kw["vocab_size"], (100,),
+                               generator=torch.Generator().manual_seed(1)).tolist()
+
+        # the solo engine (eager) on the same file
+        t0 = time.perf_counter()
+        with WeightFileReader(str(path)) as reader:
+            cfg = ModelConfig.from_spec(reader.spec, dtype="bfloat16")
+            solo = Engine(cfg, llama.quant_params_from_reader(reader, cfg, dev, "q40"),
+                          SamplerConfig(temperature=0.0, seed=0), cache_dtype=torch.bfloat16,
+                          device=dev, cuda_graphs=False, metrics=None)
+        out["solo_load_s"] = time.perf_counter() - t0
+        batch_in = batch_prompts(cfg, 4, seed=2)
+        solo_logits, _ = first_step(torch, solo, prompt)
+        solo_run = decode_run(torch, solo, prompt, TP_STEPS)
+        solo_batch = solo.generate_batch(batch_in, TP_BATCH_STEPS)
+        out["solo"] = {k: v for k, v in solo_run.items() if k != "launches"}
+        log(f"  solo eager engine: loaded in {out['solo_load_s']:.1f} s; "
+            f"{solo_run['ms_per_token']:.2f} ms/token; tokens {solo_run['tokens'][:8]}...")
+        scale = solo_logits.abs().max().item()
+
+        # (a) one rank, NCCL: the whole TP path, bit-equal to solo
+        if nccl:
+            group = init_tp(0, 1, backend="nccl", device=dev, init_method=local_init_method())
+            try:
+                with WeightFileReader(str(path)) as reader:
+                    params = llama.quant_params_from_reader(reader, cfg, dev, "q40", tp=group)
+                one = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
+                             cache_dtype=torch.bfloat16, tp=group, metrics=None)
+                del params
+                logits_a, tok_a = first_step(torch, one, prompt)
+                run_a = decode_run(torch, one, prompt, TP_STEPS)
+                del one
+            finally:
+                close_tp()
+            bit_equal = bool(torch.equal(logits_a, solo_logits))
+            out["a"] = {"logits_bit_equal": bit_equal, "tokens_equal":
+                        run_a["tokens"] == solo_run["tokens"], "launches": run_a["launches"],
+                        "ms_per_token": run_a["ms_per_token"]}
+            log(f"  10a one-rank NCCL world: first-step logits bit-equal to solo: {bit_equal}; "
+                f"tokens equal: {out['a']['tokens_equal']}; {run_a['ms_per_token']:.2f} ms/token "
+                f"(129 NCCL gathers a token); launches {run_a['launches']}")
+            if not (bit_equal and out["a"]["tokens_equal"]):
+                fail("10a: the one-rank NCCL TP run differs from the solo engine")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (b), (c) gloo ranks on this card
+        for tp in (2, 4):
+            ranks = world.run(tp_rank_llama, str(path), prompt, batch_in if tp == 2 else [],
+                              tp == 2, size=tp)
+            r0 = ranks[0]
+            got = torch.from_numpy(r0["logits"])
+            err = (got - solo_logits.cpu()).abs().max().item()
+            vocab_ok = all(t < cfg.vocab_size for r in ranks for t in r["tokens"])
+            same = all(r["tokens"] == r0["tokens"] for r in ranks)
+            hidden = quant_tp.ffn_padded_width(cfg, "q40", tp)
+            vp = _pad_up(cfg.vocab_size, 128 * tp)
+            want_kb = tp_wire_bytes(cfg, tp, 2.0, hidden, vp) / 1024
+            res = {"ranks_equal": same, "tokens_equal_solo": r0["tokens"] == solo_run["tokens"],
+                   "first_step_err": err, "tol": 5e-2 * scale, "vocab_ok": vocab_ok,
+                   "shapes": r0["shapes"], "load_s": [r["load_s"] for r in ranks],
+                   "peak_gb": [r["peak_gb"] for r in ranks],
+                   "ms_per_token": [r["ms_per_token"] for r in ranks],
+                   "kb_per_token": r0["kb_per_token"], "kb_per_token_analytic": want_kb,
+                   "launches": r0["launches"]}
+            log(f"  10b tp {tp} (gloo, {tp} ranks on one card): load {res['load_s']} s, peak "
+                f"{res['peak_gb']} GB a rank; first-step err {err:.4f} (tol {5e-2 * scale:.4f}); "
+                f"ranks' tokens equal: {same}, = solo: {res['tokens_equal_solo']}; "
+                f"{[round(m, 1) for m in res['ms_per_token']]} ms/token a rank (gloo over one "
+                f"card, not TP speed); {r0['kb_per_token']:.1f} kB sent a token (analytic "
+                f"{want_kb:.1f}); launches {r0['launches']}; shapes {r0['shapes']}")
+            if not (same and res["tokens_equal_solo"] and err <= 5e-2 * scale and vocab_ok):
+                fail(f"10b tp {tp}: tokens or first-step logits part from the solo engine")
+            if abs(r0["kb_per_token"] - want_kb) > 1e-6 * want_kb:
+                fail(f"10b tp {tp}: {r0['kb_per_token']} kB sent a token, analytic {want_kb}")
+            for k in ("q40_matmul", "flash_decode", "rope_cache_update"):
+                if not r0["launches"].get(k):
+                    fail(f"10b tp {tp}: {k} never launched in the TP run")
+            if tp == 2:
+                res["batch_equal_solo"] = all(r["batch"] == solo_batch for r in ranks)
+                res["batch_launches"] = r0["batch_launches"]
+                log(f"  10b generate_batch B = 4 under tp 2: rows = solo's: "
+                    f"{res['batch_equal_solo']}; launches {r0['batch_launches']}")
+                if not res["batch_equal_solo"]:
+                    fail("10b: generate_batch under tp 2 parts from the solo batch")
+                for k in ("flash_decode_batched", "rope_cache_update_batched", "q40_matmul"):
+                    if not r0["batch_launches"].get(k):
+                        fail(f"10b: {k} never launched in the tp 2 batch run")
+                plain, comp = r0["logits"], r0["q80_logits"]
+                c_err = float(np.abs(comp - plain).max())
+                corr = float(np.corrcoef(plain.reshape(-1), comp.reshape(-1))[0, 1])
+                want_b = tp_wire_bytes(cfg, tp, 1.125, hidden, vp)
+                res["q80"] = {"err": c_err, "tol": 0.05 * float(np.abs(plain).max()),
+                              "corr": corr, "step_bytes": r0["q80_step_bytes"],
+                              "analytic_bytes": want_b}
+                log(f"  10c Q80 wire at tp 2, one teacher-forced step: err {c_err:.4f} (tol "
+                    f"{res['q80']['tol']:.4f}), correlation {corr:.6f}; {r0['q80_step_bytes']} "
+                    f"bytes sent (analytic {want_b:.0f}; plain {want_kb * 1024:.0f})")
+                if not (0 < c_err <= res["q80"]["tol"] and corr > 0.999
+                        and r0["q80_step_bytes"] == want_b):
+                    fail("10c: the Q80 wire step is off its tolerance or its byte count")
+            out[f"tp{tp}"] = res
+        del solo
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # (d) Mixtral widths at tp 2
+        mcfg = ModelConfig(**moe_kw)
+        msolo = Engine(mcfg, llama.random_quant_params(
+            mcfg, dev, torch.Generator(device=dev).manual_seed(0), "q40"),
+            SamplerConfig(temperature=0.0, seed=0), cache_dtype=torch.bfloat16, device=dev,
+            cuda_graphs=False, metrics=None)
+        m_prompt = prompt[:20]
+        m_logits, _ = first_step(torch, msolo, [t % mcfg.vocab_size for t in m_prompt])
+        del msolo
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        ranks = world.run(tp_rank_moe, moe_kw, [t % mcfg.vocab_size for t in m_prompt], 8,
+                          size=2)
+        got = torch.from_numpy(ranks[0]["logits"])
+        err = (got - m_logits.cpu()).abs().max().item()
+        tol = 5e-2 * m_logits.abs().max().item()
+        launches = ranks[0]["launches"]
+        out["d"] = {"first_step_err": err, "tol": tol, "launches": launches,
+                    "ranks_equal": ranks[0]["tokens"] == ranks[1]["tokens"],
+                    "ms_per_token": [r["ms_per_token"] for r in ranks],
+                    "peak_gb": [r["peak_gb"] for r in ranks]}
+        log(f"  10d Mixtral widths, {moe_kw['n_layers']} layers, tp 2: first-step err {err:.4f} "
+            f"(tol {tol:.4f}); ranks' tokens equal: {out['d']['ranks_equal']}; launches "
+            f"{launches}; {out['d']['ms_per_token']} ms/token a rank")
+        if not (err <= tol and out["d"]["ranks_equal"] and launches.get("q40_matmul_stacked")):
+            fail("10d: MoE under tp 2 is off the solo engine, or the indexed GEMVs never ran")
+    finally:
+        world.close()
+        path.unlink(missing_ok=True)
+    return out
+
+
 def indexed_entry(kind: str, rows: list, launches: int) -> dict:
     """The summary entry of ``kind``'s expert-indexed GEMV: numbers for one
     Mixtral decode token's launches (32 x up|gate and down, T = 1, n_sel =
@@ -3845,6 +4267,11 @@ def main() -> None:
     header("phase 8d: cli verify and cli generate --profile on phase 3's small Q40 model")
     serving["cli"] = phase8d()
 
+    header("phase 10: tensor parallelism: K1/K3 at the tp 2 and tp 4 shard widths")
+    tp_widths = phase10_widths(torch, dev, gen)
+    header("phase 10: tensor parallelism: one-rank NCCL, then gloo ranks on this card")
+    tp_run = phase10(torch, dev)
+
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
     def at_t(rows, T):
@@ -3968,6 +4395,21 @@ def main() -> None:
         indexed_entry("q40", moe_k, mix["launches"]["q40_matmul_stacked"]),
         indexed_entry("q80", moe_k, mix80["launches"]["q80_matmul_stacked"]),
     ]}
+    # phase 10: each kernel's launches in rank 0's tensor-parallel runs
+    # (tp 2: 33-token generate, generate_batch at B = 4; 10d: Mixtral, 9
+    # tokens), and K1's and K3's decode GEMVs at the shard widths
+    tp_launch = {**tp_run["tp2"]["launches"],
+                 **{k: v for k, v in tp_run["tp2"]["batch_launches"].items() if "batched" in k},
+                 "q40_matmul_stacked": tp_run["d"]["launches"]["q40_matmul_stacked"]}
+    for entry in summary["kernels"]:
+        if tp_launch.get(entry["name"]):
+            entry["launches_tp2"] = tp_launch[entry["name"]]
+        if entry["name"] in ("q40_matmul", "q80_matmul"):
+            kind = entry["name"][:3]
+            entry["tp_widths"] = {f"{r['matrix']}@tp{r['tp']}": {
+                k: r[k] for k in ("O", "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                                  "max_abs_err", "blocks", "block_slots")}
+                for r in tp_widths if r["kind"] == kind}
     # phase 6's graphed solo run (prefill, the graph's warm-up step, 32
     # replays): the kernels a replay launches
     for entry in summary["kernels"]:
@@ -3987,7 +4429,7 @@ def main() -> None:
                "graphs_q40": graphs, "graphs_q80": graphs80, "k4_bound_S": k4_fixed,
                "experiments": exp, "cli": cli, "moe_indexed": moe_k, "mixtral_q40": mix,
                "grok1_q40": grok, "mixtral_q80": mix80, "pools": pools, "serving": serving,
-               "summary": summary,
+               "tp_widths": tp_widths, "tp": tp_run, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")

@@ -32,6 +32,24 @@ checksums without a model or a device:
     python -m dllama_tpu_torch.cli serve --model m.m --tokenizer t.t --port 8189 \\
         --batch-window 30 --kv-pages 16
     python -m dllama_tpu_torch.cli verify --model m.m
+
+``--tp N`` runs ``inference`` and ``generate`` tensor-parallel
+(``parallel``): this process is rank 0 and starts N - 1 local ranks, one
+process and one GPU each (``cuda:<local rank>``, NCCL), or CPU ranks over
+gloo with ``--device cpu``. Each rank loads only its shard of the weights,
+quantized weights only; decode steps are eager under TP.
+``--buffer-float-type q80`` moves the activation gathers as the Q80 wire.
+Across hosts every host runs the same command with ``--coordinator
+HOST:PORT --num-hosts H --host-id h`` and runs N / H ranks (rank h·N/H +
+local index); ``worker`` is that command with its output kept back on
+hosts other than 0:
+
+    python -m dllama_tpu_torch.cli generate --model m.m --tokenizer t.t --tp 4
+    python -m dllama_tpu_torch.cli worker --model m.m --tokenizer t.t --tp 8 \\
+        --coordinator host0:29500 --num-hosts 2 --host-id 1
+
+``chat``, ``serve``, ``--spec-draft``, ``--tp-overlap`` and ``--tp-reduce``
+are refused under ``--tp`` > 1 (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -59,8 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
                     "row-band section the check reads ~1/N of the file's "
                     "bytes; replicated 1-D tensors are always fully "
                     "checked. Run once per host, e.g. --shard 0/4 ... 3/4")
-    for mode in ("inference", "generate", "chat", "serve"):
-        sp = sub.add_parser(mode)
+    for mode in ("inference", "generate", "chat", "serve", "worker"):
+        sp = sub.add_parser(
+            mode, help="the generate run of one host of a multi-host tensor-parallel job "
+            "(--coordinator/--num-hosts/--host-id), output kept back on hosts other than 0"
+            if mode == "worker" else None)
         if mode == "serve":  # the dllama-api surface (`src/apps/dllama-api`)
             sp.add_argument("--host", default="0.0.0.0")
             sp.add_argument("--port", type=int, default=9990)
@@ -306,7 +327,97 @@ def build_parser() -> argparse.ArgumentParser:
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
             "plain PyTorch versions)")
+        sp.add_argument(
+            "--tp", type=int, default=1,
+            help="tensor-parallel ranks: one process per rank, each on its own GPU "
+            "(cuda:<local rank>, NCCL) or, with --device cpu, on the CPU over gloo; 0 = every "
+            "visible GPU of every host. Each rank loads its output shard of the quantized "
+            "(q40/q80) weights; decode steps are eager under TP (no CUDA graphs). inference "
+            "and generate only")
+        sp.add_argument(
+            "--buffer-float-type", default=None, choices=["q80", "f32", "f16", "bf16"],
+            help="q80: move the TP activation gathers as the reference's Q80 wire (int8 "
+            "32-value blocks + f32 scales, ~1.8x fewer bytes than bf16); f32/f16/bf16/unset: "
+            "plain gathers in the activation dtype")
+        sp.add_argument(
+            "--tp-overlap", action="store_true",
+            help="microbatch compute/communication overlap of the TP gathers: not ported "
+            "yet, refused at start (ROADMAP Queue 1 item 8)")
+        sp.add_argument(
+            "--tp-reduce", default="off", choices=["off", "plain", "q80"],
+            help="row-parallel wo/w2 with a ring reduce-scatter: not ported yet, anything but "
+            "off is refused at start (ROADMAP Queue 1 item 8)")
+        # multi-host topology: every host runs the same command with its own
+        # --host-id; rank 0 (host 0's first rank) hosts the rendezvous
+        sp.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="rank 0's address of a multi-host TP run (torch.distributed "
+                        "tcp:// rendezvous)")
+        sp.add_argument("--num-hosts", type=int, default=None)
+        sp.add_argument("--host-id", type=int, default=None)
     return p
+
+
+def tp_plan(args, n_gpus: int):
+    """Check the tensor-parallel flags against ``n_gpus`` visible GPUs and
+    return this host's part of the world, or None for one rank: {"size",
+    "ranks" (this process's first), "devices", "backend", "init_method"}.
+    What is refused raises SystemExit with the reason."""
+    from dllama_tpu_torch.parallel.quant_tp import NOT_PORTED
+
+    if args.tp_overlap:
+        raise SystemExit(f"--tp-overlap is {NOT_PORTED}")
+    if args.tp_reduce != "off":
+        raise SystemExit(f"--tp-reduce {args.tp_reduce} is {NOT_PORTED}")
+    hosts, host = 1, 0
+    if args.coordinator is not None:
+        if args.num_hosts is None or args.host_id is None:
+            raise SystemExit("--coordinator requires --num-hosts and --host-id")
+        hosts, host = args.num_hosts, args.host_id
+        if not 0 <= host < hosts:
+            raise SystemExit(f"--host-id {host} outside --num-hosts {hosts}")
+    elif args.mode == "worker":
+        raise SystemExit("worker mode requires --coordinator/--num-hosts/--host-id")
+    cpu = args.device is not None and args.device.split(":")[0] == "cpu"
+    size = args.tp if args.tp > 0 else hosts * (1 if cpu else max(n_gpus, 1))
+    if size % hosts:
+        raise SystemExit(f"--tp {size} does not split evenly over {hosts} hosts")
+    if size == 1:
+        return None
+    local = size // hosts
+    if not cpu and local > n_gpus:
+        raise SystemExit(f"--tp {size} needs {local} GPUs on this host and {n_gpus} are "
+                         f"visible: a rank never shares a card")
+    if args.mode in ("chat", "serve"):
+        raise SystemExit(f"{args.mode} under --tp {size} needs a control plane that "
+                         f"broadcasts rank 0's inputs: {NOT_PORTED}")
+    if args.spec_draft:
+        raise SystemExit(f"--spec-draft under --tp {size} is {NOT_PORTED}")
+    from dllama_tpu_torch.parallel.group import local_init_method
+
+    first = host * local
+    return {"size": size, "ranks": range(first, first + local),
+            "devices": ["cpu"] * local if cpu else [f"cuda:{i}" for i in range(local)],
+            "backend": "gloo" if cpu else "nccl",
+            "init_method": (f"tcp://{args.coordinator}" if args.coordinator
+                            else local_init_method())}
+
+
+def run_tp_rank(group, args, speaker: int, local: int) -> None:
+    """One rank of a tensor-parallel ``inference``/``generate``/``worker``
+    run: every rank runs the same command; only ``speaker`` (this host's
+    first rank) prints, and in worker mode only on host 0. The others keep
+    their output back (and their ``--profile``). CPU ranks split the host's
+    cores between the ``local`` ranks."""
+    if group.device.type == "cpu":
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // local))
+    quiet = group.rank != speaker or (args.mode == "worker" and args.host_id != 0)
+    if quiet:
+        args = argparse.Namespace(**{**vars(args), "profile": None})
+    with open(os.devnull, "w") as sink:
+        with contextlib.redirect_stdout(sink) if quiet else contextlib.nullcontext():
+            run_generate(args, show_stats=args.mode == "inference", tp=group)
 
 
 def write_pid_file(path: str) -> None:
@@ -346,19 +457,23 @@ def profiled(profile_dir, device):
         print(f"🔬 profiler trace written to {path}")
 
 
-def load_engine(args):
+def load_engine(args, tp=None):
+    """(engine, tokenizer, cfg) for ``args``; ``tp``: this process's rank of
+    a tensor-parallel world (``parallel.group.TPGroup``), which loads its
+    shard and whose engine gathers."""
     import torch
 
     from dllama_tpu_torch import resolve_device
     from dllama_tpu_torch.formats.weights import WeightFileReader
     from dllama_tpu_torch.models import llama
     from dllama_tpu_torch.models.config import ModelConfig, resolve_dtype
+    from dllama_tpu_torch.parallel import quant_tp
     from dllama_tpu_torch.quants import blocks
     from dllama_tpu_torch.runtime.generate import DECODE_CHUNK, Engine
     from dllama_tpu_torch.runtime.sampler import SamplerConfig
     from dllama_tpu_torch.tokenizer.bpe import Tokenizer
 
-    device = resolve_device(args.device)
+    device = tp.device if tp is not None else resolve_device(args.device)
     t0 = time.time()
     with WeightFileReader(args.model) as reader:
         cfg = ModelConfig.from_spec(reader.spec, dtype=args.dtype)
@@ -371,9 +486,14 @@ def load_engine(args):
             # the file's own quantized format: the dequant-matmul kernel reads
             # ~4x fewer bytes per token than bf16 weights
             wft = {blocks.Q40: "q40", blocks.Q80: "q80"}.get(reader.spec.weights_float_type)
+        if tp is not None and wft not in ("q40", "q80"):
+            raise SystemExit(f"--tp {tp.size} takes quantized weights: pass "
+                             f"--weights-float-type q40 or q80 (dense-weight TP is "
+                             f"{quant_tp.NOT_PORTED})")
         if wft in ("q40", "q80"):
-            print(f"🧮 weights resident as {wft} (fused dequant-matmul kernels)")
-            params = llama.quant_params_from_reader(reader, cfg, device, wft)
+            shard = "" if tp is None else f", rank {tp.rank}'s shard of {tp.size}"
+            print(f"🧮 weights resident as {wft} (fused dequant-matmul kernels{shard})")
+            params = llama.quant_params_from_reader(reader, cfg, device, wft, tp=tp)
         else:
             dense = {"bf16": torch.bfloat16, "f16": torch.float16,
                      "f32": torch.float32}.get(wft)
@@ -382,17 +502,26 @@ def load_engine(args):
 
     tok = Tokenizer.from_file(args.tokenizer)
     seed = args.seed if args.seed is not None else int(time.time())
+    if tp is not None:  # every rank must sample with rank 0's seed
+        seed = tp.broadcast_object(seed)
     sampler_cfg = SamplerConfig(temperature=args.temperature, topp=args.topp, seed=seed)
     cache_dtype = resolve_dtype(args.cache_dtype, default=args.dtype)
+    compress = args.buffer_float_type == "q80"
+    if compress and tp is None:
+        print("⚠️  --buffer-float-type q80 applies to the gathers of --tp > 1; none run here")
     # an explicit 0 must reach Engine's own validation, not become the default
     chunk = args.decode_chunk
     engine = Engine(cfg, params, sampler_cfg, cache_dtype=cache_dtype, device=device,
-                    decode_chunk=DECODE_CHUNK if chunk is None else chunk)
+                    decode_chunk=DECODE_CHUNK if chunk is None else chunk, tp=tp,
+                    tp_compress=compress)
+    if tp is not None:
+        print(f"🔗 tensor-parallel over {tp.size} devices ({tp.backend}, {engine.tp_wire} wire; "
+              f"eager decode steps: no CUDA graphs under TP)")
     return engine, tok, cfg
 
 
-def run_generate(args, show_stats: bool) -> None:
-    engine, tok, _cfg = load_engine(args)
+def run_generate(args, show_stats: bool, tp=None) -> None:
+    engine, tok, _cfg = load_engine(args, tp)
     prompt = args.prompt if args.prompt is not None else "Hello"
     tokens = tok.encode(prompt, add_bos=True)
     print(f"📄 prompt tokens: {len(tokens)}")
@@ -448,9 +577,11 @@ def _generate(args, show_stats: bool, engine, tok, tokens: list) -> None:
         gen_ms.append(stats.generation_ms)
         inf_ms.append(stats.inference_ms)
         if show_stats:
-            sys.stdout.write(f"  🔶 G {stats.generation_ms:7.2f} ms "
-                             f"I {stats.inference_ms:7.2f} ms "
-                             f"T {stats.transfer_ms:7.2f} ms\n")
+            line = (f"  🔶 G {stats.generation_ms:7.2f} ms I {stats.inference_ms:7.2f} ms "
+                    f"T {stats.transfer_ms:7.2f} ms")
+            if stats.sent_kb:  # the reference's S/R columns: this rank's gather bytes
+                line += f" S {stats.sent_kb:7.1f} kB R {stats.recv_kb:7.1f} kB"
+            sys.stdout.write(line + "\n")
     sys.stdout.write(utf8.decode(b"", True))
     print()
     print(f"Token ids:           {' '.join(map(str, produced))}")
@@ -598,13 +729,23 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.mode == "verify":  # a host-side file check: no device
         raise SystemExit(run_verify(args))
+    import torch
+
+    plan = tp_plan(args, torch.cuda.device_count())
+    if plan is not None:
+        from dllama_tpu_torch.parallel.group import launch
+
+        launch(run_tp_rank, plan["ranks"], plan["size"], backend=plan["backend"],
+               devices=plan["devices"], init_method=plan["init_method"],
+               args=(args, plan["ranks"][0], len(plan["ranks"])))
+        return
     if args.mode == "serve":
         from dllama_tpu_torch.serving.api_server import serve
 
         serve(args)
     elif args.mode == "chat":
         run_chat(args)
-    else:
+    else:  # inference, generate, and worker mode's one-rank host
         run_generate(args, show_stats=args.mode == "inference")
 
 

@@ -447,6 +447,16 @@ class WeightFileReader:
         whole-tensor check.
         """
         e = self._by_name[name]
+        start, stop, _ = rows.indices(e.d)
+        raw = self.read_raw_rows(name, rows)
+        x = blocks.decode_tensor(raw, e.float_type, (stop - start) * e.n)
+        return x.reshape(stop - start, e.n).astype(dtype, copy=False)
+
+    def read_raw_rows(self, name: str, rows: slice) -> np.ndarray:
+        """A row band's undecoded file bytes (uint8 view into the mmap),
+        checked as :meth:`read_tensor_rows` checks them: the input to a
+        tensor-parallel rank's lossless repack of its output shard."""
+        e = self._by_name[name]
         start, stop, step = rows.indices(e.d)
         assert step == 1
         if self._lazy_verify and e.name not in self._verified:
@@ -455,9 +465,7 @@ class WeightFileReader:
             else:
                 self._checked_raw(e)
         rb = blocks.row_bytes(e.float_type, e.n)
-        raw = self._buf[e.offset + start * rb : e.offset + stop * rb]
-        x = blocks.decode_tensor(raw, e.float_type, (stop - start) * e.n)
-        return x.reshape(stop - start, e.n).astype(dtype, copy=False)
+        return self._buf[e.offset + start * rb : e.offset + stop * rb]
 
     def shard_rows(self, e: TensorEntry, shard: int, n_shards: int) -> tuple:
         """The row stripe host ``shard`` of ``n_shards`` loads from ``e``:
@@ -555,14 +563,30 @@ class ModelWriter:
         self._f = open(path, "wb")
         self._f.write(header)
 
-    def write_next(self, name: str, x: np.ndarray) -> None:
+    def _next(self, name: str) -> TensorEntry:
         e = self.plan[self._i]
         if name != e.name:
             raise ValueError(f"tensor order violation: expected {e.name!r}, got {name!r}")
+        return e
+
+    def write_next(self, name: str, x: np.ndarray) -> None:
+        e = self._next(name)
         x = np.asarray(x, dtype=np.float32)
         if x.size != e.d * e.n:
             raise ValueError(f"{e.name}: expected {e.d}x{e.n} values, got shape {x.shape}")
-        raw = blocks.encode_tensor(x.reshape(-1), e.float_type)
+        self._write(e, blocks.encode_tensor(x.reshape(-1), e.float_type))
+
+    def write_next_raw(self, name: str, raw: np.ndarray) -> None:
+        """Append the next tensor already encoded in its float type (bytes
+        as the file holds them), e.g. random Q40 blocks for a full-size
+        synthetic model that is never held in f32."""
+        e = self._next(name)
+        raw = np.asarray(raw, dtype=np.uint8).reshape(-1)
+        if raw.size != e.nbytes:
+            raise ValueError(f"{e.name}: expected {e.nbytes} bytes, got {raw.size}")
+        self._write(e, raw)
+
+    def _write(self, e: TensorEntry, raw) -> None:
         self._f.write(raw)
         if self._checksums:
             self._crcs.append(zlib.crc32(raw))

@@ -34,6 +34,15 @@ at B = 1 on the solo cache's ``[:, None]`` view, the position a device
 int32 [1], bit-equal to ``forward`` at T = 1. It is the step the engine's
 CUDA graphs capture (``runtime.graphs``).
 
+Tensor parallelism (``tp``, a ``parallel.group.TPGroup``, in ``forward``
+and ``forward_batched``): the JAX forward's ``tp_axis`` branches. Every
+quantized matrix is an output shard (``parallel.quant_tp``), so a rank's
+heads, kv heads and FFN hidden are its slice; the activations are gathered
+whole after each output-sharded matmul (four gathers a layer, then the
+logits), so everything between the gathers is replicated and every rank
+holds the same residual stream. ``quant_params_from_reader(..., tp=)``
+loads a rank's shard.
+
 ``forward_batched_verify`` is the batched speculative-verify step: B
 sequences of T candidate rows each, every matmul on the flattened [B*T,
 dim] rows (K1/K3's tile past 8 rows), rope and the cache write through the
@@ -59,9 +68,11 @@ from dllama_tpu_torch.ops.fused_rope_cache import (
 from dllama_tpu_torch.ops.norms import rmsnorm
 from dllama_tpu_torch.ops.qmatmul import (
     K_MULTIPLE, QuantTensor, _pad_up, matmul_any, norm_fusion_engages, qmatmul_norm,
-    quantize_tensor, repack_q40, repack_q80,
+    quantize_tensor, repack_q40, repack_q80, slice_to_in_features,
 )
 from dllama_tpu_torch.ops.rope import apply_rope, rope_table
+from dllama_tpu_torch.parallel import quant_tp
+from dllama_tpu_torch.parallel.collectives import gather_columns
 from dllama_tpu_torch.quants import blocks
 
 #: per-layer matrices eligible for quantized storage
@@ -165,47 +176,82 @@ def _stack(qts: list) -> QuantTensor:
 
 
 def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
-                             kind: str = "q40") -> dict:
+                             kind: str = "q40", tp=None) -> dict:
     """Load a `.m` file with the big matrices block-quantized for the
     kernels. When the file's own float type matches ``kind`` the file bits
-    are repacked losslessly. Planes are staged and fused on the host, then
-    placed, so the unfused originals never reach the device. The expert
+    are repacked losslessly (by torch on the host's cores). Planes are staged
+    and fused on the host, then placed, so the unfused originals never reach
+    the device. The expert
     stacks of a MoE arch are staged one layer at a time — each layer's
     ``moe_up|moe_gate`` fused to ``moe_upgate`` and copied into its slot of
     the stack on the device — so the host holds one layer of them. The
-    router stays dense in the compute dtype. Single device only."""
+    router stays dense in the compute dtype.
+
+    ``tp`` (a ``parallel.group.TPGroup``, or anything with ``rank`` and
+    ``size``): this rank's shard of a tensor-parallel model
+    (``parallel.quant_tp``). Each sharded matrix is read as the band of file
+    rows (the output axis) its shard covers, lane-padded, and fused from the
+    rank's own parts, so neither the whole model nor a whole sharded matrix
+    reaches the device or the host; the embedding, the norms, the router
+    and an unsharded wcls are read whole. Quantized matrices only."""
     file_ft = reader.spec.weights_float_type
     lossless = (kind == "q40" and file_ft == blocks.Q40) or (
         kind == "q80" and file_ft == blocks.Q80)
     repack = repack_q40 if kind == "q40" else repack_q80
     kernel_multiple = 64 if kind == "q40" else 32
+    rank, size = (0, 1) if tp is None else (tp.rank, tp.size)
+    quant_tp.validate_quant_tp(cfg, size)
 
-    def load_matrix(name: str):
+    def band(name: str, lo: int, hi: int) -> QuantTensor:
+        """File rows [lo, hi) of matrix ``name`` as a host QuantTensor [n, hi
+        - lo]; rows past the file's (lane padding) are zero."""
+        e = reader.entry(name)
+        stop = min(hi, e.d)
+        if stop <= lo:
+            return quant_tp.zero_quant(kind, _pad_up(e.n, K_MULTIPLE[kind]), hi - lo,
+                                       e.n).to("cpu")
+        rows = slice(lo, stop)
+        if lossless:
+            qt = repack(reader.read_raw_rows(name, rows), stop - lo, e.n, "cpu")
+        else:
+            qt = quantize_tensor(reader.read_tensor_rows(name, rows).T, kind)
+        return quant_tp._pad_qt_out(qt, hi - lo)
+
+    def load_matrix(name: str, role: str):
         e = reader.entry(name)
         if e.n % kernel_multiple != 0:
+            if tp is not None:
+                raise ValueError(f"{name}: input width {e.n} is not packable as {kind}; "
+                                 f"tensor parallelism takes quantized matrices only")
             # valid in the file format but not packable: keep it dense
             dense = reader.read_tensor(name, np.float32).T.copy()
             return torch.from_numpy(dense).to(cfg.torch_dtype)
-        if lossless:
-            return repack(reader.read_raw(name), e.d, e.n)
-        return quantize_tensor(reader.read_tensor(name, np.float32).T, kind)
+        lo, hi = 0, e.d
+        if quant_tp.is_sharded(role, cfg, size):  # the whole axis at size 1
+            lo, hi = quant_tp.shard_bounds(quant_tp.padded_out(role, cfg, kind, size, e.d),
+                                           rank, size)
+        qt = band(name, lo, hi)
+        if role in quant_tp.HIDDEN_IN:  # a no-op at size 1: the pack's own K pad
+            qt = quant_tp._pad_qt_in(qt, quant_tp.ffn_padded_width(cfg, kind, size))
+        return qt
 
     def stacked(leaves: list):
         return (_stack(leaves) if isinstance(leaves[0], QuantTensor)
                 else torch.stack(leaves))
 
-    def experts(i: int, kind: str):
-        return stacked([load_matrix(f"layers.{i}.experts.{e}.{kind}")
+    def experts(i: int, part: str):
+        return stacked([load_matrix(f"layers.{i}.experts.{e}.{part}", f"moe_{part}")
                         for e in range(cfg.n_experts)])
 
     p = {
         "embedding": reader.read_tensor("token_embedding", np.float32),
         "rms_final": reader.read_tensor("rms_final", np.float32),
-        "wcls": load_matrix("wcls"),
+        "wcls": load_matrix("wcls", "wcls"),
         "layers": {},
     }
     for n in ATTN_MATRICES if cfg.is_moe else QUANTIZABLE:
-        p["layers"][n] = stacked([load_matrix(f"layers.{i}.{n}") for i in range(cfg.n_layers)])
+        p["layers"][n] = stacked([load_matrix(f"layers.{i}.{n}", n)
+                                  for i in range(cfg.n_layers)])
     for n in _layer_vectors(cfg):
         p["layers"][n] = np.stack([reader.read_tensor(f"layers.{i}.{n}", np.float32)
                                    for i in range(cfg.n_layers)])
@@ -268,7 +314,7 @@ def has_quant_leaves(params: dict) -> bool:
 
 
 def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
-                        kind: str = "q40") -> dict:
+                        kind: str = "q40", tp=None) -> dict:
     """Random ``kind`` (q40 or q80) params built directly on ``device`` from
     ``generator`` — the benchmark-shape model with quantized residency and
     no host-side copy (the counterpart of the JAX package's
@@ -280,7 +326,11 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
     independent random parts. A MoE arch gets expert stacks [L, E, ...],
     filled one layer at a time in place (a full Mixtral never holds a
     second copy of a stack on the card), and a dense f32 router ``N(0,
-    0.02)``."""
+    0.02)``. ``tp`` (a ``parallel.group.TPGroup``): this rank's shard of
+    the same model (``quant_tp.shard_params``: the parts unfused, for the
+    Engine to fuse), the whole model made first on ``device``, leaf by leaf
+    sliced and dropped, so every rank drawing from the same seed holds
+    exactly its slice."""
     if kind not in K_MULTIPLE:
         raise ValueError(f"unknown quant kind {kind!r}")
     L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
@@ -333,12 +383,15 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
                                            generator=generator) * 0.02
         layers["moe_upgate"] = qrand_experts(D, 2 * H)
         layers["moe_down"] = qrand_experts(H, D)
-    return {
+    params = {
         "embedding": torch.randn((cfg.vocab_size, D), device=device, generator=generator) * 0.02,
         "rms_final": torch.ones(D, device=device),
         "wcls": qrand(D, cfg.vocab_size, prefix=()),
         "layers": layers,
     }
+    if tp is None:
+        return params
+    return quant_tp.shard_params(params, cfg, tp.rank, tp.size)
 
 
 def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -375,21 +428,24 @@ def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     }
 
 
-def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device=None) -> dict:
-    """Fixed-size per-layer KV cache [L, seq_len, n_kv_heads, head_size], on
-    the card unless ``device`` says otherwise."""
+def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device=None,
+               tp_size: int = 1) -> dict:
+    """Fixed-size per-layer KV cache [L, seq_len, n_kv_heads / tp_size,
+    head_size] (a tensor-parallel rank holds its kv heads), on the card
+    unless ``device`` says otherwise."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
+    shape = (cfg.n_layers, cfg.seq_len, cfg.n_kv_heads // tp_size, cfg.head_size)
     return {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
 
 def init_batch_cache(cfg: ModelConfig, batch: int, cache_dtype=torch.float32,
-                     device=None) -> dict:
+                     device=None, tp_size: int = 1) -> dict:
     """KV cache for ``batch`` independent sequences: [L, B, seq_len,
-    n_kv_heads, head_size], on the card unless ``device`` says otherwise."""
+    n_kv_heads / tp_size, head_size], on the card unless ``device`` says
+    otherwise."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.seq_len, cfg.n_kv_heads, cfg.head_size)
+    shape = (cfg.n_layers, batch, cfg.seq_len, cfg.n_kv_heads // tp_size, cfg.head_size)
     return {"k": torch.zeros(shape, dtype=cache_dtype, device=device),
             "v": torch.zeros(shape, dtype=cache_dtype, device=device)}
 
@@ -427,9 +483,13 @@ def _norm_proj(x: torch.Tensor, norm_w: torch.Tensor, w, eps: float) -> torch.Te
     return matmul_any(rmsnorm(x, norm_w, eps), w)
 
 
-def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w) -> torch.Tensor:
+def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w, tp=None,
+               tp_compress: bool = False) -> torch.Tensor:
     """FFN half on the RAW (pre-norm) residual ``x``: the ``rms_ffn`` norm is
-    applied through ``_norm_proj`` so it can fuse into the up/gate kernels."""
+    applied through ``_norm_proj`` so it can fuse into the up/gate kernels.
+    Under ``tp`` the up/gate projections give this rank's slice of the
+    (lane-padded) hidden, gathered whole for w2, whose output slice is
+    gathered in turn (JAX ``llama.py:646-647``)."""
     act = ACTIVATIONS[cfg.hidden_act]
     eps = cfg.norm_eps
     if "w13" in lp:  # fused single-kernel up|gate projection (fuse_qkv_ffn)
@@ -438,11 +498,12 @@ def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w) -> torch.Ten
         h = act(u[..., :half]) * u[..., half:]
     else:
         h = act(_norm_proj(x, norm_w, lp["w1"], eps)) * _norm_proj(x, norm_w, lp["w3"], eps)
-    return matmul_any(h, lp["w2"])
+    h = slice_to_in_features(gather_columns(h, tp, tp_compress), lp["w2"])
+    return gather_columns(matmul_any(h, lp["w2"]), tp, tp_compress)
 
 
-def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                  att_out: torch.Tensor) -> torch.Tensor:
+def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor, att_out: torch.Tensor,
+                  tp=None, tp_compress: bool = False) -> torch.Tensor:
     """Post-attention half of a layer, all three archs:
 
     * llama: ``x += att; x += dense_ffn(rmsnorm(x, rms_ffn))``
@@ -452,23 +513,33 @@ def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     * grok1: the attention output and the MoE output are each rmsnorm'd
       before their residual adds, with an extra pre-MoE norm:
       ``x += rmsnorm(att, rms_ffn); x += rmsnorm(moe(rmsnorm(x, rms_moe)), rms_ffn2)``
-      (`distributed-llama/src/grok1-tasks.cpp:16-54,239-262,280-320`)"""
+      (`distributed-llama/src/grok1-tasks.cpp:16-54,239-262,280-320`)
+
+    Under ``tp`` the FFN gathers its own output, so every rank holds the
+    whole residual stream."""
     eps = cfg.norm_eps
+    kw = {"tp": tp, "tp_compress": tp_compress}
     if cfg.is_moe and cfg.post_norms:  # grok1
         x = x + rmsnorm(att_out, lp["rms_ffn"], eps)
         xb = rmsnorm(x, lp["rms_moe"], eps)
-        return x + rmsnorm(moe_ffn(cfg, lp, xb), lp["rms_ffn2"], eps)
+        return x + rmsnorm(moe_ffn(cfg, lp, xb, **kw), lp["rms_ffn2"], eps)
     x = x + att_out
     if cfg.is_moe:
-        return x + moe_ffn(cfg, lp, rmsnorm(x, lp["rms_ffn"], eps))
-    return x + _dense_ffn(cfg, lp, x, lp["rms_ffn"])
+        return x + moe_ffn(cfg, lp, rmsnorm(x, lp["rms_ffn"], eps), **kw)
+    return x + _dense_ffn(cfg, lp, x, lp["rms_ffn"], **kw)
 
 
 def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
-                layer: int) -> torch.Tensor:
+                layer: int, tp=None, tp_compress: bool = False) -> torch.Tensor:
     """One attention sub-block of layer ``layer``; writes this step's K/V
-    into the stacked caches in place and returns the output [T, dim]."""
+    into the stacked caches in place and returns the output [T, dim].
+
+    Under ``tp`` (a ``parallel.group.TPGroup``) the projections are this
+    rank's output shards, so its heads are local — counted from the shapes,
+    as K4 and K5 size themselves from q's and the cache's — and the cache
+    holds its kv heads; the heads' output is gathered before ``wo`` and
+    ``wo``'s output after it (JAX ``llama.py:766-767``)."""
     T = x.shape[0]
     q, k, v = (t.reshape(T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
     if T <= DECODE_MAX_T:
@@ -487,34 +558,40 @@ def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
         k_cache[layer, pos:pos + T] = cast_cache(k, k_cache.dtype)
         v_cache[layer, pos:pos + T] = cast_cache(v, v_cache.dtype)
         out = gqa_attention(q, k_cache[layer], v_cache[layer], pos)
-    return matmul_any(out.reshape(T, -1), lp["wo"])
+    out = gather_columns(out.reshape(T, -1), tp, tp_compress)
+    return gather_columns(matmul_any(out, lp["wo"]), tp, tp_compress)
 
 
 def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> tuple:
     """The attention projections of x [T, dim] (rms_att applied, fused into
-    the kernel under DLLAMA_FUSE_NORM): q [T, dim], k and v [T, kv_dim]."""
+    the kernel under DLLAMA_FUSE_NORM): q [T, dim], k and v [T, kv_dim], or
+    a tensor-parallel rank's [T, dim / tp] and [T, kv_dim / tp]: the fused
+    projection splits at widths taken from its own shape."""
     if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
         qkv = _norm_proj(x, lp["rms_att"], lp["wqkv"], cfg.norm_eps)
-        d, kv = cfg.dim, cfg.kv_dim
+        d = qkv.shape[-1] * cfg.dim // (cfg.dim + 2 * cfg.kv_dim)
+        kv = (qkv.shape[-1] - d) // 2
         return qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
     return tuple(_norm_proj(x, lp["rms_att"], lp[n], cfg.norm_eps) for n in ("wq", "wk", "wv"))
 
 
 def _attn_block_batched(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
                         k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
-                        layer: int, bound: int | None) -> torch.Tensor:
+                        layer: int, bound: int | None, tp=None,
+                        tp_compress: bool = False) -> torch.Tensor:
     """Batched-decode attention of layer ``layer``: x [B, dim] carries B
     independent sequences, row b at ``pos[b]`` (int32 [B] on x's device).
     The projections are [B, K] matmuls (K1/K3 at T = B); the batched rope +
     cache-write launch rotates q and K with each row's own angle and lands
     row b at (layer, b, pos[b]); the batched flash decode reads row b's own
-    prefix. Returns the output [B, dim]."""
+    prefix. Returns the output [B, dim]; ``tp`` as in :func:`_attn_block`."""
     B = x.shape[0]
     q, k, v = (t.reshape(B, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
     q = rope_cache_update_batched(q, k, v, rope["cos"], rope["sin"], k_cache, v_cache, pos,
                                   layer, cfg.rope_style)
     out = flash_decode.flash_decode_attention_batched(q, k_cache, v_cache, pos, layer, bound)
-    return matmul_any(out.reshape(B, -1), lp["wo"])
+    out = gather_columns(out.reshape(B, -1), tp, tp_compress)
+    return gather_columns(matmul_any(out, lp["wo"]), tp, tp_compress)
 
 
 def _attn_block_verify(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
@@ -542,34 +619,48 @@ def _layer_params(layers: dict, i: int) -> dict:
             for name, leaf in layers.items()}
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Final rmsnorm, then the classifier: f32 logits [rows, vocab]."""
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """Final rmsnorm, then the classifier: f32 logits [rows, vocab]. Under
+    ``tp`` with wcls sharded the f32 logits are gathered (never
+    compressed) and cut back to the vocab: a zero logit in the lane pad
+    must not reach the sampler (JAX ``llama.py:896-899``); with wcls whole
+    every rank computes them all."""
     logits = matmul_any(rmsnorm(x, params["rms_final"], cfg.norm_eps), params["wcls"]).float()
+    if tp is not None and quant_tp.shards_wcls(cfg, tp.size):
+        logits = gather_columns(logits, tp)[..., :cfg.vocab_size]
     if cfg.logit_scale != 1.0:
         logits = logits * cfg.logit_scale
     return logits
 
 
 def forward(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
-            cache: dict, pos: int, last_pos: int | None = None) -> tuple:
+            cache: dict, pos: int, last_pos: int | None = None, tp=None,
+            tp_compress: bool = False) -> tuple:
     """Process T tokens starting at ``pos``. Returns (logits [T, vocab] f32,
     cache), the cache updated in place.
 
     ``last_pos``: compute the classifier only at that row — logits come back
-    [1, vocab]; every layer still processes (and caches) all T positions."""
+    [1, vocab]; every layer still processes (and caches) all T positions.
+
+    ``tp`` (a ``parallel.group.TPGroup``): the quantized tensor-parallel
+    forward (``parallel.quant_tp``): ``params`` and ``cache`` are this
+    rank's shards, activations are gathered after each output-sharded
+    matmul (over the Q80 wire with ``tp_compress``), and every rank returns
+    the same logits. The port of the JAX forward's ``tp_axis`` branches."""
     x = embed(cfg, params, tokens)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = _layer_params(layers, i)
-        att_out = _attn_block(cfg, lp, rope, x, cache["k"], cache["v"], pos, i)
-        x = _ffn_residual(cfg, lp, x, att_out)
+        att_out = _attn_block(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, tp, tp_compress)
+        x = _ffn_residual(cfg, lp, x, att_out, tp, tp_compress)
     if last_pos is not None:
         x = x[last_pos:last_pos + 1]
-    return _logits(cfg, params, x), cache
+    return _logits(cfg, params, x, tp), cache
 
 
 def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
-                    cache: dict, pos: torch.Tensor, bound: int | None = None) -> tuple:
+                    cache: dict, pos: torch.Tensor, bound: int | None = None, tp=None,
+                    tp_compress: bool = False) -> tuple:
     """One decode step for B independent sequences -> (logits [B, vocab]
     f32, cache), the cache ``{"k", "v": [L, B, S, kv, hd]}`` updated in place.
 
@@ -578,14 +669,16 @@ def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Te
     them back. ``bound``: a host upper bound of every ``pos + 1`` (default
     seq_len), which only sizes flash decode's grid. The weights stream once
     for all B rows; row b's math is ``forward`` at T = 1 and pos[b], summed
-    in the order the kernels take at B rows."""
+    in the order the kernels take at B rows. ``tp``, ``tp_compress``: as
+    in :func:`forward`."""
     x = embed(cfg, params, tokens)
     layers = params["layers"]
     for i in range(cfg.n_layers):
         lp = _layer_params(layers, i)
-        att_out = _attn_block_batched(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, bound)
-        x = _ffn_residual(cfg, lp, x, att_out)
-    return _logits(cfg, params, x), cache
+        att_out = _attn_block_batched(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, bound,
+                                      tp, tp_compress)
+        x = _ffn_residual(cfg, lp, x, att_out, tp, tp_compress)
+    return _logits(cfg, params, x, tp), cache
 
 
 def forward_decode(cfg: ModelConfig, params: dict, rope: dict, token: torch.Tensor,

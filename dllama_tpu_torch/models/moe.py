@@ -5,8 +5,9 @@ router logits -> softmax over ALL experts -> top-k (k = n_active_experts)
 -> selected probs renormalized to sum 1 -> per selected expert:
 ``down_e( up_e(x) * act(gate_e(x)) )`` weighted-summed.
 
-The port of ``dllama_tpu/models/moe.py`` on one device (its tensor- and
-expert-parallel branches are not ported). Two compute paths, as there:
+The port of ``dllama_tpu/models/moe.py``, with its tensor-parallel branch
+(``tp``: every expert plane an output shard, ``parallel.quant_tp``); its
+expert-parallel one (``ep``) is not ported. Two compute paths, as there:
 
 * Dense combine (dense stacks, or quantized ones at T * k >= E): every
   expert runs, and a [.., E] weight matrix that is zero off the top-k
@@ -22,6 +23,11 @@ expert-parallel branches are not ported). Two compute paths, as there:
   for their downs, so the step captures in a CUDA graph and makes no host
   sync.
 
+Under ``tp`` each path gathers twice, like the dense FFN: the experts'
+hidden slices (the selected path: all picked experts' in one collective)
+before the downs, and the combined output slice at the end (JAX
+``moe.py:185,197,237,241``).
+
 Top-k order: ``jax.lax.top_k`` puts the lowest index first among equal
 values. A stable descending sort does the same (``torch.topk`` promises
 no order among ties). The order matters beyond the indices: the selected
@@ -35,7 +41,8 @@ import torch
 
 from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.ops.activations import ACTIVATIONS
-from dllama_tpu_torch.ops.qmatmul import QuantTensor, matmul_any
+from dllama_tpu_torch.ops.qmatmul import QuantTensor, matmul_any, slice_to_in_features
+from dllama_tpu_torch.parallel.collectives import gather_columns
 
 
 def top_k(v: torch.Tensor, k: int) -> tuple:
@@ -102,7 +109,8 @@ def _expert_down(h: torch.Tensor, w, layer=None) -> torch.Tensor:
     return outs.transpose(0, 1).reshape(*lead, E, outs.shape[-1])
 
 
-def _moe_decode_selected(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer) -> torch.Tensor:
+def _moe_decode_selected(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer, tp=None,
+                         tp_compress: bool = False) -> torch.Tensor:
     """Small-T decode/verify with quantized experts: run only the union of
     the rows' top-k experts. ``T * k`` bounds the union, so the top ``cap
     = min(E, T * k)`` column maxima of the combine weights cover it; slots
@@ -131,15 +139,17 @@ def _moe_decode_selected(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer) ->
     else:
         gate = flat_experts(lp["moe_gate"])
         hs = matmul_any(xb, up, ids, base) * act(matmul_any(xb, gate, ids, base))
-    d = matmul_any(hs, down, ids, base)  # [cap, T, D]
+    hs = gather_columns(hs, tp, tp_compress)  # [cap, T, whole hidden] in one gather
+    d = matmul_any(hs, down, ids, base)  # [cap, T, D] (this rank's D / tp under tp)
     w_sel = combine.index_select(1, expert_ids).to(xb.dtype)  # [T, cap]
     acc = torch.zeros((T, d.shape[-1]), dtype=xb.dtype, device=xb.device)
     for j in range(cap):
         acc = acc + d[j] * w_sel[:, j:j + 1]
-    return acc
+    return gather_columns(acc, tp, tp_compress)
 
 
-def moe_ffn(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer=None) -> torch.Tensor:
+def moe_ffn(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer=None, tp=None,
+            tp_compress: bool = False) -> torch.Tensor:
     """MoE FFN over xb [..., dim] -> [..., dim].
 
     ``lp`` holds moe_router [dim, E], moe_up/moe_gate [E, dim, hidden] (or
@@ -150,13 +160,15 @@ def moe_ffn(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer=None) -> torch.T
     passes each layer's views and no ``layer``. The selected path needs
     quantized stacks, a 2-D ``xb`` and T * k < E — the JAX package's gate
     (its layer scan always has a layer index; the port's forward always
-    hands quantized experts over as that layer's views)."""
+    hands quantized experts over as that layer's views). ``tp``,
+    ``tp_compress``: a tensor-parallel rank's expert shards, gathered as the
+    module docstring says."""
     act = ACTIVATIONS[cfg.hidden_act]
     up_names = ("moe_upgate",) if "moe_upgate" in lp else ("moe_up", "moe_gate")
     quant_experts = all(isinstance(lp.get(n), QuantTensor) for n in up_names + ("moe_down",))
     if (quant_experts and xb.dim() == 2
             and xb.shape[0] * cfg.n_active_experts < cfg.n_experts):
-        return _moe_decode_selected(cfg, lp, xb, layer)
+        return _moe_decode_selected(cfg, lp, xb, layer, tp, tp_compress)
 
     combine = route(cfg, lp["moe_router"], xb).to(xb.dtype)  # [..., E]
     if "moe_upgate" in lp:  # fused up|gate expert stacks (llama.fuse_qkv_ffn)
@@ -165,5 +177,6 @@ def moe_ffn(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer=None) -> torch.T
         h = ug[..., :half] * act(ug[..., half:])
     else:
         h = _expert_up(xb, lp["moe_up"], layer) * act(_expert_up(xb, lp["moe_gate"], layer))
+    h = slice_to_in_features(gather_columns(h, tp, tp_compress), lp["moe_down"])
     down = _expert_down(h, lp["moe_down"], layer)
-    return torch.einsum("...ed,...e->...d", down, combine)
+    return gather_columns(torch.einsum("...ed,...e->...d", down, combine), tp, tp_compress)

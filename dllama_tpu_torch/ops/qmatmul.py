@@ -745,6 +745,16 @@ def matmul_any(x: torch.Tensor, w, index=None, base: int = 0) -> torch.Tensor:
     return x @ w
 
 
+def slice_to_in_features(h: torch.Tensor, w) -> torch.Tensor:
+    """Trim a gathered activation down to ``w``'s (packed) input width.
+    Under tensor parallelism the up-projections lane-pad their output axis
+    (``parallel.quant_tp``); where the down-projection's packed input is
+    narrower, the extra gathered columns are exact zeros and dropping them
+    is exact. No-op when the widths agree."""
+    w_in = w.k_padded if isinstance(w, QuantTensor) else w.shape[-2]
+    return h[..., :w_in] if h.shape[-1] > w_in else h
+
+
 # ---------------------------------------------------------------------------
 # Packing (host-side, numpy)
 # ---------------------------------------------------------------------------
@@ -804,14 +814,58 @@ def quantize_tensor(w: np.ndarray, kind: str, device=None) -> QuantTensor:
 def repack_q40(raw: np.ndarray, d: int, n: int, device=None) -> QuantTensor:
     """Losslessly repack a reference-format Q40 tensor (``d`` rows of ``n``
     values, blocks along n) into the kernel layout for the transposed
-    ``[n, d]`` kernel matrix."""
-    q, deltas = blocks.unpack_q40(raw)
-    return pack_q40(q.reshape(d, n).T, deltas.reshape(d, n // QK).T, device)
+    ``[n, d]`` kernel matrix: the planes :func:`pack_q40` makes from the
+    unpacked quants, built by moving nibbles. A file block holds value i in
+    the low nibble of byte i (i < 16) or the high nibble of byte i - 16;
+    the kernel's byte pairs value j of the superblock's first block (low
+    nibble) with value j of its second (high nibble). Both store q + 8, so
+    no quant is decoded, and the one transpose is of bytes. Torch does the
+    work on ``device``; None gives numpy planes (made on the host's
+    cores)."""
+    if n % 64:
+        raise ValueError(f"q40 kernel needs in_features % 64 == 0, got {n}")
+    kp = _pad_up(n, K_MULTIPLE["q40"])
+    blk = _raw_on(raw, device).reshape(d, n // 64, 2, blocks.Q40_BLOCK_BYTES)
+    q0, q1 = blk[:, :, 0, 2:], blk[:, :, 1, 2:]  # the superblock's two blocks' nibble bytes
+    pairs = torch.stack([(q0 & 0xF) | ((q1 & 0xF) << 4),  # values 0..15
+                         (q0 >> 4) | (q1 & 0xF0)], dim=2)  # values 16..31
+    deltas = blk[..., :2].contiguous().view(torch.float16)[..., 0].float()  # [d, n/64, 2]
+    packed = torch.full((kp // 2, d), 0x88, dtype=torch.uint8, device=blk.device)  # quant 0
+    packed[: n // 2] = pairs.reshape(d, n // 2).T
+    s = torch.zeros((2, kp // 64, d), dtype=torch.float32, device=blk.device)
+    s[:, : n // 64] = deltas.permute(2, 1, 0)
+    return _placed(QuantTensor(w=packed, s=s[0].clone(), s2=s[1].clone(), kind="q40",
+                               k_logical=n), device)
 
 
 def repack_q80(raw: np.ndarray, d: int, n: int, device=None) -> QuantTensor:
-    q, deltas = blocks.unpack_q80(raw)
-    return pack_q80(q.reshape(d, n).T, deltas.reshape(d, n // QK).T, device)
+    """Losslessly repack a reference-format Q80 tensor into the kernel
+    layout (:func:`pack_q80`'s planes); ``device`` as for
+    :func:`repack_q40`."""
+    blk = _raw_on(raw, device).reshape(d, n // QK, blocks.Q80_BLOCK_BYTES)
+    deltas = blk[..., :2].contiguous().view(torch.float16)[..., 0].float()  # [d, n/32]
+    q = blk[..., 2:].contiguous().view(torch.int8).reshape(d, n)
+    kp = _pad_up(n, K_MULTIPLE["q80"])
+    w = torch.zeros((kp, d), dtype=torch.int8, device=blk.device)
+    w[:n] = q.T
+    s = torch.zeros((kp // QK, d), dtype=torch.float32, device=blk.device)
+    s[: n // QK] = deltas.T
+    s2 = torch.zeros((0,), dtype=torch.float32, device=blk.device)
+    return _placed(QuantTensor(w=w, s=s, s2=s2, kind="q80", k_logical=n), device)
+
+
+def _raw_on(raw: np.ndarray, device) -> torch.Tensor:
+    """A tensor's file bytes (a read-only mmap view) as uint8 on ``device``
+    (None: the host)."""
+    t = torch.from_numpy(np.array(raw, np.uint8).reshape(-1))
+    return t if device is None else t.to(device)
+
+
+def _placed(qt: QuantTensor, device) -> QuantTensor:
+    """``qt`` as it stands, or as numpy planes when ``device`` is None."""
+    if device is not None:
+        return qt
+    return QuantTensor(qt.w.numpy(), qt.s.numpy(), qt.s2.numpy(), qt.kind, qt.k_logical)
 
 
 def dequantize(qt: QuantTensor) -> np.ndarray:

@@ -22,6 +22,17 @@ host position) for comparison; on the CPU the graph's body runs eagerly.
 Prefill and the speculative verify steps are eager. The KV cache is updated
 in place, where the JAX programs donate it.
 
+Tensor parallelism (``Engine(tp=...)``, a ``parallel.group.TPGroup``): one
+engine per rank, each holding its rank's output-sharded quantized weights
+and its kv heads' cache; every forward gathers the activations
+(``parallel.collectives``, over the Q80 wire with ``tp_compress``), so
+every rank computes the same logits, and every rank samples them with the
+same seeded generator: every rank emits the same tokens, with no broadcast.
+``generate``, ``generate_fused`` and ``generate_batch`` run under TP, with
+eager steps: a gloo gather cannot be captured in a CUDA graph, and
+capturing NCCL's is later work. The speculative paths and ``BatchSession``
+(the server's) are refused under TP.
+
 Telemetry and fault seams are the reference's: ``Engine(metrics=...)``
 registers the same metric names on an ``observability.MetricsRegistry``
 (the port's default registry unless told otherwise; ``None`` turns them
@@ -62,6 +73,7 @@ import torch
 from dllama_tpu_torch import faults, observability, resolve_device
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import ModelConfig
+from dllama_tpu_torch.parallel import quant_tp
 from dllama_tpu_torch.runtime import paged_kv
 from dllama_tpu_torch.runtime.graphs import GraphCache, StepGraph
 from dllama_tpu_torch.runtime.sampler import (
@@ -98,17 +110,23 @@ def prefill_bucket(n: int) -> int:
 
 @dataclasses.dataclass
 class TokenStats:
-    """Per-token timing (the reference's G/I/T line):
+    """Per-token timing (the reference's G/I/T/S/R line):
 
     * ``generation_ms`` (G): total wall time for the token.
     * ``inference_ms`` (I): time the host waited on the device after
       enqueueing the step (``torch.cuda.synchronize``).
     * ``transfer_ms`` (T): G - I — host work and kernel launches.
+    * ``sent_kb`` / ``recv_kb`` (S/R): the kB this rank's gathers sent for
+      the token under tensor parallelism (the group's byte counter,
+      ``parallel.collectives``), and received: as many, an all-gather's
+      ring; 0 on one device.
     """
 
     generation_ms: float
     inference_ms: float
     transfer_ms: float = 0.0
+    sent_kb: float = 0.0
+    recv_kb: float = 0.0
 
 
 @dataclasses.dataclass
@@ -135,7 +153,8 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params: dict,
                  sampler_cfg: SamplerConfig = SamplerConfig(),
                  cache_dtype=torch.float32, device=None, decode_chunk: int = DECODE_CHUNK,
-                 cuda_graphs: bool = True, metrics=DEFAULT_METRICS):
+                 cuda_graphs: bool = True, metrics=DEFAULT_METRICS, tp=None,
+                 tp_compress: bool = False):
         """Quantized projections that share an input are fused
         (``llama.fuse_qkv_ffn``) if they are not already. Every solo decode
         step checks ``isfinite(logits)`` and ``generate`` raises
@@ -146,11 +165,32 @@ class Engine:
         steps replay captured graphs (:class:`StepGraph`, on the CPU their
         body runs eagerly); False keeps the eager steps. ``metrics``: the
         registry the engine's histograms and counters go to (the default
-        registry unless given; ``None`` disables them)."""
+        registry unless given; ``None`` disables them).
+
+        ``tp``: this process's rank of a tensor-parallel world
+        (``parallel.group.TPGroup``); ``params`` must be the rank's
+        quantized shards (``quant_params_from_reader(..., tp=)``,
+        ``quant_tp.shard_params``), fused here from its own parts, and the
+        engine runs on the group's device with eager steps
+        (``cuda_graphs`` is ignored). ``tp_compress``: the gathers move the
+        Q80 wire (``tp_wire`` says which wire runs)."""
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self._register_metrics(
             observability.default_registry() if metrics is DEFAULT_METRICS else metrics)
+        self.tp = tp
+        self.tp_wire = "q80" if tp is not None and tp_compress else "plain"
+        self._tp_kw: dict = {}
+        self._tp_size = 1
+        if tp is not None:
+            quant_tp.validate_quant_tp(cfg, tp.size)
+            quant_tp.check_shards(params, cfg, tp.size)
+            if device is not None and torch.device(device) != tp.device:
+                raise ValueError(f"device {device} is not the tensor-parallel rank's {tp.device}")
+            device = tp.device
+            cuda_graphs = False
+            self._tp_kw = {"tp": tp, "tp_compress": tp_compress}
+            self._tp_size = tp.size
         self.device = resolve_device(device)
         self.cfg = cfg
         self.sampler_cfg = sampler_cfg
@@ -175,7 +215,7 @@ class Engine:
         # them) instead of allocating new slabs
         self._slabs: list = []
         #: generate_batch_spec runs on this engine (the server's spec route)
-        self.supports_batch_spec = True
+        self.supports_batch_spec = tp is None
         self.prefill_ms = 0.0
         self.decode_ms = 0.0
         self.row_health: list = []
@@ -183,8 +223,9 @@ class Engine:
 
     def _register_metrics(self, metrics) -> None:
         """The reference Engine's metric names (``None``: no telemetry). The
-        port has no tensor-parallel programs: those two counters stay at 0,
-        so that ``/metrics`` lists the same names as the reference's."""
+        two TP counters belong to ``--tp-overlap`` and ``--tp-reduce``, which
+        are not ported: they stay at 0, so that ``/metrics`` lists the same
+        names as the reference's."""
         self.metrics = metrics
         if metrics is None:
             self._m_prefill = self._m_step = self._m_chunk = None
@@ -243,8 +284,17 @@ class Engine:
             return (min(max(fv["row"], 0), batch - 1),)
         return ()
 
+    def _wire_bytes(self) -> int:
+        """Bytes this rank's gathers have sent so far (0 on one device)."""
+        return 0 if self.tp is None else self.tp.sent_bytes
+
+    def _refuse_under_tp(self, what: str) -> None:
+        if self.tp is not None:
+            raise ValueError(f"{what} does not run under tensor parallelism yet: "
+                             f"{quant_tp.NOT_PORTED}")
+
     def new_cache(self) -> dict:
-        return llama.init_cache(self.cfg, self.cache_dtype, self.device)
+        return llama.init_cache(self.cfg, self.cache_dtype, self.device, self._tp_size)
 
     def free_cache(self, cache: dict) -> None:
         """Free ``cache`` now rather than at the next collection: the
@@ -305,13 +355,14 @@ class Engine:
         return s
 
     def _batch_cache_init(self, batch: int) -> dict:
-        return llama.init_batch_cache(self.cfg, batch, self.cache_dtype, self.device)
+        return llama.init_batch_cache(self.cfg, batch, self.cache_dtype, self.device,
+                                      self._tp_size)
 
     def _bucket_cache_init(self, cap: int, ctx: int) -> dict:
         """A zeroed slab [L, cap, ctx, kv, hd]: a bucket pool's cache, or
         (cap pages of ctx tokens) a paged session's arena."""
         cfg = self.cfg
-        shape = (cfg.n_layers, cap, ctx, cfg.n_kv_heads, cfg.head_size)
+        shape = (cfg.n_layers, cap, ctx, cfg.n_kv_heads // self._tp_size, cfg.head_size)
         return {n: torch.zeros(shape, dtype=self.cache_dtype, device=self.device)
                 for n in ("k", "v")}
 
@@ -443,7 +494,7 @@ class Engine:
         padded[: len(tokens)] = torch.tensor(tokens, dtype=torch.long)
         logits, cache = llama.forward(self.cfg, self.params, self.rope,
                                       padded.to(self.device), cache, pos,
-                                      last_pos=len(tokens) - 1)
+                                      last_pos=len(tokens) - 1, **self._tp_kw)
         return logits[0], cache
 
     def _sampling(self, sampler: Optional[SamplerConfig]) -> tuple:
@@ -459,7 +510,7 @@ class Engine:
         device tensors the host has not waited for yet. ``poison``: the
         logits are NaN (the ``logits`` fault seam)."""
         logits, _ = llama.forward(self.cfg, self.params, self.rope,
-                                  token.reshape(1), cache, pos)
+                                  token.reshape(1), cache, pos, **self._tp_kw)
         if poison:
             logits = torch.full_like(logits, float("nan"))
         nxt = sample_dynamic(logits[0], scfg.temperature, scfg.topp, gen)
@@ -576,6 +627,7 @@ class Engine:
         steps = min(steps, self.cfg.seq_len - pos - len(prompt_tokens))
 
         t0 = time.perf_counter()
+        b0 = self._wire_bytes()
         if len(prompt_tokens) > 1:
             last_logits, cache = self.prefill(cache, prompt_tokens, pos)
             token = sample_dynamic(last_logits, scfg.temperature, scfg.topp, gen)
@@ -594,12 +646,14 @@ class Engine:
                 return
             tok_int = int(token)
             self.final_session = self._session(cache, pos, pending_token=tok_int)
-            yield tok_int, TokenStats(self.prefill_ms, self.prefill_ms)
+            kb = (self._wire_bytes() - b0) / 1024.0
+            yield tok_int, TokenStats(self.prefill_ms, self.prefill_ms, sent_kb=kb, recv_kb=kb)
             steps -= 1
             if tok_int in stop_tokens:
                 return
         for _ in range(max(steps, 0)):
             t1 = time.perf_counter()
+            b1 = self._wire_bytes()
             poison = self._poison_flag()
             if self.cuda_graphs:
                 toks, ok = self._decode_chunk_solo(cache, token, pos, 1, scfg, gen, poison)
@@ -621,10 +675,12 @@ class Engine:
                 self._m_step.observe((t4 - t1) * 1000.0)
             pos += 1
             self.final_session = self._session(cache, pos, pending_token=tok_int)
+            kb = (self._wire_bytes() - b1) / 1024.0
             yield tok_int, TokenStats(
                 generation_ms=(t4 - t1) * 1000.0,
                 inference_ms=(t3 - t2) * 1000.0,
                 transfer_ms=(t2 - t1 + t4 - t3) * 1000.0,
+                sent_kb=kb, recv_kb=kb,
             )
             if tok_int in stop_tokens:
                 break
@@ -762,6 +818,7 @@ class Engine:
         exactly after it. The first token's stats report the prefill, as in
         ``generate``; a verify step's times go to the first token it emits,
         the others report 0."""
+        self._refuse_under_tp("generate_spec")
         scfg, gen = self._sampling(sampler)
         sampled = scfg.temperature > 0.0
         S = self.cfg.seq_len
@@ -879,7 +936,7 @@ class Engine:
 
             def step(tok, p):
                 return llama.forward_batched(self.cfg, self.params, self.rope, tok, cache, p,
-                                             bound)[0]
+                                             bound, **self._tp_kw)[0]
         else:
             table = table.to(self.device, torch.long)
 
@@ -1044,6 +1101,7 @@ class Engine:
         rows). ``row_cancel(b) -> bool``: asked for every unfinished row
         between steps; True finishes the row there, its tokens so far stand.
         The host reads the [B, T] argmax once a step."""
+        self._refuse_under_tp("generate_batch_spec")
         if not prompts or any(not p for p in prompts):
             raise ValueError("generate_batch_spec needs non-empty prompts")
         scfg = sampler if sampler is not None else self.sampler_cfg
@@ -1128,6 +1186,7 @@ class Engine:
         accountant (``serving.lifecycle.KVBudget``) that mirrors
         reservations into gauges and, paged, owns the page free list
         (``attach_pages``)."""
+        self._refuse_under_tp("a BatchSession")
         return BatchSession(self, max_batch, chunk, bucket_kv=bucket_kv,
                             min_bucket=min_bucket, prefill_chunk=prefill_chunk,
                             kv_budget=kv_budget, kv_pages=kv_pages)
