@@ -211,7 +211,7 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    completes with logits within tolerance. Wire bytes, export and import
    ms logged. Graphs made per shape with their capture ms and pool bytes.
 
-10. Tensor parallelism (``dllama_tpu_torch.parallel``, run last). K1's and
+10. Tensor parallelism (``dllama_tpu_torch.parallel``, after phase 8d). K1's and
    K3's decode GEMVs at the shard widths a tp 2 and a tp 4 rank of the
    Llama-3-8B shape launches (wqkv O 3072 / 1536, wo and w2 2048 / 1024,
    w13 14336 / 7168, wcls 64128 / 32128), each against its plain version,
@@ -234,7 +234,45 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    launches are counted from 0 and K1, K4, K5 (and their batched forms, and
    the indexed GEMV in d) must have launched. Logged beside the card: ms
    per token a rank (gloo over one card: not tensor-parallel speed), kB sent
-   a token, load seconds and peak memory a rank.
+   a token, load seconds and peak memory a rank. The `.m` file stays for
+   phase 11c, and the solo engine answers 11c's greedy request.
+
+11. The fleet's front door (``serving.router``, ``serving.fleet``, the CLI
+   modes ``fleet``, ``top``, ``snapshot`` and ``explain``), run last. (a)
+   The router in process (``create_router_server``) in front of two
+   in-process replicas: phase 6's graphed Q40 engine, kept for it, and a
+   twin sharing its weights, each ``--kv-pages 16 --batch-window 5
+   --batch-max 8 --ckpt-interval 8``; the two engines' sessions take turns
+   on the card under one lock, as two processes' contexts would. Each
+   replica first serves a checkpointing stream of its own, so the chat
+   template's first page is in its radix cache and no admission depends
+   on the order it comes in. A wave of 8 streamed requests (4 greedy, 4
+   sampled with seeds), 16 tokens each, through the router: every text
+   equals the same request sent straight to a fresh, warmed replica of
+   the engine that served it, together with the rest of that replica's
+   share, both replicas serve, K1, K4 and K5 launch; a conversation's next
+   turn goes to the replica holding the first turn's pages (an affinity
+   pick, and that replica's ``/ready`` prefix hit rate rises). Logged: time
+   to first token and ms/token straight to a replica, through a router
+   that only relays, and through one that checkpoints. (b) Failover:
+   a greedy and a sampled 64-token stream through a router on the f32 and
+   on the q80 checkpoint wire; once the router has stored a checkpoint the
+   serving replica's server is stopped (its connections cut, its listener
+   closed) and the router resumes the stream on the sibling: on the f32
+   wire the client's bytes equal an uninterrupted run's (the per-request
+   ``id`` and ``created`` fields aside), on both wires the streams end
+   cleanly and ``dllama_stream_resume_total{outcome="ok"}`` counts 2.
+   Logged: the checkpoint bytes the router stored. (c) ``python -m
+   dllama_tpu_torch.cli fleet --replicas 2`` on phase 10's file with
+   ``--replica-arg "--kv-pages 16 --batch-window 5 --batch-max 4
+   --ckpt-interval 8 --chat-template llama3"`` and ``DLLAMA_TRACE`` set:
+   both replica pids are on the card (nvidia-smi), a greedy request through
+   the fleet answers what phase 10's solo engine answers, ``cli top``,
+   ``cli snapshot`` and ``cli explain`` exit 0 on the live fleet, and
+   SIGTERM drains it to exit 0 within 90 s. Logged: each replica's startup
+   seconds and memory, the supervisor's (the router's) RSS, time to first
+   token and ms/token straight to a replica and through the router, and
+   the spans of a routed stream (``cli explain``).
 
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
@@ -2612,7 +2650,7 @@ def write_serving_tokenizer(path: Path, vocab_size: int) -> None:
     write_tokenizer(str(path), TokenizerData(vocab=vocab, scores=scores, bos_id=1, eos_id=2))
 
 
-def http_chat(port: int, body: dict, timeout: float = 600) -> dict:
+def http_chat(port: int, body: dict, timeout: float = 600, headers: dict = None) -> dict:
     """POST /v1/chat/completions: the status, the JSON (or, streamed, the
     SSE deltas) and the seconds to the first content and to the end."""
     import http.client
@@ -2620,7 +2658,7 @@ def http_chat(port: int, body: dict, timeout: float = 600) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     t0 = time.perf_counter()
     conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
-                 headers={"Content-Type": "application/json"})
+                 headers={"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     out = {"status": resp.status}
     if not body.get("stream") or resp.status != 200:
@@ -3945,7 +3983,7 @@ def tp_wire_bytes(cfg, tp: int, per_feat: float, hidden: int, vocab_padded: int)
 
 
 def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
-            nccl: bool = True) -> dict:
+            nccl: bool = True, fleet_tok: Path = None) -> dict:
     """Tensor parallelism (``parallel``) on the card. (a) A one-rank NCCL
     world runs the whole TP path (shard load, gathers through NCCL): logits
     and tokens bit-equal to the eager solo engine on the same `.m` file.
@@ -3959,7 +3997,10 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
     analytic count. (d) Mixtral widths at tp 2 (4 layers): the first step
     within tolerance of the solo engine, the expert-indexed GEMVs launched.
     Each run's launches are counted from 0. ms per token here is gloo over
-    one card, not tensor-parallel speed."""
+    one card, not tensor-parallel speed. With ``fleet_tok`` (a `.t` file)
+    the solo engine also answers 11c's request (``fleet_reference``) and
+    the `.m` file is kept for 11c (``out["path"]``; the caller deletes
+    it)."""
     import numpy as np
 
     from dllama_tpu_torch.formats.weights import WeightFileReader
@@ -4000,6 +4041,8 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
         solo_run = decode_run(torch, solo, prompt, TP_STEPS)
         solo_batch = solo.generate_batch(batch_in, TP_BATCH_STEPS)
         out["solo"] = {k: v for k, v in solo_run.items() if k != "launches"}
+        if fleet_tok is not None:
+            out["fleet_reference"] = fleet_reference(solo, fleet_tok)
         log(f"  solo eager engine: loaded in {out['solo_load_s']:.1f} s; "
             f"{solo_run['ms_per_token']:.2f} ms/token; tokens {solo_run['tokens'][:8]}...")
         scale = solo_logits.abs().max().item()
@@ -4118,7 +4161,674 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
             fail("10d: MoE under tp 2 is off the solo engine, or the indexed GEMVs never ran")
     finally:
         world.close()
-        path.unlink(missing_ok=True)
+        if fleet_tok is None:
+            path.unlink(missing_ok=True)
+    out["path"] = path
+    return out
+
+
+#: phase 11: the replicas' serve flags in process (11a, 11b) and in ``cli fleet`` (11c)
+P11_SERVE = dict(batch_window_ms=5.0, batch_max=8, kv_pages=16, ckpt_interval=8)
+FLEET_REPLICA_ARGS = ("--kv-pages 16 --batch-window 5 --batch-max 4 --ckpt-interval 8 "
+                      "--chat-template llama3")
+#: tokens of each request of 11a's wave, of 11b's streams and of 11c's greedy request
+P11_WAVE_TOKENS = 16
+P11_STREAM_TOKENS = 64
+FLEET_TOKENS = 32
+#: 11c's greedy request, answered through the fleet and by phase 10's solo engine
+FLEET_MESSAGES = [{"role": "user", "content": "Tell me about the ocean and its tides"}]
+#: the per-request identity fields of a chat completion chunk
+CHUNK_IDS = (rb'"id": "chatcmpl-[0-9a-f]+"', rb'"created": [0-9]+')
+
+
+def serialized_sessions(engine, lock) -> None:
+    """Make every ``BatchSession`` that ``engine`` opens, and each step of
+    its solo ``generate``, run its device work under ``lock``. Two engines
+    in one process share the device's arrival counters and its default
+    stream, and a graph's warm-up and capture (on a side stream) must not
+    overlap the other engine's launches; replicas in processes of their own
+    get that exclusion from their separate CUDA contexts, which the card
+    time-slices. ``del engine.batch_session, engine.generate`` ends it."""
+    orig = type(engine).batch_session.__get__(engine)
+    solo = type(engine).generate.__get__(engine)
+
+    def generate(*a, **k):
+        it = solo(*a, **k)
+        while True:
+            with lock:
+                item = next(it, None)
+            if item is None:
+                return
+            yield item
+
+    def opened(*a, **k):
+        with lock:
+            sess = orig(*a, **k)
+        for name in ("admit", "admit_begin", "prefill_step", "step_chunk", "release", "cancel",
+                     "close", "export_row", "admit_from_export"):
+            def locked(*x, _fn=getattr(sess, name), **y):
+                with lock:
+                    return _fn(*x, **y)
+
+            setattr(sess, name, locked)
+        return sess
+
+    engine.batch_session = opened
+    engine.generate = generate
+
+
+class P11Replica:
+    """One in-process replica of phase 11: a ``ServerState`` on its own
+    engine behind ``create_server``, which records the sockets it accepts
+    (so :meth:`kill` can cut its streams as a dying process would) and the
+    streams its batcher opens."""
+
+    def __init__(self, engine, tok, cfg, port: int = 0):
+        import threading
+
+        from dllama_tpu_torch.serving.api_server import ServerState
+
+        self.state = ServerState(engine, tok, cfg, model_name="llama3-8b-shape",
+                                 template="llama3", ts_interval=0.0, **P11_SERVE)
+        self.streams = 0  # streams opened (submit_stream or a resume's import)
+        self.prompts: list = []  # each submitted stream's prompt tokens
+        self._count = threading.Lock()
+        for meth in ("submit_stream", "submit_import_stream"):
+            def counted(*a, _orig=getattr(self.state.batcher, meth), **k):
+                gen = _orig(*a, **k)
+                with self._count:
+                    self.streams += 1
+                    if a and isinstance(a[0], list):
+                        self.prompts.append(list(a[0]))
+                return gen
+
+            setattr(self.state.batcher, meth, counted)
+        self.start(port)
+
+    def warm(self) -> None:
+        """One checkpointing stream of a prompt of its own: the paged pool
+        opens, its graphs are made, and the chat template's first page is
+        in the radix cache, so every later admission aliases that page
+        whatever the order it comes in."""
+        st, _, data = raw_post(self.port, {
+            "messages": [{"role": "user", "content": "Say something"}], "max_tokens": 8,
+            "temperature": 0.0, "stream": True},
+            {"X-Dllama-Ckpt": str(P11_SERVE["ckpt_interval"])})
+        if st != 200 or not sse_parts(data)[1]:
+            fail(f"phase 11: a replica's warm-up stream answered {st}")
+        with self._count:
+            self.prompts.clear()
+
+    def start(self, port: int = 0) -> None:
+        import threading
+
+        from dllama_tpu_torch.serving.api_server import create_server
+
+        self.srv = create_server(self.state, "127.0.0.1", port)
+        self.port = self.srv.server_address[1]
+        self.conns: list = []
+        accept = self.srv.get_request
+
+        def get_request():
+            sock, addr = accept()
+            self.conns.append(sock)
+            return sock, addr
+
+        self.srv.get_request = get_request
+        threading.Thread(target=self.srv.serve_forever, daemon=True, name="p11-http").start()
+
+    def kill(self) -> None:
+        """Cut every accepted connection, then close the listener."""
+        import socket
+
+        for sock in self.conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # already closed by its handler
+        self.srv.shutdown()
+        self.srv.server_close()
+
+    def stop(self) -> None:
+        from dllama_tpu_torch.serving.api_server import drain_and_shutdown
+
+        drain_and_shutdown(self.state, self.srv, 10.0)
+        self.srv.server_close()
+
+
+def p11_router(ports: list, **kw):
+    """The port's router (``create_router_server``) in front of ``ports``,
+    probing every 0.2 s: (state, server, port)."""
+    import threading
+
+    from dllama_tpu_torch.serving import router as rt
+
+    state = rt.RouterState([rt.Replica("127.0.0.1", p) for p in ports], probe_interval_s=0.2,
+                           **kw)
+    state.probe_once()
+    state.start_probes()
+    srv = rt.create_router_server(state, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True, name="p11-router").start()
+    return state, srv, srv.server_address[1]
+
+
+def p11_close_router(state, srv) -> None:
+    state.stop_probes()
+    srv.shutdown()
+    srv.server_close()
+
+
+def raw_post(port: int, body: dict, headers: dict = None, timeout: float = 600) -> tuple:
+    """POST /v1/chat/completions: (status, response headers, raw body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/chat/completions", body=json.dumps(body),
+                     headers={"Content-Type": "application/json", **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def raw_wave(port: int, bodies: list, headers: dict = None) -> tuple:
+    """Every streamed body at once, one thread each: ([{status, text, done,
+    error}], wall seconds)."""
+    import threading
+
+    out = [None] * len(bodies)
+    start = threading.Barrier(len(bodies))
+
+    def one(i):
+        start.wait()
+        st, _, data = raw_post(port, bodies[i], headers)
+        text, done, err = sse_parts(data)
+        out[i] = {"status": st, "text": text, "done": done, "error": err}
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out, time.perf_counter() - t0
+
+
+def sse_parts(data: bytes) -> tuple:
+    """(content text, saw [DONE], the error event's payload or None)."""
+    text, done, err = [], False, None
+    for line in data.split(b"\n"):
+        if line == b"data: [DONE]":
+            done = True
+        elif line.startswith(b"data: {"):
+            obj = json.loads(line[6:])
+            err = obj.get("error", err)
+            for ch in obj.get("choices", []):
+                text.append((ch.get("delta") or {}).get("content") or "")
+    return "".join(text), done, err
+
+
+def strip_ids(data: bytes) -> bytes:
+    import re
+
+    for pat in CHUNK_IDS:
+        data = re.sub(pat, b"", data)
+    return data
+
+
+def stream_times(r: dict, tokens: int) -> dict:
+    """One streamed ``http_chat`` of ``tokens`` tokens: the time to its first
+    content, to its end, and the end over the tokens (a checkpointing stream
+    decodes in the paged pool and arrives in bursts of a decode chunk; a
+    plain one alone in the pool takes the solo path, a token an event)."""
+    if r["status"] != 200 or r["finish"] != "length":
+        fail(f"a timed stream ended {r['status']} {r.get('finish')}")
+    return {"ttft_ms": r["content_times"][0] * 1e3, "total_ms": r["seconds"] * 1e3,
+            "ms_per_token": r["seconds"] * 1e3 / tokens, "events": len(r["content_times"])}
+
+
+def timed_streams(targets: dict, seed: int, rounds: int = 2, tokens: int = 32) -> dict:
+    """``rounds`` greedy streams of ``tokens`` tokens to each named port, in
+    turns, a fresh prompt each (every admission cold), the k-th to target n
+    with the request id ``p11-<n>-<k>``: {name: {the medians of ttft_ms,
+    total_ms, ms_per_token; runs}}."""
+    runs = {name: [] for name in targets}
+    prompts = wave_prompts(rounds * len(targets), seed)
+    for i, p in enumerate(prompts):
+        n = i % len(targets)
+        name = list(targets)[n]
+        body = {"messages": [{"role": "user", "content": p}], "max_tokens": tokens,
+                "temperature": 0.0, "stream": True}
+        runs[name].append(stream_times(http_chat(
+            targets[name], body, headers={"X-Request-Id": f"p11-{n}-{len(runs[name])}"}),
+            tokens))
+    return {name: {**{m: statistics.median(x[m] for x in v)
+                      for m in ("ttft_ms", "total_ms", "ms_per_token")}, "runs": v}
+            for name, v in runs.items()}
+
+
+def log_streams(what: str, med: dict) -> None:
+    log(f"  {what}, medians of 2 streams of 32 greedy tokens: " + "; ".join(
+        f"{name} {m['ttft_ms']:.1f} ms to the first token, {m['total_ms']:.1f} ms in all, "
+        f"{m['ms_per_token']:.3f} ms/token" for name, m in med.items()))
+
+
+def phase11(torch, dev, engine) -> dict:
+    """11a and 11b: the router (``serving.router``) in process, in front of
+    two in-process replicas on the card: phase 6's graphed Q40 engine and a
+    twin sharing its weights, each ``--kv-pages 16 --batch-window 5
+    --batch-max 8 --ckpt-interval 8`` (see the module docstring)."""
+    import threading
+
+    from dllama_tpu_torch import kernels
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+
+    cfg = engine.cfg
+    card = gpu_line() if dev.type == "cuda" else "cpu"
+    out: dict = {"card": card}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        write_serving_tokenizer(Path(d) / "serve.t", cfg.vocab_size)
+        tok = Tokenizer.from_file(str(Path(d) / "serve.t"))
+    twin = Engine(cfg, engine.params, engine.sampler_cfg, cache_dtype=engine.cache_dtype,
+                  device=dev)
+    lock = threading.Lock()
+    for e in (engine, twin):
+        serialized_sessions(e, lock)
+    reps = [P11Replica(e, tok, cfg) for e in (engine, twin)]
+    ports = [r.port for r in reps]
+    try:
+        # -- (a) a wave of 8 streamed requests through the router, and each
+        # replica's share of it sent straight to a fresh replica of its engine
+        bodies = [{"messages": [{"role": "user", "content": p}], "max_tokens": P11_WAVE_TOKENS,
+                   "stream": True, "temperature": 0.8 if i % 2 else 0.0, "top_p": 0.9,
+                   "seed": 300 + i} for i, p in enumerate(wave_prompts(8, 11))]
+        prompts = [tok.encode(reps[0].state.build_prompt(b["messages"]), add_bos=True)
+                   for b in bodies]
+        for r in reps:
+            r.warm()
+        state, rsrv, rport = p11_router(ports, ckpt_interval=P11_SERVE["ckpt_interval"])
+        try:
+            kernels.reset_launches()
+            routed, wall = raw_wave(rport, bodies)
+            launches = dict(kernels.launches)
+            served = [[prompts.index(p) for p in r.prompts if p in prompts] for r in reps]
+            refs = [P11Replica(e, tok, cfg) for e in (engine, twin)]
+            try:
+                straight = [None] * len(bodies)
+                for ref, share in zip(refs, served):
+                    ref.warm()
+                    got, _ = raw_wave(ref.port, [bodies[i] for i in share],
+                                      {"X-Dllama-Ckpt": str(P11_SERVE["ckpt_interval"])})
+                    for i, g in zip(share, got):
+                        straight[i] = g
+            finally:
+                for ref in refs:
+                    ref.stop()
+
+            # a conversation, then its next turn: the router's affinity sends the
+            # turn to the replica whose radix cache holds the first turn's pages
+            words = wave_prompts(10, 12)  # a first turn of 300-700 bytes
+            conv = [{"role": "user", "content": " ".join(words[:6])}]
+            n0 = [r.streams for r in reps]
+            first = http_chat(rport, {"messages": conv, "max_tokens": 8, "temperature": 0.0,
+                                      "stream": True})
+            if first["status"] != 200:
+                fail(f"phase 11a: the first turn answered {first}")
+            holder = [i for i, (r, n) in enumerate(zip(reps, n0)) if r.streams > n]
+            rate0 = [json.loads(http_get(p, "/ready")[1])["prefix_hit_rate"] for p in ports]
+            turn2 = conv + [{"role": "assistant", "content": first["text"]},
+                            {"role": "user", "content": " ".join(words[6:])}]
+            picks0 = state._m_picks.value(reason="affinity")
+            n1 = [r.streams for r in reps]
+            second = http_chat(rport, {"messages": turn2, "max_tokens": 8, "temperature": 0.0,
+                                       "stream": True})
+            holder2 = [i for i, (r, n) in enumerate(zip(reps, n1)) if r.streams > n]
+            rate1 = [json.loads(http_get(p, "/ready")[1])["prefix_hit_rate"] for p in ports]
+            affinity_picks = state._m_picks.value(reason="affinity") - picks0
+
+            # the router's cost on a stream: straight to a replica, through a router
+            # that only relays (no checkpoints: the replica serves it solo, as
+            # straight), and through this one (checkpoints every 8 tokens: the
+            # paged pool, bursts of a decode chunk)
+            pstate, psrv, pport = p11_router(ports, ckpt_interval=0)
+            try:
+                timed = timed_streams({"straight": ports[0], "relayed": pport,
+                                       "checkpointed": rport}, seed=13)
+            finally:
+                p11_close_router(pstate, psrv)
+        finally:
+            p11_close_router(state, rsrv)
+        parted = [i for i, (r, g) in enumerate(zip(routed, straight))
+                  if g is None or r["text"] != g["text"]]
+        a_checks = {
+            "statuses": all(r["status"] == 200 and r["done"] and r["error"] is None
+                            for r in routed + [g for g in straight if g is not None])
+            and first["status"] == second["status"] == 200,
+            "every request served once": sorted(i for sh in served for i in sh)
+            == list(range(len(bodies))),
+            "routed texts = straight to one replica": not parted,
+            "both replicas served": all(len(sh) >= 1 for sh in served),
+            "the next turn went to the first turn's replica": (len(holder) == 1
+                                                               and holder2 == holder),
+            "affinity picked it": affinity_picks >= 1,
+            "its prefix hit rate rose": bool(holder) and rate1[holder[0]] > rate0[holder[0]],
+        }
+        n_tok = len(bodies) * P11_WAVE_TOKENS
+        out["a"] = {"checks": a_checks, "served": served, "launches": launches,
+                    "wave_tokens_per_s": n_tok / wall, "wave_wall_s": wall,
+                    "parted": parted, "prefix_hit_rate": {"before": rate0, "after": rate1},
+                    "affinity_picks": affinity_picks, "stream": timed}
+        log(f"  {card}")
+        log(f"  11a wave of 8 streamed requests (4 greedy, 4 sampled), {P11_WAVE_TOKENS} tokens "
+            f"each, through the router: requests {served} a replica, {n_tok} tokens in "
+            f"{wall * 1e3:.1f} ms = {n_tok / wall:.1f} tokens/s; texts parting from the same "
+            f"requests straight to a fresh replica: {parted}; next turn on replica {holder2} "
+            f"(first turn {holder}), affinity picks {affinity_picks}, its prefix hit rate "
+            f"{rate0} -> {rate1}; launches {launches}")
+        log_streams("11a", timed)
+        log(f"  11a checks {a_checks}")
+        if not all(a_checks.values()):
+            fail(f"phase 11a: {[k for k, v in a_checks.items() if not v]}")
+        for k in ("q40_matmul", "flash_decode_batched", "rope_cache_update_batched"):
+            if not launches.get(k):
+                fail(f"phase 11a: {k} never launched through the router")
+
+        # -- (b) mid-stream failover: the serving replica's server stops after a checkpoint --
+        out["b"] = {}
+        for wire in ("f32", "q80"):
+            state, rsrv, rport = p11_router(ports, ckpt_interval=P11_SERVE["ckpt_interval"],
+                                            kv_wire=wire)
+            stored: list = []
+            put = state.ckpt_store.put
+
+            def record(rid, payload, offset, replica, _put=put, _stored=stored):
+                _stored.append(len(payload))
+                _put(rid, payload, offset, replica)
+
+            state.ckpt_store.put = record
+            runs = {}
+            try:
+                for name, sampling in (("greedy", {"temperature": 0.0}),
+                                       ("sampled", {"temperature": 0.8, "top_p": 0.9,
+                                                    "seed": 77})):
+                    body = {"messages": [{"role": "user",
+                                          "content": f"{wave_prompts(1, 14)[0]} {wire} {name}"}],
+                            "max_tokens": P11_STREAM_TOKENS, "stream": True, **sampling}
+                    raw_post(rport, body)  # the first admission: its prompt's pages cached
+                    ref = raw_post(rport, body)  # the run to match: a warm admission
+                    n_put = len(stored)
+                    live0 = [r.streams for r in reps]
+                    got: dict = {}
+                    t = threading.Thread(target=lambda: got.setdefault("r", raw_post(rport,
+                                                                                      body)))
+                    t0 = time.perf_counter()
+                    t.start()
+                    deadline = time.monotonic() + 120
+                    while len(stored) == n_put and time.monotonic() < deadline and t.is_alive():
+                        time.sleep(0.001)
+                    victim = next((i for i, (r, n) in enumerate(zip(reps, live0))
+                                   if r.streams > n), None)
+                    if victim is None or len(stored) == n_put:
+                        fail(f"phase 11b {wire} {name}: no checkpoint before the stream ended")
+                    reps[victim].kill()
+                    t.join(timeout=600)
+                    resumed_s = time.perf_counter() - t0
+                    reps[victim].start(ports[victim])
+                    deadline = time.monotonic() + 30
+                    while (state.readiness()[1].get("replicas_ready", 0) < 2
+                           and time.monotonic() < deadline):
+                        time.sleep(0.05)
+                    st, _, data = got["r"]
+                    text, done, err = sse_parts(data)
+                    runs[name] = {"status": st, "victim": victim, "done": done, "error": err,
+                                  "bytes_equal": strip_ids(data) == strip_ids(ref[2]),
+                                  "text_equal": text == sse_parts(ref[2])[0],
+                                  "ckpt_leak": b"dllama-ckpt" in data, "seconds": resumed_s}
+                ok = state._m_resumes.value(outcome="ok")
+            finally:
+                p11_close_router(state, rsrv)
+            b_checks = {"statuses": all(r["status"] == 200 and r["done"] and r["error"] is None
+                                        and not r["ckpt_leak"] for r in runs.values()),
+                        "resumes ok = 2": ok == 2}
+            if wire == "f32":
+                b_checks["resumed bytes = uninterrupted"] = all(r["bytes_equal"]
+                                                                for r in runs.values())
+            out["b"][wire] = {"checks": b_checks, "runs": runs, "resumes_ok": ok,
+                              "ckpt_frames": len(stored), "ckpt_bytes_max": max(stored),
+                              "ckpt_bytes_total": sum(stored)}
+            log(f"  11b {wire} wire, a greedy and a sampled {P11_STREAM_TOKENS}-token stream, "
+                f"the serving replica's server stopped after the router stored a checkpoint: "
+                f"{ {k: {x: r[x] for x in ('victim', 'bytes_equal', 'text_equal', 'seconds')} for k, r in runs.items()} }; "
+                f"{len(stored)} checkpoints stored, {max(stored)} bytes at most "
+                f"({sum(stored)} in all); resumes ok {ok}; checks {b_checks}")
+            if not all(b_checks.values()):
+                fail(f"phase 11b {wire}: {[k for k, v in b_checks.items() if not v]}")
+    finally:
+        for r in reps:
+            r.stop()
+        for e in (engine, twin):
+            del e.batch_session, e.generate
+    del twin
+    return out
+
+
+def rss_mb(pid: int) -> float:
+    """A process's resident set, MB (from /proc)."""
+    for line in Path(f"/proc/{pid}/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+def child_pids(pid: int) -> list:
+    """The pids whose parent is ``pid`` (from /proc)."""
+    out = []
+    for p in Path("/proc").iterdir():
+        if p.name.isdigit():
+            try:
+                stat = (p / "stat").read_text()
+            except OSError:
+                continue  # gone since the listing
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(p.name))
+    return out
+
+
+def free_ports(n: int) -> int:
+    """The first of ``n`` consecutive ports that are free now."""
+    import socket
+
+    for base in range(20000 + os.getpid() % 5000, 40000, 11):
+        try:
+            socks = []
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("no free ports")
+
+
+def fleet_reference(eng, tok_path: Path) -> dict:
+    """What phase 10's solo engine answers to 11c's request: the rendered
+    prompt's greedy ids and their text (up to the first stop token)."""
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+    from dllama_tpu_torch.serving.templates import render_llama3_chat
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+
+    tok = Tokenizer.from_file(str(tok_path))
+    prompt = tok.encode(render_llama3_chat(FLEET_MESSAGES), add_bos=True)
+    ids = [t for t, _ in eng.generate(prompt, FLEET_TOKENS, stop_tokens=(tok.eos_id,),
+                                      sampler=SamplerConfig(temperature=0.0, seed=0))]
+    prev, text = prompt[-1], b""
+    for t in ids:
+        if t == tok.eos_id:
+            break
+        text += tok.decode_piece(prev, t)
+        prev = t
+    return {"prompt_tokens": len(prompt), "ids": ids, "text": text.decode("utf-8", "replace")}
+
+
+def cli_run(args: list, timeout: float = 120) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "dllama_tpu_torch.cli", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def smi_apps() -> dict:
+    """{pid: MiB} of the card's compute processes, as nvidia-smi lists them."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                       timeout=60)
+    apps = {}
+    for line in r.stdout.splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = float(mib.strip() or "nan")
+    return apps
+
+
+def phase11c(torch, dev, model: Path, tok_path: Path, reference: dict,
+             replica_args: str = FLEET_REPLICA_ARGS) -> dict:
+    """11c: ``python -m dllama_tpu_torch.cli fleet --replicas 2`` on phase
+    10's Llama-3-8B-width `.m` file (see the module docstring)."""
+    import signal
+    import tarfile
+
+    work = ROOT / "build" / "fleet"
+    (work / "trace").mkdir(parents=True, exist_ok=True)
+    trace, logs = work / "trace" / "trace.json", work / "logs"
+    base = free_ports(3)  # the replicas' two, then the front door's
+    rport = base + 2
+    card = gpu_line() if dev.type == "cuda" else "cpu"
+    out: dict = {"card": card}
+    mem0 = torch.cuda.mem_get_info(dev) if dev.type == "cuda" else (0, 0)
+    cmd = ["fleet", "--model", str(model), "--tokenizer", str(tok_path), "--replicas", "2",
+           "--base-port", str(base), "--host", "127.0.0.1", "--port", str(rport),
+           "--probe-interval", "0.5", "--ready-timeout", "180", "--log-dir", str(logs),
+           "--ckpt-interval", "8",
+           "--replica-arg", replica_args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "dllama_tpu_torch.cli", *cmd], cwd=ROOT,
+                            env=dict(os.environ, DLLAMA_TRACE=str(trace)),
+                            stdout=open(work / "fleet.log", "w"), stderr=subprocess.STDOUT)
+    replicas: list = []
+    try:
+        deadline = time.monotonic() + 240
+        while time.monotonic() < deadline:
+            if proc.poll() is not None:
+                fail(f"phase 11c: cli fleet exited {proc.returncode} before its front door "
+                     f"was ready: {(work / 'fleet.log').read_text()[-3000:]}")
+            replicas = replicas or child_pids(proc.pid)
+            try:
+                if http_get(rport, "/ready")[0] == 200:
+                    break
+            except OSError:
+                pass  # the router is not listening yet
+            time.sleep(0.25)
+        else:
+            fail("phase 11c: the fleet's front door never became ready")
+        startup_s = time.perf_counter() - t0
+        replicas = child_pids(proc.pid)
+        loads = []
+        for i in range(2):
+            text = (logs / f"replica-{i}.log").read_text()
+            loads += [float(ln.split("loaded weights in ")[1].rstrip("s\n"))
+                      for ln in text.splitlines() if "loaded weights in " in ln]
+        apps = smi_apps() if dev.type == "cuda" else {}
+        mem1 = torch.cuda.mem_get_info(dev) if dev.type == "cuda" else (0, 0)
+        on_card = {p: apps.get(p) for p in replicas}
+        # where nvidia-smi lists processes of another pid namespace (it does
+        # not list this one, which holds a context), each replica's own
+        # report of its device and the card memory the fleet took stand in
+        smi_sees_us = os.getpid() in apps
+        said_cuda = all("device: cuda" in (logs / f"replica-{i}.log").read_text()
+                        for i in range(2))
+        # a warm-up request straight to each replica (its decode graphs)
+        for i in range(2):
+            http_chat(base + i, {"messages": [{"role": "user", "content": "hi"}],
+                                 "max_tokens": 4, "temperature": 0.0})
+        greedy = http_chat(rport, {"messages": FLEET_MESSAGES, "max_tokens": FLEET_TOKENS,
+                                   "temperature": 0.0}, headers={"X-Request-Id": "p11c-greedy"})
+        answer, n_answer = ((greedy["json"]["choices"][0]["message"]["content"],
+                             greedy["json"]["usage"]["completion_tokens"])
+                            if greedy["status"] == 200 else (None, None))
+        timed = timed_streams({"straight": base, "through the fleet's router": rport}, seed=15)
+        # where the second routed stream's time went: the replica's spans
+        # (queue, prefill, decode) and the router's, from the trace parts
+        parts = cli_run(["explain", "p11-1-1", "--trace", str(work / "trace"), "--json"])
+        waterfall = ([(r["source"], r["phase"], r["dur_ms"])
+                      for r in json.loads(parts.stdout)["rows"]]
+                     if parts.returncode == 0 else parts.stdout[-300:])
+        top = cli_run(["top", "--router", f"127.0.0.1:{rport}", "--iterations", "1"])
+        bundle = work / "snapshot.tar.gz"
+        snap = cli_run(["snapshot", "--router", f"127.0.0.1:{rport}", "--out", str(bundle),
+                        "--trace-dir", str(work / "trace")])
+        docs = len(tarfile.open(bundle).getnames()) if snap.returncode == 0 else 0
+        explain = cli_run(["explain", "p11c-greedy", "--trace", str(work / "trace"), "--json"])
+        wf = json.loads(explain.stdout) if explain.returncode == 0 else {}
+        router_rss = rss_mb(proc.pid)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=90)
+        except subprocess.TimeoutExpired:
+            rc = None
+        drain_s = time.perf_counter() - t1
+        gone = [p for p in replicas if not Path(f"/proc/{p}").exists()]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for p in replicas:
+            try:
+                os.kill(p, signal.SIGKILL)
+            except OSError:
+                pass  # already exited
+    names = [f"127.0.0.1:{base + i}" for i in range(2)]
+    checks = {
+        "two replicas": len(replicas) == 2,
+        "greedy through the fleet = phase 10's solo engine": answer == reference["text"]
+        and n_answer == len(reference["ids"]),
+        "top exits 0 with both replicas": top.returncode == 0
+        and all(n in top.stdout for n in names),
+        "snapshot exits 0 with documents": snap.returncode == 0 and docs >= 1,
+        "explain exits 0 with the router's and a replica's spans": explain.returncode == 0
+        and {"router", "replica"} <= {r["source"] for r in wf.get("rows", [])},
+        "SIGTERM drains to exit 0 within 90 s": rc == 0,
+        "the replicas exited": len(gone) == len(replicas),
+    }
+    if dev.type == "cuda":
+        checks["both replicas on the card"] = (
+            all(v is not None for v in on_card.values()) if smi_sees_us
+            else said_cuda and (mem0[0] - mem1[0]) > 2 * 4e9)
+    out.update(checks=checks, startup_s=startup_s, load_s=loads, replica_pids=replicas,
+               replica_mib=on_card, card_used_gb=(mem0[0] - mem1[0]) / 1e9,
+               router_rss_mb=router_rss, drain_s=drain_s, stream=timed,
+               smi_lists_this_process=smi_sees_us, routed_waterfall=waterfall,
+               snapshot_docs=docs, explain_rows=len(wf.get("rows", [])),
+               greedy_seconds=greedy["seconds"])
+    log(f"  {card}")
+    log(f"  11c cli fleet --replicas 2 ({replica_args}): front door ready after "
+        f"{startup_s:.1f} s (weights loaded in {loads} s), replica pids {replicas}, nvidia-smi "
+        f"MiB {on_card} (it lists this process: {smi_sees_us}), card memory taken "
+        f"{out['card_used_gb']:.2f} GB; router (the "
+        f"supervisor process) RSS {router_rss:.1f} MB")
+    log_streams("11c", timed)
+    log(f"  11c the second routed stream's spans (source, phase, ms): {waterfall}")
+    log(f"  11c snapshot {docs} documents, explain {out['explain_rows']} rows, SIGTERM exit "
+        f"{rc} in {drain_s:.1f} s; checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 11c: {[k for k, v in checks.items() if not v]}; top: {top.stdout[-800:]} "
+             f"{top.stderr[-800:]}; snapshot: {snap.stdout[-400:]} {snap.stderr[-400:]}; "
+             f"explain: {explain.stdout[-400:]} {explain.stderr[-400:]}")
     return out
 
 
@@ -4262,15 +4972,28 @@ def main() -> None:
     pools = phase9(torch, dev, engine)
     header("phase 8: the OpenAI-compatible server on phase 6's graphed Q40 engine")
     serving = phase8(torch, dev, engine, graphs["generate_ms_per_token_graphed"])
-    del engine
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # the engine stays for phase 11's replicas
     header("phase 8d: cli verify and cli generate --profile on phase 3's small Q40 model")
     serving["cli"] = phase8d()
 
     header("phase 10: tensor parallelism: K1/K3 at the tp 2 and tp 4 shard widths")
     tp_widths = phase10_widths(torch, dev, gen)
     header("phase 10: tensor parallelism: one-rank NCCL, then gloo ranks on this card")
-    tp_run = phase10(torch, dev)
+    fleet_tok = ROOT / "build" / "fleet" / "serve.t"
+    fleet_tok.parent.mkdir(parents=True, exist_ok=True)
+    write_serving_tokenizer(fleet_tok, LLAMA3_8B["vocab_size"])
+    tp_run = phase10(torch, dev, fleet_tok=fleet_tok)
+
+    header("phase 11a-b: the router in front of two in-process replicas on phase 6's graphed "
+           "Q40 engine and its twin")
+    fleet = phase11(torch, dev, engine)
+    del engine
+    torch.cuda.empty_cache()
+    header("phase 11c: cli fleet --replicas 2 on phase 10's Llama-3-8B-width Q40 `.m` file")
+    try:
+        fleet["c"] = phase11c(torch, dev, tp_run["path"], fleet_tok, tp_run["fleet_reference"])
+    finally:
+        tp_run["path"].unlink(missing_ok=True)
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
@@ -4421,6 +5144,8 @@ def main() -> None:
             # phase 9's exact gates: 8 rows of 200 tokens through each layout
             for layout in ("bucketed", "paged"):
                 entry[f"launches_{layout}"] = pools[layout]["launches"].get(entry["name"], 0)
+            # phase 11a: the wave of 8 requests through the router
+            entry["launches_router"] = fleet["a"]["launches"].get(entry["name"], 0)
     details = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s, "ptxas": ptxas, "q40": q40, "q80": q80, "variants": variants,
                "flash_decode": flash, "rope_cache": rope, "flash_decode_batched": flash_b,
@@ -4429,7 +5154,7 @@ def main() -> None:
                "graphs_q40": graphs, "graphs_q80": graphs80, "k4_bound_S": k4_fixed,
                "experiments": exp, "cli": cli, "moe_indexed": moe_k, "mixtral_q40": mix,
                "grok1_q40": grok, "mixtral_q80": mix80, "pools": pools, "serving": serving,
-               "tp_widths": tp_widths, "tp": tp_run, "summary": summary,
+               "tp_widths": tp_widths, "tp": tp_run, "fleet": fleet, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")

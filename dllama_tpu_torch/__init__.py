@@ -9,17 +9,23 @@ and bound by ``kernels``); each sits beside a plain PyTorch version of the same 
 which runs only for CPU tensors.
 
 Nothing here imports ``jax`` or ``dllama_tpu``: the jax-free pieces the port
-needs (formats, block codecs, tokenizer) are copies.
+needs (formats, block codecs, tokenizer) are copies. The fleet's control
+plane (``serving.{evloop,router,autoscale,fleet}``, ``obsv.forensics`` and
+the CLI modes ``router``, ``fleet``, ``top``, ``explain`` and ``snapshot``)
+imports no ``torch`` either.
 """
 
-import torch
+from __future__ import annotations
 
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: the card unless the caller asks for
     the CPU. Raises when CUDA is wanted and absent — never a quiet CPU run."""
+    import torch  # here, not at the top: the fleet's control plane imports
+    #               this package and must never load torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -33,6 +33,19 @@ checksums without a model or a device:
         --batch-window 30 --kv-pages 16
     python -m dllama_tpu_torch.cli verify --model m.m
 
+``router``, ``fleet``, ``top``, ``explain`` and ``snapshot`` are the fleet's
+control plane (``serving.router``, ``serving.fleet``, ``obsv.forensics``):
+stdlib only, dispatched before ``torch`` is imported. ``fleet`` spawns N
+``serve`` replicas of this CLI, each on the card (``cuda:0``, shared) unless
+``--replica-arg "--device cpu ..."`` is given, and fronts them with the
+router; ``top`` watches a live router, ``snapshot`` bundles its
+observability surfaces and ``explain`` joins one request's trace spans and
+flight events:
+
+    python -m dllama_tpu_torch.cli fleet --model m.m --tokenizer t.t \\
+        --replicas 2 --replica-arg "--kv-pages 16 --batch-window 5"
+    python -m dllama_tpu_torch.cli top --router 127.0.0.1:9900 --iterations 1
+
 ``--tp N`` runs ``inference`` and ``generate`` tensor-parallel
 (``parallel``): this process is rank 0 and starts N - 1 local ranks, one
 process and one GPU each (``cuda:<local rank>``, NCCL), or CPU ranks over
@@ -77,6 +90,226 @@ def build_parser() -> argparse.ArgumentParser:
                     "row-band section the check reads ~1/N of the file's "
                     "bytes; replicated 1-D tensors are always fully "
                     "checked. Run once per host, e.g. --shard 0/4 ... 3/4")
+    def add_router_flags(rp, default_port: int) -> None:
+        # shared by `router` (standalone front door) and `fleet` (router +
+        # local replicas): the routing policy knobs
+        rp.add_argument("--host", default="0.0.0.0")
+        rp.add_argument("--port", type=int, default=default_port,
+                        help="the front-door listen port")
+        rp.add_argument(
+            "--probe-interval", type=float, default=1.0, metavar="S",
+            help="seconds between /ready probe rounds: drain/crash takes a "
+            "replica out of rotation within one interval")
+        rp.add_argument(
+            "--connect-timeout", type=float, default=2.0, metavar="S",
+            help="upstream connect + status-line timeout per hop")
+        rp.add_argument(
+            "--upstream-timeout", type=float, default=0.0, metavar="S",
+            help="upstream response/stream read timeout after the status "
+            "line; 0 = unlimited (long decodes stream for minutes)")
+        rp.add_argument(
+            "--first-byte-timeout", type=float, default=0.0, metavar="S",
+            help="deadline for the upstream status line after the request "
+            "was sent (the replica's queue+prefill window); 0 falls back "
+            "to --upstream-timeout (0 = unlimited)")
+        rp.add_argument(
+            "--stall-timeout", type=float, default=0.0, metavar="S",
+            help="inter-byte stall budget on SSE relay: an upstream "
+            "silent past this mid-stream is treated as DEAD and the "
+            "stream is checkpoint-resumed on a sibling (counted as "
+            "outcome=stall); 0 disables stall detection")
+        rp.add_argument(
+            "--header-timeout", type=float, default=10.0, metavar="S",
+            help="deadline for a client to land a full request head "
+            "(the slow-loris kill); 0 = unlimited")
+        rp.add_argument(
+            "--client-stall-timeout", type=float, default=30.0, metavar="S",
+            help="hard kill for clients that stop draining their socket "
+            "mid-response: a blocked client write past this closes the "
+            "connection (and its upstream within one chunk); 0 = wait "
+            "forever (backpressure still pauses the upstream read)")
+        rp.add_argument(
+            "--max-conns", type=int, default=0, metavar="N",
+            help="connection-count admission: at N open client "
+            "connections, new ones are shed at accept time with a canned "
+            "503 + Retry-After before any state is allocated; 0 = "
+            "unlimited")
+        rp.add_argument(
+            "--probe-read-timeout", type=float, default=2.0, metavar="S",
+            help="per-probe READ deadline, distinct from --connect-timeout:"
+            " a gray replica (accepts, then silence) costs one read "
+            "deadline and is marked circuit-open, never a wedged probe "
+            "pass; 0 falls back to --connect-timeout")
+        rp.add_argument(
+            "--retry-budget", type=int, default=2, metavar="N",
+            help="extra replicas tried after a retriable upstream failure "
+            "(connect error or 503); 429/504 always pass through untouched")
+        rp.add_argument(
+            "--affinity-block", type=int, default=256, metavar="BYTES",
+            help="prompt-prefix affinity hash block size: repeat "
+            "conversations route to the replica whose radix cache holds "
+            "their warm KV pages; 0 disables affinity (pure least-load)")
+        rp.add_argument(
+            "--kv-wire", default="f32", choices=["f32", "q80", "q80+f32"],
+            help="wire mode for KV page handoffs (migrations and "
+            "mid-stream checkpoints): f32 is bit-exact — a migrated "
+            "stream is token-for-token the solo stream; q80 ships ~3.76x "
+            "fewer bytes, block-quantized and error-bounded; q80+f32 "
+            "ships full pages as q80 but the partial tail page bit-exact "
+            "f32 — the page still being decoded into carries no "
+            "quantization error, at near-q80 cost")
+        rp.add_argument(
+            "--ckpt-interval", type=int, default=32, metavar="K",
+            help="mid-stream failover: ask each streamed request's "
+            "replica for a session checkpoint every K emitted tokens "
+            "(token-count based, so deterministic); on an upstream death "
+            "mid-SSE the router resumes the stream bit-identically on a "
+            "sibling replica from the latest checkpoint. 0 disables "
+            "checkpoint frames and resume orchestration")
+        rp.add_argument(
+            "--ts-interval", type=float, default=1.0, metavar="S",
+            help="metrics-history sampling cadence in seconds: a daemon "
+            "thread snapshots every counter/gauge/histogram-percentile "
+            "into the bounded in-process time-series store behind "
+            "GET /metrics/history (under `fleet` the flag also rides "
+            "every replica's serve argv, so one flag sets the whole "
+            "fleet's history resolution); 0 disables the sampler thread")
+
+    # the fleet front door: stdlib-only, no model artifacts, no torch — it
+    # proxies the OpenAI surface across N running `serve` replicas
+    rp = sub.add_parser(
+        "router", help="stateless HTTP front door over N running replicas")
+    rp.add_argument(
+        "--replica", action="append", required=True, metavar="HOST:PORT",
+        help="one upstream dllama-api replica (repeatable)")
+    add_router_flags(rp, default_port=9900)
+
+    # router + N locally spawned/supervised replicas in one command — the
+    # test/bench topology (production runs `serve` per machine + `router`)
+    fp = sub.add_parser(
+        "fleet", help="spawn, supervise and front N local replicas")
+    fp.add_argument("--model", required=True)
+    fp.add_argument("--tokenizer", required=True)
+    fp.add_argument("--replicas", type=int, default=2, metavar="N",
+                    help="replica subprocesses to spawn and supervise")
+    fp.add_argument("--base-port", type=int, default=9990, metavar="P",
+                    help="replica i listens on P+i")
+    fp.add_argument("--replica-host", default="127.0.0.1",
+                    help="interface the replicas bind (loopback: only the "
+                    "router is meant to face traffic)")
+    fp.add_argument(
+        "--prefill", type=int, default=0, metavar="N",
+        help="dedicated prefill replicas (the first N of --replicas, via "
+        "a per-replica --role): they run new prompts plus the first decode "
+        "chunk, then hand the row's KV pages to a decode replica; goes "
+        "with --decode")
+    fp.add_argument(
+        "--decode", type=int, default=0, metavar="M",
+        help="dedicated decode replicas (the next M): they import migrated "
+        "KV page streams warm and stream the rest of each completion; "
+        "goes with --prefill")
+    fp.add_argument(
+        "--replica-arg", action="append", default=[], metavar="'--flag v'",
+        help="extra `serve` flag(s) passed to every replica (repeatable), "
+        "e.g. --replica-arg '--kv-pages 16' --replica-arg '--batch-max 4'")
+    fp.add_argument("--max-restarts", type=int, default=3, metavar="N",
+                    help="per-replica crash-restart budget; a replica past "
+                    "it stays down (the router routes around the hole)")
+    fp.add_argument("--ready-timeout", type=float, default=180.0,
+                    metavar="S", help="max wait for every replica's first "
+                    "/ready 200 (weights load time)")
+    fp.add_argument("--drain-timeout", type=float, default=30.0,
+                    metavar="S", help="SIGTERM grace per drain: replicas "
+                    "finish in-flight work, then the router stops")
+    fp.add_argument("--log-dir", default=None, metavar="DIR",
+                    help="per-replica stdout/stderr logs (replica-N.log); "
+                    "default: inherit this terminal")
+    fp.add_argument(
+        "--slo-classes", default=None, metavar="SPEC",
+        help="per-class SLO lane config passed to every replica's serve "
+        "argv (see `serve --slo-classes`); a --replica-arg "
+        "'--slo-classes ...' overrides")
+    # -- elastic fleet: the closed autoscale loop (serving/autoscale.py
+    #    decides, serving/fleet.py's ElasticSupervisor executes) --
+    fp.add_argument(
+        "--autoscale", action="store_true",
+        help="close the loop: evaluate the SLO/pressure policy every "
+        "--scale-interval and scale the replica set live between "
+        "--min-replicas and --max-replicas (default: the fleet stays at "
+        "--replicas forever)")
+    fp.add_argument("--min-replicas", type=int, default=1, metavar="N",
+                    help="autoscale floor (never drain below this)")
+    fp.add_argument("--max-replicas", type=int, default=0, metavar="N",
+                    help="autoscale ceiling (0: use --replicas)")
+    fp.add_argument("--scale-interval", type=float, default=1.0,
+                    metavar="S", help="seconds between policy evaluations")
+    fp.add_argument("--scale-up-pressure", type=float, default=0.75,
+                    metavar="P", help="fleet pressure at/above which an "
+                    "observation counts toward scale-up")
+    fp.add_argument("--scale-down-pressure", type=float, default=0.25,
+                    metavar="P", help="fleet pressure at/below which a "
+                    "quiet observation counts toward scale-down")
+    fp.add_argument("--scale-cooldown-up", type=float, default=5.0,
+                    metavar="S", help="min seconds between a scale event "
+                    "and the next scale-up")
+    fp.add_argument("--scale-cooldown-down", type=float, default=20.0,
+                    metavar="S", help="min seconds between a scale event "
+                    "and the next scale-down")
+    fp.add_argument("--prewarm-tokens", type=int, default=16, metavar="N",
+                    help="decode budget of each pre-warm prefill replayed "
+                    "into a joining replica (must exceed the batch chunk "
+                    "or the row finishes before it exports KV pages)")
+    add_router_flags(fp, default_port=9900)
+
+    # live fleet terminal view: polls the router's /stats + /metrics/fleet
+    # — stdlib only, runs anywhere a curl would
+    tp = sub.add_parser(
+        "top", help="live terminal view of a running router/fleet")
+    tp.add_argument("--router", default="127.0.0.1:9900",
+                    metavar="HOST:PORT", help="the router front door")
+    tp.add_argument("--interval", type=float, default=1.0, metavar="S",
+                    help="seconds between refreshes")
+    tp.add_argument("--iterations", type=int, default=0, metavar="N",
+                    help="stop after N refreshes (0 = run until ^C)")
+
+    # per-request latency forensics: join trace spans + flight-recorder
+    # events already on disk into one phase waterfall — stdlib only
+    ep = sub.add_parser(
+        "explain", help="phase waterfall for one request id from trace "
+        "+ flight-recorder files")
+    ep.add_argument("request_id", metavar="REQUEST_ID",
+                    help="the X-Request-Id to explain (as logged / "
+                    "returned in the response headers)")
+    ep.add_argument("--trace", action="append", default=[], metavar="PATH",
+                    help="trace file or directory of part files "
+                    "(repeatable); the DLLAMA_TRACE output, solo or "
+                    "fleet-merged")
+    ep.add_argument("--flight", action="append", default=[],
+                    metavar="PATH",
+                    help="flight-recorder snapshot JSON (a saved "
+                    "/debug/flight body or $DLLAMA_FLIGHT dump; "
+                    "repeatable)")
+    ep.add_argument("--json", action="store_true",
+                    help="emit the joined waterfall as JSON")
+    ep.add_argument("--width", type=int, default=48, metavar="COLS",
+                    help="waterfall bar width in columns")
+
+    # support bundle: one tarball of every observability surface of a
+    # running fleet — what you attach to a bug report
+    zp = sub.add_parser(
+        "snapshot", help="support bundle: tarball the fleet's metrics, "
+        "history, stats, alerts, flight rings and newest trace parts")
+    zp.add_argument("--router", default="127.0.0.1:9900",
+                    metavar="HOST:PORT", help="the router front door")
+    zp.add_argument("--out", default=None, metavar="PATH",
+                    help="output tarball path (default "
+                    "dllama-snapshot-<unixtime>.tar.gz)")
+    zp.add_argument("--window", type=float, default=300.0, metavar="S",
+                    help="history window to bundle from /metrics/history")
+    zp.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="directory holding DLLAMA_TRACE part files; the "
+                    "newest part per replica (and overall) is bundled")
+
     for mode in ("inference", "generate", "chat", "serve", "worker"):
         sp = sub.add_parser(
             mode, help="the generate run of one host of a multi-host tensor-parallel job "
@@ -725,10 +958,424 @@ def run_verify(args) -> int:
     return 1
 
 
+def _top_get(host: str, port: int, path: str, timeout_s: float = 2.0):
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=timeout_s)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _top_fleet_families(text: str) -> dict:
+    """Fold a /metrics/fleet exposition into
+    {(family, replica): value}, summing counter series and histogram
+    ``_sum``/``_count`` lines across their remaining labels."""
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        if not head:
+            continue
+        name, _, labels = head.partition("{")
+        replica = None
+        for part in labels.rstrip("}").split(","):
+            if part.startswith('replica="'):
+                replica = part[len('replica="'):].rstrip('"')
+        if name.endswith("_bucket"):
+            continue
+        try:
+            v = float(value)
+        except ValueError:
+            continue  # a non-numeric sample (foreign exposition noise)
+            #           must not kill a read-only dashboard loop
+        key = (name, replica)
+        out[key] = out.get(key, 0.0) + v
+    return out
+
+
+def _top_class_series(text: str, families: tuple) -> dict:
+    """Fold the named per-class families of a /metrics/fleet exposition
+    into {(family, replica, slo_class): value}. The plain families fold
+    (:func:`_top_fleet_families`) SUMS across non-replica labels — exactly
+    wrong for lane gauges, where interactive and batch pressure must stay
+    distinguishable."""
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        head, _, value = line.rpartition(" ")
+        name, _, labels = head.partition("{")
+        if name not in families:
+            continue
+        replica = slo_class = None
+        for part in labels.rstrip("}").split(","):
+            if part.startswith('replica="'):
+                replica = part[len('replica="'):].rstrip('"')
+            elif part.startswith('slo_class="'):
+                slo_class = part[len('slo_class="'):].rstrip('"')
+        try:
+            out[(name, replica, slo_class)] = float(value)
+        except ValueError:
+            continue  # a torn exposition line (replica died mid-write):
+            #           skip the sample, the next scrape heals the cell
+    return out
+
+
+_SPARK_GLYPHS = "▁▂▃▄▅▆▇█"
+
+
+def _spark(values, width: int = 24) -> str:
+    """A unicode sparkline of the last ``width`` values (min..max scaled;
+    flat series render as a flat low line)."""
+    vals = [v for v in values if v is not None][-width:]
+    if not vals:
+        return "-"
+    lo, hi = min(vals), max(vals)
+    span = (hi - lo) or 1.0
+    return "".join(
+        _SPARK_GLYPHS[int((v - lo) / span * (len(_SPARK_GLYPHS) - 1))]
+        for v in vals)
+
+
+def run_top(args) -> int:
+    """``cli top``: a refreshing terminal view of the fleet — per-replica
+    rotation/load from the router's /stats, per-replica request counters
+    and latency means from /metrics/fleet, firing SLO alerts from
+    /alerts and TTFT-p95 sparklines from /metrics/history. Read-only;
+    safe against a half-up fleet (unreachable router prints a retry
+    line, pre-observability routers just lose the alert/spark rows)."""
+    import json as json_mod
+
+    from dllama_tpu_torch.serving.protocol import (MET_CLASS_QUEUE_DEPTH,
+                                             MET_CLASS_RESIDENT_ROWS,
+                                             MET_FLEET_REPLICAS,
+                                             MET_HTTP_REQUESTS,
+                                             MET_KV_TRANSFER_BYTES,
+                                             MET_SCALE_EVENTS,
+                                             MET_TPOT_MS, MET_TTFT_MS)
+
+    host, _, port_s = args.router.rpartition(":")
+    if not host or not port_s.isdigit():
+        raise SystemExit(f"bad --router {args.router!r}: want HOST:PORT")
+    port = int(port_s)
+    n = 0
+    # last-seen dllama_kv_transfer_bytes_total per replica (value, t): the
+    # KV-handoff column is a RATE, so it needs the previous refresh
+    kv_prev: dict = {}
+    try:
+        while True:
+            n += 1
+            now = time.monotonic()
+            lines = []
+            try:
+                _, stats_body = _top_get(host, port, "/stats")
+                stats = json_mod.loads(stats_body)
+                code, fleet_body = _top_get(host, port, "/metrics/fleet")
+                fleet_text = (fleet_body.decode("utf-8", "replace")
+                              if code == 200 else "")
+                fams = _top_fleet_families(fleet_text)
+                # lane gauges keep their slo_class label (a summed fold
+                # would blur interactive and batch pressure together)
+                lanes = _top_class_series(
+                    fleet_text, (MET_CLASS_QUEUE_DEPTH,
+                                 MET_CLASS_RESIDENT_ROWS))
+                load = stats.get("load") or {}
+                lines.append(
+                    f"dllama top — router {args.router}  "
+                    f"up {stats.get('uptime_s', 0):.0f}s  "
+                    f"replicas {load.get('replicas_ready', '?')}/"
+                    f"{load.get('replicas_total', '?')} ready  "
+                    f"affinity {stats.get('affinity_entries', 0)}")
+                # elastic fleet row: registered size + scale-event
+                # counters, rendered only when the router exposes the
+                # families (pre-elastic routers just omit the row); every
+                # value parse is guarded — a torn /stats body mid-scale
+                # must degrade a cell, never kill the dashboard loop
+                mets = stats.get("metrics") or {}
+
+                def fam_values(fam):
+                    return (mets.get(fam) or {}).get("values") or []
+
+                size_vals = fam_values(MET_FLEET_REPLICAS)
+                if size_vals:
+                    try:
+                        size = f"{float(size_vals[0].get('value')):.0f}"
+                    except (TypeError, ValueError):
+                        size = "?"
+                    events = {}
+                    for v in fam_values(MET_SCALE_EVENTS):
+                        ev = (v.get("labels") or {}).get("event")
+                        try:
+                            events[ev] = int(float(v.get("value")))
+                        except (TypeError, ValueError):
+                            continue  # torn stats value: drop this cell
+                    marks = "  ".join(
+                        f"{ev} {events[ev]}"
+                        for ev in ("joined", "draining", "retired",
+                                   "spawn_failed", "prewarm_fallback",
+                                   "drain_killed", "injected")
+                        if events.get(ev))
+                    lines.append(f"elastic: {size} registered  "
+                                 + (marks or "no scale events yet"))
+                lines.append("")
+                lines.append(
+                    f"{'replica':<22}{'role':<9}{'state':<10}{'infl':>5}"
+                    f"{'occ':>8}{'queue':>7}{'q i/b':>8}{'res i/b':>9}"
+                    f"{'kv_free':>9}{'probe_age':>11}"
+                    f"{'reqs':>8}{'ttft_ms':>9}{'tpot_ms':>9}"
+                    f"{'kv_kB/s':>9}")
+                for snap in load.get("replicas") or []:
+                    name = snap.get("name", "?")
+                    state = ("circuit" if snap.get("circuit_open")
+                             else "ready" if snap.get("ready") else "down")
+                    # a mid-transition lifecycle outranks the probe
+                    # verdict in the column: joining/draining is WHY the
+                    # replica isn't taking normal traffic
+                    lc = snap.get("state")
+                    if lc and lc != "active":
+                        state = lc
+                    rload = snap.get("load") or {}
+                    age = snap.get("probed_age_s")
+
+                    def mean(fam):
+                        s = fams.get((f"{fam}_sum", name))
+                        c = fams.get((f"{fam}_count", name))
+                        return f"{s / c:.1f}" if s is not None and c else "-"
+
+                    def lane_pair(fam):
+                        # "i/b": the replica's interactive vs batch value
+                        # of a lane gauge; "-" until the replica exposes
+                        # per-class series (mixed-version fleets)
+                        i = lanes.get((fam, name, "interactive"))
+                        b = lanes.get((fam, name, "batch"))
+                        if i is None and b is None:
+                            return "-"
+                        return f"{int(i or 0)}/{int(b or 0)}"
+
+                    reqs = fams.get((MET_HTTP_REQUESTS, name))
+                    # KV handoff wire rate (in+out summed — the families
+                    # fold summed their direction label): delta since the
+                    # previous refresh of this replica's bytes counter
+                    kv_bytes = fams.get((MET_KV_TRANSFER_BYTES, name))
+                    kv_rate = "-"
+                    if kv_bytes is not None:
+                        last = kv_prev.get(name)
+                        kv_prev[name] = (kv_bytes, now)
+                        if last is not None and now > last[1]:
+                            kv_rate = "{:.1f}".format(
+                                (kv_bytes - last[0]) / 1024.0
+                                / (now - last[1]))
+                    lines.append(
+                        f"{name:<22}{snap.get('role', 'both'):<9}{state:<10}"
+                        f"{snap.get('inflight', 0):>5}"
+                        f"{rload.get('slots_occupied', 0):>4}/"
+                        f"{rload.get('slots_total', 0):<3}"
+                        f"{rload.get('queue_depth', 0):>7}"
+                        f"{lane_pair(MET_CLASS_QUEUE_DEPTH):>8}"
+                        f"{lane_pair(MET_CLASS_RESIDENT_ROWS):>9}"
+                        f"{rload.get('kv_pages_free', '-'):>9}"
+                        f"{(f'{age:.1f}s' if age is not None else '-'):>11}"
+                        f"{(f'{reqs:.0f}' if reqs is not None else '-'):>8}"
+                        f"{mean(MET_TTFT_MS):>9}"
+                        f"{mean(MET_TPOT_MS):>9}"
+                        f"{kv_rate:>9}")
+                # the SLO burn-rate picture: every firing alert gets its
+                # own row; pre-observability routers 404 -> row omitted
+                code, alerts_body = _top_get(host, port, "/alerts")
+                if code == 200:
+                    alerts = json_mod.loads(alerts_body)
+                    firing = [
+                        (rname, a)
+                        for rname, pay in (alerts.get("replicas")
+                                           or {}).items()
+                        for a in pay.get("alerts") or []
+                        if a.get("state") == "firing"]
+                    lines.append("")
+                    if firing:
+                        for rname, a in firing:
+                            lines.append(
+                                f"🔥 SLO {a.get('slo', '?'):<18}"
+                                f"{rname:<22}burn "
+                                f"{a.get('short_burn', 0):.2f}/"
+                                f"{a.get('long_burn', 0):.2f} "
+                                f"(short/long, fires >"
+                                f"{alerts.get('threshold', 1.0):g})")
+                    else:
+                        lines.append("alerts: none firing")
+                # TTFT p95 sparkline per replica, from the federated
+                # time-series history (empty until samplers have data)
+                code, hist_body = _top_get(
+                    host, port, "/metrics/history?window=120")
+                if code == 200:
+                    hist = json_mod.loads(hist_body)
+                    spark_key = f"{MET_TTFT_MS}:p95"
+                    rows = []
+                    # fleet-size trajectory from the router's OWN series
+                    # (the registered-replica gauge is router state, so it
+                    # lives under "router", not any replica)
+                    rseries = ((hist.get("router") or {}).get("series")
+                               or {})
+                    fpts = rseries.get(MET_FLEET_REPLICAS)
+                    if fpts:
+                        try:
+                            rows.append(
+                                f"  {'fleet size':<22}replicas "
+                                f"{_spark([p[1] for p in fpts])} "
+                                f"{float(fpts[-1][1]):.0f}")
+                        except (TypeError, ValueError, IndexError):
+                            pass  # torn history payload: drop the row
+                    for rname, pay in sorted(
+                            (hist.get("replicas") or {}).items()):
+                        pts = (pay.get("series") or {}).get(spark_key)
+                        if pts:
+                            rows.append(f"  {rname:<22}ttft_p95 "
+                                        f"{_spark([p[1] for p in pts])} "
+                                        f"{pts[-1][1]:.1f}ms")
+                    if rows:
+                        lines.append("")
+                        lines.extend(rows)
+            except (OSError, ValueError) as e:
+                lines = [f"dllama top — router {args.router} "
+                         f"unreachable ({e}); retrying..."]
+            sys.stdout.write("\x1b[2J\x1b[H" + "\n".join(lines) + "\n")
+            sys.stdout.flush()
+            if args.iterations and n >= args.iterations:
+                return 0
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0  # ^C is how an interactive top session ends: clean exit
+
+
+def run_explain(args) -> int:
+    """``cli explain <request-id>``: join the request's trace spans
+    (replica phases + router hops) and flight-recorder events into one
+    phase waterfall. Pure file reader — nothing needs to be running."""
+    import json as json_mod
+
+    from dllama_tpu_torch.obsv import forensics
+
+    if not args.trace and not args.flight:
+        print("❌ explain needs at least one --trace or --flight input "
+              "(the DLLAMA_TRACE file / a saved /debug/flight body)")
+        return 1
+    wf = forensics.build_waterfall(
+        args.request_id,
+        forensics.load_trace_events(args.trace),
+        forensics.load_flight_events(args.flight))
+    if args.json:
+        print(json_mod.dumps(wf, indent=2))
+        return 0 if (wf["rows"] or wf["events"]) else 1
+    print(forensics.render_waterfall(wf, width=args.width))
+    return 0 if (wf["rows"] or wf["events"]) else 1
+
+
+def run_snapshot(args) -> int:
+    """``cli snapshot``: one support-bundle tarball of a running fleet —
+    /metrics, /metrics/history, /stats, /alerts and /debug/flight from
+    the router plus every replica the router knows, and the newest trace
+    part per replica when --trace-dir is given. Unreachable targets
+    contribute an error note, never abort the bundle."""
+    import io
+    import json as json_mod
+    import tarfile
+
+    from dllama_tpu_torch.obsv import forensics
+
+    host, _, port_s = args.router.rpartition(":")
+    if not host or not port_s.isdigit():
+        raise SystemExit(f"bad --router {args.router!r}: want HOST:PORT")
+    out_path = args.out or f"dllama-snapshot-{int(time.time())}.tar.gz"
+    paths = ("/metrics", f"/metrics/history?window={args.window:g}",
+             "/stats", "/alerts", "/debug/flight")
+
+    targets = [("router", host, int(port_s))]
+    try:
+        _, stats_body = _top_get(host, int(port_s), "/stats")
+        stats = json_mod.loads(stats_body)
+        for snap in (stats.get("load") or {}).get("replicas") or []:
+            name = snap.get("name") or ""
+            rhost, _, rport = name.rpartition(":")
+            if rhost and rport.isdigit():
+                targets.append((name.replace(":", "-"), rhost, int(rport)))
+    except (OSError, ValueError) as e:
+        print(f"⚠️  router {args.router} unreachable ({e}); bundling "
+              "router errors only")
+
+    n_ok = 0
+    with tarfile.open(out_path, "w:gz") as tar:
+
+        def add(arcname: str, data: bytes) -> None:
+            info = tarfile.TarInfo(arcname)
+            info.size = len(data)
+            info.mtime = int(time.time())
+            tar.addfile(info, io.BytesIO(data))
+
+        for tname, thost, tport in targets:
+            errors = []
+            for path in paths:
+                fname = (path.split("?", 1)[0].strip("/")
+                         .replace("/", "-") or "root")
+                try:
+                    code, body = _top_get(thost, tport, path,
+                                          timeout_s=5.0)
+                except (OSError, ValueError) as e:
+                    errors.append(f"GET {path}: {e}")
+                    continue
+                if code != 200:
+                    errors.append(f"GET {path}: HTTP {code}")
+                    continue
+                add(f"{tname}/{fname}", body)
+                n_ok += 1
+            if errors:
+                add(f"{tname}/error.txt",
+                    ("\n".join(errors) + "\n").encode())
+        if args.trace_dir:
+            seen = set()
+            # per-replica part (fleet names them .replica-<port>) plus
+            # the newest file overall (the merged/solo trace)
+            hints = [None] + [str(t[2]) for t in targets[1:]]
+            for hint in hints:
+                p = forensics.newest_trace_part(args.trace_dir, hint=hint)
+                if p and p not in seen:
+                    seen.add(p)
+                    try:
+                        with open(p, "rb") as fh:
+                            add(f"trace/{os.path.basename(p)}", fh.read())
+                    except OSError:
+                        pass  # a part rotating away mid-bundle is fine
+    print(f"📦 {out_path}: {n_ok} document(s) from {len(targets)} "
+          f"target(s)")
+    return 0 if n_ok else 1
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.mode == "verify":  # a host-side file check: no device
         raise SystemExit(run_verify(args))
+    # the fleet's control plane: stdlib only, dispatched before torch is
+    # imported, so a router runs on a host with no GPU and the supervisor
+    # holds no CUDA context beside its replicas
+    if args.mode == "router":
+        from dllama_tpu_torch.serving.router import run_router
+
+        run_router(args)
+        return
+    if args.mode == "fleet":  # the replicas import torch in their own processes
+        from dllama_tpu_torch.serving.fleet import run_fleet
+
+        run_fleet(args)
+        return
+    if args.mode == "top":  # read-only observer: HTTP polling
+        raise SystemExit(run_top(args))
+    if args.mode == "explain":  # offline join over trace and flight files
+        raise SystemExit(run_explain(args))
+    if args.mode == "snapshot":  # read-only observer + tarfile
+        raise SystemExit(run_snapshot(args))
     import torch
 
     plan = tp_plan(args, torch.cuda.device_count())

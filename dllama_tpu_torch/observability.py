@@ -703,20 +703,26 @@ class SSEScanner:
 
     def __init__(self):
         self._buf = bytearray()
+        self._searched = 0  # leading bytes of _buf that hold no boundary
 
     def feed(self, chunk: bytes) -> list:
         """Append ``chunk``; return every COMPLETE event now available,
         each as raw bytes INCLUDING its terminating blank line — so
         forwarding the returned events verbatim plus :meth:`tail` at EOF
-        reproduces the input byte-for-byte."""
+        reproduces the input byte-for-byte. Each byte is searched once: a
+        checkpoint frame of a full-width row (tens of MB, in 64 KiB reads)
+        costs linear time, not the quadratic time of searching the whole
+        buffer on every read."""
         self._buf += chunk
         out = []
         while True:
-            i = self._buf.find(b"\n\n")
+            i = self._buf.find(b"\n\n", max(0, self._searched - 1))
             if i < 0:
+                self._searched = len(self._buf)
                 return out
             out.append(bytes(self._buf[:i + 2]))
             del self._buf[:i + 2]
+            self._searched = 0
 
     def tail(self) -> bytes:
         """Bytes buffered past the last complete event (flush at EOF)."""

@@ -8,6 +8,9 @@
   burn-rate evaluation for per-class TTFT/TPOT/error-rate against the
   ``--slo-classes`` targets, with hysteresis; the live picture is
   ``GET /alerts``.
+* :mod:`~dllama_tpu_torch.obsv.forensics` — ``cli explain <request-id>``:
+  one phase waterfall joined from the artifacts the fleet already emits
+  (router hop spans, replica trace spans, flight-recorder events).
 
 Copies of the JAX package's modules of the same names; everything here is
 stdlib-only.

@@ -6,8 +6,13 @@
   GPU, ``Engine`` and ``load_engine`` raise instead of quietly moving.
 * A kernel wrapper given CPU tensors runs its plain version and counts no
   launch.
+* The fleet's control plane (``serving.{evloop,router,autoscale,fleet}``,
+  ``obsv.forensics``) and the CLI modes ``router``, ``fleet``, ``top``,
+  ``explain`` and ``snapshot`` import no ``torch`` either, and the replicas a
+  fleet spawns without ``--device cpu`` refuse to run without a GPU.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -104,3 +109,70 @@ def test_kernel_wrappers_reject_other_devices():
     cache = torch.zeros(1, 8, 1, 16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_decode.flash_decode_attention(torch.zeros(1, 1, 16, device="meta"), cache, cache, 0, 0)
+
+
+_CONTROL_PLANE = """
+import sys
+for name in ("torch", "jax", "dllama_tpu"):
+    sys.modules[name] = None  # any import of these raises ImportError
+from dllama_tpu_torch import cli
+from dllama_tpu_torch.obsv import forensics
+from dllama_tpu_torch.serving import autoscale, evloop, fleet, router
+router.run_router = lambda args: print("router mode", args.replica)
+fleet.run_fleet = lambda args: print("fleet mode", args.replicas)
+codes = []
+for argv in (["router", "--replica", "127.0.0.1:1"],
+             ["fleet", "--model", "m.m", "--tokenizer", "t.t", "--replicas", "3"],
+             ["top", "--router", "127.0.0.1:1", "--iterations", "1"],
+             ["explain", "req-x", "--trace", "absent.json"],
+             ["snapshot", "--router", "127.0.0.1:1", "--out", sys.argv[1]]):
+    try:
+        cli.main(argv)
+        codes.append(None)
+    except SystemExit as e:
+        codes.append(e.code)
+print("codes", codes)
+print("foreign", sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "dllama_tpu")
+                        and sys.modules[m] is not None))
+"""
+
+
+def test_control_plane_and_its_cli_modes_import_no_torch(tmp_path):
+    proc = subprocess.run([sys.executable, "-c", _CONTROL_PLANE, str(tmp_path / "s.tgz")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    out = proc.stdout
+    assert "router mode ['127.0.0.1:1']" in out and "fleet mode 3" in out
+    # top draws its unreachable frame (0); explain and snapshot find nothing (1)
+    assert "codes [None, None, 0, 1, 1]" in out and "foreign []" in out
+
+
+def test_fleet_replicas_without_device_cpu_refuse_to_run_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from dllama_tpu_torch.formats.spec import ArchType, ModelSpec
+    from dllama_tpu_torch.formats.tokenizer_file import TokenizerData, write_tokenizer
+    from dllama_tpu_torch.formats.weights import tensor_plan, write_model
+    from dllama_tpu_torch.quants import blocks
+    from dllama_tpu_torch.serving.fleet import Fleet
+    from tests.test_router import free_port
+
+    spec = ModelSpec(arch=ArchType.LLAMA, dim=64, hidden_dim=96, n_layers=1, n_heads=4,
+                     n_kv_heads=2, vocab_size=260, seq_len=32, weights_float_type=blocks.Q40)
+    write_model(str(tmp_path / "m.m"), spec,
+                {e.name: np.zeros(e.d * e.n, np.float32) for e in tensor_plan(spec)})
+    write_tokenizer(str(tmp_path / "t.t"), TokenizerData(
+        vocab=[b"<unk>", b"<s>", b"</s>"] + [bytes([i]) for i in range(256)] + [b"hi"],
+        scores=[0.0] * 260, bos_id=1, eos_id=2))
+    argv = Fleet(str(tmp_path / "m.m"), "t.t")._replica_argv(1)
+    assert argv[1:4] == ["-m", "dllama_tpu_torch.cli", "serve"] and "--device" not in argv
+    proc = subprocess.run(
+        [sys.executable, "-m", "dllama_tpu_torch.cli", "fleet", "--model", str(tmp_path / "m.m"),
+         "--tokenizer", str(tmp_path / "t.t"), "--replicas", "1", "--max-restarts", "0",
+         "--base-port", str(free_port()), "--port", str(free_port()), "--ready-timeout", "60",
+         "--log-dir", str(tmp_path / "logs")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    log = (tmp_path / "logs" / "replica-0.log").read_text()
+    assert proc.returncode != 0 and "exited with 1 before becoming ready" in proc.stderr
+    assert "no CUDA device" in log
