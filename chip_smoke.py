@@ -245,6 +245,14 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    parting at a near tie, a row exported at tp 2 continuing exactly when
    imported at tp 2 (and equal or at a near tie on one device); K5's verify
    form at a tp 2 and a tp 4 rank's heads bit-equal to its plain version.
+   (g) ``--tp-reduce`` and ``--tp-overlap`` (:func:`phase10g`, run after
+   (b), before (e)): K1/K3 on the wo/w2 row shards at tp 2 and 4 against
+   their plain versions, K4/K5 launched on half a batch bit-equal to the
+   whole launch, ``cli generate --tp-reduce q80 --tp-overlap`` at one NCCL
+   rank, and at gloo tp 2 the four modes (row plain, row q80, overlap, row
+   plain with overlap) through solo, batched, batched-spec and paged runs:
+   ranks in step, streams equal to one device's or parting at a near tie,
+   the counters and seams fired, the kB a decode token the port's count.
    The `.m` file stays for phase 11c, and the solo engine answers 11c's
    greedy request.
 
@@ -294,6 +302,7 @@ from __future__ import annotations
 
 import itertools
 import json
+from concurrent.futures import ThreadPoolExecutor
 import math
 import os
 import statistics
@@ -999,13 +1008,19 @@ class plain_versions:
         qmatmul.q80_matmul = qmatmul.q80_matmul_ref
         qmatmul.q40_matmul_stacked = qmatmul.q40_matmul_stacked_ref
         qmatmul.q80_matmul_stacked = qmatmul.q80_matmul_stacked_ref
+        def rows(ref):  # a batched form's plain version on rows [row0, row0 + B)
+            return (lambda q, k, v, cos, sin, kc, vc, pos, layer, style, row0=0:
+                    ref(q, k, v, cos, sin, kc[:, row0:row0 + q.shape[0]],
+                        vc[:, row0:row0 + q.shape[0]], pos, layer, style))
+
         llama.rope_cache_update = fused_rope_cache.rope_cache_update_ref
-        llama.rope_cache_update_batched = fused_rope_cache.rope_cache_update_batched_ref
-        llama.rope_cache_update_verify = fused_rope_cache.rope_cache_update_verify_ref
+        llama.rope_cache_update_batched = rows(fused_rope_cache.rope_cache_update_batched_ref)
+        llama.rope_cache_update_verify = rows(fused_rope_cache.rope_cache_update_verify_ref)
         flash_decode.flash_decode_attention = flash_decode.flash_decode_attention_ref
         flash_decode.flash_decode_attention_batched = (
-            lambda q, kc, vc, pos, layer, bound=None:
-            flash_decode.flash_decode_attention_batched_ref(q, kc, vc, pos, layer))
+            lambda q, kc, vc, pos, layer, bound=None, row0=0:
+            flash_decode.flash_decode_attention_batched_ref(
+                q, kc[:, row0:row0 + q.shape[0]], vc[:, row0:row0 + q.shape[0]], pos, layer))
         return self
 
     def __exit__(self, *exc):
@@ -1065,6 +1080,22 @@ NOT_WORK = ("ProfilerStep",)
 #: the profiler's resolution on the card's clock, ms (CUPTI stamps in ns; the
 #: profiler keeps µs with three decimals)
 PROFILER_RES_MS = 1e-6
+
+
+def launch_records(prof) -> tuple:
+    """(the host's kernel-launch calls, the device's kernel records) of an
+    eager profiler window: fewer records than calls means records were
+    lost, not launches (every launch call starts one kernel)."""
+    calls = records = 0
+    for ev in prof.key_averages():
+        if ev.key in LAUNCH_CALLS and ev.key != "cudaGraphLaunch":
+            calls += ev.count
+        elif (str(ev.device_type).endswith("CUDA")
+              and (getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0))
+              and not ev.key.startswith(("Memcpy", "Memset", *NOT_WORK))
+              and not getattr(ev, "is_user_annotation", False)):
+            records += ev.count
+    return calls, records
 
 
 def check_window(busy: float, wall: float, what: str) -> None:
@@ -1187,22 +1218,32 @@ def phase2(torch, dev, kind: str) -> dict:
     # The first records a window profiles can be lost on the H100 (windows
     # without the warm-up counted 31.67 flash decode launches a Q40 token
     # and 128.67 GEMV launches a Q80 one), which the exact gate below
-    # cannot take; graph_window does the same
+    # cannot take; graph_window does the same. A window can still come back
+    # with fewer kernel records than the host's launch calls (seen on the
+    # H100: 31.67 flash decode launches a Q80 token): such a window lost
+    # records, and is measured again, at most three times in all
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 acc_events=True) as prof:
-        for _ in engine.generate([], 1, session=engine.final_session):
-            pass
-        torch.cuda.synchronize()
-        prof.step()
-        t1 = time.perf_counter()
-        for _ in engine.generate([], 3, session=engine.final_session):
-            pass
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t1) * 1e3 / 3
-        prof.step()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     acc_events=True) as prof:
+            for _ in engine.generate([], 1, session=engine.final_session):
+                pass
+            torch.cuda.synchronize()
+            prof.step()
+            t1 = time.perf_counter()
+            for _ in engine.generate([], 3, session=engine.final_session):
+                pass
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3 / 3
+            prof.step()
+        host_calls, records = launch_records(prof)
+        if records >= host_calls:
+            break
+        log(f"  profiler window {attempt + 1}: {records} kernel records for {host_calls} "
+            f"launch calls (records lost); measured again")
+    out["profile_attempts"] = attempt + 1
     by_name, families = device_time(prof, 3)
     busy = sum(by_name.values())
     if busy > 0:
@@ -3864,12 +3905,10 @@ TP_BATCH_STEPS = 8
 TP_MIXTRAL = {**MIXTRAL_8X7B, "n_layers": 4}
 
 
-def phase10_widths(torch, dev, gen) -> list:
-    """K1 (q40) and K3 (q80) at the tp 2 and tp 4 shard widths, at each row
-    count of TP_WIDTH_T: the decode GEMV at T = 1 (a decode step) and T = 5 (a
-    verify step of 5 rows), the tensor-core tile at T = 9, 16 and 72 (solo
-    verify steps at draft 8 and at the kernels' most rows, B = 8 sequences
-    of 9). Each against its plain version within 1e-5 * max|ref|, timed
+def time_width(torch, dev, gen, kind: str, name: str, tp: int, K: int, O: int, ts: tuple,
+               per_token: int) -> list:
+    """K1 (``kind`` q40) or K3 (q80) on one [K, O] shard at each row count
+    of ``ts``: against its plain version within 1e-5 * max|ref|, timed
     (weights rotating past L2) beside its byte bound, its plain version and
     bf16 ``torch.matmul``; the route's plan and how many of the card's
     block slots its grid fills."""
@@ -3877,54 +3916,63 @@ def phase10_widths(torch, dev, gen) -> list:
     from dllama_tpu_torch.ops import qmatmul
 
     n_sm = kernels.sm_count(dev)
+    kern = qmatmul.q40_matmul if kind == "q40" else qmatmul.q80_matmul
+    plain = qmatmul.q40_matmul_ref if kind == "q40" else qmatmul.q80_matmul_ref
+    cols = qmatmul.q40_gemv_cols() if kind == "q40" else qmatmul._GEMV_COLS
+    planes = [quant_planes(torch, dev, gen, kind, K, O)]
+    planes += [quant_planes(torch, dev, gen, kind, K, O)
+               for _ in range(math.ceil(200e6 / plane_bytes(planes[0])) - 1)]
+    rows = []
+    for T in ts:
+        x = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
+        got = kern(x, *planes[0])
+        ref = plain(x, *planes[0])
+        err = (got - ref).abs().max().item()
+        tol = 1e-5 * ref.abs().max().item()
+        if not err <= tol:
+            fail(f"{kind}_matmul {name} at tp {tp} (K {K}, O {O}, T {T}): {err} > {tol}")
+        per_sm = (0 if T > qmatmul.GEMV_MAX_T  # the tile's plan takes none
+                  else qmatmul.q40_gemv_blocks_per_sm(T) if kind == "q40"
+                  else qmatmul.gemv_blocks_per_sm(T, False))
+        route, ksplit, split_rows = (qmatmul.q40_plan if kind == "q40"
+                                     else qmatmul.q80_plan)(T, K, O, n_sm, per_sm)
+        if route == "gemv":
+            blocks_, slots = math.ceil(O / cols) * ksplit, n_sm * per_sm
+        else:
+            blocks_ = math.prod(qmatmul.tile_plan(T, K, O, n_sm)[:3])
+            slots = n_sm * qmatmul.TILE_BLOCKS_PER_SM
+        nxt = rotating(planes)
+        ms = time_ms(torch, lambda: kern(x, *nxt()))
+        b, by = bound_ms(plane_bytes(planes[0]) + T * K * 2 + T * O * 4, 2.0 * T * K * O,
+                         BF16_FLOPS)
+        row = {"kind": kind, "matrix": name, "tp": tp, "T": T, "K": K, "O": O, "ms": ms,
+               "bound_ms": b, "bound_by": by, "max_abs_err": err, "tol": tol,
+               "plain_ms": time_ms(torch, lambda: plain(x, *planes[0]), 10),
+               "library_ms": library_ms(torch, kind, planes, x), "route": route,
+               "ksplit": ksplit, "rows_per_split": split_rows, "blocks": blocks_,
+               "block_slots": slots, "launches_per_token": per_token,
+               "gb_per_s": plane_bytes(planes[0]) / ms / 1e6}
+        rows.append(row)
+        log(f"  {kind}_matmul {name:4s} tp {tp} T {T:2d}: K {K:5d} -> O {O:5d}  "
+            f"{ms:.4f} ms (bound {b:.4f} ms, {by}; {row['gb_per_s']:.0f} GB/s) "
+            f"plain {row['plain_ms']:.3f} ms, bf16 torch.matmul "
+            f"{row['library_ms']:.4f} ms; {route} ksplit={ksplit}: {blocks_} "
+            f"blocks for {slots} slots; err {err:.2e} (tol {tol:.2e})")
+    del planes
+    return rows
+
+
+def phase10_widths(torch, dev, gen) -> list:
+    """K1 (q40) and K3 (q80) at the tp 2 and tp 4 output-shard widths
+    (:func:`time_width`), at each row count of TP_WIDTH_T: the decode GEMV
+    at T = 1 (a decode step) and T = 5 (a verify step of 5 rows), the
+    tensor-core tile at T = 9, 16 and 72 (solo verify steps at draft 8 and
+    at the kernels' most rows, B = 8 sequences of 9)."""
     rows = []
     for kind in ("q40", "q80"):
-        kern = qmatmul.q40_matmul if kind == "q40" else qmatmul.q80_matmul
-        plain = qmatmul.q40_matmul_ref if kind == "q40" else qmatmul.q80_matmul_ref
-        cols = qmatmul.q40_gemv_cols() if kind == "q40" else qmatmul._GEMV_COLS
         for name, K, o2, o4, per_token in TP_WIDTHS:
             for tp, O in ((2, o2), (4, o4)):
-                planes = [quant_planes(torch, dev, gen, kind, K, O)]
-                planes += [quant_planes(torch, dev, gen, kind, K, O)
-                           for _ in range(math.ceil(200e6 / plane_bytes(planes[0])) - 1)]
-                for T in TP_WIDTH_T:
-                    x = torch.randn((T, K), device=dev, generator=gen).to(torch.bfloat16)
-                    got = kern(x, *planes[0])
-                    ref = plain(x, *planes[0])
-                    err = (got - ref).abs().max().item()
-                    tol = 1e-5 * ref.abs().max().item()
-                    if not err <= tol:
-                        fail(f"{kind}_matmul {name} at tp {tp} (K {K}, O {O}, T {T}): "
-                             f"{err} > {tol}")
-                    per_sm = (0 if T > qmatmul.GEMV_MAX_T  # the tile's plan takes none
-                              else qmatmul.q40_gemv_blocks_per_sm(T) if kind == "q40"
-                              else qmatmul.gemv_blocks_per_sm(T, False))
-                    route, ksplit, split_rows = (qmatmul.q40_plan if kind == "q40"
-                                                 else qmatmul.q80_plan)(T, K, O, n_sm, per_sm)
-                    if route == "gemv":
-                        blocks_, slots = math.ceil(O / cols) * ksplit, n_sm * per_sm
-                    else:
-                        blocks_ = math.prod(qmatmul.tile_plan(T, K, O, n_sm)[:3])
-                        slots = n_sm * qmatmul.TILE_BLOCKS_PER_SM
-                    nxt = rotating(planes)
-                    ms = time_ms(torch, lambda: kern(x, *nxt()))
-                    b, by = bound_ms(plane_bytes(planes[0]) + T * K * 2 + T * O * 4,
-                                     2.0 * T * K * O, BF16_FLOPS)
-                    row = {"kind": kind, "matrix": name, "tp": tp, "T": T, "K": K, "O": O,
-                           "ms": ms, "bound_ms": b, "bound_by": by, "max_abs_err": err,
-                           "tol": tol,
-                           "plain_ms": time_ms(torch, lambda: plain(x, *planes[0]), 10),
-                           "library_ms": library_ms(torch, kind, planes, x), "route": route,
-                           "ksplit": ksplit, "rows_per_split": split_rows, "blocks": blocks_,
-                           "block_slots": slots, "launches_per_token": per_token,
-                           "gb_per_s": plane_bytes(planes[0]) / ms / 1e6}
-                    rows.append(row)
-                    log(f"  {kind}_matmul {name:4s} tp {tp} T {T:2d}: K {K:5d} -> O {O:5d}  "
-                        f"{ms:.4f} ms (bound {b:.4f} ms, {by}; {row['gb_per_s']:.0f} GB/s) "
-                        f"plain {row['plain_ms']:.3f} ms, bf16 torch.matmul "
-                        f"{row['library_ms']:.4f} ms; {route} ksplit={ksplit}: {blocks_} "
-                        f"blocks for {slots} slots; err {err:.2e} (tol {tol:.2e})")
-                del planes
+                rows += time_width(torch, dev, gen, kind, name, tp, K, O, TP_WIDTH_T, per_token)
         torch.cuda.empty_cache()
     return rows
 
@@ -3961,6 +4009,23 @@ def write_tp_model(path: Path, cfg_kw: dict, seed: int) -> float:
     return path.stat().st_size / 1e9
 
 
+#: phase 10's `.m` file (:func:`start_tp_file` writes it while phases 1-9 run)
+TP_FILE = ROOT / "build" / "tp" / "llama_q40.m"
+
+
+def start_tp_file(cfg_kw: dict = LLAMA3_8B):
+    """Start writing phase 10's `.m` file (:func:`write_tp_model`, seed 3) in
+    a process of its own and return it: the write takes ~35 s of one host
+    core, which the phases before phase 10 (on the card) leave idle."""
+    import multiprocessing as mp
+
+    TP_FILE.parent.mkdir(parents=True, exist_ok=True)
+    proc = mp.get_context("spawn").Process(target=write_tp_model, args=(TP_FILE, cfg_kw, 3),
+                                           daemon=True)
+    proc.start()
+    return proc
+
+
 def first_step(torch, eng, prompt: list, tok=None) -> tuple:
     """(f32 logits [vocab] of the first decode step after ``prompt``, the
     token fed: ``tok``, or the prefill's greedy pick), on a fresh cache."""
@@ -3993,6 +4058,39 @@ def decode_run(torch, eng, prompt: list, steps: int) -> dict:
             "kb_per_token": statistics.median(kb[1:]), "launches": dict(kernels.launches)}
 
 
+#: a rank process's loaded shards of phase 10's `.m` file, kept for 10g:
+#: (path, tp, row-packed) -> (cfg, params); :func:`p10_release` empties it
+RANK_PARAMS: dict = {}
+
+
+def rank_params(group, path: str, row: bool) -> tuple:
+    """(cfg, this rank's Q40 shard of the `.m` file at ``path``): wo/w2 as
+    row shards with ``row`` (``--tp-reduce``), else output shards; loaded
+    once a process (at one rank the two packs are the same params)."""
+    from dllama_tpu_torch.formats.weights import WeightFileReader
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+
+    key = (path, group.size, row and group.size > 1)
+    if key not in RANK_PARAMS:
+        with WeightFileReader(path) as reader:
+            cfg = ModelConfig.from_spec(reader.spec, dtype="bfloat16")
+            RANK_PARAMS[key] = (cfg, llama.quant_params_from_reader(
+                reader, cfg, group.device, "q40", tp=group, tp_reduce=key[2]))
+    return RANK_PARAMS[key]
+
+
+def p10_release(group, size: int = 0) -> None:
+    """Free this rank's kept shards of a ``size``-way world (0: all of them)
+    and the memory its allocator holds."""
+    for key in [k for k in RANK_PARAMS if size in (0, k[1])]:
+        del RANK_PARAMS[key]
+    import torch
+
+    if group.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def tp_rank_llama(group, path: str, prompt: list, batch_prompts: list, q80_wire: bool) -> dict:
     """One rank of phase 10b (and 10c with ``q80_wire``): its shard of the
     `.m` file at ``path`` (load time, peak memory), the first decode step's
@@ -4013,9 +4111,7 @@ def tp_rank_llama(group, path: str, prompt: list, batch_prompts: list, q80_wire:
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with WeightFileReader(path) as reader:
-        cfg = ModelConfig.from_spec(reader.spec, dtype="bfloat16")
-        params = llama.quant_params_from_reader(reader, cfg, dev, "q40", tp=group)
+    cfg, params = rank_params(group, path, False)
     if cuda:
         torch.cuda.synchronize(dev)
     load_s = time.perf_counter() - t0
@@ -4030,7 +4126,9 @@ def tp_rank_llama(group, path: str, prompt: list, batch_prompts: list, q80_wire:
            **decode_run(torch, eng, prompt, TP_STEPS)}
     if batch_prompts:
         kernels.reset_launches()
+        t0 = time.perf_counter()
         out["batch"] = eng.generate_batch(batch_prompts, TP_BATCH_STEPS)
+        out["batch_s"] = time.perf_counter() - t0
         out["batch_launches"] = dict(kernels.launches)
     if q80_wire:
         wire = Engine(cfg, eng.params, SamplerConfig(temperature=0.0, seed=0),
@@ -4605,8 +4703,320 @@ def phase10f(torch, dev, path: Path, solo, worlds: dict, prompt: list,
     return out
 
 
+#: phase 10g: K1's and K3's row shards of wo and w2 (``--tp-reduce``): (matrix,
+#: K at tp 2, K at tp 4, O, launches per token) of the Llama-3-8B shape
+ROW_WIDTHS = [("wo", 2048, 1024, 4096, 32), ("w2", 7168, 3584, 4096, 32)]
+#: their row counts: decode steps at B = 1, 4 and 8, verify steps of 9, 16, 72
+ROW_WIDTH_T = (1, 4, 8, 9, 16, 72)
+#: phase 10g's modes: (name, --tp-reduce, --tp-overlap)
+P10G_MODES = [("row plain", "plain", False), ("row q80", "q80", False),
+              ("overlap", "off", True), ("row plain + overlap", "plain", True)]
+#: 10g(a)'s modes at the one NCCL rank: the overlap's interleave over NCCL's
+#: asynchronous all-gathers, alone and with the row programs
+P10G_NCCL_MODES = [("overlap", "off", True), ("row q80 + overlap", "q80", True)]
+#: 10g: solo greedy tokens, the paged wave's pool, the one-rank CLI's prompt
+P10G_STEPS = 16
+P10G_POOL = dict(max_batch=4, chunk=8, kv_pages=32)
+P10G_TEXT = "Tell me about the ocean and the tides"
+
+
+def phase10g_widths(torch, dev, gen) -> list:
+    """K1 and K3 on the row shards a ``--tp-reduce`` rank launches (wo: K
+    2048 / 1024, w2: K 7168 / 3584, O 4096 at tp 2 / 4), at the decode rows
+    1, 4, 8 and the verify rows 9, 16, 72 (:func:`time_width`)."""
+    rows = []
+    for kind in ("q40", "q80"):
+        for name, k2, k4, O, per_token in ROW_WIDTHS:
+            for tp, K in ((2, k2), (4, k4)):
+                rows += time_width(torch, dev, gen, kind, name, tp, K, O, ROW_WIDTH_T,
+                                   per_token)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase10g_halves(torch, dev, gen) -> list:
+    """K4 and K5 launched on half a batch (``row0``): a tp 2 rank's heads (16
+    q, 4 kv, hd 128), B = 4 rows of a [4, 4, 1024, 4, 128] cache, bf16 and
+    f8. K5's batched form over rows [0, 2) and [2, 4) must write the caches
+    and rotate q as its one launch over all four rows does, bit for bit, and
+    K4 over each half must give the full launch's rows, bit for bit; the
+    verify form (T = 9) likewise. Each half launch timed beside the full
+    one."""
+    from dllama_tpu_torch.ops import flash_decode, fused_rope_cache
+    from dllama_tpu_torch.ops.rope import rope_table
+
+    H, kv, hd, B, L, S, T = 16, 4, 128, 4, 4, 1024, 9
+    cos, sin = (torch.from_numpy(t).to(dev) for t in rope_table(S, hd, 500000.0))
+    pos = torch.tensor([0, 116, 1000, S - 1], dtype=torch.int32, device=dev)
+    halves = ((0, 2), (2, 4))
+    rows = []
+    for dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        base = (torch.randn((L, B, S, kv, hd), device=dev, generator=gen) * 0.5)
+        caches = [(base.to(dtype), (base * 0.7).to(dtype)) for _ in range(2)]
+        q, k, v = (torch.randn((B, n, hd), device=dev, generator=gen).to(torch.bfloat16)
+                   for n in (H, kv, kv))
+        (fk, fv), (hk, hv) = caches
+        q_full = fused_rope_cache.rope_cache_update_batched(q, k, v, cos, sin, fk, fv, pos, 1)
+        q_half = torch.cat([fused_rope_cache.rope_cache_update_batched(
+            q[a:b], k[a:b], v[a:b], cos, sin, hk, hv, pos[a:b], 1, row0=a) for a, b in halves])
+        o_full = flash_decode.flash_decode_attention_batched(q_full, fk, fv, pos, 1)
+        o_half = torch.cat([flash_decode.flash_decode_attention_batched(
+            q_full[a:b], hk, hv, pos[a:b], 1, row0=a) for a, b in halves])
+        qv, kv_, vv = (torch.randn((B, T, n, hd), device=dev, generator=gen).to(torch.bfloat16)
+                       for n in (H, kv, kv))
+        vpos = torch.tensor([0, 116, 900, S - T], dtype=torch.int32, device=dev)
+        qv_full = fused_rope_cache.rope_cache_update_verify(qv, kv_, vv, cos, sin, fk, fv, vpos,
+                                                            2)
+        qv_half = torch.cat([fused_rope_cache.rope_cache_update_verify(
+            qv[a:b], kv_[a:b], vv[a:b], cos, sin, hk, hv, vpos[a:b], 2, row0=a)
+            for a, b in halves])
+        torch.cuda.synchronize(dev)
+        equal = {"k5_batched_q": torch.equal(q_half, q_full),
+                 "k4_batched": torch.equal(o_half, o_full),
+                 "k5_verify_q": torch.equal(qv_half, qv_full),
+                 "caches": all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                               for a, b in ((fk, hk), (fv, hv)))}
+        r = {"cache": str(dtype), "bit_equal": equal,
+             "k4_full_ms": time_ms(torch, lambda: flash_decode.flash_decode_attention_batched(
+                 q_full, fk, fv, pos, 1)),
+             "k4_half_ms": time_ms(torch, lambda: flash_decode.flash_decode_attention_batched(
+                 q_full[2:], fk, fv, pos[2:], 1, row0=2)),
+             "k5_full_ms": time_ms(torch, lambda: fused_rope_cache.rope_cache_update_batched(
+                 q, k, v, cos, sin, fk, fv, pos, 1)),
+             "k5_half_ms": time_ms(torch, lambda: fused_rope_cache.rope_cache_update_batched(
+                 q[2:], k[2:], v[2:], cos, sin, fk, fv, pos[2:], 1, row0=2))}
+        rows.append(r)
+        log(f"  10g K4/K5 half-batch launches ({dtype} cache, B = 4 as 2 + 2, tp 2 heads): "
+            f"bit-equal to the full launch: {equal}; K4 {r['k4_half_ms']:.4f} ms a half "
+            f"({r['k4_full_ms']:.4f} whole), K5 {r['k5_half_ms']:.4f} ({r['k5_full_ms']:.4f})")
+        if not all(equal.values()):
+            fail(f"10g: a half-batch K4/K5 launch differs from the full launch: {equal}")
+    return rows
+
+
+def p10g_drive(eng, prompt: list, batch_prompts: list) -> dict:
+    """10g's calls on one engine (greedy): ``generate`` of P10G_STEPS tokens
+    (and the kB sent each), ``generate_batch`` (TP_BATCH_STEPS), one
+    ``generate_batch_spec`` (draft 8) and a paged wave (every prompt
+    admitted, then stepped to its end), each's kernel launches counted."""
+    from dllama_tpu_torch import kernels
+
+    out: dict = {"launches": {}}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stream = list(eng.generate(prompt, P10G_STEPS))
+    out["solo_s"] = time.perf_counter() - t0
+    out["solo"] = [t for t, _ in stream]
+    out["kb_per_token"] = statistics.median(st.sent_kb for _, st in stream[1:])
+    out["launches"]["solo"] = dict(kernels.launches)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out["batch"] = eng.generate_batch(batch_prompts, TP_BATCH_STEPS)
+    out["batch_s"] = time.perf_counter() - t0
+    out["launches"]["batch"] = dict(kernels.launches)
+    kernels.reset_launches()
+    out["spec"] = eng.generate_batch_spec(batch_prompts, TP_BATCH_STEPS, draft_len=P10F_DRAFT)[0]
+    out["launches"]["spec"] = dict(kernels.launches)
+    kernels.reset_launches()
+    sess = eng.batch_session(**P10G_POOL)
+    hs = [sess.admit(p, TP_BATCH_STEPS) for p in batch_prompts]
+    rows = {h: [] for h in hs}
+    while not all(sess.is_done(h) for h in hs):
+        for h, toks in sess.step_chunk().items():
+            rows[h].extend(toks)
+    sess.close()
+    out["paged"] = [rows[h] for h in hs]
+    out["launches"]["paged"] = dict(kernels.launches)
+    return out
+
+
+def p10g_rank(group, path: str, prompt: list, batch_prompts: list, modes: list) -> dict:
+    """One rank of phase 10g: for each (name, tp_reduce, tp_overlap) of
+    ``modes`` an engine on this rank's shard (row-packed for the row modes;
+    kept between engines, :func:`rank_params`) runs :func:`p10g_drive`; the
+    two counters and the ``tp_reduce``/``overlap_split`` seams (armed with a
+    zero delay, so they only count) say what served it."""
+    import torch
+
+    from dllama_tpu_torch import faults
+    from dllama_tpu_torch.observability import MetricsRegistry
+    from dllama_tpu_torch.runtime.generate import Engine
+    from dllama_tpu_torch.runtime.sampler import SamplerConfig
+
+    out = {}
+    for name, reduce_, overlap in modes:
+        cfg, params = rank_params(group, path, reduce_ != "off")
+        reg = MetricsRegistry()
+        eng = Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0),
+                     cache_dtype=torch.bfloat16, tp=group, metrics=reg, tp_reduce=reduce_,
+                     tp_overlap=overlap)
+        plan = faults.install("tp_reduce:slow:delay_ms=0;overlap_split:slow:delay_ms=0")
+        try:
+            res = p10g_drive(eng, prompt, batch_prompts)
+        finally:
+            faults.clear()
+        counts = {ln.split()[0]: float(ln.split()[-1]) for ln in reg.render().splitlines()
+                  if ln.startswith(("dllama_tp_overlap_chunks_total",
+                                    "dllama_tp_reduce_chunks_total"))}
+        res.update(resolved=[eng.tp_reduce, eng.tp_reduce_active, eng.tp_overlap_active],
+                   counts=counts, seams={k: v[1] for k, v in plan.counters().items()})
+        out[name] = res
+        del eng
+    return out
+
+
+def phase10g(torch, dev, path: Path, tok_path: Path, solo, world, worlds: dict,
+             prompt: list, batch_in: list, gather_kb: float) -> dict:
+    """``--tp-reduce`` and ``--tp-overlap`` under TP on phase 10's
+    Llama-3-8B-width Q40 file (all 32 layers). (a) One NCCL rank: ``cli
+    generate --tp-reduce q80 --tp-overlap`` through ``cli.run_tp_rank``
+    (its 🔗 line names both modes; its tokens against one device's: at one
+    rank the reduce-scatter is the identity, so q80 runs plain's programs,
+    and a solo stream never splits); then :func:`p10g_drive` at that rank
+    for the overlap alone and with the q80 row programs (P10G_NCCL_MODES:
+    the batched, speculative and paged paths, whose halves wait on NCCL's
+    asynchronous all-gathers), each against one device. (b) gloo tp 2 on this
+    card, the four modes: every rank's streams equal (in step), each equal
+    to one device's or parting at a near tie (:func:`near_tie`); the
+    counters and seams fired; the kB sent a decode token beside the
+    gather-only figure and the JAX package's analytic count. Not bit-equal
+    to one device, and why: the row modes' norm epilogue rounds x·inv to
+    bf16 before the gather (JAX's order) where rmsnorm rounds once; q80 hops
+    quantize; the overlap's halves run K1 at half the rows, another split
+    plan. Times are gloo over one card, not TP speed."""
+    from dllama_tpu_torch.ops.qmatmul import _pad_up
+    from dllama_tpu_torch.parallel import quant_tp
+    from dllama_tpu_torch.runtime import generate as tg
+    from dllama_tpu_torch.tokenizer.bpe import Tokenizer
+
+    out: dict = {"card": gpu_line() if dev.type == "cuda" else "cpu",
+                 "note": "gloo over one card, not TP speed"}
+    want = p10g_drive(solo, prompt, batch_in)
+    out["one"] = {k: want[k] for k in ("solo", "batch", "spec", "paged", "solo_s", "batch_s")}
+    cfg = solo.cfg
+
+    def verdict(got, ref, p) -> dict:
+        if got == ref:
+            return {"equal": True}
+        tie = near_tie(solo, p, ref, got)
+        tie["ok"] = tie.get("near_tie", False)
+        return tie
+
+    def streams(res: dict) -> dict:
+        return {"solo": verdict(res["solo"], want["solo"], prompt),
+                **{k: [verdict(g, w, p) for g, w, p in zip(res[k], want[k], batch_in)]
+                   for k in ("batch", "spec", "paged")}}
+
+    def ok(v) -> bool:
+        return all(ok(x) for x in v.values()) if isinstance(v, dict) and "equal" not in v \
+            else all(ok(x) for x in v) if isinstance(v, list) else v["equal"] or v["ok"]
+
+    # (a) one NCCL rank, the CLI with both flags, runs in its own process
+    # while (b)'s gloo ranks run their modes
+    nccl = worlds.get("a")
+    if nccl is not None:
+        tok = Tokenizer.from_file(str(tok_path))
+        ids = tok.encode(P10G_TEXT, add_bos=True)
+        ref = solo.generate_fused(ids, P10G_STEPS, stop_tokens=(tok.eos_id,))[0]
+        argv = ["generate", "--model", str(path), "--tokenizer", str(tok_path), "--prompt",
+                P10G_TEXT, "--steps", str(P10G_STEPS), "--temperature", "0", "--seed", "0",
+                "--dtype", "bfloat16", "--weights-float-type", "q40", "--tp-reduce", "q80",
+                "--tp-overlap"]
+    def nccl_job():
+        cli_ranks = nccl.run(tp_serve_rank, argv, "")
+        drives = nccl.run(p10g_rank, str(path), prompt, batch_in, P10G_NCCL_MODES)
+        nccl.run(p10_release)
+        return cli_ranks, drives[0]
+
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(nccl_job) if nccl is not None else None
+        ranks = world.run(p10g_rank, str(path), prompt, batch_in, P10G_MODES, size=2)
+        world.run(p10_release)
+        cli_ranks, nccl_drives = job.result() if job is not None else (None, None)
+    if cli_ranks is not None:
+        r0 = cli_ranks[0]
+        line = next((ln for ln in r0["stdout"].splitlines() if ln.startswith("🔗")), "")
+        got = [int(t) for t in next(ln for ln in r0["stdout"].splitlines()
+                                    if ln.startswith("Token ids:")).split(":", 1)[1].split()]
+        cli_res = {"line": line, "tokens": verdict(got, ref, ids),
+                   "launches": r0["launches"]}
+        log(f"  10g(a) one-rank NCCL `cli generate --tp-reduce q80 --tp-overlap`: {line!r}; "
+            f"tokens against one device's: {cli_res['tokens']}")
+        if not ("microbatch overlap" in line and "row-parallel q80 reduce" in line
+                and ok(cli_res["tokens"])):
+            fail(f"10g(a): the one-rank CLI run: {cli_res}")
+        out["a"] = {"cli": cli_res}
+        # the batched, speculative and paged paths at the NCCL rank: the
+        # overlap's halves wait on NCCL's asynchronous all-gathers; at one
+        # rank the reduce-scatter is the identity. Not bit-equal to one
+        # device where a half's K1 launches take another split plan.
+        for name, reduce_, overlap in P10G_NCCL_MODES:
+            r = nccl_drives[name]
+            res = {"streams": streams(r), "counts": r["counts"], "seams": r["seams"],
+                   "resolved": r["resolved"], "solo_s": r["solo_s"], "batch_s": r["batch_s"],
+                   "launches": r["launches"]}
+            out["a"][name] = res
+            log(f"  10g(a) one-rank NCCL, {name}: streams {res['streams']}; counters "
+                f"{res['counts']}, seams {res['seams']}; {P10G_STEPS} tokens in "
+                f"{res['solo_s']:.2f} s, B = 4 x {TP_BATCH_STEPS} in {res['batch_s']:.2f} s")
+            log(f"    launches {({k: {n: c for n, c in v.items() if c} for k, v in res['launches'].items()})}")
+            fired_r = res["counts"].get("dllama_tp_reduce_chunks_total", 0) > 0 and \
+                res["seams"].get("tp_reduce", 0) > 0
+            fired_o = res["counts"].get("dllama_tp_overlap_chunks_total", 0) > 0 and \
+                res["seams"].get("overlap_split", 0) > 0
+            if not (ok(res["streams"]) and fired_o and fired_r == (reduce_ != "off")
+                    and res["resolved"] == [reduce_, reduce_ != "off", True]):
+                fail(f"10g(a) {name}: a stream parted off a near tie, or a counter or seam "
+                     f"did not fire as the mode says: {res}")
+            for k in ("flash_decode_batched", "rope_cache_update_batched"):
+                if not res["launches"]["batch"].get(k):
+                    fail(f"10g(a) {name}: {k} never launched in the batched run")
+            if not res["launches"]["spec"].get("rope_cache_update_verify"):
+                fail(f"10g(a) {name}: the verify form of K5 never launched")
+
+    # (b) gloo tp 2, every mode
+    for name, reduce_, overlap in P10G_MODES:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        in_step = all(r0[k] == r1[k] for k in ("solo", "batch", "spec", "paged"))
+        mode = reduce_ if reduce_ != "off" else None
+        model_kb = tg.wire_bytes_per_row(cfg, "q40", 2, 2.0, mode) / 1024
+        # the JAX engine's _wire_bytes(1) at tp 2: the stack, then the logits
+        jax_kb = (tg.dense_stack_wire_feat_bytes(cfg, quant_tp.ffn_padded_width(cfg, "q40", 2),
+                                                 2.0, mode)
+                  + _pad_up(cfg.vocab_size, 256) * 4.0) * 0.5 / 1024
+        res = {"in_step": in_step, "streams": streams(r0), "counts": r0["counts"],
+               "seams": r0["seams"], "resolved": r0["resolved"],
+               "kb_per_token": r0["kb_per_token"], "kb_model": model_kb,
+               "kb_jax_analytic": jax_kb, "kb_gather_only": gather_kb,
+               "solo_s": r0["solo_s"], "batch_s": r0["batch_s"], "launches": r0["launches"]}
+        out[name] = res
+        log(f"  10g(b) gloo tp 2, {name}: ranks in step: {in_step}; streams {res['streams']}; "
+            f"counters {res['counts']}, seams {res['seams']}; {res['kb_per_token']:.3f} kB sent "
+            f"a decode token (the port's count {model_kb:.3f}, JAX's analytic {jax_kb:.3f}, "
+            f"gather-only {gather_kb:.3f}); {P10G_STEPS} tokens in {res['solo_s']:.2f} s, "
+            f"B = 4 x {TP_BATCH_STEPS} in {res['batch_s']:.2f} s ({out['note']}; {out['card']})")
+        log(f"    launches {({k: {n: c for n, c in v.items() if c} for k, v in res['launches'].items()})}")
+        fired_r = res["counts"].get("dllama_tp_reduce_chunks_total", 0) > 0 and \
+            res["seams"].get("tp_reduce", 0) > 0
+        fired_o = res["counts"].get("dllama_tp_overlap_chunks_total", 0) > 0 and \
+            res["seams"].get("overlap_split", 0) > 0
+        if not (in_step and ok(res["streams"]) and fired_r == bool(mode)
+                and fired_o == overlap and res["resolved"] == [reduce_, bool(mode), overlap]):
+            fail(f"10g(b) {name}: ranks parted, a stream parted off a near tie, or a counter "
+                 f"or seam did not fire as the mode says: {res}")
+        if abs(res["kb_per_token"] - model_kb) > 1e-6 * model_kb:
+            fail(f"10g(b) {name}: {res['kb_per_token']} kB a token, the count {model_kb}")
+        batched = res["launches"]["batch"]
+        for k in ("q40_matmul", "flash_decode_batched", "rope_cache_update_batched"):
+            if not batched.get(k):
+                fail(f"10g(b) {name}: {k} never launched in the batched run")
+        if not res["launches"]["spec"].get("rope_cache_update_verify"):
+            fail(f"10g(b) {name}: the verify form of K5 never launched")
+    return out
+
+
 def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
-            nccl: bool = True, fleet_tok: Path = None) -> dict:
+            nccl: bool = True, fleet_tok: Path = None, writer=None) -> dict:
     """Tensor parallelism (``parallel``) on the card. (a) A one-rank NCCL
     world runs the whole TP path (shard load, gathers through NCCL): logits
     and tokens bit-equal to the eager solo engine on the same `.m` file.
@@ -4621,10 +5031,13 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
     within tolerance of the solo engine, the expert-indexed GEMVs launched.
     Each run's launches are counted from 0. ms per token here is gloo over
     one card, not tensor-parallel speed. With ``fleet_tok`` (a `.t` file)
-    the solo engine also answers 11c's request (``fleet_reference``), (e)
-    ``chat`` and ``serve`` run under TP on the file (:func:`phase10e`), and
-    the `.m` file is kept for 11c (``out["path"]``; the caller deletes
-    it)."""
+    the solo engine also answers 11c's request (``fleet_reference``), (g)
+    ``--tp-reduce`` and ``--tp-overlap`` run on the file (:func:`phase10g`,
+    reusing tp 2's shards kept from (b)), (e) ``chat`` and ``serve`` run
+    under TP on it (:func:`phase10e`), (f) spec and row moves
+    (:func:`phase10f`), and the `.m` file is kept for 11c (``out["path"]``;
+    the caller deletes it). ``writer``: the process of :func:`start_tp_file`
+    writing the file (None: written here)."""
     import numpy as np
 
     from dllama_tpu_torch.formats.weights import WeightFileReader
@@ -4641,15 +5054,20 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
     world = LocalWorld(4, backend="gloo", devices=[dev] * 4, timeout_s=900,
                        threads=1 if dev.type == "cpu" else None)
     e_worlds = p10e_worlds(dev, nccl) if fleet_tok is not None else None
-    work = ROOT / "build" / "tp"
-    work.mkdir(parents=True, exist_ok=True)
-    path = work / "llama_q40.m"
+    path = TP_FILE
+    path.parent.mkdir(parents=True, exist_ok=True)
     try:
         t0 = time.perf_counter()
-        out["file_gb"] = write_tp_model(path, cfg_kw, seed=3)
+        if writer is None:
+            write_tp_model(path, cfg_kw, seed=3)
+        else:
+            writer.join()
+            if writer.exitcode != 0:
+                fail(f"writing {path} failed (exit code {writer.exitcode})")
+        out["file_gb"] = path.stat().st_size / 1e9
         out["write_s"] = time.perf_counter() - t0
         log(f"  random Q40 `.m` file of the Llama-3-8B widths ({cfg_kw['n_layers']} layers): "
-            f"{out['file_gb']:.2f} GB written in {out['write_s']:.1f} s")
+            f"{out['file_gb']:.2f} GB, {out['write_s']:.1f} s of phase 10 waited for it")
         prompt = torch.randint(0, cfg_kw["vocab_size"], (100,),
                                generator=torch.Generator().manual_seed(1)).tolist()
 
@@ -4733,8 +5151,10 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
             if tp == 2:
                 res["batch_equal_solo"] = all(r["batch"] == solo_batch for r in ranks)
                 res["batch_launches"] = r0["batch_launches"]
+                res["batch_s"] = r0["batch_s"]
                 log(f"  10b generate_batch B = 4 under tp 2: rows = solo's: "
-                    f"{res['batch_equal_solo']}; launches {r0['batch_launches']}")
+                    f"{res['batch_equal_solo']}; {TP_BATCH_STEPS} steps in {r0['batch_s']:.2f} s "
+                    f"(gloo over one card, not TP speed); launches {r0['batch_launches']}")
                 if not res["batch_equal_solo"]:
                     fail("10b: generate_batch under tp 2 parts from the solo batch")
                 for k in ("flash_decode_batched", "rope_cache_update_batched", "q40_matmul"):
@@ -4754,9 +5174,17 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
                         and r0["q80_step_bytes"] == want_b):
                     fail("10c: the Q80 wire step is off its tolerance or its byte count")
             out[f"tp{tp}"] = res
+        world.run(p10_release, 4)  # tp 2's shards stay on ranks 0 and 1 for 10g
         if fleet_tok is not None:
+            log(f"== phase 10g: --tp-reduce and --tp-overlap under TP (at "
+                f"{time.strftime('%H:%M:%S')})")
+            out["g"] = phase10g(torch, dev, path, fleet_tok, solo, world, e_worlds, prompt,
+                                batch_in, out["tp2"]["kb_per_token"])
             log(f"== phase 10e: chat and serve under TP (at {time.strftime('%H:%M:%S')})")
             out["e"] = phase10e(torch, dev, path, fleet_tok, solo, e_worlds)
+            for w in e_worlds.values():  # the servers' freed shards, back to the card
+                if w is not None:
+                    w.run(p10_release)
             log(f"== phase 10f: speculative decoding and row moves under TP (at "
                 f"{time.strftime('%H:%M:%S')})")
             out["f"] = phase10f(torch, dev, path, solo, e_worlds, prompt, batch_in)
@@ -5535,6 +5963,7 @@ def main() -> None:
     kernels.lib()
     build_s = time.perf_counter() - t0
     log(f"  kernels built and loaded in {build_s:.1f} s: {so.relative_to(ROOT)}")
+    tp_writer = start_tp_file()  # phase 10's `.m` file, written while phases 1-9 run
     ptxas = ptxas_report(kernels.build_log().read_text()) if kernels.build_log().exists() else []
     for r in ptxas:
         if (any(n in r["kernel"] for n in ("gemv_kernel", "rope_cache_kernel", "int8_kernel"))
@@ -5615,12 +6044,17 @@ def main() -> None:
     header("phase 10: tensor parallelism: K1/K3 at the tp 2 and tp 4 shard widths, T = 1 "
            "(decode) and 5, 9, 16, 72 (10f: verify steps)")
     tp_widths = phase10_widths(torch, dev, gen)
-    header("phase 10: tensor parallelism: one-rank NCCL, then gloo ranks on this card; 10e "
-           "chat and serve under TP; 10f speculative decoding and row moves under TP")
+    header("phase 10g: K1/K3 on the wo/w2 row shards of --tp-reduce at tp 2 and 4, T = 1, 4, "
+           "8, 9, 16, 72; K4/K5 launched on half a batch")
+    row_widths = phase10g_widths(torch, dev, gen)
+    halves = phase10g_halves(torch, dev, gen)
+    header("phase 10: tensor parallelism: one-rank NCCL, then gloo ranks on this card; 10g "
+           "--tp-reduce and --tp-overlap; 10e chat and serve under TP; 10f speculative "
+           "decoding and row moves under TP")
     fleet_tok = ROOT / "build" / "fleet" / "serve.t"
     fleet_tok.parent.mkdir(parents=True, exist_ok=True)
     write_serving_tokenizer(fleet_tok, LLAMA3_8B["vocab_size"])
-    tp_run = phase10(torch, dev, fleet_tok=fleet_tok)
+    tp_run = phase10(torch, dev, fleet_tok=fleet_tok, writer=tp_writer)
 
     header("phase 11a-b: the router in front of two in-process replicas on phase 6's graphed "
            "Q40 engine and its twin")
@@ -5768,7 +6202,22 @@ def main() -> None:
     # 10f: rank 0's launches in the gloo tp 2 generate_spec (33 tokens) and
     # generate_batch_spec (B = 4), draft 8
     tp_spec = tp_run["f"]["b"]["launches"]
+    # 10g: rank 0's launches in the gloo tp 2 runs of every mode (generate
+    # 16 tokens, generate_batch B = 4, generate_batch_spec, a paged wave);
+    # in the two overlap modes each batched K4/K5 launch covers half a batch
+    tp_modes, tp_halves = {}, {}
+    for name, _, overlap in P10G_MODES:
+        for part in tp_run["g"][name]["launches"].values():
+            for k, n in part.items():
+                tp_modes[k] = tp_modes.get(k, 0) + n
+                if overlap and k in ("flash_decode_batched", "rope_cache_update_batched",
+                                     "rope_cache_update_verify"):
+                    tp_halves[k] = tp_halves.get(k, 0) + n
     for entry in summary["kernels"]:
+        if tp_modes.get(entry["name"]):
+            entry["launches_tp2_reduce_overlap"] = tp_modes[entry["name"]]
+        if tp_halves.get(entry["name"]):
+            entry["launches_tp2_half_batch"] = tp_halves[entry["name"]]
         if tp_launch.get(entry["name"]):
             entry["launches_tp2"] = tp_launch[entry["name"]]
         if tp_serve.get(entry["name"]):
@@ -5784,6 +6233,14 @@ def main() -> None:
             entry["tp_verify_widths"] = {
                 f"{r['matrix']}@tp{r['tp']}@T{r['T']}": {k: r[k] for k in keys}
                 for r in tp_widths if r["kind"] == kind and r["T"] != 1}
+            entry["tp_row_widths"] = {
+                f"{r['matrix']}@tp{r['tp']}@T{r['T']}": {k: r[k] for k in ("K", *keys)}
+                for r in row_widths if r["kind"] == kind}
+        if entry["name"] in ("flash_decode_batched", "rope_cache_update_batched"):
+            k = "k4" if entry["name"] == "flash_decode_batched" else "k5"
+            entry["half_batch"] = {h["cache"]: {"bit_equal": all(h["bit_equal"].values()),
+                                                "half_ms": h[f"{k}_half_ms"],
+                                                "full_ms": h[f"{k}_full_ms"]} for h in halves}
         if entry["name"] == "rope_cache_update_verify":
             entry["tp_heads"] = {
                 f"tp{r['tp']}@B{r['rows'][0]}xT{r['rows'][1]}": {
@@ -5811,7 +6268,8 @@ def main() -> None:
                "graphs_q40": graphs, "graphs_q80": graphs80, "k4_bound_S": k4_fixed,
                "experiments": exp, "cli": cli, "moe_indexed": moe_k, "mixtral_q40": mix,
                "grok1_q40": grok, "mixtral_q80": mix80, "pools": pools, "serving": serving,
-               "tp_widths": tp_widths, "tp": tp_run, "fleet": fleet, "summary": summary,
+               "tp_widths": tp_widths, "tp_row_widths": row_widths, "tp_halves": halves,
+               "tp": tp_run, "fleet": fleet, "summary": summary,
                "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")

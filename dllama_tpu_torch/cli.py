@@ -65,8 +65,13 @@ In ``chat`` and ``serve`` rank 0 alone reads stdin or binds the port, and
 hands each engine call to the other ranks (``parallel.control``).
 ``--spec-draft`` speculates under ``--tp`` as on one device, and ``serve
 --role prefill|decode`` moves rows between replicas of any ``--tp``.
-``--tp-overlap`` and ``--tp-reduce`` are refused under ``--tp`` > 1
-(ROADMAP Queue 1 item 8), and so are dense weights.
+``--tp-reduce plain|q80`` runs wo and w2 row-parallel (each rank loads
+their K chunk; partial sums on a ring reduce-scatter, Q80 hops with q80)
+and ``--tp-overlap`` runs a batched decode or verify step of two or more
+rows as two microbatches whose collectives overlap: both as the JAX
+package runs them, declined with its warning where they cannot engage
+(no ``--tp``, MoE, a K chunk off the scale planes). Dense weights are
+refused under ``--tp`` > 1 (ROADMAP Queue 1 item 8.6).
 """
 
 from __future__ import annotations
@@ -577,12 +582,15 @@ def build_parser() -> argparse.ArgumentParser:
             "plain gathers in the activation dtype")
         sp.add_argument(
             "--tp-overlap", action="store_true",
-            help="microbatch compute/communication overlap of the TP gathers: not ported "
-            "yet, refused at start (ROADMAP Queue 1 item 8)")
+            help="under --tp: run a batched decode or verify step of two or more rows as two "
+            "microbatches, each one's gathers and reduce hops issued asynchronously and "
+            "waited on after the other's compute (same tokens; declined for MoE)")
         sp.add_argument(
             "--tp-reduce", default="off", choices=["off", "plain", "q80"],
-            help="row-parallel wo/w2 with a ring reduce-scatter: not ported yet, anything but "
-            "off is refused at start (ROADMAP Queue 1 item 8)")
+            help="under --tp: wo/w2 row-parallel (each rank loads their K chunk) with a "
+            "pinned-order ring reduce-scatter of the f32 partial sums; q80 moves each hop as "
+            "the Q80 wire. Declined (with the reason) for MoE or a K chunk off the q40/q80 "
+            "scale planes")
         # multi-host topology: every host runs the same command with its own
         # --host-id; rank 0 (host 0's first rank) hosts the rendezvous
         sp.add_argument("--coordinator", default=None, metavar="HOST:PORT",
@@ -598,12 +606,6 @@ def tp_plan(args, n_gpus: int):
     return this host's part of the world, or None for one rank: {"size",
     "ranks" (this process's first), "devices", "backend", "init_method"}.
     What is refused raises SystemExit with the reason."""
-    from dllama_tpu_torch.parallel.quant_tp import NOT_PORTED
-
-    if args.tp_overlap:
-        raise SystemExit(f"--tp-overlap is {NOT_PORTED}")
-    if args.tp_reduce != "off":
-        raise SystemExit(f"--tp-reduce {args.tp_reduce} is {NOT_PORTED}")
     hosts, host = 1, 0
     if args.coordinator is not None:
         if args.num_hosts is None or args.host_id is None:
@@ -734,7 +736,11 @@ def load_engine(args, tp=None):
         if wft in ("q40", "q80"):
             shard = "" if tp is None else f", rank {tp.rank}'s shard of {tp.size}"
             print(f"🧮 weights resident as {wft} (fused dequant-matmul kernels{shard})")
-            params = llama.quant_params_from_reader(reader, cfg, device, wft, tp=tp)
+            # wo/w2 load as row shards only where the engine will run them so
+            row_pack = (tp is not None and args.tp_reduce != "off"
+                        and quant_tp.validate_tp_reduce(cfg, wft, tp.size) is None)
+            params = llama.quant_params_from_reader(reader, cfg, device, wft, tp=tp,
+                                                    tp_reduce=row_pack)
         else:
             dense = {"bf16": torch.bfloat16, "f16": torch.float16,
                      "f32": torch.float32}.get(wft)
@@ -750,14 +756,23 @@ def load_engine(args, tp=None):
     compress = args.buffer_float_type == "q80"
     if compress and tp is None:
         print("⚠️  --buffer-float-type q80 applies to the gathers of --tp > 1; none run here")
+    if args.tp_overlap and tp is None:
+        print("⚠️  --tp-overlap needs --tp > 1 with quantized weights (q40/q80); running "
+              "monolithic TP programs")
+    if args.tp_reduce != "off" and tp is None:
+        print("⚠️  --tp-reduce needs --tp > 1 with quantized weights (q40/q80); running "
+              "gather-only TP programs")
     # an explicit 0 must reach Engine's own validation, not become the default
     chunk = args.decode_chunk
     engine = Engine(cfg, params, sampler_cfg, cache_dtype=cache_dtype, device=device,
                     decode_chunk=DECODE_CHUNK if chunk is None else chunk, tp=tp,
-                    tp_compress=compress)
+                    tp_compress=compress, tp_overlap=args.tp_overlap, tp_reduce=args.tp_reduce)
     if tp is not None:
-        print(f"🔗 tensor-parallel over {tp.size} devices ({tp.backend}, {engine.tp_wire} wire; "
-              f"eager decode steps: no CUDA graphs under TP)")
+        overlap = ", microbatch overlap" if engine.tp_overlap_active else ""
+        reduce_ = (f", row-parallel {engine.tp_reduce} reduce" if engine.tp_reduce_active
+                   else "")
+        print(f"🔗 tensor-parallel over {tp.size} devices ({tp.backend}, {engine.tp_wire} "
+              f"wire{overlap}{reduce_}; eager decode steps: no CUDA graphs under TP)")
     return engine, tok, cfg
 
 

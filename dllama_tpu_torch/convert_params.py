@@ -40,19 +40,21 @@ def _leaf(x, device, dtype: torch.dtype | None):
     return t.to(device)
 
 
-def from_jax_params(np_params: dict, cfg: ModelConfig, device, tp=None) -> dict:
+def from_jax_params(np_params: dict, cfg: ModelConfig, device, tp=None,
+                    tp_reduce: bool = False) -> dict:
     """The port's parameter dict for ``np_params`` on ``device``. Dense layer
     matrices and ``wcls`` take the config's compute dtype; the embedding and
     the norms stay f32, as in the JAX package. ``tp`` (a
     ``parallel.group.TPGroup``): this rank's shard of the quantized params
     (``quant_tp.shard_params``, cut on the host before placing), the parts
-    unfused for the Engine to fuse."""
+    unfused for the Engine to fuse; ``tp_reduce``: wo and w2 as the rank's
+    row shards (``quant_tp.row_shard_quant_leaf``)."""
     if tp is not None:
         host = {k: v for k, v in np_params.items() if k != "layers"}
         host["wcls"] = _host_quant(host["wcls"]) if _is_quant(host["wcls"]) else host["wcls"]
         host["layers"] = {k: _host_quant(v) if _is_quant(v) else v
                           for k, v in np_params["layers"].items()}
-        np_params = quant_tp.shard_params(host, cfg, tp.rank, tp.size)
+        np_params = quant_tp.shard_params(host, cfg, tp.rank, tp.size, tp_reduce)
     dense = cfg.torch_dtype
     out = {
         "embedding": _leaf(np_params["embedding"], device, torch.float32),

@@ -132,7 +132,8 @@ struct Args {
   float* part_ml;      // [B, kv, n_split, R, 2]
   int* counters;       // [B * kv], zero between launches
   const int* pos_dev;  // [B] int32 on the device, or null: every row at `pos`
-  int B, T, H, hd, S, kv, pos, layer, n_split, max_split, act_bf16;
+  int B, row0, cache_rows;  // sequence b reads cache row row0 + b of cache_rows
+  int T, H, hd, S, kv, pos, layer, n_split, max_split, act_bf16;
   float scale;
 };
 
@@ -178,7 +179,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const Args a) {
   const int c1 = min(live, c0 + chunk);
   const int ntile = c0 < live ? (c1 - c0 + kTile - 1) / kTile : 0;
   const size_t gstride = (size_t)a.kv * hd;  // cache elements per position
-  const size_t slab = ((size_t)a.layer * a.B + b) * a.S * gstride + (size_t)h * hd;
+  const size_t slab =
+      ((size_t)a.layer * a.cache_rows + a.row0 + b) * a.S * gstride + (size_t)h * hd;
   const CacheT* kbase = static_cast<const CacheT*>(a.kc) + slab;
   const CacheT* vbase = static_cast<const CacheT*>(a.vc) + slab;
   const size_t qrow0 = (size_t)b * a.T;  // this sequence's first query row
@@ -435,8 +437,10 @@ int launch_rows(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// q: [B, T, H, hd], f32 (act_kind 0) or bf16 (1); caches [L, B, S, kv, hd]
-// of kind 0 f32 / 1 bf16 / 2 f8; out: [B, T, H, hd] in q's dtype. hd % 16
+// q: [B, T, H, hd], f32 (act_kind 0) or bf16 (1); caches [L, cache_rows, S,
+// kv, hd] of kind 0 f32 / 1 bf16 / 2 f8, sequence b at cache row row0 + b
+// (a launch over rows [row0, row0 + B) of the whole contiguous cache, as a
+// microbatch of half the rows takes them); out: [B, T, H, hd] in q's dtype. hd % 16
 // == 0 and hd <= 256 (checked by the wrapper). Sequence b sits at pos_dev[b]
 // (device int32 [B]) or, with pos_dev null, every sequence at `pos`.
 // Each row cuts its live prefix min(pos + T, S) into at most max_split
@@ -446,15 +450,18 @@ int launch_rows(const Args& a, cudaStream_t st) {
 // T * H / kv, 2]) are scratch and counters (int32 [>= B * kv]) must be zero,
 // and are left zero; launches that share the counters must not overlap.
 extern "C" int dllama_flash_decode(const void* q, const void* k_cache, const void* v_cache,
-                                   void* out, int B, int T, int H, int hd, int S, int kv,
+                                   void* out, int B, int row0, int cache_rows, int T,
+                                   int H, int hd, int S, int kv,
                                    const void* pos_dev, int pos, int layer, float scale,
                                    int act_kind, int cache_kind, int n_split, int max_split,
                                    void* part_acc, void* part_ml, void* counters,
                                    void* stream) {
+  if (row0 < 0 || B < 1 || row0 + B > cache_rows) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{q, k_cache, v_cache, out, static_cast<float*>(part_acc),
                static_cast<float*>(part_ml), static_cast<int*>(counters),
-               static_cast<const int*>(pos_dev), B, T, H, hd, S, kv, pos, layer, n_split,
+               static_cast<const int*>(pos_dev), B, row0, cache_rows, T, H, hd, S, kv, pos,
+               layer, n_split,
                max_split, act_kind, scale};
   switch (cache_kind) {
     case 0: return launch_rows<float>(a, st);

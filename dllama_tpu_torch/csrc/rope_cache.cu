@@ -53,7 +53,8 @@ struct Args {
   long long q_rs, k_rs, v_rs;  // row strides, in elements
   const float *cos, *sin;      // [R, hd / 2]
   void *q_out, *kc, *vc;
-  int B, T, H, kv, hd, S, R;
+  int B, row0, cache_rows;  // sequence b writes cache row row0 + b of cache_rows
+  int T, H, kv, hd, S, R;
   const int* pos_dev;
   int pos, layer, half_style, angle_at_write;
 };
@@ -153,7 +154,8 @@ rope_cache_kernel(const Args a) {
   const int b = r / a.T, t = r - b * a.T;
   const int p = a.pos_dev != nullptr ? a.pos_dev[b] : a.pos;
   const int w = min(max(p, 0), a.S - a.T) + t;
-  const size_t dst = ((((size_t)a.layer * a.B + b) * a.S + w) * a.kv) * a.hd;
+  const size_t dst =
+      ((((size_t)a.layer * a.cache_rows + a.row0 + b) * a.S + w) * a.kv) * a.hd;
   const int half = a.hd / 2;
 
   if (head >= a.H + a.kv) {  // V: convert and store
@@ -228,22 +230,26 @@ int launch_act(int cache_kind, const Args& a, cudaStream_t st) {
 // q, k, v: rows b * T + t of H, kv and kv heads of hd elements, kind 0 f32 /
 // 1 bf16, each at its own row stride (elements; heads adjacent within a
 // row); cos, sin: f32 [R, hd / 2]; q_out: [B * T, H, hd] contiguous, the
-// activation kind; caches [L, B, S, kv, hd] of kind 0 f32 / 1 bf16 / 2 f8,
-// written in place at rows clamp(p, 0, S - T) + t, p = pos_dev[b] (device
+// activation kind; caches [L, cache_rows, S, kv, hd] of kind 0 f32 / 1 bf16 /
+// 2 f8, sequence b at cache row row0 + b (rows [row0, row0 + B) of the whole
+// contiguous cache), written in place at positions clamp(p, 0, S - T) + t, p = pos_dev[b] (device
 // int32 [B]) or, with pos_dev null, pos; the angle row as in the header
 // (angle_at_write 1: the write row). hd % 8 == 0, 1 <= T <= S, R >= 1.
 extern "C" int dllama_rope_cache_update(const void* q, long long q_rs, const void* k,
                                         long long k_rs, const void* v, long long v_rs,
                                         const void* cos, const void* sin, void* q_out,
-                                        void* k_cache, void* v_cache, int B, int T, int H,
+                                        void* k_cache, void* v_cache, int B, int row0,
+                                        int cache_rows, int T, int H,
                                         int kv, int hd, int S, int R, const void* pos_dev,
                                         int pos, int layer, int half_style, int angle_at_write,
                                         int act_kind, int cache_kind, void* stream) {
-  if (hd % (2 * kPairs) || T < 1 || T > S || R < 1 || B < 1 || B * T > 65535)
+  if (hd % (2 * kPairs) || T < 1 || T > S || R < 1 || B < 1 || B * T > 65535 || row0 < 0 ||
+      row0 + B > cache_rows)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{q, k, v, q_rs, k_rs, v_rs, static_cast<const float*>(cos),
-               static_cast<const float*>(sin), q_out, k_cache, v_cache, B, T, H, kv, hd, S, R,
+               static_cast<const float*>(sin), q_out, k_cache, v_cache, B, row0, cache_rows, T,
+               H, kv, hd, S, R,
                static_cast<const int*>(pos_dev), pos, layer, half_style, angle_at_write};
   switch (act_kind) {
     case 0: return launch_act<float>(cache_kind, a, st);

@@ -89,14 +89,15 @@ _SIGNATURES = {
                                 _P, _P, _P, _P),
     # T, x_f32 -> resident GEMV blocks per SM
     "dllama_q80_gemv_blocks_per_sm": (_I, _I),
-    # q, k_cache, v_cache, out, B, T, H, hd, S, kv, pos_dev, pos, layer, scale, act_kind,
-    # cache_kind, n_split, max_split, part_acc, part_ml, counters, stream
-    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F, _I, _I,
-                            _I, _I, _P, _P, _P, _P),
-    # q, q_rs, k, k_rs, v, v_rs, cos, sin, q_out, k_cache, v_cache, B, T, H, kv, hd, S, R,
-    # pos_dev, pos, layer, half_style, angle_at_write, act_kind, cache_kind, stream
+    # q, k_cache, v_cache, out, B, row0, cache_rows, T, H, hd, S, kv, pos_dev, pos, layer,
+    # scale, act_kind, cache_kind, n_split, max_split, part_acc, part_ml, counters, stream
+    "dllama_flash_decode": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _F,
+                            _I, _I, _I, _I, _P, _P, _P, _P),
+    # q, q_rs, k, k_rs, v, v_rs, cos, sin, q_out, k_cache, v_cache, B, row0, cache_rows, T, H,
+    # kv, hd, S, R, pos_dev, pos, layer, half_style, angle_at_write, act_kind, cache_kind,
+    # stream
     "dllama_rope_cache_update": (_P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P),
+                                 _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     # CUDA error code -> its message
     "dllama_error_string": (_I,),
 }

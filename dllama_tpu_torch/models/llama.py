@@ -34,14 +34,20 @@ at B = 1 on the solo cache's ``[:, None]`` view, the position a device
 int32 [1], bit-equal to ``forward`` at T = 1. It is the step the engine's
 CUDA graphs capture (``runtime.graphs``).
 
-Tensor parallelism (``tp``, a ``parallel.group.TPGroup``, in ``forward``
-and ``forward_batched``): the JAX forward's ``tp_axis`` branches. Every
-quantized matrix is an output shard (``parallel.quant_tp``), so a rank's
-heads, kv heads and FFN hidden are its slice; the activations are gathered
-whole after each output-sharded matmul (four gathers a layer, then the
-logits), so everything between the gathers is replicated and every rank
-holds the same residual stream. ``quant_params_from_reader(..., tp=)``
-loads a rank's shard.
+Tensor parallelism (``tp``, a ``parallel.group.TPGroup``, in ``forward``,
+``forward_batched`` and ``forward_batched_verify``): the JAX forward's
+``tp_axis`` branches. Every quantized matrix is an output shard
+(``parallel.quant_tp``), so a rank's heads, kv heads and FFN hidden are its
+slice; the activations are gathered whole after each output-sharded matmul
+(four gathers a layer, then the logits), so everything between the gathers
+is replicated and every rank holds the same residual stream.
+``quant_params_from_reader(..., tp=)`` loads a rank's shard. With
+``tp_reduce`` (``--tp-reduce``) wo and w2 are row shards instead and the
+residual rides the layers scattered (:func:`_layer_steps`). A layer is
+written as a generator of collective steps (``parallel.collectives``):
+the plain forwards wait on each collective as it is issued, and the
+``*_overlap`` twins run two microbatches' steps interleaved
+(``--tp-overlap``).
 
 ``forward_batched_verify`` is the batched speculative-verify step: B
 sequences of T candidate rows each, every matmul on the flattened [B*T,
@@ -72,7 +78,10 @@ from dllama_tpu_torch.ops.qmatmul import (
 )
 from dllama_tpu_torch.ops.rope import apply_rope, rope_table
 from dllama_tpu_torch.parallel import quant_tp
-from dllama_tpu_torch.parallel.collectives import gather_columns
+from dllama_tpu_torch.parallel.collectives import (
+    Steps, drive, gather_columns, gather_columns_steps, interleave, reduce_scatter_columns_steps,
+    rms_inv_scattered_steps, scatter_features,
+)
 from dllama_tpu_torch.quants import blocks
 
 #: per-layer matrices eligible for quantized storage
@@ -176,10 +185,12 @@ def _stack(qts: list) -> QuantTensor:
 
 
 def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
-                             kind: str = "q40", tp=None) -> dict:
+                             kind: str = "q40", tp=None, tp_reduce: bool = False) -> dict:
     """Load a `.m` file with the big matrices block-quantized for the
     kernels. When the file's own float type matches ``kind`` the file bits
-    are repacked losslessly (by torch on the host's cores). Planes are staged
+    are repacked losslessly (a byte shuffle: on ``device`` when it is a card,
+    one matrix at a time, milliseconds where the host's cores take ~0.2 s a
+    Llama-3-8B FFN matrix; else on the host). Planes are staged
     and fused on the host, then placed, so the unfused originals never reach
     the device. The expert
     stacks of a MoE arch are staged one layer at a time — each layer's
@@ -193,7 +204,12 @@ def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
     rows (the output axis) its shard covers, lane-padded, and fused from the
     rank's own parts, so neither the whole model nor a whole sharded matrix
     reaches the device or the host; the embedding, the norms, the router
-    and an unsharded wcls are read whole. Quantized matrices only."""
+    and an unsharded wcls are read whole. Quantized matrices only.
+    ``tp_reduce``: wo and w2 are the rank's row shards instead
+    (``quant_tp.row_shard_quant_leaf``: its K chunk of each file row, the
+    JAX package's row-parallel pack cut at this rank, bit for bit): each
+    layer's matrix is read whole on the host, cut, and let go (the caller
+    checks ``quant_tp.validate_tp_reduce`` first)."""
     file_ft = reader.spec.weights_float_type
     lossless = (kind == "q40" and file_ft == blocks.Q40) or (
         kind == "q80" and file_ft == blocks.Q80)
@@ -201,6 +217,7 @@ def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
     kernel_multiple = 64 if kind == "q40" else 32
     rank, size = (0, 1) if tp is None else (tp.rank, tp.size)
     quant_tp.validate_quant_tp(cfg, size)
+    shuffle_on = torch.device(device) if torch.device(device).type == "cuda" else "cpu"
 
     def band(name: str, lo: int, hi: int) -> QuantTensor:
         """File rows [lo, hi) of matrix ``name`` as a host QuantTensor [n, hi
@@ -212,7 +229,7 @@ def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
                                        e.n).to("cpu")
         rows = slice(lo, stop)
         if lossless:
-            qt = repack(reader.read_raw_rows(name, rows), stop - lo, e.n, "cpu")
+            qt = repack(reader.read_raw_rows(name, rows), stop - lo, e.n, shuffle_on).to("cpu")
         else:
             qt = quantize_tensor(reader.read_tensor_rows(name, rows).T, kind)
         return quant_tp._pad_qt_out(qt, hi - lo)
@@ -226,6 +243,8 @@ def quant_params_from_reader(reader: WeightFileReader, cfg: ModelConfig, device,
             # valid in the file format but not packable: keep it dense
             dense = reader.read_tensor(name, np.float32).T.copy()
             return torch.from_numpy(dense).to(cfg.torch_dtype)
+        if tp_reduce and role in quant_tp.ROW_SHARDED_MATRICES:
+            return quant_tp.row_shard_quant_leaf(role, band(name, 0, e.d), cfg, rank, size)
         lo, hi = 0, e.d
         if quant_tp.is_sharded(role, cfg, size):  # the whole axis at size 1
             lo, hi = quant_tp.shard_bounds(quant_tp.padded_out(role, cfg, kind, size, e.d),
@@ -314,7 +333,7 @@ def has_quant_leaves(params: dict) -> bool:
 
 
 def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
-                        kind: str = "q40", tp=None) -> dict:
+                        kind: str = "q40", tp=None, tp_reduce: bool = False) -> dict:
     """Random ``kind`` (q40 or q80) params built directly on ``device`` from
     ``generator`` — the benchmark-shape model with quantized residency and
     no host-side copy (the counterpart of the JAX package's
@@ -330,7 +349,7 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
     the same model (``quant_tp.shard_params``: the parts unfused, for the
     Engine to fuse), the whole model made first on ``device``, leaf by leaf
     sliced and dropped, so every rank drawing from the same seed holds
-    exactly its slice."""
+    exactly its slice (``tp_reduce``: wo and w2 as row shards)."""
     if kind not in K_MULTIPLE:
         raise ValueError(f"unknown quant kind {kind!r}")
     L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
@@ -391,7 +410,7 @@ def random_quant_params(cfg: ModelConfig, device, generator: torch.Generator,
     }
     if tp is None:
         return params
-    return quant_tp.shard_params(params, cfg, tp.rank, tp.size)
+    return quant_tp.shard_params(params, cfg, tp.rank, tp.size, tp_reduce)
 
 
 def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -483,8 +502,8 @@ def _norm_proj(x: torch.Tensor, norm_w: torch.Tensor, w, eps: float) -> torch.Te
     return matmul_any(rmsnorm(x, norm_w, eps), w)
 
 
-def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w, tp=None,
-               tp_compress: bool = False) -> torch.Tensor:
+def _dense_ffn_steps(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w, tp=None,
+                     tp_compress: bool = False) -> Steps:
     """FFN half on the RAW (pre-norm) residual ``x``: the ``rms_ffn`` norm is
     applied through ``_norm_proj`` so it can fuse into the up/gate kernels.
     Under ``tp`` the up/gate projections give this rank's slice of the
@@ -498,12 +517,12 @@ def _dense_ffn(cfg: ModelConfig, lp: dict, x: torch.Tensor, norm_w, tp=None,
         h = act(u[..., :half]) * u[..., half:]
     else:
         h = act(_norm_proj(x, norm_w, lp["w1"], eps)) * _norm_proj(x, norm_w, lp["w3"], eps)
-    h = slice_to_in_features(gather_columns(h, tp, tp_compress), lp["w2"])
-    return gather_columns(matmul_any(h, lp["w2"]), tp, tp_compress)
+    h = slice_to_in_features((yield from gather_columns_steps(h, tp, tp_compress)), lp["w2"])
+    return (yield from gather_columns_steps(matmul_any(h, lp["w2"]), tp, tp_compress))
 
 
-def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor, att_out: torch.Tensor,
-                  tp=None, tp_compress: bool = False) -> torch.Tensor:
+def _ffn_residual_steps(cfg: ModelConfig, lp: dict, x: torch.Tensor, att_out: torch.Tensor,
+                        tp=None, tp_compress: bool = False) -> Steps:
     """Post-attention half of a layer, all three archs:
 
     * llama: ``x += att; x += dense_ffn(rmsnorm(x, rms_ffn))``
@@ -516,7 +535,8 @@ def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor, att_out: torch.Te
       (`distributed-llama/src/grok1-tasks.cpp:16-54,239-262,280-320`)
 
     Under ``tp`` the FFN gathers its own output, so every rank holds the
-    whole residual stream."""
+    whole residual stream. The MoE FFN gathers as it goes (a MoE model never
+    takes the microbatch overlap)."""
     eps = cfg.norm_eps
     kw = {"tp": tp, "tp_compress": tp_compress}
     if cfg.is_moe and cfg.post_norms:  # grok1
@@ -526,22 +546,93 @@ def _ffn_residual(cfg: ModelConfig, lp: dict, x: torch.Tensor, att_out: torch.Te
     x = x + att_out
     if cfg.is_moe:
         return x + moe_ffn(cfg, lp, rmsnorm(x, lp["rms_ffn"], eps), **kw)
-    return x + _dense_ffn(cfg, lp, x, lp["rms_ffn"], **kw)
+    return x + (yield from _dense_ffn_steps(cfg, lp, x, lp["rms_ffn"], **kw))
 
 
-def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
-                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
-                layer: int, tp=None, tp_compress: bool = False) -> torch.Tensor:
-    """One attention sub-block of layer ``layer``; writes this step's K/V
-    into the stacked caches in place and returns the output [T, dim].
+def _check_tp_reduce(cfg: ModelConfig, tp_reduce) -> bool:
+    """Whether the row-parallel reduce mode ``tp_reduce`` (None, "plain" or
+    "q80") is on; a bad mode or a MoE model raises (the expert stacks keep
+    output shards: no K-sharded down-projection gives partial sums)."""
+    if tp_reduce is None:
+        return False
+    if tp_reduce not in ("plain", "q80"):
+        raise ValueError(f"tp_reduce must be None, 'plain' or 'q80', got {tp_reduce!r}")
+    if cfg.is_moe:
+        raise ValueError(
+            "tp_reduce requires a dense FFN: MoE expert stacks shard their "
+            "output axis (a slice of every expert per device), so no "
+            "row-parallel down-projection exists to produce partial sums")
+    return True
 
-    Under ``tp`` (a ``parallel.group.TPGroup``) the projections are this
-    rank's output shards, so its heads are local — counted from the shapes,
-    as K4 and K5 size themselves from q's and the cache's — and the cache
-    holds its kv heads; the heads' output is gathered before ``wo`` and
-    ``wo``'s output after it (JAX ``llama.py:766-767``)."""
+
+def _check_overlap_split(cfg: ModelConfig, batch: int) -> int:
+    """The row where the microbatch overlap cuts a batch of ``batch`` rows:
+    ``batch // 2``. MoE is refused (its selected-experts union spans all
+    rows, so a split changes which experts run) and so is a batch of one."""
+    if cfg.is_moe:
+        raise ValueError(
+            "tp_overlap requires a dense FFN: the MoE selected-experts "
+            "union spans all rows, so a microbatch split changes the "
+            "expert schedule (not bit-identical)")
+    if batch < 2:
+        raise ValueError(f"tp_overlap needs batch >= 2 rows, got {batch}")
+    return batch // 2
+
+
+def _row_norm_gather_steps(x_s: torch.Tensor, norm_w: torch.Tensor, tp, tp_compress: bool,
+                           eps: float, full_dim: int) -> Steps:
+    """The row-parallel norm epilogue: the rmsnorm of the SCATTERED residual
+    ``x_s`` [rows, dim / tp] (the whole row's scale from one gather of the
+    per-rank sums of squares), the normalized chunks gathered whole, then
+    the norm weight: JAX's ``_row_norm_gather``, its order of operations
+    and its rounding to the activation dtype before the gather."""
+    inv = yield from rms_inv_scattered_steps(x_s, tp, full_dim, eps)
+    xn = yield from gather_columns_steps((x_s.float() * inv[..., None]).to(x_s.dtype), tp,
+                                         tp_compress)
+    return (norm_w.float() * xn.float()).to(x_s.dtype)
+
+
+def _dense_ffn_row(cfg: ModelConfig, lp: dict, xn: torch.Tensor) -> torch.Tensor:
+    """The row-parallel FFN on the already normalized whole rows ``xn``: the
+    rank's up/gate slices feed its K-sharded w2 with no gather; returns the
+    f32 partial sums [rows, dim] for the ring reduce-scatter."""
+    act = ACTIVATIONS[cfg.hidden_act]
+    if "w13" in lp:
+        u = matmul_any(xn, lp["w13"])
+        half = u.shape[-1] // 2
+        h = act(u[..., :half]) * u[..., half:]
+    else:
+        h = act(matmul_any(xn, lp["w1"])) * matmul_any(xn, lp["w3"])
+    return matmul_any(h, lp["w2"]).float()
+
+
+def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, row_mode: bool = False) -> tuple:
+    """The attention projections of x [T, dim] (rms_att applied, fused into
+    the kernel under DLLAMA_FUSE_NORM; ``row_mode``: x arrives normalized
+    and goes to the kernel as it is): q [T, dim], k and v [T, kv_dim], or a
+    tensor-parallel rank's [T, dim / tp] and [T, kv_dim / tp]: the fused
+    projection splits at widths taken from its own shape."""
+    def proj(w):
+        return matmul_any(x, w) if row_mode else _norm_proj(x, lp["rms_att"], w, cfg.norm_eps)
+
+    if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
+        qkv = proj(lp["wqkv"])
+        d = qkv.shape[-1] * cfg.dim // (cfg.dim + 2 * cfg.kv_dim)
+        kv = (qkv.shape[-1] - d) // 2
+        return qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
+    return tuple(proj(lp[n]) for n in ("wq", "wk", "wv"))
+
+
+def _heads_solo(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int, layer: int,
+                row_mode: bool = False) -> torch.Tensor:
+    """The attention heads [T, heads·hd] of one sequence's T rows at ``pos``
+    (before ``wo``); writes this step's K/V into the stacked caches [L, S,
+    kv, hd] in place. Under tensor parallelism the heads are the rank's —
+    counted from the shapes, as K4 and K5 size themselves from q's and the
+    cache's."""
     T = x.shape[0]
-    q, k, v = (t.reshape(T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
+    q, k, v = (t.reshape(T, -1, cfg.head_size) for t in _qkv(cfg, lp, x, row_mode))
     if T <= DECODE_MAX_T:
         # q's rope, K's rope and the cache write: one launch, reading q, k
         # and v where the projection left them
@@ -558,61 +649,84 @@ def _attn_block(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
         k_cache[layer, pos:pos + T] = cast_cache(k, k_cache.dtype)
         v_cache[layer, pos:pos + T] = cast_cache(v, v_cache.dtype)
         out = gqa_attention(q, k_cache[layer], v_cache[layer], pos)
-    out = gather_columns(out.reshape(T, -1), tp, tp_compress)
-    return gather_columns(matmul_any(out, lp["wo"]), tp, tp_compress)
+    return out.reshape(T, -1)
 
 
-def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> tuple:
-    """The attention projections of x [T, dim] (rms_att applied, fused into
-    the kernel under DLLAMA_FUSE_NORM): q [T, dim], k and v [T, kv_dim], or
-    a tensor-parallel rank's [T, dim / tp] and [T, kv_dim / tp]: the fused
-    projection splits at widths taken from its own shape."""
-    if "wqkv" in lp:  # fused single-kernel projection (fuse_qkv_ffn)
-        qkv = _norm_proj(x, lp["rms_att"], lp["wqkv"], cfg.norm_eps)
-        d = qkv.shape[-1] * cfg.dim // (cfg.dim + 2 * cfg.kv_dim)
-        kv = (qkv.shape[-1] - d) // 2
-        return qkv[:, :d], qkv[:, d:d + kv], qkv[:, d + kv:]
-    return tuple(_norm_proj(x, lp["rms_att"], lp[n], cfg.norm_eps) for n in ("wq", "wk", "wv"))
-
-
-def _attn_block_batched(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
-                        k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
-                        layer: int, bound: int | None, tp=None,
-                        tp_compress: bool = False) -> torch.Tensor:
-    """Batched-decode attention of layer ``layer``: x [B, dim] carries B
-    independent sequences, row b at ``pos[b]`` (int32 [B] on x's device).
-    The projections are [B, K] matmuls (K1/K3 at T = B); the batched rope +
-    cache-write launch rotates q and K with each row's own angle and lands
-    row b at (layer, b, pos[b]); the batched flash decode reads row b's own
-    prefix. Returns the output [B, dim]; ``tp`` as in :func:`_attn_block`."""
+def _heads_batched(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor, layer: int,
+                   bound: int | None, row0: int = 0, row_mode: bool = False) -> torch.Tensor:
+    """Batched-decode attention heads [B, heads·hd]: x [B, dim] carries B
+    independent sequences, row b at ``pos[b]`` (int32 [B] on x's device) and
+    at cache row ``row0`` + b of the whole cache [L, Bc, S, kv, hd] (a
+    microbatch of the overlap takes rows of it in place). The projections
+    are [B, K] matmuls (K1/K3 at T = B); the batched rope + cache-write
+    launch rotates q and K with each row's own angle and lands row b at
+    (layer, row0 + b, pos[b]); the batched flash decode reads row b's own
+    prefix."""
     B = x.shape[0]
-    q, k, v = (t.reshape(B, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
+    q, k, v = (t.reshape(B, -1, cfg.head_size) for t in _qkv(cfg, lp, x, row_mode))
     q = rope_cache_update_batched(q, k, v, rope["cos"], rope["sin"], k_cache, v_cache, pos,
-                                  layer, cfg.rope_style)
-    out = flash_decode.flash_decode_attention_batched(q, k_cache, v_cache, pos, layer, bound)
-    out = gather_columns(out.reshape(B, -1), tp, tp_compress)
-    return gather_columns(matmul_any(out, lp["wo"]), tp, tp_compress)
+                                  layer, cfg.rope_style, row0)
+    out = flash_decode.flash_decode_attention_batched(q, k_cache, v_cache, pos, layer, bound,
+                                                      row0)
+    return out.reshape(B, -1)
 
 
-def _attn_block_verify(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
-                       k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
-                       layer: int, B: int, tp=None, tp_compress: bool = False) -> torch.Tensor:
-    """Verify-step attention of layer ``layer``: x [B*T, dim] holds B
+def _heads_verify(cfg: ModelConfig, lp: dict, rope: dict, x: torch.Tensor,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor, layer: int,
+                  B: int, row0: int = 0, row_mode: bool = False) -> torch.Tensor:
+    """Verify-step attention heads [B*T, heads·hd]: x [B*T, dim] holds B
     sequences of T candidate rows, sequence b's first row at ``pos[b]``
-    (int32 [B] on x's device). The projections run on all B*T rows at once;
-    the verify rope + cache-write launch rotates q and K and lands row b's T
-    rows at (layer, b, pos[b]..); attention is dense over each row's slab.
-    Returns [B*T, dim]; ``tp`` as in :func:`_attn_block`."""
+    (int32 [B] on x's device) and at cache row ``row0`` + b. The
+    projections run on all B*T rows at once; the verify rope + cache-write
+    launch rotates q and K and lands row b's T rows at (layer, row0 + b,
+    pos[b]..); attention is dense over each row's slab."""
     T = x.shape[0] // B
-    q, k, v = (t.reshape(B, T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
+    q, k, v = (t.reshape(B, T, -1, cfg.head_size) for t in _qkv(cfg, lp, x, row_mode))
     # angles of positions pos[b]..pos[b]+T-1, clamped at the table's end as
     # JAX's gather clamps (a row that close to the end is emission-capped
     # by the caller)
     q = rope_cache_update_verify(q, k, v, rope["cos"], rope["sin"], k_cache, v_cache, pos,
-                                 layer, cfg.rope_style)
-    out = gqa_attention_batched(q, k_cache[layer], v_cache[layer], pos)
-    out = gather_columns(out.reshape(B * T, -1), tp, tp_compress)
-    return gather_columns(matmul_any(out, lp["wo"]), tp, tp_compress)
+                                 layer, cfg.rope_style, row0)
+    rows = slice(row0, row0 + B)
+    out = gqa_attention_batched(q, k_cache[layer, rows], v_cache[layer, rows], pos)
+    return out.reshape(B * T, -1)
+
+
+def _attn_steps(lp: dict, heads: torch.Tensor, tp, tp_compress: bool,
+                row_mode: bool = False) -> Steps:
+    """``wo`` on the attention heads. Gather-only: the heads are gathered
+    whole before ``wo`` and its output slice after it (JAX ``llama.py:766-767``).
+    ``row_mode``: the rank's heads feed its K-sharded ``wo`` with no gather
+    and the f32 partial sums [rows, dim] come back for the ring reduce."""
+    if row_mode:
+        return matmul_any(heads, lp["wo"]).float()
+    heads = yield from gather_columns_steps(heads, tp, tp_compress)
+    return (yield from gather_columns_steps(matmul_any(heads, lp["wo"]), tp, tp_compress))
+
+
+def _layer_steps(cfg: ModelConfig, lp: dict, x: torch.Tensor, heads, tp, tp_compress: bool,
+                 tp_reduce) -> Steps:
+    """One layer on the residual ``x``; ``heads(x_in, row_mode)`` computes
+    the attention heads (rope, cache write, attention) of the layer.
+
+    Gather-only: x [rows, dim] whole on every rank, four gathers. Row mode
+    (``tp_reduce`` "plain" or "q80", JAX ``llama.py:858-874``): x is this
+    rank's chunk [rows, dim / tp] of the residual; each sub-block normalizes
+    it with the scattered-norm epilogue (one scalar gather and one gather of
+    the normalized rows), runs the rank's heads into its K-sharded ``wo``
+    (or its up/gate slices into its K-sharded ``w2``) and adds the ring
+    reduce-scatter of the f32 partials to the chunk (Q80 hops with "q80")."""
+    if tp_reduce is None:
+        att = yield from _attn_steps(lp, heads(x, False), tp, tp_compress)
+        return (yield from _ffn_residual_steps(cfg, lp, x, att, tp, tp_compress))
+    eps, dim, hop_q80 = cfg.norm_eps, cfg.dim, tp_reduce == "q80"
+    xn = yield from _row_norm_gather_steps(x, lp["rms_att"], tp, tp_compress, eps, dim)
+    att_p = yield from _attn_steps(lp, heads(xn, True), tp, tp_compress, True)
+    x = x + (yield from reduce_scatter_columns_steps(att_p, tp, hop_q80)).to(x.dtype)
+    xn = yield from _row_norm_gather_steps(x, lp["rms_ffn"], tp, tp_compress, eps, dim)
+    ffn_p = _dense_ffn_row(cfg, lp, xn)
+    return x + (yield from reduce_scatter_columns_steps(ffn_p, tp, hop_q80)).to(x.dtype)
 
 
 def _layer_params(layers: dict, i: int) -> dict:
@@ -620,13 +734,35 @@ def _layer_params(layers: dict, i: int) -> dict:
             for name, leaf in layers.items()}
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """Final rmsnorm, then the classifier: f32 logits [rows, vocab]. Under
-    ``tp`` with wcls sharded the f32 logits are gathered (never
-    compressed) and cut back to the vocab: a zero logit in the lane pad
-    must not reach the sampler (JAX ``llama.py:896-899``); with wcls whole
-    every rank computes them all."""
-    logits = matmul_any(rmsnorm(x, params["rms_final"], cfg.norm_eps), params["wcls"]).float()
+def _stack_steps(cfg: ModelConfig, params: dict, x: torch.Tensor, heads_of, tp,
+                 tp_compress: bool, tp_reduce, last_pos: int | None = None) -> Steps:
+    """Every layer on the embedded rows ``x``, then the final norm: returns
+    the normalized rows [rows, dim] the classifier takes (``last_pos``: only
+    that row). ``heads_of(lp, i)`` gives layer i's ``heads`` (see
+    :func:`_layer_steps`). In row mode the residual rides the layers
+    scattered and the final norm is the scattered-norm epilogue on the
+    rows kept (JAX ``llama.py:886-892``)."""
+    if tp_reduce is not None:
+        x = scatter_features(x, tp)
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = _layer_params(layers, i)
+        x = yield from _layer_steps(cfg, lp, x, heads_of(lp, i), tp, tp_compress, tp_reduce)
+    if last_pos is not None:
+        x = x[last_pos:last_pos + 1]
+    if tp_reduce is not None:
+        return (yield from _row_norm_gather_steps(x, params["rms_final"], tp, tp_compress,
+                                                  cfg.norm_eps, cfg.dim))
+    return rmsnorm(x, params["rms_final"], cfg.norm_eps)
+
+
+def _classify(cfg: ModelConfig, params: dict, xn: torch.Tensor, tp=None) -> torch.Tensor:
+    """The classifier on the normalized rows ``xn``: f32 logits [rows,
+    vocab]. Under ``tp`` with wcls sharded the f32 logits are gathered
+    (never compressed) and cut back to the vocab: a zero logit in the lane
+    pad must not reach the sampler (JAX ``llama.py:896-899``); with wcls
+    whole every rank computes them all."""
+    logits = matmul_any(xn, params["wcls"]).float()
     if tp is not None and quant_tp.shards_wcls(cfg, tp.size):
         logits = gather_columns(logits, tp)[..., :cfg.vocab_size]
     if cfg.logit_scale != 1.0:
@@ -634,9 +770,15 @@ def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor, tp=None) -> torch.T
     return logits
 
 
+def _row_mode(cfg: ModelConfig, tp, tp_reduce):
+    """The reduce mode a forward runs: ``tp_reduce`` when it is on and there
+    is a tensor-parallel group, else None (gather-only)."""
+    return tp_reduce if _check_tp_reduce(cfg, tp_reduce) and tp is not None else None
+
+
 def forward(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
             cache: dict, pos: int, last_pos: int | None = None, tp=None,
-            tp_compress: bool = False) -> tuple:
+            tp_compress: bool = False, tp_reduce=None) -> tuple:
     """Process T tokens starting at ``pos``. Returns (logits [T, vocab] f32,
     cache), the cache updated in place.
 
@@ -647,21 +789,32 @@ def forward(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
     forward (``parallel.quant_tp``): ``params`` and ``cache`` are this
     rank's shards, activations are gathered after each output-sharded
     matmul (over the Q80 wire with ``tp_compress``), and every rank returns
-    the same logits. The port of the JAX forward's ``tp_axis`` branches."""
-    x = embed(cfg, params, tokens)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = _layer_params(layers, i)
-        att_out = _attn_block(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, tp, tp_compress)
-        x = _ffn_residual(cfg, lp, x, att_out, tp, tp_compress)
-    if last_pos is not None:
-        x = x[last_pos:last_pos + 1]
-    return _logits(cfg, params, x, tp), cache
+    the same logits. The port of the JAX forward's ``tp_axis`` branches.
+    ``tp_reduce`` (None, "plain" or "q80"; ``params`` with row shards of
+    wo/w2, ``quant_tp.shard_params(..., tp_reduce=True)``): the row-parallel
+    forward of :func:`_layer_steps`."""
+    red = _row_mode(cfg, tp, tp_reduce)
+
+    def heads_of(lp, i):
+        return lambda x, row: _heads_solo(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, row)
+
+    xn = drive(_stack_steps(cfg, params, embed(cfg, params, tokens), heads_of, tp, tp_compress,
+                            red, last_pos))
+    return _classify(cfg, params, xn, tp), cache
+
+
+def _batched_steps(cfg, params, rope, x, cache, pos, bound, row0, tp, tp_compress, red):
+    """:func:`_stack_steps` of batched-decode rows [row0, row0 + len(x))."""
+    def heads_of(lp, i):
+        return lambda xi, row: _heads_batched(cfg, lp, rope, xi, cache["k"], cache["v"], pos,
+                                              i, bound, row0, row)
+
+    return _stack_steps(cfg, params, x, heads_of, tp, tp_compress, red)
 
 
 def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
                     cache: dict, pos: torch.Tensor, bound: int | None = None, tp=None,
-                    tp_compress: bool = False) -> tuple:
+                    tp_compress: bool = False, tp_reduce=None) -> tuple:
     """One decode step for B independent sequences -> (logits [B, vocab]
     f32, cache), the cache ``{"k", "v": [L, B, S, kv, hd]}`` updated in place.
 
@@ -670,16 +823,44 @@ def forward_batched(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Te
     them back. ``bound``: a host upper bound of every ``pos + 1`` (default
     seq_len), which only sizes flash decode's grid. The weights stream once
     for all B rows; row b's math is ``forward`` at T = 1 and pos[b], summed
-    in the order the kernels take at B rows. ``tp``, ``tp_compress``: as
-    in :func:`forward`."""
+    in the order the kernels take at B rows. ``tp``, ``tp_compress``,
+    ``tp_reduce``: as in :func:`forward`."""
+    red = _row_mode(cfg, tp, tp_reduce)
+    xn = drive(_batched_steps(cfg, params, rope, embed(cfg, params, tokens), cache, pos, bound,
+                              0, tp, tp_compress, red))
+    return _classify(cfg, params, xn, tp), cache
+
+
+def forward_batched_overlap(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
+                            cache: dict, pos: torch.Tensor, bound: int | None = None, tp=None,
+                            tp_compress: bool = False, tp_reduce=None) -> tuple:
+    """:func:`forward_batched` with the rows cut into two microbatches, [0,
+    h) and [h, B) with h = B // 2, whose layers run interleaved: each half's
+    collectives are issued as asynchronous work and waited on only after
+    the other half has issued its own next one
+    (``collectives.interleave``), so one half's gathers and reduce hops are
+    on the wire while the other computes — the TokenWeave-style overlap of
+    the JAX package's ``forward_batched_overlap``, where XLA's
+    latency-hiding scheduler found that order. Both halves read each layer's
+    weights, the halves' K4/K5 launches take their rows of the one cache in
+    place (``row0``), and the classifier runs once on the rejoined rows.
+
+    Row b's math is :func:`forward_batched`'s: every op is per row, and a
+    K4 launch of half the rows plans each row's chunks from the cache's row
+    count. What can differ is a matmul's summation order at h rows against
+    B (the dequant-matmuls' split plans depend on the row count on the
+    card; the CPU's matmul takes another path at one row), so the halves
+    agree with the monolithic step bit for bit where those orders agree and
+    within the decode-step tolerance elsewhere. MoE and B < 2 are refused
+    (:func:`_check_overlap_split`)."""
+    B = tokens.shape[0]
+    h = _check_overlap_split(cfg, B)
+    red = _row_mode(cfg, tp, tp_reduce)
     x = embed(cfg, params, tokens)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = _layer_params(layers, i)
-        att_out = _attn_block_batched(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, bound,
-                                      tp, tp_compress)
-        x = _ffn_residual(cfg, lp, x, att_out, tp, tp_compress)
-    return _logits(cfg, params, x, tp), cache
+    xa, xb = interleave(*(_batched_steps(cfg, params, rope, x[r0:r1], cache, pos[r0:r1], bound,
+                                         r0, tp, tp_compress, red)
+                          for r0, r1 in ((0, h), (h, B))))
+    return _classify(cfg, params, torch.cat([xa, xb]), tp), cache
 
 
 def forward_decode(cfg: ModelConfig, params: dict, rope: dict, token: torch.Tensor,
@@ -701,9 +882,19 @@ def forward_decode(cfg: ModelConfig, params: dict, rope: dict, token: torch.Tens
     return logits, cache
 
 
+def _verify_steps(cfg, params, rope, x, cache, pos, B, row0, tp, tp_compress, red):
+    """:func:`_stack_steps` of verify rows: B sequences [row0, row0 + B) of
+    x's rows [B*T, dim]."""
+    def heads_of(lp, i):
+        return lambda xi, row: _heads_verify(cfg, lp, rope, xi, cache["k"], cache["v"], pos, i,
+                                             B, row0, row)
+
+    return _stack_steps(cfg, params, x, heads_of, tp, tp_compress, red)
+
+
 def forward_batched_verify(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
                            cache: dict, pos: torch.Tensor, tp=None,
-                           tp_compress: bool = False) -> tuple:
+                           tp_compress: bool = False, tp_reduce=None) -> tuple:
     """T candidate tokens for each of B sequences -> (logits [B, T, vocab]
     f32, cache): the batched speculative-verify step, the cache ``{"k", "v":
     [L, B, S, kv, hd]}`` updated in place. ``tokens`` [B, T] and ``pos``
@@ -712,13 +903,26 @@ def forward_batched_verify(cfg: ModelConfig, params: dict, rope: dict, tokens: t
     (a MoE layer routes all B*T rows at once, as the JAX package's does).
     ``tp``, ``tp_compress``: as in :func:`forward` (the JAX package's
     ``quant_tp.make_tp_verify_batched``): the heads, wo's output, the FFN
-    hidden and w2's output are gathered over all B*T rows at once."""
+    hidden and w2's output are gathered over all B*T rows at once;
+    ``tp_reduce`` as in :func:`forward`."""
     B, T = tokens.shape
+    red = _row_mode(cfg, tp, tp_reduce)
+    xn = drive(_verify_steps(cfg, params, rope, embed(cfg, params, tokens.reshape(B * T)),
+                             cache, pos, B, 0, tp, tp_compress, red))
+    return _classify(cfg, params, xn, tp).reshape(B, T, -1), cache
+
+
+def forward_batched_verify_overlap(cfg: ModelConfig, params: dict, rope: dict,
+                                   tokens: torch.Tensor, cache: dict, pos: torch.Tensor,
+                                   tp=None, tp_compress: bool = False, tp_reduce=None) -> tuple:
+    """:func:`forward_batched_verify` as two interleaved microbatches of
+    sequences [0, h) and [h, B), h = B // 2: the verify twin of
+    :func:`forward_batched_overlap`, with the same exactness."""
+    B, T = tokens.shape
+    h = _check_overlap_split(cfg, B)
+    red = _row_mode(cfg, tp, tp_reduce)
     x = embed(cfg, params, tokens.reshape(B * T))
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = _layer_params(layers, i)
-        att_out = _attn_block_verify(cfg, lp, rope, x, cache["k"], cache["v"], pos, i, B,
-                                     tp, tp_compress)
-        x = _ffn_residual(cfg, lp, x, att_out, tp, tp_compress)
-    return _logits(cfg, params, x, tp).reshape(B, T, -1), cache
+    xa, xb = interleave(*(_verify_steps(cfg, params, rope, x[r0 * T:r1 * T], cache, pos[r0:r1],
+                                        r1 - r0, r0, tp, tp_compress, red)
+                          for r0, r1 in ((0, h), (h, B))))
+    return _classify(cfg, params, torch.cat([xa, xb]), tp).reshape(B, T, -1), cache

@@ -199,18 +199,19 @@ def flash_decode_split_batched_ref(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _launch(what: str, q, k_cache, v_cache, pos_dev, pos: int, layer: int, n_split: int,
-            max_split: int) -> torch.Tensor:
+            max_split: int, row0: int = 0) -> torch.Tensor:
     """Validate and make one launch of the kernel: q [B, T, H, hd], caches
-    [L, B, S, kv, hd], row b at ``pos_dev[b]`` (device int32 [B]) or, with
-    ``pos_dev`` None, every row at ``pos``; the grid (kv, n_split, B).
-    Returns [B, T, H, hd] in q's dtype."""
+    [L, Bc, S, kv, hd] with sequence b at cache row ``row0`` + b, at
+    ``pos_dev[b]`` (device int32 [B]) or, with ``pos_dev`` None, every row
+    at ``pos``; the grid (kv, n_split, B). Returns [B, T, H, hd] in q's
+    dtype."""
     B, T, H, hd = q.shape
     L, Bc, S, kv, hd_c = k_cache.shape
-    if (v_cache.shape != k_cache.shape or Bc != B or hd_c != hd or H % kv
+    if (v_cache.shape != k_cache.shape or not 0 <= row0 <= Bc - B or hd_c != hd or H % kv
             or not 1 <= T <= MAX_T or not 0 <= layer < L or hd > 256 or hd % 16):
         raise ValueError(
-            f"{what}: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, layer {layer} "
-            f"(want T <= {MAX_T}, hd % 16 == 0, hd <= 256)")
+            f"{what}: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, rows from {row0}, "
+            f"layer {layer} (want T <= {MAX_T}, hd % 16 == 0, hd <= 256)")
     kind = CACHE_KINDS.get(k_cache.dtype)
     if kind is None or v_cache.dtype != k_cache.dtype:
         raise TypeError(f"{what}: cache dtype {k_cache.dtype} "
@@ -231,7 +232,7 @@ def _launch(what: str, q, k_cache, v_cache, pos_dev, pos: int, layer: int, n_spl
     with torch.cuda.device(q.device):
         rc = kernels.lib().dllama_flash_decode(
             qk.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            B, T, H, hd, S, kv, None if pos_dev is None else pos_dev.data_ptr(), int(pos),
+            B, row0, Bc, T, H, hd, S, kv, None if pos_dev is None else pos_dev.data_ptr(), int(pos),
             int(layer), scale, ACT_KINDS[qk.dtype], kind, n_split, max_split,
             part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
             kernels.stream_of(q))
@@ -267,7 +268,7 @@ def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
 
 def flash_decode_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
                                    v_cache: torch.Tensor, pos: torch.Tensor, layer: int,
-                                   bound: int | None = None) -> torch.Tensor:
+                                   bound: int | None = None, row0: int = 0) -> torch.Tensor:
     """Batched decode: B independent sequences of one token, each reading
     ONLY its own live prefix 0..pos[b] (not max(pos)).
 
@@ -280,16 +281,22 @@ def flash_decode_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
     kernel cuts it into no more chunks than the grid has, so the row reads
     its whole prefix (in another summation order).
     Positions are clamped into [0, S - 1]. Returns [B, n_heads, hd] in q's
-    dtype, matching ``vmap(gqa_attention)`` over the per-row slabs."""
+    dtype, matching ``vmap(gqa_attention)`` over the per-row slabs.
+    ``row0``: q's B rows are cache rows [row0, row0 + B) of a cache with
+    more (a microbatch of the overlap), read in place; the result is the
+    launch over all the cache's rows, cut to rows [row0, row0 + B), bit for
+    bit (each row's chunks are planned from the cache's row count)."""
+    B = q.shape[0]
     if k_cache.device.type == "cpu":
-        return flash_decode_attention_batched_ref(q, k_cache, v_cache, pos, layer)
+        rows = slice(row0, row0 + B)
+        return flash_decode_attention_batched_ref(q, k_cache[:, rows], v_cache[:, rows], pos,
+                                                  layer)
     if k_cache.device.type != "cuda":
         raise ValueError(f"flash_decode_attention_batched: unsupported device "
                          f"{k_cache.device}")
     if q.dim() != 3 or k_cache.dim() != 5:
         raise ValueError(f"flash_decode_attention_batched: q {tuple(q.shape)}, cache "
                          f"{tuple(k_cache.shape)}")
-    B = q.shape[0]
     _, _, S, kv, _ = k_cache.shape
     if (not isinstance(pos, torch.Tensor) or pos.dtype != torch.int32
             or pos.shape != (B,) or pos.device != k_cache.device):
@@ -297,8 +304,10 @@ def flash_decode_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
                          "on the caches' device")
     bound = S if bound is None else min(max(int(bound), 1), S)
     n_sm = kernels.sm_count(q.device)
-    max_split = max_splits(B * kv, n_sm)
+    # planned from the cache's rows, not the launch's: a launch over some of
+    # them cuts each row as the launch over all would, so it gives its bits
+    max_split = max_splits(k_cache.shape[1] * kv, n_sm)
     out = _launch("flash_decode_attention_batched", q[:, None], k_cache, v_cache,
-                  pos.contiguous(), 0, layer, n_chunks(bound, max_split), max_split)
+                  pos.contiguous(), 0, layer, n_chunks(bound, max_split), max_split, row0)
     kernels.launches["flash_decode_batched"] += 1
     return out[:, 0]

@@ -205,12 +205,14 @@ def _rows(what: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(what: str, q, k, v, cos, sin, k_cache, v_cache, pos_dev, pos: int, layer: int,
-            style: str, angle_at_write: bool) -> torch.Tensor:
-    """One launch over the caches' B sequences of T rows each (q [B * T
-    rows, H, hd] in any row-strided layout; caches [L, B, S, kv, hd]);
-    returns q rotated, contiguous."""
+            style: str, angle_at_write: bool, B: int = 0, row0: int = 0) -> torch.Tensor:
+    """One launch over ``B`` sequences of T rows each (q [B * T rows, H, hd]
+    in any row-strided layout), sequence b at cache row ``row0`` + b of the
+    caches [L, Bc, S, kv, hd] (``B`` 0: all Bc); returns q rotated,
+    contiguous."""
     H, hd = q.shape[-2:]
-    _, B, S, kv, _ = k_cache.shape
+    _, Bc, S, kv, _ = k_cache.shape
+    B = B or Bc
     if hd % 8:
         raise ValueError(f"{what}: head size {hd} (want a multiple of 8)")
     if not all(t.is_contiguous() for t in (k_cache, v_cache, cos, sin)):
@@ -221,7 +223,7 @@ def _launch(what: str, q, k, v, cos, sin, k_cache, v_cache, pos_dev, pos: int, l
         rc = kernels.lib().dllama_rope_cache_update(
             qf.data_ptr(), qf.stride(0), kf.data_ptr(), kf.stride(0), vf.data_ptr(),
             vf.stride(0), cos.data_ptr(), sin.data_ptr(), q_out.data_ptr(),
-            k_cache.data_ptr(), v_cache.data_ptr(), B, qf.shape[0] // B, H, kv, hd, S,
+            k_cache.data_ptr(), v_cache.data_ptr(), B, row0, Bc, qf.shape[0] // B, H, kv, hd, S,
             cos.shape[0], None if pos_dev is None else pos_dev.data_ptr(), int(pos),
             int(layer), int(style == HALF), int(angle_at_write), ACT_KINDS[q.dtype],
             CACHE_KINDS[k_cache.dtype], kernels.stream_of(k_cache))
@@ -252,45 +254,61 @@ def rope_cache_update(q, k, v, cos, sin, k_cache, v_cache, pos: int, layer: int,
     return out
 
 
+def _check_rows(what: str, k_cache, B: int, row0: int) -> None:
+    if not 0 <= row0 <= k_cache.shape[1] - B:
+        raise ValueError(f"{what}: rows [{row0}, {row0 + B}) outside a cache of "
+                         f"{k_cache.shape[1]}")
+
+
 def rope_cache_update_batched(q, k, v, cos, sin, k_cache, v_cache, pos: torch.Tensor,
-                              layer: int, style: str = INTERLEAVED) -> torch.Tensor:
+                              layer: int, style: str = INTERLEAVED,
+                              row0: int = 0) -> torch.Tensor:
     """Batched decode: B independent rows, q [B, H, hd], k, v [B, kv, hd];
     row b rotated with table row clamp(pos[b], 0, R - 1) and landing at
-    (layer, b, clamp(pos[b], 0, S - 1)) — the clamp the unfused scatter
-    makes, so an overrun row leaves the same cache. ``pos`` int32 [B] on the
-    caches' device. Returns q rotated, [B, H, hd]."""
+    (layer, row0 + b, clamp(pos[b], 0, S - 1)) — the clamp the unfused
+    scatter makes, so an overrun row leaves the same cache. ``pos`` int32
+    [B] on the caches' device. ``row0``: the first of the cache's rows the
+    B rows are (a microbatch of the overlap writes its rows of the whole
+    cache in place). Returns q rotated, [B, H, hd]."""
     what = "rope_cache_update_batched"
     if k_cache.dim() != 5:
         raise ValueError(f"{what}: cache {tuple(k_cache.shape)}")
-    _check(what, q, k, v, cos, sin, k_cache, v_cache, layer, style, (k_cache.shape[1],),
-           k_cache.shape[2])
-    _check_pos(what, pos, q.shape[0], k_cache.device)
+    B = q.shape[0]
+    _check_rows(what, k_cache, B, row0)
+    _check(what, q, k, v, cos, sin, k_cache, v_cache, layer, style, (B,), k_cache.shape[2])
+    _check_pos(what, pos, B, k_cache.device)
     if k_cache.device.type == "cpu":
-        return rope_cache_update_batched_ref(q, k, v, cos, sin, k_cache, v_cache, pos, layer,
-                                             style)
+        rows = slice(row0, row0 + B)  # views: the plain version writes through them
+        return rope_cache_update_batched_ref(q, k, v, cos, sin, k_cache[:, rows],
+                                             v_cache[:, rows], pos, layer, style)
     out = _launch(what, q, k, v, cos, sin, k_cache, v_cache, pos.contiguous(), 0, layer, style,
-                  False)
+                  False, B, row0)
     kernels.launches["rope_cache_update_batched"] += 1
     return out
 
 
 def rope_cache_update_verify(q, k, v, cos, sin, k_cache, v_cache, pos: torch.Tensor,
-                             layer: int, style: str = INTERLEAVED) -> torch.Tensor:
+                             layer: int, style: str = INTERLEAVED,
+                             row0: int = 0) -> torch.Tensor:
     """Speculative verify: B sequences of T draft rows each (T <= MAX_T), q
     [B, T, H, hd], k, v [B, T, kv, hd]; row (b, t) rotated with table row
-    min(pos[b] + t, R - 1) and landing at (layer, b, clamp(pos[b], 0, S - T)
-    + t), as the vmapped ``dynamic_update_slice`` clamps. ``pos`` int32 [B]
-    on the caches' device. Returns q rotated, [B, T, H, hd]."""
+    min(pos[b] + t, R - 1) and landing at (layer, row0 + b, clamp(pos[b],
+    0, S - T) + t), as the vmapped ``dynamic_update_slice`` clamps. ``pos``
+    int32 [B] on the caches' device; ``row0`` as in
+    :func:`rope_cache_update_batched`. Returns q rotated, [B, T, H, hd]."""
     what = "rope_cache_update_verify"
     if k_cache.dim() != 5 or q.dim() != 4:
         raise ValueError(f"{what}: q {tuple(q.shape)}, cache {tuple(k_cache.shape)}")
-    _check(what, q, k, v, cos, sin, k_cache, v_cache, layer, style,
-           (k_cache.shape[1], q.shape[1]), k_cache.shape[2])
-    _check_pos(what, pos, q.shape[0], k_cache.device)
+    B = q.shape[0]
+    _check_rows(what, k_cache, B, row0)
+    _check(what, q, k, v, cos, sin, k_cache, v_cache, layer, style, (B, q.shape[1]),
+           k_cache.shape[2])
+    _check_pos(what, pos, B, k_cache.device)
     if k_cache.device.type == "cpu":
-        return rope_cache_update_verify_ref(q, k, v, cos, sin, k_cache, v_cache, pos, layer,
-                                            style)
+        rows = slice(row0, row0 + B)
+        return rope_cache_update_verify_ref(q, k, v, cos, sin, k_cache[:, rows],
+                                            v_cache[:, rows], pos, layer, style)
     out = _launch(what, q, k, v, cos, sin, k_cache, v_cache, pos.contiguous(), 0, layer, style,
-                  False)
+                  False, B, row0)
     kernels.launches["rope_cache_update_verify"] += 1
     return out

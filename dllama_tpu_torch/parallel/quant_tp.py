@@ -22,6 +22,16 @@ beat real negative ones in an argmax). Pad columns and rows carry zero
 scales and contribute exactly 0. The Hopper kernels need no other width:
 they take any output width and a K that is a multiple of 64.
 
+Row-parallel mode (``--tp-reduce``), kept from the JAX package: ``wo`` and
+``w2`` alone shard their K (input) axis instead, so they take the rank's
+own heads and its own slice of the FFN hidden with no gather, and give
+full-width f32 partial sums that ``collectives.reduce_scatter_columns``
+adds on a ring. Each K chunk is packed on its own (:func:`row_shard_quant_leaf`:
+the chunk's K padded to ``K_MULTIPLE`` with inert zero-scale rows), so a
+rank's shard is an ordinary QuantTensor whose ``k_logical`` is the chunk;
+a chunk must hold whole scale rows (64 input rows for Q40's twin scale
+planes, 32 for Q80), which :func:`validate_tp_reduce` checks.
+
 The port fuses wq|wk|wv into ``wqkv``, w1|w3 into ``w13`` and
 moe_up|moe_gate into ``moe_upgate`` (``models.llama.fuse_qkv_ffn``). A
 slice of a fused tensor's output axis would give rank 0 all of q and none
@@ -51,6 +61,13 @@ FUSED_PARTS = {"wqkv": ("wq", "wk", "wv"), "w13": ("w1", "w3"),
 HIDDEN_OUT = frozenset({"w1", "w3", "moe_up", "moe_gate"})
 #: matrices whose packed input axis is the FFN hidden
 HIDDEN_IN = frozenset({"w2", "moe_down"})
+#: matrices that K-shard (row-parallel) under ``--tp-reduce``: the two whose
+#: inputs the preceding matmuls leave sharded (a rank's heads feed wo, its
+#: up/gate slice feeds w2)
+ROW_SHARDED_MATRICES = frozenset({"wo", "w2"})
+#: K rows one scale-plane row covers: Q40's s/s2 twins each span half of a
+#: 64-row superblock, a Q80 scale one 32-row block
+ROW_SHARD_GRANULARITY = {"q40": 64, "q80": 32}
 #: the ROADMAP item that holds what this slice leaves out
 NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 8)"
 
@@ -73,6 +90,31 @@ def validate_quant_tp(cfg: ModelConfig, n_tp: int) -> None:
 
 def ffn_padded_width(cfg: ModelConfig, kind: str, n_tp: int) -> int:
     return _pad_up(cfg.hidden_dim, math.lcm(K_MULTIPLE[kind], 128 * n_tp))
+
+
+def row_shard_chunk_k(cfg: ModelConfig, name: str, kind: str, n_tp: int) -> int:
+    """Logical K rows each rank's row shard of ``name`` takes: wo the local
+    head concat (dim / tp), w2 the local slice of the lane-padded hidden
+    that w1/w3 give (ffn_padded_width / tp)."""
+    base = cfg.dim if name == "wo" else ffn_padded_width(cfg, kind, n_tp)
+    return base // n_tp
+
+
+def validate_tp_reduce(cfg: ModelConfig, kind: str, n_tp: int):
+    """None when row-parallel wo/w2 can engage, else the reason it declines
+    (the Engine's warning, and ``/stats``)."""
+    if cfg.is_moe:
+        return ("moe: row-parallel reduce needs a dense FFN (the "
+                "selected-experts union spans all rows)")
+    for name in sorted(ROW_SHARDED_MATRICES):
+        chunk = row_shard_chunk_k(cfg, name, kind, n_tp)
+        gran = ROW_SHARD_GRANULARITY[kind]
+        if chunk % gran:
+            return (f"{name}: per-shard K {chunk} off the {kind} slicing "
+                    f"granularity {gran} (scale planes cover {gran} input "
+                    f"rows; need dim and the padded hidden divisible by "
+                    f"{gran}*tp)")
+    return None
 
 
 def shards_wcls(cfg: ModelConfig, n_tp: int) -> bool:
@@ -173,6 +215,37 @@ def prepare_quant_leaf(name: str, leaf, cfg: ModelConfig, n_tp: int):
     return leaf
 
 
+def row_shard_quant_leaf(name: str, leaf: QuantTensor, cfg: ModelConfig, rank: int,
+                         size: int) -> QuantTensor:
+    """``rank``'s K chunk of ``wo`` or ``w2`` for row-parallel execution:
+    logical input rows [rank·chunk, (rank + 1)·chunk) of every plane (w2
+    first padded to the FFN's padded width), the chunk's K padded to
+    ``K_MULTIPLE`` on its own with zero-scale rows, ``k_logical`` the
+    chunk. The JAX package's ``row_shard_quant_leaf`` packs every chunk so
+    and concatenates them on the packed K axis: this is that pack's
+    ``rank``-th piece, bit for bit. Planes stay where they are (numpy or
+    torch), copied out."""
+    kind = leaf.kind
+    chunk = row_shard_chunk_k(cfg, name, kind, size)
+    gran = ROW_SHARD_GRANULARITY[kind]
+    if chunk % gran:
+        raise ValueError(f"row-parallel {name}: per-shard K {chunk} is not a multiple of the "
+                         f"{kind} scale-plane granularity {gran}: the K slice would split a "
+                         f"superblock (use validate_tp_reduce to gate)")
+    kp_shard = _pad_up(chunk, K_MULTIPLE[kind])
+    if name == "w2":
+        leaf = _pad_qt_in(leaf, ffn_padded_width(cfg, kind, size))
+
+    def cut(plane, per: int):  # ``per``: logical K rows a plane row covers
+        part = _pad_axis(plane[..., rank * chunk // per:(rank + 1) * chunk // per, :], -2,
+                         kp_shard // per)
+        return np.ascontiguousarray(part) if isinstance(part, np.ndarray) else part.contiguous()
+
+    if kind == "q40":
+        return QuantTensor(cut(leaf.w, 2), cut(leaf.s, 64), cut(leaf.s2, 64), kind, chunk)
+    return QuantTensor(cut(leaf.w, 1), cut(leaf.s, 32), leaf.s2, kind, chunk)
+
+
 def shard_quant_leaf(leaf: QuantTensor, rank: int, size: int) -> QuantTensor:
     """``rank``'s slice of the output axis of every plane (``w``, ``s``,
     ``s2``) of ``leaf``, copied out (numpy or torch, where the planes are),
@@ -189,10 +262,14 @@ def shard_quant_leaf(leaf: QuantTensor, rank: int, size: int) -> QuantTensor:
     return QuantTensor(cut(leaf.w), cut(leaf.s), cut(leaf.s2), leaf.kind, leaf.k_logical)
 
 
-def shard_leaf(name: str, leaf, cfg: ModelConfig, rank: int, size: int):
+def shard_leaf(name: str, leaf, cfg: ModelConfig, rank: int, size: int,
+               tp_reduce: bool = False):
     """One unfused leaf of a full model -> ``rank``'s leaf: lane-aligned,
     then output-sharded when ``name`` shards; replicated leaves (embedding,
-    norms, the MoE router, an unsharded wcls) pass through."""
+    norms, the MoE router, an unsharded wcls) pass through. ``tp_reduce``:
+    wo and w2 take their K chunk instead (:func:`row_shard_quant_leaf`)."""
+    if tp_reduce and name in ROW_SHARDED_MATRICES and isinstance(leaf, QuantTensor):
+        return row_shard_quant_leaf(name, leaf, cfg, rank, size)
     leaf = prepare_quant_leaf(name, leaf, cfg, size)
     if not is_sharded(name, cfg, size):
         return leaf
@@ -213,12 +290,15 @@ def _split_out(qt: QuantTensor, widths: tuple) -> list:
     return out
 
 
-def shard_params(params: dict, cfg: ModelConfig, rank: int, size: int) -> dict:
+def shard_params(params: dict, cfg: ModelConfig, rank: int, size: int,
+                 tp_reduce: bool = False) -> dict:
     """``rank``'s params of a ``size``-way tensor-parallel model from the
     full ``params`` (numpy or torch planes, fused or not): fused
     projections come back as their unfused parts, each sharded, for the
     caller to fuse (``llama.fuse_qkv_ffn``; the Engine does). The same
-    full params give every rank exactly its slice."""
+    full params give every rank exactly its slice. ``tp_reduce``: wo and w2
+    are the rank's row shards (the caller checks ``validate_tp_reduce``
+    first; a misfit raises)."""
     validate_quant_tp(cfg, size)
     widths = {"wqkv": (cfg.dim, cfg.kv_dim, cfg.kv_dim), "w13": (cfg.hidden_dim,) * 2,
               "moe_upgate": (cfg.hidden_dim,) * 2}
@@ -228,19 +308,27 @@ def shard_params(params: dict, cfg: ModelConfig, rank: int, size: int) -> dict:
             for part, sub in zip(FUSED_PARTS[name], _split_out(leaf, widths[name])):
                 layers[part] = shard_leaf(part, sub, cfg, rank, size)
         else:
-            layers[name] = shard_leaf(name, leaf, cfg, rank, size)
+            layers[name] = shard_leaf(name, leaf, cfg, rank, size, tp_reduce)
     return {"embedding": params["embedding"], "rms_final": params["rms_final"],
             "wcls": shard_leaf("wcls", params["wcls"], cfg, rank, size), "layers": layers}
 
 
-def check_shards(params: dict, cfg: ModelConfig, size: int) -> None:
+def check_shards(params: dict, cfg: ModelConfig, size: int, tp_reduce: bool = False) -> None:
     """Raise unless ``params`` hold one rank's quantized shards of a
-    ``size``-way model (wo's output width is dim / size): a whole model
-    handed to a tensor-parallel engine would compute garbage, not fail."""
+    ``size``-way model: wo's output width dim / size, or, with ``tp_reduce``,
+    wo's row shard (K dim / size, dim outputs). A whole model handed to a
+    tensor-parallel engine would compute garbage, not fail."""
     wo = params["layers"].get("wo")
     if not isinstance(wo, QuantTensor):
         raise ValueError(f"tensor parallelism takes quantized (q40/q80) weights; dense-weight "
                          f"TP is {NOT_PORTED}")
+    if tp_reduce:  # at size 1 a row shard and an output shard are the whole wo
+        if (wo.in_features, wo.out_features) != (cfg.dim // size, cfg.dim):
+            raise ValueError(f"wo is [{wo.in_features}, {wo.out_features}] where a rank's row "
+                             f"shard of a tp={size} model is [{cfg.dim // size}, {cfg.dim}]: "
+                             f"shard with tp_reduce (quant_tp.shard_params, or load with "
+                             f"tp= and tp_reduce=)")
+        return
     if wo.out_features != cfg.dim // size:
         raise ValueError(f"wo has {wo.out_features} output columns where a rank of a tp={size} "
                          f"model holds {cfg.dim // size}: pass this rank's shard "

@@ -29,7 +29,14 @@ and its kv heads' cache; every forward gathers the activations
 every rank computes the same logits, and every rank samples them with the
 same seeded generator: every rank emits the same tokens, with no broadcast.
 Every path runs under TP, with eager steps: a gloo gather cannot be
-captured in a CUDA graph, and capturing NCCL's is later work. Rank 0 hands
+captured in a CUDA graph, and capturing NCCL's is later work.
+``Engine(tp_reduce="plain"|"q80")`` runs wo and w2 row-parallel (their row
+shards' f32 partial sums on a pinned-order ring reduce-scatter, the
+residual carried scattered) and ``Engine(tp_overlap=True)`` cuts a batched
+decode or verify step of two or more live rows into two microbatches whose
+collectives overlap the other's compute (``llama.forward_batched_overlap``);
+both resolve from the model, the weights' format, the world's size and the
+flags alone, so every rank runs the same programs. Rank 0 hands
 each call of a server or a chat to the other ranks (``parallel.control``).
 A paged row's export gathers every rank's kv heads into the one-device
 snapshot, and its import gives each rank its heads' slice of one
@@ -66,6 +73,7 @@ generator state (``verify_sampled``).
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 import weakref
 from typing import Iterator, Optional
@@ -112,6 +120,90 @@ def prefill_bucket(n: int) -> int:
     return n
 
 
+def dense_stack_wire_feat_bytes(cfg: ModelConfig, hidden: int, per_feat: float,
+                                tp_reduce=None) -> float:
+    """The JAX package's analytic wire count of a dense layer stack: bytes a
+    row before the ring's (tp - 1) / tp fraction. Gather-only: four gathers
+    a layer (the heads, wo's output, the padded hidden ``hidden``, w2's
+    output) at ``per_feat`` bytes a feature (1.125 on the Q80 wire).
+    Row-parallel (``tp_reduce``): a layer's two normalized gathers (dim each,
+    ``per_feat``), two reduce-scatters (dim each, f32 partials at 4 B a
+    feature or 1.125 on Q80 hops) and two f32 scalar sums for the norms,
+    plus the final norm's gather and scalar sum. The port moves exactly
+    this, except that each scalar sum is an all-gather of the ranks' sums
+    (size - 1 scalars sent, where the analytic count has (size - 1) / size):
+    :func:`wire_bytes_per_row` is the port's count."""
+    if not tp_reduce:
+        return cfg.n_layers * (3 * cfg.dim + hidden) * per_feat
+    red_feat = 1.125 if tp_reduce == "q80" else 4.0
+    gather_feats = (2 * cfg.n_layers + 1) * cfg.dim
+    reduce_feats = 2 * cfg.n_layers * cfg.dim
+    psum_scalars = (2 * cfg.n_layers + 1) * 4.0
+    return gather_feats * per_feat + reduce_feats * red_feat + psum_scalars
+
+
+def wire_bytes_per_row(cfg: ModelConfig, kind: str, tp: int, per_feat: float,
+                       tp_reduce=None) -> float:
+    """The bytes a rank's collectives send for one row of a dense forward
+    at ``tp`` ranks, the logits gather included: the JAX engine's
+    ``_wire_bytes`` per row, with the scalar sums as the port moves them
+    (see :func:`dense_stack_wire_feat_bytes`)."""
+    if tp <= 1:
+        return 0.0
+    frac = (tp - 1) / tp
+    hidden = quant_tp.ffn_padded_width(cfg, kind, tp)
+    out = dense_stack_wire_feat_bytes(cfg, hidden, per_feat, tp_reduce) * frac
+    if tp_reduce:  # the scalar sums: (tp - 1) f32 a row each, not (tp - 1) / tp
+        out += (2 * cfg.n_layers + 1) * 4.0 * (tp - 1 - frac)
+    if quant_tp.shards_wcls(cfg, tp):
+        out += quant_tp._pad_up(cfg.vocab_size, 128 * tp) * 4.0 * frac
+    return out
+
+
+def resolve_tp_modes(cfg: ModelConfig, kind: Optional[str], tp_size: Optional[int],
+                     tp_overlap: bool, tp_reduce: str) -> dict:
+    """How ``--tp-overlap`` and ``--tp-reduce`` resolve, as the JAX engine
+    resolves them: {"tp_reduce" (the mode run, "off" when declined),
+    "tp_reduce_active", "tp_reduce_reason", "tp_overlap_active",
+    "tp_overlap_reason", "warnings"}. A pure function of the model, the
+    weights' format ``kind`` (None: dense), the world's size (None: one
+    device) and the flags, so every rank resolves alike: a rank that ran
+    other programs would wait forever in a collective the others never
+    issue. A bad ``tp_reduce`` raises; a declined flag warns and the other
+    programs run."""
+    if tp_reduce in (None, "off"):
+        tp_reduce = None
+    elif tp_reduce not in ("plain", "q80"):
+        raise ValueError(f"tp_reduce must be 'off', 'plain' or 'q80', got {tp_reduce!r}")
+    out = {"tp_reduce": "off", "tp_reduce_active": False,
+           "tp_reduce_reason": "not requested" if tp_reduce is None else
+           "no mesh (single device)",
+           "tp_overlap_active": False,
+           "tp_overlap_reason": "not requested" if not tp_overlap else
+           "no mesh (single device)",
+           "warnings": []}
+    if tp_size is None:
+        return out
+    if tp_reduce is not None:
+        why = quant_tp.validate_tp_reduce(cfg, kind or "q40", tp_size)
+        if why is not None:
+            out["tp_reduce_reason"] = why
+            out["warnings"].append(f"dllama: tp_reduce requested but declined ({why}); "
+                                   f"gather-only TP programs used")
+        else:
+            out.update(tp_reduce=tp_reduce, tp_reduce_active=True, tp_reduce_reason="on")
+    if tp_overlap:
+        if cfg.is_moe:
+            out["tp_overlap_reason"] = "moe: selected-experts union spans rows"
+            out["warnings"].append(
+                "dllama: tp_overlap requested but the model is MoE — the selected-experts "
+                "union spans all rows, so the microbatch split is not exact; monolithic TP "
+                "programs used")
+        else:
+            out.update(tp_overlap_active=True, tp_overlap_reason="on")
+    return out
+
+
 @dataclasses.dataclass
 class TokenStats:
     """Per-token timing (the reference's G/I/T/S/R line):
@@ -150,6 +242,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _quant_kind(params: dict) -> Optional[str]:
+    """The format of ``params``' quantized matrices ("q40" or "q80"), None
+    when they are dense."""
+    for leaf in (params.get("wcls"), *params["layers"].values()):
+        if isinstance(leaf, llama.QuantTensor):
+            return leaf.kind
+    return None
+
+
 class Engine:
     """Holds device-resident params and runs solo generation on ``device``
     (the card unless the caller passes ``device="cpu"``)."""
@@ -158,7 +259,8 @@ class Engine:
                  sampler_cfg: SamplerConfig = SamplerConfig(),
                  cache_dtype=torch.float32, device=None, decode_chunk: int = DECODE_CHUNK,
                  cuda_graphs: bool = True, metrics=DEFAULT_METRICS, tp=None,
-                 tp_compress: bool = False):
+                 tp_compress: bool = False, tp_overlap: bool = False,
+                 tp_reduce: str = "off"):
         """Quantized projections that share an input are fused
         (``llama.fuse_qkv_ffn``) if they are not already. Every solo decode
         step checks ``isfinite(logits)`` and ``generate`` raises
@@ -177,7 +279,20 @@ class Engine:
         ``quant_tp.shard_params``), fused here from its own parts, and the
         engine runs on the group's device with eager steps
         (``cuda_graphs`` is ignored). ``tp_compress``: the gathers move the
-        Q80 wire (``tp_wire`` says which wire runs)."""
+        Q80 wire (``tp_wire`` says which wire runs).
+
+        ``tp_reduce`` ("off", "plain" or "q80"): wo and w2 row-parallel, their
+        partial sums on the pinned-order ring reduce-scatter ("q80": each
+        hop on the Q80 wire); ``params`` then hold their row shards
+        (``quant_params_from_reader(..., tp_reduce=True)``,
+        ``quant_tp.shard_params(..., tp_reduce=True)``). ``tp_overlap``: a
+        batched decode or verify step of two or more live rows runs as two
+        microbatches whose collectives overlap the other's compute. Both
+        resolve as the JAX engine's (:func:`resolve_tp_modes`): a flag that
+        cannot engage (no TP, MoE, a K chunk off the scale planes) warns on
+        stderr and the other programs run; ``tp_reduce``/``tp_reduce_active``/
+        ``tp_reduce_reason`` and ``tp_overlap_active``/``tp_overlap_reason``
+        say what ran and why (``/stats``)."""
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self._register_metrics(
@@ -186,14 +301,24 @@ class Engine:
         self.tp_wire = "q80" if tp is not None and tp_compress else "plain"
         self._tp_kw: dict = {}
         self._tp_size = 1
+        modes = resolve_tp_modes(cfg, _quant_kind(params), None if tp is None else tp.size,
+                                 tp_overlap, tp_reduce)
+        for w in modes["warnings"]:
+            print(w, file=sys.stderr, flush=True)
+        self.tp_reduce = modes["tp_reduce"]
+        self.tp_reduce_active = modes["tp_reduce_active"]
+        self.tp_reduce_reason = modes["tp_reduce_reason"]
+        self.tp_overlap_active = modes["tp_overlap_active"]
+        self.tp_overlap_reason = modes["tp_overlap_reason"]
         if tp is not None:
             quant_tp.validate_quant_tp(cfg, tp.size)
-            quant_tp.check_shards(params, cfg, tp.size)
+            quant_tp.check_shards(params, cfg, tp.size, self.tp_reduce_active)
             if device is not None and torch.device(device) != tp.device:
                 raise ValueError(f"device {device} is not the tensor-parallel rank's {tp.device}")
             device = tp.device
             cuda_graphs = False
-            self._tp_kw = {"tp": tp, "tp_compress": tp_compress}
+            self._tp_kw = {"tp": tp, "tp_compress": tp_compress,
+                           "tp_reduce": self.tp_reduce if self.tp_reduce_active else None}
             self._tp_size = tp.size
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -227,10 +352,11 @@ class Engine:
         self.final_session: Optional[Session] = None
 
     def _register_metrics(self, metrics) -> None:
-        """The reference Engine's metric names (``None``: no telemetry). The
-        two TP counters belong to ``--tp-overlap`` and ``--tp-reduce``, which
-        are not ported: they stay at 0, so that ``/metrics`` lists the same
-        names as the reference's."""
+        """The reference Engine's metric names (``None``: no telemetry).
+        ``dllama_tp_overlap_chunks_total`` counts the dispatches the
+        microbatch overlap served (:meth:`_overlap_engaged`),
+        ``dllama_tp_reduce_chunks_total`` those the row-parallel programs
+        served (:meth:`_reduce_dispatch`)."""
         self.metrics = metrics
         if metrics is None:
             self._m_prefill = self._m_step = self._m_chunk = None
@@ -238,6 +364,7 @@ class Engine:
             self._m_spec_steps = self._m_spec_accepted = self._m_spec_emitted = None
             self._m_migrations = self._m_prefix_hits = self._m_prefix_misses = None
             self._m_prefix_tokens = self._m_cow = self._m_prefix_evictions = None
+            self._m_overlap = self._m_reduce = None
             return
         h, c = metrics.histogram, metrics.counter
         self._m_prefill = h("dllama_prefill_ms", "Prompt prefill wall time per request")
@@ -269,12 +396,12 @@ class Engine:
         self._m_prefix_evictions = c(
             "dllama_prefix_evictions_total",
             "Refcount-zero prefix-cache pages evicted (LRU) to satisfy an allocation")
-        c("dllama_tp_overlap_chunks_total",
-          "Decode/verify dispatches routed through the microbatch "
-          "compute/communication-overlap TP programs")
-        c("dllama_tp_reduce_chunks_total",
-          "Decode/verify dispatches served by the row-parallel "
-          "(K-sharded wo/w2, ring reduce-scatter) TP programs")
+        self._m_overlap = c("dllama_tp_overlap_chunks_total",
+                            "Decode/verify dispatches routed through the microbatch "
+                            "compute/communication-overlap TP programs")
+        self._m_reduce = c("dllama_tp_reduce_chunks_total",
+                           "Decode/verify dispatches served by the row-parallel "
+                           "(K-sharded wo/w2, ring reduce-scatter) TP programs")
 
     def _poison_flag(self) -> bool:
         """The solo ``logits:nan`` fault seam: True poisons this dispatch."""
@@ -290,8 +417,38 @@ class Engine:
         return ()
 
     def _wire_bytes(self) -> int:
-        """Bytes this rank's gathers have sent so far (0 on one device)."""
+        """Bytes this rank's collectives have sent so far (0 on one device)."""
         return 0 if self.tp is None else self.tp.sent_bytes
+
+    def _overlap_engaged(self, rows: int) -> bool:
+        """Whether a batched dispatch of ``rows`` live rows runs as two
+        microbatches: only with the overlap on and two or more live rows (a
+        lone row has no second microbatch to hide the wire behind). Fires
+        the ``overlap_split`` fault seam and counts the engagement."""
+        if not self.tp_overlap_active or rows < 2:
+            return False
+        faults.fire("overlap_split")
+        if self._m_overlap is not None:
+            self._m_overlap.inc()
+        return True
+
+    def _dispatch(self, rows: int, monolithic, overlap):
+        """The forward of one batched dispatch with ``rows`` live rows:
+        ``overlap`` (a microbatch-overlap twin of ``llama``) when the overlap
+        engages, else ``monolithic``; the row-parallel dispatch is counted
+        either way."""
+        self._reduce_dispatch()
+        return overlap if self._overlap_engaged(rows) else monolithic
+
+    def _reduce_dispatch(self) -> None:
+        """One dispatch of the row-parallel programs (every TP forward runs
+        them once ``tp_reduce`` is on, solo steps included): fires the
+        ``tp_reduce`` fault seam and counts it."""
+        if not self.tp_reduce_active:
+            return
+        faults.fire("tp_reduce")
+        if self._m_reduce is not None:
+            self._m_reduce.inc()
 
     def new_cache(self) -> dict:
         return llama.init_cache(self.cfg, self.cache_dtype, self.device, self._tp_size)
@@ -540,7 +697,7 @@ class Engine:
         return self.graphs.get(cache["k"], key, make)
 
     def _paged_step(self, arena: dict, tokens: torch.Tensor, pos: torch.Tensor,
-                    table: torch.Tensor) -> torch.Tensor:
+                    table: torch.Tensor, fwd=llama.forward_batched) -> torch.Tensor:
         """One batched decode step over paged KV -> logits [B, vocab]. Each
         row's pages (``table`` [B, nb], page 0 the scratch page) are
         gathered into a window [L, B, nb * page, kv, hd], where logical
@@ -549,7 +706,8 @@ class Engine:
         window); then only the page holding each row's written position
         goes back to the arena. An aliased prefix page is never that page (a
         live row writes at or past its pending token, in a private page),
-        and rows on scratch write scratch."""
+        and rows on scratch write scratch. ``fwd``: the batched forward
+        (:meth:`_dispatch`'s choice under tensor parallelism)."""
         B, nb = table.shape
         a = arena["k"]
         L, page = a.shape[0], a.shape[2]
@@ -557,8 +715,7 @@ class Engine:
         flat = table.reshape(-1)
         window = {n: arena[n].index_select(1, flat).reshape(L, B, W, *a.shape[3:])
                   for n in ("k", "v")}
-        logits = llama.forward_batched(self.cfg, self.params, self.rope, tokens, window, pos,
-                                       W, **self._tp_kw)[0]
+        logits = fwd(self.cfg, self.params, self.rope, tokens, window, pos, W, **self._tp_kw)[0]
         blk = (pos.long().clamp(0, W - 1) // page)[:, None]  # [B, 1]
         phys = table.gather(1, blk).reshape(-1)  # [B]
         rows = torch.arange(B, device=table.device)
@@ -655,6 +812,7 @@ class Engine:
             t1 = time.perf_counter()
             b1 = self._wire_bytes()
             poison = self._poison_flag()
+            self._reduce_dispatch()
             if self.cuda_graphs:
                 toks, ok = self._decode_chunk_solo(cache, token, pos, 1, scfg, gen, poison)
                 token = toks[0]
@@ -754,6 +912,7 @@ class Engine:
         while remaining > 0:
             tc = time.perf_counter()
             n = min(self.decode_chunk, remaining)
+            self._reduce_dispatch()
             chunk, ok = self._decode_chunk_solo(cache, token, pos, n, scfg, gen,
                                                 self._poison_flag())
             *got, finite = torch.cat([chunk, ok.long()]).tolist()  # the chunk's one sync
@@ -864,6 +1023,7 @@ class Engine:
                 L = min(draft_len + 1, S - pos)
                 draft = index.draft(token, min(L - 1, steps - emitted - 1))
                 feed = torch.tensor([token] + draft, dtype=torch.long)
+                self._reduce_dispatch()
                 logits, _ = llama.forward(self.cfg, self.params, self.rope,
                                           feed.to(self.device), cache, pos, **self._tp_kw)
                 if sampled:
@@ -904,7 +1064,8 @@ class Engine:
     def _decode_chunk_batch(self, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
                             n: int, temps: list, topps: list, generators: list,
                             host_pos: list, poison: tuple = (),
-                            table: Optional[torch.Tensor] = None) -> tuple:
+                            table: Optional[torch.Tensor] = None,
+                            rows: Optional[int] = None) -> tuple:
         """``n`` batched decode steps with no host sync: tokens, positions
         and the per-row finite flags stay on the device. Row b samples with
         its own settings and generator; a row whose context fills pins at
@@ -917,6 +1078,8 @@ class Engine:
         decode's grid for the whole chunk. ``poison``: the rows whose logits
         are NaN in every step (the ``logits`` fault seam). ``table``: the
         page tables [B, nb] of a paged step over the arena ``cache``.
+        ``rows``: how many of the B rows are live (default B), which decides
+        the microbatch overlap under tensor parallelism.
         Returns (tokens [n, B], ok [B], the positions after the chunk)."""
         sampled = any(t > 0.0 for t in temps)
         ring = max(n, self.decode_chunk)
@@ -932,17 +1095,19 @@ class Engine:
             g.load(tokens, pos, temps, topps, poison=poison, table=table)
             toks, ok = g.run(n, generators)
             return toks.clone(), ok.clone(), g.pos.clone()
+        fwd = self._dispatch(tokens.shape[0] if rows is None else rows, llama.forward_batched,
+                             llama.forward_batched_overlap)
         if table is None:
             bound = min(max(host_pos) + n, ctx)
 
             def step(tok, p):
-                return llama.forward_batched(self.cfg, self.params, self.rope, tok, cache, p,
-                                             bound, **self._tp_kw)[0]
+                return fwd(self.cfg, self.params, self.rope, tok, cache, p, bound,
+                           **self._tp_kw)[0]
         else:
             table = table.to(self.device, torch.long)
 
             def step(tok, p):
-                return self._paged_step(cache, tok, p, table)
+                return self._paged_step(cache, tok, p, table, fwd)
         ok = torch.ones(tokens.shape, dtype=torch.bool, device=self.device)
         mask = None
         if poison:
@@ -1202,7 +1367,9 @@ class BatchSpecRun:
         feeds = [[pend[b]] * T if done[b] else [pend[b]] + d + [0] * (T - 1 - len(d))
                  for b, d in enumerate(drafts)]
         starts = [min(poss[b], S - T) if done[b] else poss[b] for b in range(B)]
-        logits, self.cache = llama.forward_batched_verify(
+        verify = eng._dispatch(B, llama.forward_batched_verify,
+                               llama.forward_batched_verify_overlap)
+        logits, self.cache = verify(
             eng.cfg, eng.params, eng.rope,
             torch.tensor(feeds, dtype=torch.long, device=dev), self.cache,
             torch.tensor(starts, dtype=torch.int32, device=dev), **eng._tp_kw)
@@ -2302,7 +2469,8 @@ class BatchSession:
         chunk, ok, _ = eng._decode_chunk_batch(
             cache, torch.tensor(shape.tokens, dtype=torch.long, device=dev),
             torch.tensor(shape.pos, dtype=torch.int32, device=dev), self.chunk, shape.temps,
-            shape.topps, shape.gens, shape.pos, eng._poison_rows(shape.cap), table=table)
+            shape.topps, shape.gens, shape.pos, eng._poison_rows(shape.cap), table=table,
+            rows=len(live))
         arr = chunk.cpu().tolist()  # the chunk's one host sync
         okh = ok.cpu().tolist()
         shape.tokens = [t if h is not None and h not in self._prefills else 0

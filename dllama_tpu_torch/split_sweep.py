@@ -120,7 +120,7 @@ def sweep_flash(dev, gen) -> dict:
 
             def call(layer):
                 kernels.check(lib.dllama_flash_decode(
-                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(), res.data_ptr(), 1, T,
+                    q.data_ptr(), kc.data_ptr(), vc.data_ptr(), res.data_ptr(), 1, 0, 1, T,
                     kv * group, hd, S, kv, None, pos, layer, scale, 1, 1, n_split, want,
                     part_acc.data_ptr(), part_ml.data_ptr(), counters.data_ptr(),
                     kernels.stream_of(q)), "flash decode")

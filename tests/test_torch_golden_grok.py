@@ -3,7 +3,7 @@
 The reference pins the output of a 1-layer Grok-1 block whose weights come
 from a seeded xorshift64* stream (`distributed-llama/src/grok1-tasks-test.cpp:
 13-15,29-91`); ``tests/test_golden_grok.py`` holds the JAX package to the
-same numbers. Here the port's attention block and ``_ffn_residual`` (the
+same numbers. Here the port's attention block and ``_ffn_residual_steps`` (the
 MoE FFN with Grok-1's post-norms) run on the same stream, made by the
 in-repo C++ generator (``native/src/xorshift_gen.cc``), and must reach the
 same values at that test's tolerance (3.5e-5 abs). Skips without ``g++``,
@@ -20,6 +20,7 @@ import torch
 
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.models.config import GROK_EMBEDDING_SCALE, ModelConfig
+from dllama_tpu_torch.parallel.collectives import drive
 from tests.test_golden_grok import DIM, E, GOLDEN, HEAD, HIDDEN, KV_DIM, N_HEADS, N_KV, VOCAB
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -108,8 +109,9 @@ def test_grok1_block_matches_reference_golden(tmp_path):
     x = llama.embed(cfg, {"embedding": embedding}, torch.tensor([0]))
     rope = llama.rope_tables(cfg, "cpu")
     cache = llama.init_cache(cfg, device="cpu")
-    att = llama._attn_block(cfg, lp, rope, x, cache["k"], cache["v"], 0, 0)
-    out = llama._ffn_residual(cfg, lp, x, att)[0].numpy()
+    heads = llama._heads_solo(cfg, lp, rope, x, cache["k"], cache["v"], 0, 0)
+    att = drive(llama._attn_steps(lp, heads, None, False))
+    out = drive(llama._ffn_residual_steps(cfg, lp, x, att))[0].numpy()
     for off, want in GOLDEN.items():
         np.testing.assert_allclose(out[off:off + 4], np.asarray(want, np.float32), atol=3.5e-5,
                                    err_msg=f"offset {off}")

@@ -7,8 +7,10 @@
   this host's first rank plus one spawned local rank: rank = host·2 +
   local index) prints host 0's tokens, equal to a one-process ``cli
   generate``; host 1 keeps its output back.
-* ``cli.tp_plan`` refuses what this slice leaves out, and a ``--tp``
-  beyond the visible GPUs, with the reason.
+* ``cli.tp_plan`` refuses a ``--tp`` beyond the visible GPUs and a bad
+  host layout with the reason; it takes ``--tp-overlap`` and
+  ``--tp-reduce`` (the Engine resolves them), and dense weights under
+  ``--tp`` are still refused, ``--tp-reduce`` or not.
 """
 
 import argparse
@@ -157,16 +159,52 @@ def test_tp_plan_layout():
 
 @pytest.mark.parametrize("kw,gpus,why", [
     (dict(tp=4), 2, "needs 4 GPUs on this host and 2 are visible"),
-    (dict(tp=2, tp_overlap=True), 2, "--tp-overlap is not ported yet"),
-    (dict(tp=2, tp_reduce="q80"), 2, "--tp-reduce q80 is not ported yet"),
     (dict(mode="worker"), 1, "worker mode requires --coordinator"),
     (dict(tp=3, coordinator="h:1", num_hosts=2, host_id=0), 4, "does not split evenly"),
     (dict(tp=2, coordinator="h:1"), 2, "requires --num-hosts and --host-id"),
-], ids=["too_few_gpus", "overlap", "reduce", "worker_alone",
-        "uneven_hosts", "coordinator_alone"])
+], ids=["too_few_gpus", "worker_alone", "uneven_hosts", "coordinator_alone"])
 def test_tp_plan_refuses_with_the_reason(kw, gpus, why):
     with pytest.raises(SystemExit, match=re.escape(why)):
         cli.tp_plan(_args(**kw), gpus)
+
+
+@pytest.mark.parametrize("kw,active", [
+    (dict(tp_overlap=True), ("tp_overlap_active",)),
+    (dict(tp_reduce="q80"), ("tp_reduce_active",)),
+    (dict(tp_reduce="plain", tp_overlap=True), ("tp_overlap_active", "tp_reduce_active")),
+], ids=["overlap", "reduce", "both"])
+def test_tp_plan_takes_overlap_and_reduce(kw, active):
+    """Refused until the reduce direction and the overlap were ported: now
+    ``tp_plan`` plans the world as for any ``--tp``, and the Engine's
+    resolution (a pure function of the model, format, size and flags)
+    turns them on for a dense Llama whose K chunks fit."""
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime.generate import resolve_tp_modes
+
+    for gpus, device in ((2, None), (0, "cpu")):
+        plan = cli.tp_plan(_args(tp=2, device=device, **kw), gpus)
+        assert plan["size"] == 2 and list(plan["ranks"]) == [0, 1]
+    cfg = ModelConfig(arch="llama", dim=128, hidden_dim=256, n_layers=2, n_heads=4,
+                      n_kv_heads=4, vocab_size=320, seq_len=64, head_size=32, kv_dim=128)
+    modes = resolve_tp_modes(cfg, "q40", 2, kw.get("tp_overlap", False),
+                             kw.get("tp_reduce", "off"))
+    assert all(modes[a] for a in active) and not modes["warnings"]
+
+
+def test_tp_reduce_with_dense_weights_is_refused(model_files):
+    """A refusal that still holds: tensor parallelism takes quantized
+    weights, so ``--tp-reduce`` with dense weights stops at load, before
+    any collective (the JAX package's dense-pjit TP is ROADMAP item 8.6)."""
+    import torch
+
+    from dllama_tpu_torch.parallel.group import TPGroup
+
+    model, tok = model_files
+    args = cli.build_parser().parse_args([
+        "generate", "--model", str(model), "--tokenizer", str(tok), "--device", "cpu",
+        "--weights-float-type", "f32", "--tp", "2", "--tp-reduce", "plain"])
+    with pytest.raises(SystemExit, match="takes quantized weights"):
+        cli.load_engine(args, TPGroup(0, 2, torch.device("cpu"), "gloo"))  # never joined
 
 
 @pytest.mark.parametrize("kw", [

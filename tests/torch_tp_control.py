@@ -59,14 +59,18 @@ def write_files(d: Path) -> tuple:
     return d / "m.m", d / "t.t"
 
 
-def file_engine(group, path: str) -> Engine:
+def file_engine(group, path: str, tp_reduce: str = "off", tp_overlap: bool = False) -> Engine:
     """The q40 f32 engine of the `.m` file at ``path`` (this rank's shard
-    under ``group``; the whole model with None)."""
+    under ``group``, wo/w2 as row shards with ``tp_reduce``; the whole
+    model with None)."""
     with WeightFileReader(path) as reader:
         cfg = ModelConfig.from_spec(reader.spec, dtype="float32")
-        params = llama.quant_params_from_reader(reader, cfg, "cpu", "q40", tp=group)
+        params = llama.quant_params_from_reader(
+            reader, cfg, "cpu", "q40", tp=group,
+            tp_reduce=group is not None and tp_reduce != "off")
     return Engine(cfg, params, SamplerConfig(temperature=0.0, seed=0), device="cpu",
-                  cuda_graphs=False, tp=group, metrics=None)
+                  cuda_graphs=False, tp=group, metrics=None, tp_reduce=tp_reduce,
+                  tp_overlap=tp_overlap)
 
 
 def drive(eng) -> list:
@@ -158,11 +162,11 @@ def crowd_case(group, path: str) -> dict:
     return {"report": plane.stop(), "drive": got}
 
 
-def control_case(group, path: str) -> dict:
+def control_case(group, path: str, tp_reduce: str = "off", tp_overlap: bool = False) -> dict:
     """Rank 0: :func:`drive` over a TPEngine, and its stop report; every
     other rank: its follow report (each with the ops' host results in
-    ``tail``)."""
-    eng = file_engine(group, path)
+    ``tail``). ``tp_reduce``, ``tp_overlap``: the engines' modes."""
+    eng = file_engine(group, path, tp_reduce, tp_overlap)
     faults.install(FAULTS)
     try:
         if group.rank != 0:

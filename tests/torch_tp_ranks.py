@@ -18,7 +18,11 @@ from dllama_tpu_torch.convert_params import from_jax_params
 from dllama_tpu_torch.formats.weights import WeightFileReader
 from dllama_tpu_torch.models import llama
 from dllama_tpu_torch.ops.qmatmul import QuantTensor
-from dllama_tpu_torch.parallel.collectives import gather_columns
+from dllama_tpu_torch.parallel import quant_tp
+from dllama_tpu_torch.parallel.collectives import (
+    drive, gather_axis, gather_columns, reduce_scatter_columns, rms_inv_scattered_steps,
+    scatter_features,
+)
 from dllama_tpu_torch.runtime.generate import Engine
 from dllama_tpu_torch.runtime.sampler import SamplerConfig
 
@@ -60,10 +64,17 @@ def gather_case(group, seed: int, rows: int, f: int, compress: bool, dtype) -> t
 
 
 def engine(group, host: dict, cfg, compress: bool = False, temperature: float = 0.0,
-           seed: int = 0) -> Engine:
-    params = from_jax_params(host, cfg, "cpu", tp=group)
+           seed: int = 0, tp_reduce: str = "off", tp_overlap: bool = False,
+           metrics=None) -> Engine:
+    """A rank's engine on its shard of ``host``; wo/w2 load as row shards
+    where ``tp_reduce`` will engage (as ``cli.load_engine`` decides)."""
+    kind = host["wcls"].kind if isinstance(host["wcls"], QuantTensor) else "q40"
+    row = (group is not None and tp_reduce != "off"
+           and quant_tp.validate_tp_reduce(cfg, kind, group.size) is None)
+    params = from_jax_params(host, cfg, "cpu", tp=group, tp_reduce=row)
     return Engine(cfg, params, SamplerConfig(temperature=temperature, seed=seed), device="cpu",
-                  cuda_graphs=False, tp=group, tp_compress=compress, metrics=None)
+                  cuda_graphs=False, tp=group, tp_compress=compress, metrics=metrics,
+                  tp_reduce=tp_reduce, tp_overlap=tp_overlap)
 
 
 def logits_case(group, host: dict, cfg, compress: bool, tokens: list) -> dict:
@@ -288,3 +299,225 @@ def cli_case(group, argv: list, turns: str = "") -> str:
     finally:
         sys.stdin = saved
     return out.getvalue()
+
+
+# -- the reduce direction and the microbatch overlap -------------------------
+# (tests/test_torch_tp_reduce.py, tests/test_torch_tp_overlap.py)
+
+def reduce_case(group, parts: np.ndarray, compress: bool, dtype: str) -> dict:
+    """This rank's ``reduce_scatter_columns`` of its partials ``parts[rank]``
+    (in ``dtype``), the bytes it sent, and every rank's chunk gathered
+    (the full sum)."""
+    x = torch.from_numpy(parts[group.rank]).to(getattr(torch, dtype))
+    group.sent_bytes = 0
+    chunk = reduce_scatter_columns(x, group, compress)
+    sent = group.sent_bytes
+    full = gather_axis(chunk, group)
+    return {"chunk": chunk.numpy(), "dtype": str(chunk.dtype), "sent": sent,
+            "full": full.numpy()}
+
+
+def norm_case(group, x0: np.ndarray, eps: float) -> dict:
+    """``scatter_features`` of a replicated row block gathered back, and
+    ``rms_inv_scattered_steps`` of the chunks."""
+    x = torch.from_numpy(x0)
+    s = scatter_features(x, group)
+    return {"back": gather_columns(s, group).numpy(),
+            "inv": drive(rms_inv_scattered_steps(s, group, x0.shape[-1], eps)).numpy()}
+
+
+def guard_case(group, f: int, compress: bool) -> str:
+    """The error a reduce-scatter of [2, f] partials raises ("" if none)."""
+    try:
+        reduce_scatter_columns(torch.ones(2, f), group, compress)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def row_pack_case(group, host: dict, cfg) -> dict:
+    """This rank's wo and w2 as ``from_jax_params(..., tp_reduce=True)``
+    places them: their planes and ``k_logical``."""
+    layers = from_jax_params(host, cfg, "cpu", tp=group, tp_reduce=True)["layers"]
+    return {n: (layers[n].w.numpy(), layers[n].s.numpy(), layers[n].s2.numpy(),
+                layers[n].k_logical) for n in ("wo", "w2")}
+
+
+def row_reader_case(group, path: str, cfg, kind: str) -> dict:
+    """This rank's wo and w2 planes read from the `.m` file at ``path`` with
+    ``tp_reduce``."""
+    with WeightFileReader(path) as reader:
+        layers = llama.quant_params_from_reader(reader, cfg, "cpu", kind, tp=group,
+                                                tp_reduce=True)["layers"]
+    return {n: (layers[n].w.numpy(), layers[n].s.numpy(), layers[n].s2.numpy(),
+                layers[n].k_logical) for n in ("wo", "w2")}
+
+
+def _counts(reg) -> dict:
+    out = {"dllama_tp_overlap_chunks_total": 0.0, "dllama_tp_reduce_chunks_total": 0.0}
+    for line in reg.render().splitlines():
+        name = line.split("{")[0].split(" ")[0]
+        if name in out:
+            out[name] = float(line.split()[-1])
+    return out
+
+
+def session_stream(eng, prompts: list, steps: int, **kw) -> list:
+    """Greedy streams of ``prompts`` through a pooled ``BatchSession``
+    (admitted in pieces, four-step chunks)."""
+    sess = eng.batch_session(4, chunk=4, **kw)
+    hs = [sess.admit_begin(p, steps=steps) for p in prompts]
+    while sess.prefill_step() is not None:
+        pass
+    got = {h: [] for h in hs}
+    while any(not sess.is_done(h) for h in hs):
+        for h, toks in sess.step_chunk().items():
+            got[h].extend(toks)
+    sess.close()
+    return [got[h] for h in hs]
+
+
+def _batched_logits(eng, prompts: list, fwd) -> np.ndarray:
+    """One batched decode step's logits after each prompt's prefill, through
+    ``fwd`` (a batched forward of ``llama``) on the engine's shards."""
+    cache, pend, poss = eng._prefill_batch_rows(prompts)
+    pos = torch.tensor(poss, dtype=torch.int32)
+    lg, _ = fwd(eng.cfg, eng.params, eng.rope, torch.tensor(pend), cache, pos,
+                **eng._tp_kw)
+    return lg.numpy()
+
+
+def _verify_logits(eng, prompts: list, T: int, fwd) -> np.ndarray:
+    """One batched verify step's logits ([B, T, vocab]) after each prompt's
+    prefill: the pending token and T - 1 made-up drafts a row."""
+    cache, pend, poss = eng._prefill_batch_rows(prompts)
+    feeds = [[t] + [(t * 7 + j) % eng.cfg.vocab_size for j in range(1, T)] for t in pend]
+    lg, _ = fwd(eng.cfg, eng.params, eng.rope, torch.tensor(feeds),
+                cache, torch.tensor(poss, dtype=torch.int32), **eng._tp_kw)
+    return lg.numpy()
+
+
+def twin_case(group, host: dict, cfg, compress: bool, tp_reduce: str, batches: list,
+              T: int) -> list:
+    """For each prompt list of ``batches``, on one engine with the overlap
+    on: the batch cache after the rows' prefill (this rank's kv heads, as
+    the step found it), the pending tokens and positions, the verify feeds
+    (the pending token and T - 1 made-up drafts a row), and the logits of
+    one batched decode step and one verify step through the monolithic
+    forwards ("step", "verify") and the overlap twins ("step_ov",
+    "verify_ov"), each on its own copy of that cache."""
+    eng = engine(group, host, cfg, compress, tp_reduce=tp_reduce, tp_overlap=True)
+    out = []
+    for prompts in batches:
+        cache, pend, poss = eng._prefill_batch_rows(prompts)
+        pos = torch.tensor(poss, dtype=torch.int32)
+        feeds = torch.tensor([[t] + [(t * 7 + j) % cfg.vocab_size for j in range(1, T)]
+                              for t in pend])
+        res = {"k": cache["k"].numpy().copy(), "v": cache["v"].numpy().copy(), "pend": pend,
+               "pos": poss, "feeds": feeds.numpy()}
+        for name, fwd, toks in (("step", llama.forward_batched, torch.tensor(pend)),
+                                ("step_ov", llama.forward_batched_overlap, torch.tensor(pend)),
+                                ("verify", llama.forward_batched_verify, feeds),
+                                ("verify_ov", llama.forward_batched_verify_overlap, feeds)):
+            own = {n: c.clone() for n, c in cache.items()}
+            res[name] = fwd(cfg, eng.params, eng.rope, toks, own, pos, **eng._tp_kw)[0].numpy()
+        out.append(res)
+    return out
+
+
+def _step_logits(eng, prompts: list) -> dict:
+    """One batched decode step's and one verify step's logits through the
+    monolithic forwards and, with the overlap on, through its twins."""
+    out = {"step": _batched_logits(eng, prompts, llama.forward_batched),
+           "verify": _verify_logits(eng, prompts, 4, llama.forward_batched_verify)}
+    if eng.tp_overlap_active:
+        out["step_ov"] = _batched_logits(eng, prompts, llama.forward_batched_overlap)
+        out["verify_ov"] = _verify_logits(eng, prompts, 4, llama.forward_batched_verify_overlap)
+    return out
+
+
+def modes_case(group, host: dict, cfg, compress: bool, tp_reduce: str, tp_overlap: bool,
+               prompt: list, prompts: list, steps: int, paths: bool = True) -> dict:
+    """One engine of the given modes through every TP path: the first
+    logits and a prefill-then-decode chain, ``generate`` (tokens and sent
+    kB a token) and ``generate_fused``, solo spec, ``generate_batch``, one
+    batched decode step and one verify step through the monolithic and the
+    overlap forwards, ``generate_batch_spec``, the slab and paged sessions;
+    the resolution, the two counters after the batched calls, and the
+    bytes sent a decode token. ``paths`` False: the resolution and the two
+    steps' logits only."""
+    from dllama_tpu_torch.observability import MetricsRegistry
+
+    reg = MetricsRegistry()
+    eng = engine(group, host, cfg, compress, tp_reduce=tp_reduce, tp_overlap=tp_overlap,
+                 metrics=reg)
+    kw = eng._tp_kw
+    out = {"resolved": {a: getattr(eng, a) for a in (
+        "tp_reduce", "tp_reduce_active", "tp_reduce_reason", "tp_overlap_active",
+        "tp_overlap_reason", "tp_wire")}}
+    if not paths:
+        return {**out, **_step_logits(eng, prompts)}
+    first, _ = llama.forward(cfg, eng.params, eng.rope, torch.tensor([5]), eng.new_cache(), 0,
+                             **kw)
+    out["first"] = first.numpy()
+    cache = eng.new_cache()
+    lg, _ = llama.forward(cfg, eng.params, eng.rope, torch.tensor(PROMPT), cache, 0, **kw)
+    chain = [lg.numpy()]
+    tok = int(lg[-1].argmax())
+    lg, _ = llama.forward(cfg, eng.params, eng.rope, torch.tensor([tok]), cache, len(PROMPT),
+                          **kw)
+    out["chain"] = chain + [lg.numpy()]
+    c0 = _counts(reg)
+    stream = list(eng.generate(prompt, steps))
+    out["solo"] = [t for t, _ in stream]
+    out["sent_kb"] = [s.sent_kb for _, s in stream]
+    out["solo_counts"] = {k: v - c0[k] for k, v in _counts(reg).items()}
+    out["fused"] = eng.generate_fused(prompt, steps)[0]
+    out["spec_solo"] = [t for t, _ in eng.generate_spec(prompt, steps, draft_len=3)]
+    c1 = _counts(reg)
+    out["batch"] = eng.generate_batch(prompts, steps)
+    out["batch_counts"] = {k: v - c1[k] for k, v in _counts(reg).items()}
+    out["batch_again"] = eng.generate_batch(prompts, steps)
+    c1 = {k: v - out["batch_counts"][k] for k, v in _counts(reg).items()}
+    out["single"] = eng.generate_batch(prompts[:1], 4)
+    out["single_counts"] = {k: v - c1[k] - out["batch_counts"][k]
+                            for k, v in _counts(reg).items()}
+    out.update(_step_logits(eng, prompts))
+    rows, stats = eng.generate_batch_spec(prompts, steps, draft_len=3)
+    out["spec"], out["spec_emitted"] = rows, stats["emitted"]
+    out["slab"] = session_stream(eng, prompts, steps)
+    out["paged"] = session_stream(eng, prompts, steps, kv_pages=16)
+    out["counts"] = _counts(reg)
+    return out
+
+
+def seam_case(group, host: dict, cfg, site: str, prompts: list) -> dict:
+    """With ``site:raise:times=1`` installed on every rank: whether the
+    first ``generate_batch`` raised FaultInjected at that site, and the
+    second call's streams (the engine goes on)."""
+    from dllama_tpu_torch import faults
+
+    eng = engine(group, host, cfg, tp_reduce="plain" if site == "tp_reduce" else "off",
+                 tp_overlap=site == "overlap_split")
+    faults.install(f"{site}:raise:times=1")
+    try:
+        try:
+            eng.generate_batch(prompts, 4)
+            raised = None
+        except faults.FaultInjected as e:
+            raised = e.site
+        return {"raised": raised, "after": eng.generate_batch(prompts, 4)}
+    finally:
+        faults.clear()
+
+
+def resolve_case(group, host: dict, cfg, tp_reduce: str, tp_overlap: bool,
+                 prompts: list = ()) -> dict:
+    """An engine's resolution of the two flags, and its ``generate_batch``
+    of ``prompts`` (4 steps) when there are any."""
+    eng = engine(group, host, cfg, tp_reduce=tp_reduce, tp_overlap=tp_overlap)
+    out = {a: getattr(eng, a) for a in ("tp_reduce", "tp_reduce_active", "tp_reduce_reason",
+                                        "tp_overlap_active", "tp_overlap_reason")}
+    if prompts:
+        out["batch"] = eng.generate_batch(list(prompts), 4)
+    return out
