@@ -293,6 +293,37 @@ nothing of JAX or of the JAX package. Phases (any failure exits non-zero):
    token and ms/token straight to a replica and through the router, and
    the spans of a routed stream (``cli explain``).
 
+12. Training (``models.llama.forward_train``, ``runtime.train``,
+   ``runtime.checkpoint``, ``parallel.{grad_collectives,pipeline}``,
+   ``ops.ring_attention``; ``dllama_tpu_torch.train_tiny_e2e``). (d) runs
+   inside phase 10, on its worlds, after 10h: one SGD step at tp 1 on the
+   one NCCL rank bit-equal to the one-device step; on the 4 gloo ranks (all
+   on this card) tp 2 and dp 2 x tp 2 SGD steps (loss within 1e-5, leaves
+   1e-4 of one device), dp 2 x sp 2 loss and gradients through ring
+   attention (1e-4), the pipeline at pp 2 with 2 and 4 microbatches
+   (logits 2e-5, gradients 2e-4), an ep 2 x tp 2 Mixtral step; a checkpoint
+   saved at dp 2 x tp 2 after two Adam steps, restored at dp 2 x tp 2, tp 2
+   and one rank (the saved leaves and Adam's moments and counts bit for
+   bit; the next two losses, the second one reading the restored Adam
+   state, bit-equal to the uninterrupted run's at dp 2 x tp 2 and within
+   1e-6 elsewhere; the one rank's next loss bit-equal to one device's loss
+   of the saved leaves). The
+   rest runs after phase 11: (a) one SGD step of a tiny f32 Llama and
+   Mixtral (dim 128, 2 layers) on the card against the port on the CPU
+   (loss 1e-5, each gradient leaf 1e-4·max|g|, the updated leaves 1e-4);
+   (b) the Llama-3-8B widths at 2 of 32 layers and (c) the Mixtral-8x7B
+   widths at 1 layer, f32 params from ``device_random_params``,
+   ``torch.optim.Adam(lr=1e-4)``, B = 2, T = 512, 8 (c: 4) steps on one
+   fixed batch: the loss finite and falling, no host sync inside a step
+   (``set_sync_debug_mode("error")``) but the loss read; logged ms a step
+   (CUDA events, median of steps 2 on), tokens/s, peak memory and the
+   step's FLOPs beside ``F32_FLOPS``; (e) ``python -m
+   dllama_tpu_torch.train_tiny_e2e`` as a subprocess: trains the byte-level
+   model (at most ``P12_TINY_STEPS`` steps and ``P12_TINY_S`` seconds),
+   writes it as Q40 and serves it in process and through ``cli generate``,
+   exit 0 (both 95 % gates); K1 and K4/K5 must have launched serving it.
+   Each phase's seconds are logged at the end.
+
 The last lines are the card's name and power limit, one JSON object with
 each kernel's numbers, and ``{"ok": true, "device": {...}}``. Details go to
 ``build/chip_smoke.json``.
@@ -5460,7 +5491,7 @@ def phase10h(torch, dev, path: Path, tok_path: Path, world, nccl, prompt: list,
 
 
 def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
-            nccl: bool = True, fleet_tok: Path = None, writer=None) -> dict:
+            nccl: bool = True, fleet_tok: Path = None, writer=None, then=None) -> dict:
     """Tensor parallelism (``parallel``) on the card. (a) A one-rank NCCL
     world runs the whole TP path (shard load, gathers through NCCL): logits
     and tokens bit-equal to the eager solo engine on the same `.m` file.
@@ -5483,7 +5514,9 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
     and the ``ep x tp`` grid (:func:`phase10h`, after every quantized
     shard is freed), and the `.m` file is kept for 11c (``out["path"]``;
     the caller deletes it). ``writer``: the process of :func:`start_tp_file`
-    writing the file (None: written here)."""
+    writing the file (None: written here). ``then(world, nccl_world)``: run
+    last on the 4 gloo ranks and 10e's one NCCL rank (phase 12(d)), its
+    result ``out["train"]``."""
     import numpy as np
 
     from dllama_tpu_torch.formats.weights import WeightFileReader
@@ -5680,6 +5713,8 @@ def phase10(torch, dev, cfg_kw: dict = LLAMA3_8B, moe_kw: dict = TP_MIXTRAL,
                             (e_worlds or {}).get("a"), prompt, batch_in)
         out["h"]["seconds"] = time.perf_counter() - t0
         log(f"  10h took {out['h']['seconds']:.1f} s")
+        if then is not None:  # phase 12(d): training on these worlds
+            out["train"] = then(world, (e_worlds or {}).get("a"))
     finally:
         world.close()
         for w in (e_worlds or {}).values():
@@ -6356,6 +6391,306 @@ def phase11c(torch, dev, model: Path, tok_path: Path, reference: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training on the card
+# ---------------------------------------------------------------------------
+
+#: 12(a) and 12(d): the CPU tests' tiny f32 shapes (tests/test_torch_train_parallel.py)
+P12_LLAMA = dict(arch="llama", dim=128, hidden_dim=256, n_layers=2, n_heads=8, n_kv_heads=8,
+                 vocab_size=128, seq_len=64, head_size=16, kv_dim=128, dtype="float32")
+P12_MIXTRAL = dict(P12_LLAMA, arch="mixtral", vocab_size=256, n_experts=4, n_active_experts=2,
+                   rope_style="half")
+#: 12(b), 12(c): (what, widths, layers kept, Adam steps) at B x T = P12_BATCH
+P12_FULL = [("Llama-3-8B", LLAMA3_8B, 2, 8), ("Mixtral-8x7B", MIXTRAL_8X7B, 1, 4)]
+P12_BATCH = (2, 512)
+#: 12(e): train_tiny_e2e's step cap (its early stop ends it sooner) and time cap
+P12_TINY_STEPS = 900
+P12_TINY_S = 60.0
+#: 12(d): the CPU tests' tolerances (tests/test_torch_train_parallel.py)
+P12_TOL = {"loss": 1e-5, "param": 1e-4, "grad": 1e-4, "pipe_logits": 2e-5, "pipe_grad": 2e-4}
+
+
+def p12_host(torch, cfg_kw: dict, seed: int) -> dict:
+    """The seeded whole params of a tiny shape as host numpy (the ranks
+    cut their shards from them)."""
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from tests.torch_train_ranks import host_of
+
+    return host_of(llama.random_params(ModelConfig(**cfg_kw), seed=seed, device="cpu"))
+
+
+def p12_flops(cfg, B: int, T: int) -> tuple:
+    """(FLOPs, bytes) of one training step: 6 x the product weights x the
+    B·T tokens (forward 2, backward 4; every expert of the dense combine),
+    plus the attention (QK^T and AV at the whole T x T, 4·B·H·T²·hd a layer
+    forward, 3x with the backward); the bytes: every leaf, its gradient and
+    Adam's two moments read, and the leaf and the moments written, in f32."""
+    D, H, KV, L = cfg.dim, cfg.hidden_dim, cfg.kv_dim, cfg.n_layers
+    ffn = cfg.n_experts * 3 * D * H + D * cfg.n_experts if cfg.is_moe else 3 * D * H
+    products = L * (2 * D * D + 2 * D * KV + ffn) + D * cfg.vocab_size
+    flops = 6 * products * B * T + 12 * B * cfg.n_heads * T * T * cfg.head_size * L
+    leaves = products + cfg.vocab_size * D + (2 + 2 * cfg.post_norms) * L * D + D
+    return flops, 7 * 4 * leaves
+
+
+def phase12a(torch, dev) -> dict:
+    """12(a): one SGD step of the tiny f32 Llama and Mixtral on the card
+    against the same step of the port on the CPU: the loss within 1e-5,
+    every gradient leaf within 1e-4·max|g|, the updated leaves within 1e-4."""
+    from dllama_tpu_torch.models.config import ModelConfig
+    from tests import torch_train_ranks as R
+
+    out = {}
+    for what, kw in (("Llama", P12_LLAMA), ("Mixtral", P12_MIXTRAL)):
+        cfg = ModelConfig(**kw)
+        host = p12_host(torch, kw, 3)
+        tok = [torch.randint(0, cfg.vocab_size, (4, 16),
+                             generator=torch.Generator().manual_seed(5)).numpy()]
+        sgd = {"kind": "SGD", "lr": 1e-2}
+        runs = {"cpu": R.step_case(None, {}, host, cfg, tok, sgd, "cpu"),
+                "card": R.step_case(None, {}, host, cfg, tok, sgd, dev)}
+        card, cpu = runs["card"], runs["cpu"]
+        loss_err = abs(card["losses"][0] - cpu["losses"][0])
+        grad_err = max(float(abs(card["grads"][k] - g).max() / max(abs(g).max(), 1e-30))
+                       for k, g in cpu["grads"].items())
+        param_err = max(float(abs(card["params"][k] - p).max())
+                        for k, p in cpu["params"].items())
+        out[what] = {"loss_card": card["losses"][0], "loss_cpu": cpu["losses"][0],
+                     "loss_err": loss_err, "grad_err_over_max": grad_err,
+                     "param_err": param_err,
+                     "tol": {"loss": 1e-5, "grad_over_max": 1e-4, "param": 1e-4}}
+        log(f"  12a {what} f32 (dim 128, 2 layers): loss card {card['losses'][0]:.7f} / CPU "
+            f"{cpu['losses'][0]:.7f} (err {loss_err:.2e}, tol 1e-5); worst gradient leaf "
+            f"{grad_err:.2e} of its max|g| (tol 1e-4); SGD-updated leaves {param_err:.2e} "
+            f"(tol 1e-4)")
+        if not (loss_err <= 1e-5 and grad_err <= 1e-4 and param_err <= 1e-4):
+            fail(f"12a: the {what} train step on the card parts from the CPU's")
+    return out
+
+
+def phase12_full(torch, dev, what: str, cfg_kw: dict, layers: int, steps: int) -> dict:
+    """12(b)/(c): ``steps`` Adam (lr 1e-4) steps on one fixed batch at full
+    width, ``layers`` layers, f32 params from ``device_random_params``.
+    Gates: the loss finite and falling; no host sync inside a step (the
+    loss read after it is the one). Logged: ms a step (median of steps 2 on,
+    CUDA events), tokens/s, peak memory, FLOPs and their rate beside
+    ``F32_FLOPS``."""
+    from dllama_tpu_torch.models import llama
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.runtime import train
+
+    cfg = ModelConfig(**{**cfg_kw, "n_layers": layers, "dtype": "float32"})
+    B, T = P12_BATCH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)  # the earlier phases' tensors still alive
+    t0 = time.perf_counter()
+    params = train.trainable(llama.device_random_params(cfg, seed=0, device=dev))
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in train.leaves(params))
+    opt = torch.optim.Adam(train.leaves(params), lr=1e-4)
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(12))
+    step = train.make_train_step(cfg)
+    losses, ms = [], []
+    for i in range(steps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if i > 0:  # step 1 makes the rope tables and Adam's state
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.record()
+            loss = step(params, opt, tokens)
+            e.record()
+        except RuntimeError as err:
+            fail(f"12 {what}: a train step synchronizes with the device: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        losses.append(float(loss))  # the one host read
+        ms.append(s.elapsed_time(e))
+    med = statistics.median(ms[1:])
+    flops, nbytes = p12_flops(cfg, B, T)
+    bound, by = bound_ms(nbytes, flops, F32_FLOPS)
+    out = {"layers": layers, "steps": steps, "params": n_params, "make_s": make_s,
+           "losses": losses, "ms": ms, "ms_median": med, "tokens_per_s": B * T / med * 1e3,
+           "peak_gb": (torch.cuda.max_memory_allocated(dev) - held) / 1e9,
+           "held_before_gb": held / 1e9, "flops": flops,
+           "tflop_per_s": flops / med / 1e9, "f32_peak_share": flops / med / 1e9 / (F32_FLOPS / 1e12),
+           "bound_ms": bound, "bound_by": by, "card": gpu_line()}
+    log(f"  12 {what} widths, {layers} layer(s), f32, Adam lr 1e-4, B x T = {B} x {T}: "
+        f"{n_params / 1e9:.3f} B params made on the card in {make_s:.1f} s; losses "
+        f"{[round(x, 4) for x in losses]}; {med:.2f} ms a step (median of steps 2-{steps}; "
+        f"steps {[round(x, 1) for x in ms]}), {out['tokens_per_s']:.0f} tokens/s; peak "
+        f"{out['peak_gb']:.2f} GB above the {held / 1e9:.2f} GB earlier phases hold; "
+        f"{flops / 1e12:.3f} TFLOP a step = "
+        f"{out['tflop_per_s']:.1f} TFLOP/s ({out['f32_peak_share']:.2f} of F32_FLOPS "
+        f"{F32_FLOPS / 1e12:.0f}); bound {bound:.1f} ms ({by}); no host sync inside steps "
+        f"2-{steps}; {out['card']}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"12 {what}: the loss is not finite or does not fall: {losses}")
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def p12_err(a, b) -> float:
+    """max|a - b| over matching leaves (dicts of numpy) or two arrays."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return max(float(np.abs(a[k] - b[k]).max()) for k in b)
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def phase12d(torch, dev, world, nccl) -> dict:
+    """12(d), on phase 10's worlds: a tp 1 step at one NCCL rank bit-equal to
+    the one-device step; on the 4 gloo ranks (all on this card) tp 2 and
+    dp 2 x tp 2 SGD steps, dp 2 x sp 2 (ring attention) loss and gradients,
+    pp 2 at 2 and 4 microbatches, an ep 2 x tp 2 Mixtral step, each against
+    the one-device run on the card at the CPU tests' tolerances; a
+    checkpoint saved at dp 2 x tp 2 and restored there, at tp 2 and at one
+    rank: the saved leaves and Adam state back bit for bit and the next
+    two losses equal to the uninterrupted run's."""
+    import numpy as np
+
+    from dllama_tpu_torch.models.config import ModelConfig
+    from dllama_tpu_torch.parallel import sharding
+    from tests import torch_train_ranks as R
+
+    cfg, mcfg = ModelConfig(**P12_LLAMA), ModelConfig(**P12_MIXTRAL)
+    host, mhost = p12_host(torch, P12_LLAMA, 4), p12_host(torch, P12_MIXTRAL, 1)
+    rng = np.random.default_rng(1)
+    tok = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    mtok = rng.integers(0, mcfg.vocab_size, (2, 16)).astype(np.int32)
+    sgd = {"kind": "SGD", "lr": 1e-2}
+    out, bad = {}, []
+    t0 = time.perf_counter()
+
+    def unshard(c, ranks, key):
+        return sharding.unshard_leaves(c, [(r["position"], r[key]) for r in ranks])
+
+    one = R.step_case(None, {}, host, cfg, [tok], sgd, dev)
+    if nccl is not None:
+        r = nccl.run(R.step_case, {"tp": 1}, host, cfg, [tok], sgd)[0]
+        eq = r["losses"] == one["losses"] and all(np.array_equal(r["params"][k], v)
+                                                   for k, v in one["params"].items())
+        out["nccl_tp1_bit_equal"] = eq
+        bad += [] if eq else ["one NCCL rank's tp 1 step is not the one-device step's bits"]
+    for axes in ({"tp": 2}, {"dp": 2, "tp": 2}):
+        size = int(np.prod(list(axes.values())))
+        ranks = world.run(R.step_case, axes, host, cfg, [tok], sgd, size=size)
+        l_err = max(abs(r["losses"][0] - one["losses"][0]) for r in ranks)
+        p_err = p12_err(unshard(cfg, ranks, "params"), one["params"])
+        out[str(axes)] = {"loss_err": l_err, "param_err": p_err}
+        if l_err > P12_TOL["loss"] or p_err > P12_TOL["param"]:
+            bad.append(f"{axes} step: loss err {l_err}, leaves {p_err}")
+    sp_tok = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    dense = R.loss_case(None, {}, host, cfg, sp_tok, dev)
+    ranks = world.run(R.loss_case, {"dp": 2, "sp": 2}, host, cfg, sp_tok)
+    l_err = max(abs(r["loss"] - dense["loss"]) for r in ranks)
+    g_err = max(p12_err(r["grads"], dense["grads"]) for r in ranks)
+    out["dp2xsp2"] = {"loss_err": l_err, "grad_err": g_err}
+    if l_err > 1e-4 or g_err > P12_TOL["grad"]:
+        bad.append(f"dp 2 x sp 2: loss err {l_err}, gradients {g_err}")
+    pipe = R.pipeline_case(None, {}, host, cfg, tok, 2, False, dev)
+    for micro in (2, 4):
+        ranks = world.run(R.pipeline_case, {"pp": 2}, host, cfg, tok, micro, False, size=2)
+        f_err = max(p12_err(r["logits"], pipe["logits"]) for r in ranks)
+        g_err = p12_err(unshard(cfg, ranks, "grads"), pipe["grads"])
+        out[f"pp2_m{micro}"] = {"logits_err": f_err, "grad_err": g_err}
+        if f_err > P12_TOL["pipe_logits"] or g_err > P12_TOL["pipe_grad"]:
+            bad.append(f"pp 2, {micro} microbatches: logits {f_err}, gradients {g_err}")
+    mone = R.step_case(None, {}, mhost, mcfg, [mtok], sgd, dev)
+    ranks = world.run(R.step_case, {"ep": 2, "tp": 2}, mhost, mcfg, [mtok], sgd)
+    l_err = max(abs(r["losses"][0] - mone["losses"][0]) for r in ranks)
+    p_err = p12_err(unshard(mcfg, ranks, "params"), mone["params"])
+    out["ep2xtp2_mixtral"] = {"loss_err": l_err, "param_err": p_err}
+    if l_err > P12_TOL["loss"] or p_err > P12_TOL["param"]:
+        bad.append(f"ep 2 x tp 2 Mixtral step: loss err {l_err}, leaves {p_err}")
+
+    path = str(ROOT / "build" / "p12" / "ckpt")
+    batches = [rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32) for _ in range(4)]
+    before, after = batches[:2], batches[2:]  # two steps each side of the save
+    other = p12_host(torch, P12_LLAMA, 9)
+    try:
+        saved = world.run(R.checkpoint_save_case, {"dp": 2, "tp": 2}, host, cfg, before, after,
+                          path)
+        back = {"dp2xtp2": world.run(R.checkpoint_restore_case, {"dp": 2, "tp": 2}, other,
+                                     cfg, after, path),
+                "tp2": world.run(R.checkpoint_restore_case, {"tp": 2}, other, cfg, after, path,
+                                 size=2),
+                "one rank": world.run(R.checkpoint_restore_case, {"tp": 1}, other, cfg, after,
+                                      path, size=1)}
+    finally:
+        import shutil
+
+        shutil.rmtree(ROOT / "build" / "p12", ignore_errors=True)
+    want = {k: unshard(cfg, saved, w) for k, w in
+            (("params", "saved"), ("exp_avg", "exp_avg"), ("exp_avg_sq", "exp_avg_sq"))}
+    cont = saved[0]["next_losses"]
+    ref = R.loss_case(None, {}, R.nest(want["params"]), cfg, after[0], dev)["loss"]
+    ck = {"saving_run_next_losses": cont, "one_device_loss_of_saved": ref}
+    for where, ranks in back.items():
+        state_ok = all(np.array_equal(v, want[key][k]) for key in want
+                       for k, v in unshard(cfg, ranks, key).items())
+        state_ok &= all(r["adam_step"] == saved[0]["adam_step"] for r in ranks)
+        ck[where] = {"steps": [r["step"] for r in ranks], "state_bit_equal": state_ok,
+                     "next_losses": [r["next_losses"] for r in ranks]}
+        # the second loss reads the restored Adam state
+        same = (all(r["next_losses"] == cont for r in ranks) if where == "dp2xtp2" else
+                all(abs(a - b) <= 1e-6 for r in ranks for a, b in zip(r["next_losses"], cont)))
+        if not (state_ok and same and all(r["step"] == 2 for r in ranks)):
+            bad.append(f"checkpoint restored at {where}: leaves and Adam state {state_ok}, "
+                       f"next losses {ck[where]['next_losses']} against {cont}")
+    if back["one rank"][0]["next_losses"][0] != ref:
+        bad.append(f"one rank's restored next loss {back['one rank'][0]['next_losses'][0]} is "
+                   f"not the one-device loss of the saved leaves {ref}")
+    out["checkpoint"] = ck
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  12d grids on this card (gloo ranks, one NCCL rank), errors against one device: "
+        f"{ {k: v for k, v in out.items() if k not in ('checkpoint', 'seconds')} }; "
+        f"checkpoint: {ck}; {out['seconds']:.1f} s")
+    if bad:
+        fail("12d: " + "; ".join(bad))
+    return out
+
+
+def phase12e(torch) -> dict:
+    """12(e): ``python -m dllama_tpu_torch.train_tiny_e2e`` as a subprocess on
+    the card: it trains until memorised (or its step cap), writes the Q40
+    `.m` file and serves it through ``Engine.generate_fused`` and ``cli
+    generate``; exit 0 means both 95 % prefix gates passed."""
+    outdir = ROOT / "build" / "train_tiny_e2e"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dllama_tpu_torch.train_tiny_e2e",
+                           str(outdir), "--steps", str(P12_TINY_STEPS)],
+                          capture_output=True, text=True, cwd=ROOT, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    wall = time.perf_counter() - t0
+    res_path = outdir / "e2e_result.json"
+    res = json.loads(res_path.read_text()) if res_path.exists() else {}
+    res.update({"rc": proc.returncode, "wall_s": wall})
+    log(f"  12e train_tiny_e2e on the card: rc {proc.returncode} in {wall:.1f} s; final loss "
+        f"{res.get('final_loss')} after {res.get('steps')} steps in "
+        f"{res.get('train_seconds')} s; served: {res.get('match_tokens')}/"
+        f"{res.get('expected_tokens')} tokens in process, cli generate "
+        f"{res.get('cli_ok')}; {res.get('decode_ms_per_token')} ms a decode token; in-process "
+        f"launches {res.get('launches')} (cli generate prints none)")
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-3000:])
+        fail("12e: train_tiny_e2e failed its gates")
+    if res.get("train_seconds", 1e9) > P12_TINY_S:
+        fail(f"12e: training took {res.get('train_seconds')} s, over {P12_TINY_S}")
+    got = res.get("launches", {})
+    for family in (("q40_matmul",), ("flash_decode", "flash_decode_batched"),
+                   ("rope_cache_update", "rope_cache_update_batched")):
+        if not any(got.get(k) for k in family):
+            fail(f"12e: {family[0]} never launched serving the trained model")
+    return res
+
+
 def indexed_entry(kind: str, rows: list, launches: int) -> dict:
     """The summary entry of ``kind``'s expert-indexed GEMV: numbers for one
     Mixtral decode token's launches (32 x up|gate and down, T = 1, n_sel =
@@ -6407,9 +6742,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    starts: list = []  # (phase title, its start in s)
 
     def header(title: str) -> None:
-        log(f"== {title} (at {time.perf_counter() - t_start:.0f} s)")
+        label = title.split(":")[0]
+        seen = sum(a == label or a.startswith(label + " (") for a, _ in starts)
+        starts.append((f"{label} ({seen + 1})" if seen else label,
+                       time.perf_counter() - t_start))
+        log(f"== {title} (at {starts[-1][1]:.0f} s)")
 
     log("== phase 0: card, versions, kernel build")
     card = gpu_line()
@@ -6514,7 +6854,13 @@ def main() -> None:
     fleet_tok = ROOT / "build" / "fleet" / "serve.t"
     fleet_tok.parent.mkdir(parents=True, exist_ok=True)
     write_serving_tokenizer(fleet_tok, LLAMA3_8B["vocab_size"])
-    tp_run = phase10(torch, dev, fleet_tok=fleet_tok, writer=tp_writer)
+
+    def run_phase12d(world, nccl_world):
+        header("phase 12d: training on phase 10's worlds: one NCCL rank; gloo tp 2, dp 2 x tp "
+               "2, dp 2 x sp 2, pp 2, ep 2 x tp 2; a checkpoint across grids")
+        return phase12d(torch, dev, world, nccl_world)
+
+    tp_run = phase10(torch, dev, fleet_tok=fleet_tok, writer=tp_writer, then=run_phase12d)
 
     header("phase 11a-b: the router in front of two in-process replicas on phase 6's graphed "
            "Q40 engine and its twin")
@@ -6526,6 +6872,19 @@ def main() -> None:
         fleet["c"] = phase11c(torch, dev, tp_run["path"], fleet_tok, tp_run["fleet_reference"])
     finally:
         tp_run["path"].unlink(missing_ok=True)
+
+    header("phase 12a: a train step of a tiny f32 Llama and Mixtral, the card against the CPU")
+    train_run = {"a": phase12a(torch, dev), "d": tp_run["train"]}
+    for what, kw, layers, steps in P12_FULL:
+        header(f"phase 12{'b' if what.startswith('Llama') else 'c'}: {what} widths, {layers} "
+               f"layer(s), f32, {steps} Adam steps at B x T = {P12_BATCH[0]} x {P12_BATCH[1]}")
+        train_run[what] = phase12_full(torch, dev, what, kw, layers, steps)
+    header("phase 12e: python -m dllama_tpu_torch.train_tiny_e2e: train, Q40 `.m`, cli generate")
+    train_run["e"] = phase12e(torch)
+    header("end")
+
+    phase_s = {a: round(tb - ta, 1) for (a, ta), (_, tb) in zip(starts, starts[1:])}
+    log(f"  seconds a phase: {phase_s}")
 
     # one entry per kernel; a dequant-matmul's numbers are for one decode
     # token's launches (32 x wqkv, wo, w13, w2 + wcls at T=1)
@@ -6724,6 +7083,12 @@ def main() -> None:
                 for r in tp_run["f"]["rope_verify"] if "ms" in r}
     # phase 6's graphed solo run (prefill, the graph's warm-up step, 32
     # replays): the kernels a replay launches
+    # phase 12e: the trained tiny model served on the card in process
+    # (prefill + 84 graphed decode steps): K1, and K4/K5 in their batched
+    # B = 1 form, the graphed step's
+    for entry in summary["kernels"]:
+        if train_run["e"]["launches"].get(entry["name"]):
+            entry["launches_train_tiny_served"] = train_run["e"]["launches"][entry["name"]]
     for entry in summary["kernels"]:
         run = graphs80 if entry["name"] == "q80_matmul" else graphs
         if entry["name"] in ("q40_matmul", "q80_matmul", "flash_decode_batched",
@@ -6744,8 +7109,8 @@ def main() -> None:
                "experiments": exp, "cli": cli, "moe_indexed": moe_k, "mixtral_q40": mix,
                "grok1_q40": grok, "mixtral_q80": mix80, "pools": pools, "serving": serving,
                "tp_widths": tp_widths, "tp_row_widths": row_widths, "tp_halves": halves,
-               "tp": tp_run, "fleet": fleet, "summary": summary,
-               "seconds": time.perf_counter() - t_start}
+               "tp": tp_run, "fleet": fleet, "train": train_run, "summary": summary,
+               "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}
     (ROOT / "build" / "chip_smoke.json").write_text(json.dumps(details, indent=1, default=str))
     log(f"== done in {details['seconds']:.1f} s; details in build/chip_smoke.json")
     print(card)

@@ -65,6 +65,15 @@ sequences of T candidate rows each, every matmul on the flattened [B*T,
 dim] rows (K1/K3's tile past 8 rows), rope and the cache write through the
 verify launch form of the rope + cache-write kernel, and attention in plain
 PyTorch (``gqa_attention_batched``), as the reference attends it.
+
+``forward_train`` is the cache-free causal forward of the training step
+(``runtime.train``), on dense leaves under autograd: ``torch.matmul``
+products and f32 softmax attention, as the JAX package leaves them to XLA
+outside any Pallas kernel. On a ``parallel.group.Mesh`` it runs a rank's
+block: its ``dp`` rows and ``sp`` chunk of the batch (ring attention over
+``sp``), its ``tp`` heads and hidden slice (``sharding``'s column/row
+shards) joined by the differentiable collectives of
+``parallel.grad_collectives``, and its ``ep`` experts.
 """
 
 from __future__ import annotations
@@ -75,7 +84,7 @@ import torch
 from dllama_tpu_torch import resolve_device
 from dllama_tpu_torch.formats.weights import WeightFileReader
 from dllama_tpu_torch.models.config import ModelConfig
-from dllama_tpu_torch.models.moe import moe_ffn
+from dllama_tpu_torch.models.moe import moe_ffn, moe_ffn_train
 from dllama_tpu_torch.ops import flash_decode
 from dllama_tpu_torch.ops.activations import ACTIVATIONS
 from dllama_tpu_torch.ops.attention import gqa_attention, gqa_attention_batched
@@ -87,8 +96,10 @@ from dllama_tpu_torch.ops.qmatmul import (
     K_MULTIPLE, QuantTensor, _pad_up, matmul_any, norm_fusion_engages, qmatmul_norm,
     quantize_tensor, repack_q40, repack_q80, slice_to_in_features,
 )
+from dllama_tpu_torch.ops.ring_attention import ring_self_attention
 from dllama_tpu_torch.ops.rope import apply_rope, rope_table
 from dllama_tpu_torch.parallel import quant_tp
+from dllama_tpu_torch.parallel.grad_collectives import copy_to, gather_from, reduce_from
 from dllama_tpu_torch.parallel.collectives import (
     Steps, drive, gather_columns, gather_columns_steps, interleave, reduce_columns_steps,
     reduce_scatter_columns_steps, rms_inv_scattered_steps, scatter_features,
@@ -456,6 +467,36 @@ def random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
         "wcls": w(D, cfg.vocab_size),
         "layers": layers,
     }
+
+
+def device_random_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random params drawn on ``device`` (the card unless asked otherwise)
+    from a seeded ``torch.Generator``, each matrix N(0, 0.02²) in the
+    compute dtype as it is drawn, so no f32 or host copy of a large model
+    is made: the counterpart of the JAX package's ``device_random_params``,
+    with its leaves, shapes and dtypes (the embedding and the router f32,
+    expert stacks ``moe_up``/``moe_gate``/``moe_down`` [L, E, ...]) and its
+    norms of ones. For benchmarks and the training smoke run."""
+    device = resolve_device(device)
+    dtype = cfg.torch_dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, D, H, KV = cfg.n_layers, cfg.dim, cfg.hidden_dim, cfg.kv_dim
+
+    def w(shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=device, dtype=dt).mul_(0.02)
+
+    layers = {"wq": w((L, D, D)), "wk": w((L, D, KV)), "wv": w((L, D, KV)),
+              "wo": w((L, D, D))}
+    if cfg.is_moe:
+        E = cfg.n_experts
+        layers.update(moe_router=w((L, D, E), torch.float32), moe_up=w((L, E, D, H)),
+                      moe_gate=w((L, E, D, H)), moe_down=w((L, E, H, D)))
+    else:
+        layers.update(w1=w((L, D, H)), w2=w((L, H, D)), w3=w((L, D, H)))
+    layers.update({n: torch.ones((L, D), device=device) for n in _layer_vectors(cfg)})
+    return {"embedding": w((cfg.vocab_size, D), torch.float32),
+            "rms_final": torch.ones(D, device=device),
+            "wcls": w((D, cfg.vocab_size)), "layers": layers}
 
 
 def init_cache(cfg: ModelConfig, cache_dtype=torch.float32, device=None,
@@ -955,3 +996,125 @@ def forward_batched_verify_overlap(cfg: ModelConfig, params: dict, rope: dict,
                                         r1 - r0, r0, tp, tp_compress, red)
                           for r0, r1 in ((0, h), (h, B))))
     return _classify(cfg, params, torch.cat([xa, xb]), tp).reshape(B, T, -1), cache
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+def train_block(grid, B: int, T: int) -> tuple:
+    """(rows, (c0, c1)) of a rank's block of a [B, T] batch on ``grid``:
+    its ``dp`` slice of the rows and its ``sp`` chunk of the positions."""
+    if grid is None:
+        return slice(0, B), (0, T)
+    dp, sp = grid.size("dp"), grid.size("sp")
+    if B % dp or T % sp:
+        raise ValueError(f"batch [{B}, {T}] does not split over dp={dp}, sp={sp}")
+    b, c = B // dp, T // sp
+    i, j = grid.index("dp"), grid.index("sp")
+    return slice(i * b, (i + 1) * b), (j * c, (j + 1) * c)
+
+
+def _causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dense causal GQA attention of JAX ``llama.py:1563-1570``: f32 scores
+    masked with -1e30, softmax, back to q's dtype. q [B, T, Hq, D], k and v
+    [B, T, Hkv, D] (a rank's heads under tp) -> [B, T, Hq, D]."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    qf = q.float().reshape(B, T, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("btkgh,bskh->bkgts", qf, k.float())
+    scores = scores / float(np.sqrt(np.float32(D)))
+    scores = torch.where(causal, scores, torch.full((), -1e30, device=q.device))
+    att = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskh->btkgh", att, v.float())
+    return out.reshape(B, T, Hq, D).to(q.dtype)
+
+
+def _row_sum(partial: torch.Tensor, tp, dtype) -> torch.Tensor:
+    """A row shard's partial products summed over ``tp`` (differentiable),
+    in the activation dtype; the product itself without a group."""
+    return partial if tp is None else reduce_from(partial.float(), tp).to(dtype)
+
+
+def _ffn_residual_train(cfg: ModelConfig, lp: dict, x: torch.Tensor, att: torch.Tensor,
+                        grid) -> torch.Tensor:
+    """The post-attention half of a layer under autograd: the arch joins of
+    :func:`_ffn_residual_steps` with the dense FFN (its hidden slice under
+    tp: copy in, w1/w3 column shards, w2 row shard, reduce out) or the MoE
+    FFN's dense combine (``moe.moe_ffn_train``)."""
+    eps = cfg.norm_eps
+    if cfg.is_moe and cfg.post_norms:  # grok1
+        x = x + rmsnorm(att, lp["rms_ffn"], eps)
+        xb = rmsnorm(x, lp["rms_moe"], eps)
+        return x + rmsnorm(moe_ffn_train(cfg, lp, xb, grid), lp["rms_ffn2"], eps)
+    x = x + att
+    xb = rmsnorm(x, lp["rms_ffn"], eps)
+    if cfg.is_moe:
+        return x + moe_ffn_train(cfg, lp, xb, grid)
+    tp = None if grid is None else grid.group("tp")
+    xin = copy_to(xb, tp)
+    h = ACTIVATIONS[cfg.hidden_act](xin @ lp["w1"]) * (xin @ lp["w3"])
+    return x + _row_sum(h @ lp["w2"], tp, x.dtype)
+
+
+def train_layer(cfg: ModelConfig, lp: dict, cos: torch.Tensor, sin: torch.Tensor,
+                x: torch.Tensor, grid=None) -> torch.Tensor:
+    """One cache-free causal layer on x [B, T, dim] (JAX ``llama.py:1536``),
+    shared by :func:`forward_train` and the pipeline's stages. ``cos``/``sin``
+    are the rope rows of x's positions, [1, T, 1, hd/2]. On ``grid``: the
+    rank's heads from its column shards of wq/wk/wv, its row shard of wo
+    summed over ``tp``, ring attention over ``sp``."""
+    B, T = x.shape[:2]
+    hd = cfg.head_size
+    tp = None if grid is None else grid.group("tp")
+    sp = None if grid is None else grid.group("sp")
+    xin = copy_to(rmsnorm(x, lp["rms_att"], cfg.norm_eps), tp)
+    q = (xin @ lp["wq"]).reshape(B, T, -1, hd)
+    k = (xin @ lp["wk"]).reshape(B, T, -1, hd)
+    v = (xin @ lp["wv"]).reshape(B, T, -1, hd)
+    q = apply_rope(q, cos, sin, cfg.rope_style)
+    k = apply_rope(k, cos, sin, cfg.rope_style)
+    out = ring_self_attention(q, k, v, sp) if sp is not None else _causal_attention(q, k, v)
+    att = _row_sum(out.reshape(B, T, -1) @ lp["wo"], tp, x.dtype)
+    return _ffn_residual_train(cfg, lp, x, att, grid)
+
+
+def train_rope(cfg: ModelConfig, rope: dict, c0: int, c1: int) -> tuple:
+    """The rope rows of positions [c0, c1) as [1, T, 1, hd/2] f32."""
+    return (rope["cos"][c0:c1][None, :, None, :], rope["sin"][c0:c1][None, :, None, :])
+
+
+def train_logits(cfg: ModelConfig, params: dict, x: torch.Tensor, grid=None) -> torch.Tensor:
+    """The final norm and the classifier on x [..., dim]: f32 logits
+    (JAX: ``(x @ wcls)`` cast to f32, times ``logit_scale``). A vocab-sharded
+    wcls's logits are gathered whole."""
+    x = rmsnorm(x, params["rms_final"], cfg.norm_eps)
+    tp = None if grid is None else grid.group("tp")
+    if tp is not None and params["wcls"].shape[-1] != cfg.vocab_size:
+        logits = gather_from((copy_to(x, tp) @ params["wcls"]).float(), tp)
+    else:
+        logits = (x @ params["wcls"]).float()
+    return logits * cfg.logit_scale if cfg.logit_scale != 1.0 else logits
+
+
+def forward_train(cfg: ModelConfig, params: dict, tokens, rope: dict = None,
+                  grid=None) -> torch.Tensor:
+    """Batched cache-free causal forward: tokens [B, T] -> logits [B, T,
+    vocab] f32, differentiable in the dense leaves of ``params`` (JAX
+    ``llama.py:1485``). The same math per position as :func:`forward`, the
+    attention over the in-flight K/V of the sequence instead of a cache.
+
+    ``grid`` (a ``parallel.group.Mesh``): ``tokens`` is the whole batch on
+    every rank and the result is this rank's block [B / dp, T / sp, vocab]
+    (:func:`train_block`); ``params`` are the rank's shards
+    (``sharding.shard_mesh_params``)."""
+    dev = params["embedding"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    rows, (c0, c1) = train_block(grid, *tokens.shape)
+    x = embed(cfg, params, tokens[rows, c0:c1])
+    cos, sin = train_rope(cfg, rope if rope is not None else rope_tables(cfg, dev), c0, c1)
+    layers = params["layers"]
+    for i in range(layers["wq"].shape[0]):
+        x = train_layer(cfg, _layer_params(layers, i), cos, sin, x, grid)
+    return train_logits(cfg, params, x, grid)

@@ -35,6 +35,13 @@ n_experts / ep on a grid), its combine weights cut to those experts, and one
 JAX package's GSPMD partitions from the same einsums. Routing stays
 replicated, in f32, on the same bits on every rank.
 
+Training (``moe_ffn_train``) runs the dense combine under autograd, as the
+JAX package's ``forward_train`` does; on a mesh's ``ep x tp`` plane the
+rank's experts and hidden slice give partial outputs summed by the
+differentiable ``grad_collectives.reduce_from``, and the input and the
+combine weights enter through ``copy_to``, so their gradients (the router's
+with them) are the plane's sums on every rank.
+
 Top-k order: ``jax.lax.top_k`` puts the lowest index first among equal
 values. A stable descending sort does the same (``torch.topk`` promises
 no order among ties). The order matters beyond the indices: the selected
@@ -50,6 +57,7 @@ from dllama_tpu_torch.models.config import ModelConfig
 from dllama_tpu_torch.ops.activations import ACTIVATIONS
 from dllama_tpu_torch.ops.qmatmul import QuantTensor, matmul_any, slice_to_in_features
 from dllama_tpu_torch.parallel.collectives import gather_columns, reduce_columns
+from dllama_tpu_torch.parallel.grad_collectives import copy_to, reduce_from
 
 
 def top_k(v: torch.Tensor, k: int) -> tuple:
@@ -204,3 +212,23 @@ def moe_ffn(cfg: ModelConfig, lp: dict, xb: torch.Tensor, layer=None, tp=None,
     h = slice_to_in_features(gather_columns(h, tp, tp_compress), lp["moe_down"])
     down = _expert_down(h, lp["moe_down"], layer)
     return gather_columns(torch.einsum("...ed,...e->...d", down, combine), tp, tp_compress)
+
+
+def moe_ffn_train(cfg: ModelConfig, lp: dict, xb: torch.Tensor, grid=None) -> torch.Tensor:
+    """The dense combine under autograd on dense expert stacks: the whole
+    FFN without a mesh (``moe_ffn``'s dense path), or a rank's part on a
+    mesh's ``ep x tp`` plane: its ``n_experts / ep`` experts' hidden slices
+    weighted by their columns of the combine weights, summed over the plane.
+    Routing runs replicated in f32 on every rank."""
+    plane = None if grid is None else grid.group("ep", "tp")
+    if plane is None:
+        return moe_ffn(cfg, lp, xb)
+    act = ACTIVATIONS[cfg.hidden_act]
+    combine = copy_to(route(cfg, lp["moe_router"], xb).to(xb.dtype), plane)  # [..., E]
+    held = lp["moe_down"].shape[0]
+    lo = grid.index("ep") * held
+    xin = copy_to(xb, plane)
+    h = _expert_up(xin, lp["moe_up"]) * act(_expert_up(xin, lp["moe_gate"]))
+    part = torch.einsum("...ed,...e->...d", _expert_down(h, lp["moe_down"]),
+                        combine[..., lo:lo + held])
+    return reduce_from(part.float(), plane).to(xb.dtype)

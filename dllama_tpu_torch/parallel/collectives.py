@@ -224,18 +224,19 @@ def rms_inv_scattered_steps(x_s: torch.Tensor, group, full_dim: int, eps: float)
     return torch.reciprocal(torch.sqrt(ss / full_dim + eps))
 
 
-def _start_ring_hop(payload: torch.Tensor, group) -> Pending:
-    """Issue one ring hop: send ``payload`` to rank + 1, receive the same
-    shape from rank - 1. Over gloo a CUDA payload goes through host memory
-    (gloo's send and receive take CPU tensors). Counts the payload sent."""
+def _start_ring_hop(payload: torch.Tensor, group, step: int = 1) -> Pending:
+    """Issue one ring hop: send ``payload`` to rank + ``step``, receive the
+    same shape from rank - ``step``. Over gloo a CUDA payload goes through
+    host memory (gloo's send and receive take CPU tensors). Counts the
+    payload sent."""
     dev = payload.device
     staged = group.backend == "gloo" and dev.type != "cpu"
     send = payload.cpu() if staged else payload.contiguous()
     recv = torch.empty_like(send)
     # peers by world rank: a grid's tp subgroup need not start at world rank 0
-    ops = [dist.P2POp(dist.isend, send, group.global_rank((group.rank + 1) % group.size),
+    ops = [dist.P2POp(dist.isend, send, group.global_rank((group.rank + step) % group.size),
                       group.pg),
-           dist.P2POp(dist.irecv, recv, group.global_rank((group.rank - 1) % group.size),
+           dist.P2POp(dist.irecv, recv, group.global_rank((group.rank - step) % group.size),
                       group.pg)]
     works = dist.batch_isend_irecv(ops)
     group.sent_bytes += send.numel() * send.element_size()

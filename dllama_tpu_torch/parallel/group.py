@@ -47,12 +47,11 @@ class TPGroup:
     the default world), and ``sent_bytes``, the bytes its gathers sent
     (an all-gather receives as many: the Engine's S/R figures).
 
-    A group's ranks are consecutive ranks of the world. In an ``ep x tp``
-    grid (:func:`make_grid`) the group is the rank's ``tp`` subgroup, the
-    world's ranks [ep_rank·size, (ep_rank + 1)·size), ``ep_rank`` its row of
-    ``ep``, and ``world`` the whole grid (the expert-parallel MoE FFN
-    reduces over it); elsewhere ``world`` is None and the group holds the
-    world's first ``size`` ranks."""
+    A group holds the world's first ``size`` ranks, or the ranks
+    ``members`` (a line of a :class:`Mesh`). In an ``ep x tp`` grid
+    (:func:`make_grid`) the group is the rank's ``tp`` line, ``ep_rank``
+    its row of ``ep``, and ``world`` the whole grid (the expert-parallel
+    MoE FFN reduces over it); elsewhere ``world`` is None."""
 
     rank: int
     size: int
@@ -63,11 +62,14 @@ class TPGroup:
     ep: int = 1
     ep_rank: int = 0
     world: Optional["TPGroup"] = None
+    #: the world ranks of the group, in group-rank order, where they are
+    #: not the world's first ``size`` (a line of a :class:`Mesh`)
+    members: Optional[tuple] = None
 
     def global_rank(self, rank: int) -> int:
         """The world rank of this group's ``rank`` (what ``torch.distributed``
         takes as a peer or a source)."""
-        return self.ep_rank * self.size + rank
+        return rank if self.members is None else self.members[rank]
 
     @property
     def grid(self) -> "TPGroup":
@@ -132,21 +134,103 @@ def subgroup(world: TPGroup, n: int) -> Optional[TPGroup]:
 
 
 def make_grid(world: TPGroup, ep: int) -> TPGroup:
-    """This rank's ``tp`` subgroup of an ``ep x tp`` grid over ``world``
-    (tp = size / ep): world rank r sits at (r // tp, r % tp), the axis
-    order of the JAX package's ``make_mesh({"ep": ep, "tp": tp})``. Making
-    groups is collective: every rank of the world calls this, and every
-    rank makes every subgroup, in one order. At ``ep`` 1 the grid is the
-    world itself."""
+    """This rank's ``tp`` line of the ``ep x tp`` grid
+    ``make_mesh(world, {"ep": ep, "tp": size / ep})``: world rank r sits at
+    (r // tp, r % tp), the axis order of the JAX package's ``make_mesh``.
+    Making groups is collective: every rank of the world calls this. At
+    ``ep`` 1 the grid is the world itself."""
     if ep < 1 or world.size % ep:
         raise ValueError(f"ep={ep} must divide the world's {world.size} ranks")
     if ep == 1:
         return world
-    tp = world.size // ep
-    pgs = [dist.new_group(list(range(e * tp, (e + 1) * tp))) for e in range(ep)]
-    e = world.rank // tp
-    return TPGroup(world.rank % tp, tp, world.device, world.backend, pgs[e], ep=ep,
-                   ep_rank=e, world=world)
+    mesh = make_mesh(world, {"ep": ep, "tp": world.size // ep})
+    line = mesh.group("tp")
+    if line is None:  # tp 1: each rank's line is the rank alone
+        pgs = [dist.new_group([world.global_rank(r)]) for r in range(world.size)]
+        line = TPGroup(0, 1, world.device, world.backend, pgs[world.rank],
+                       members=(world.global_rank(world.rank),))
+    return dataclasses.replace(line, ep=ep, ep_rank=mesh.index("ep"), world=world)
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A rank's place on a named grid over a world (:func:`make_mesh`):
+    ``sizes`` the ordered {axis: size}, ``coords`` the rank's index on each
+    axis, ``groups`` the :class:`TPGroup` of the rank's line along each axis
+    (and along each plane of axes made), None where the line holds this rank
+    alone. An axis the mesh lacks has size 1."""
+
+    sizes: dict
+    coords: dict
+    groups: dict
+    world: TPGroup
+
+    def size(self, *axes: str) -> int:
+        n = 1
+        for a in axes:
+            n *= self.sizes.get(a, 1)
+        return n
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, *axes: str) -> Optional[TPGroup]:
+        """The group of the ranks that differ from this one only on
+        ``axes`` (axes the mesh lacks are dropped); None when that line is
+        this rank alone."""
+        key = tuple(a for a in self.sizes if a in axes and self.sizes[a] > 1)
+        return self.groups[key] if key else None
+
+
+#: the planes of several axes a mesh also makes a group for: the expert
+#: FFN reduces over the whole ``ep x tp`` plane
+MESH_PLANES = (("ep", "tp"),)
+
+
+def make_mesh(world: TPGroup, axes: dict) -> Mesh:
+    """This rank's :class:`Mesh` of the grid ``axes`` (an ordered {axis:
+    size} whose sizes multiply to ``world.size``) over ``world``: the
+    counterpart of the JAX package's ``make_mesh``. The last axis is the
+    innermost: world rank r sits at ``np.unravel_index(r, sizes)``, as JAX
+    reshapes its devices. Each axis (and each plane of
+    :data:`MESH_PLANES` the mesh holds) gets one subgroup per line of the
+    other axes; a line that is the whole world is ``world`` itself. Making
+    groups is collective: every rank of the default world calls this, and
+    every rank makes every subgroup, in one order."""
+    import numpy as np
+
+    names = list(axes)
+    sizes = [int(axes[a]) for a in names]
+    if any(n < 1 for n in sizes) or int(np.prod(sizes)) != world.size:
+        raise ValueError(f"mesh {axes} does not cover the world's {world.size} ranks")
+    grid = np.arange(world.size).reshape(sizes)
+    here = np.unravel_index(world.rank, sizes)
+    coords = {a: int(i) for a, i in zip(names, here)}
+    planes = [(a,) for a in names if axes[a] > 1]
+    planes += [p for p in MESH_PLANES
+               if all(a in axes for a in p) and sum(axes[a] > 1 for a in p) > 1]
+    groups: dict = {}
+    for plane in planes:
+        keep = sorted(names.index(a) for a in plane)  # the key Mesh.group looks up
+        plane = tuple(names[i] for i in keep)
+        rest = [i for i in range(len(names)) if i not in keep]
+        lines = np.moveaxis(grid, keep + rest, list(range(len(names))))
+        lines = lines.reshape(int(np.prod([sizes[i] for i in keep])), -1).T
+        mine = None
+        for line in lines:
+            members = tuple(world.global_rank(int(r)) for r in line)
+            if len(line) == world.size:
+                pg = world.pg
+            else:
+                if world.size != dist.get_world_size():
+                    raise ValueError("a mesh with a proper sub-line is made on the whole "
+                                     "default world")
+                pg = dist.new_group(list(members))
+            if world.rank in line:
+                mine = TPGroup(int(list(line).index(world.rank)), len(line), world.device,
+                               world.backend, pg, members=members)
+        groups[plane] = mine
+    return Mesh(dict(axes), coords, groups, world)
 
 
 def _rank_main(rank, size, backend, device, init_method, timeout_s, fn, args):

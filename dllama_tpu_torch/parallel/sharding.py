@@ -25,6 +25,10 @@ path's lane padding (``parallel.quant_tp``). Kernels are stored ``[in,
 out]`` with a leading layer axis (and an expert axis for the stacks), so
 an "output" shard cuts the last axis and an "input" shard the one before.
 
+On a training mesh (``group.make_mesh``, :func:`mesh_specs`) the layer
+stacks also shard their leading layer axis over ``pp`` (a pipeline stage's
+layers), and every leaf is replicated over ``dp`` and ``sp``.
+
 The table (:func:`param_specs`) names, for each leaf and each of its axes,
 the grid axis that shards it (``"tp"``, ``"ep"`` or None), the content of
 the JAX package's PartitionSpecs; :func:`shard_params` cuts a rank's leaves
@@ -42,6 +46,7 @@ from dllama_tpu_torch.ops.qmatmul import QuantTensor, decode_rows
 
 TP = "tp"
 EP = "ep"
+PP = "pp"
 #: file rows decoded at a time while loading (bounds the f32 staging)
 LOAD_BAND_ROWS = 16384
 
@@ -166,11 +171,72 @@ def shard_params(params: dict, cfg: ModelConfig, rank: int, size: int, ep: int =
     counterpart of the JAX package's ``shard_params`` (its
     ``addressable_shards``)."""
     pos = grid_position(rank, size, ep)
-    specs = checked_specs(cfg, pos[TP][1], ep)
+    return _cut_params(params, checked_specs(cfg, pos[TP][1], ep), pos)
+
+
+def _cut_params(params: dict, specs: dict, pos: dict) -> dict:
     out = {k: cut_leaf(params[k], specs[k], pos) for k in ("embedding", "rms_final", "wcls")}
     out["layers"] = {n: cut_leaf(leaf, specs["layers"][n], pos)
                      for n, leaf in params["layers"].items()}
     return out
+
+
+def mesh_specs(cfg: ModelConfig, mesh) -> dict:
+    """The table of a ``group.Mesh``: :func:`param_specs` at its ``tp`` and
+    ``ep`` sizes, the layer stacks' leading axis over ``pp`` when it has one
+    (a pipeline's stage holds n_layers / pp consecutive layers)."""
+    return specs_at(cfg, mesh.size(TP), mesh.size(EP), mesh.size(PP))
+
+
+def specs_at(cfg: ModelConfig, n_tp: int, ep: int = 1, pp: int = 1) -> dict:
+    """:func:`mesh_specs` from the axis sizes."""
+    specs = checked_specs(cfg, n_tp, ep)
+    if pp > 1:
+        if cfg.n_layers % pp:
+            raise ValueError(f"n_layers {cfg.n_layers} not divisible by pp={pp}")
+        specs["layers"] = {n: (PP,) + spec[1:] for n, spec in specs["layers"].items()}
+    return specs
+
+
+def leaf_specs(specs: dict) -> dict:
+    """A table as {leaf path: spec}: the top-level leaves, then
+    ``layers/<name>`` (``runtime.train.leaf_items``' paths)."""
+    out = {k: v for k, v in specs.items() if k != "layers"}
+    out.update({f"layers/{n}": v for n, v in specs["layers"].items()})
+    return out
+
+
+def unshard_leaves(cfg: ModelConfig, parts: list) -> dict:
+    """The whole leaves {path: numpy} from every rank's shards: ``parts`` is
+    [(position, {path: numpy shard})], each position a rank's
+    :func:`mesh_position` (ranks that replicate one another may repeat)."""
+    pos0 = parts[0][0]
+    specs = leaf_specs(specs_at(cfg, pos0[TP][1], pos0[EP][1], pos0[PP][1]))
+    out = {}
+    for name, spec in specs.items():
+        shard = np.asarray(parts[0][1][name])
+        full = np.zeros([d * (pos0[a][1] if a else 1) for d, a in zip(shard.shape, spec)],
+                        shard.dtype)
+        for pos, leaves in parts:
+            full[tuple(slice(pos[a][0] * d, (pos[a][0] + 1) * d) if a else slice(None)
+                       for d, a in zip(shard.shape, spec))] = leaves[name]
+        out[name] = full
+    return out
+
+
+def mesh_position(mesh) -> dict:
+    """{axis: (index, size)} of a ``group.Mesh`` rank on the axes that cut
+    leaves (tp, ep, pp; size 1 where the mesh lacks one)."""
+    return {a: (mesh.index(a), mesh.size(a)) for a in (TP, EP, PP)}
+
+
+def shard_mesh_params(params: dict, cfg: ModelConfig, mesh) -> dict:
+    """A mesh rank's dense leaves of the whole ``params`` (numpy or torch):
+    every leaf cut by :func:`mesh_specs` at the rank's place, torch out, on
+    the device the leaf was on. Without a mesh, the leaves as tensors."""
+    if mesh is None:
+        return shard_params(params, cfg, 0, 1)
+    return _cut_params(params, mesh_specs(cfg, mesh), mesh_position(mesh))
 
 
 def check_shards(params: dict, cfg: ModelConfig, n_tp: int, ep: int = 1) -> None:

@@ -307,14 +307,14 @@ def stacked_ab(K: int, O: int, device, L: int = 8) -> list:
     """K1 with ``nosub`` False against True over L stacked layers, each call
     taking layer ``i % L`` as a view of the stacked planes (the decode
     loop's form): ms per layer-call and GB/s."""
-    rng = np.random.default_rng(0)
-    qts = [qmatmul.quantize_tensor(rng.standard_normal((K, O)).astype(np.float32) * 0.1, "q40")
-           for _ in range(L)]
-    w = torch.from_numpy(np.stack([q.w for q in qts])).to(device)
-    s = torch.from_numpy(np.stack([q.s for q in qts])).to(device)
-    s2 = torch.from_numpy(np.stack([q.s2 for q in qts])).to(device)
-    x = torch.from_numpy(rng.standard_normal((1, K)).astype(np.float32)).to(device)
-    x = x.to(torch.bfloat16)
+    # random valid planes made on the card (as ``llama.random_quant_params``
+    # makes them): the A/B times bytes only, and quantizing L matrices on
+    # the host would take seconds each
+    gen = torch.Generator(device=device).manual_seed(0)
+    w = torch.randint(0, 256, (L, K // 2, O), dtype=torch.uint8, device=device, generator=gen)
+    s = torch.rand((L, K // 64, O), device=device, generator=gen) * 0.004
+    s2 = torch.rand((L, K // 64, O), device=device, generator=gen) * 0.004
+    x = torch.randn((1, K), device=device, generator=gen).to(torch.bfloat16)
     rows = []
     for name, nosub in (("S-sub", False), ("S-nosub", True)):
         i = iter(range(1 << 30))

@@ -1,7 +1,8 @@
 """The port's package boundary and device rules.
 
 * Importing every module of ``dllama_tpu_torch`` pulls in neither ``jax``
-  nor any module of ``dllama_tpu`` (checked in a fresh interpreter).
+  nor any module of ``dllama_tpu`` (checked in a fresh interpreter), nor
+  ``optax`` or ``orbax``; the training modules are among them.
 * Entry points run on the card unless the caller asks for the CPU: without a
   GPU, ``Engine`` and ``load_engine`` raise instead of quietly moving.
 * A kernel wrapper given CPU tensors runs its plain version and counts no
@@ -39,7 +40,11 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dllama_tpu"))
 print(len(names), "modules;", "foreign:", bad)
 new = {"dllama_tpu_torch.qkernel_experiments", "dllama_tpu_torch.ops.qmatmul",
-       "dllama_tpu_torch.serving.api_server", "dllama_tpu_torch.faults"}
+       "dllama_tpu_torch.serving.api_server", "dllama_tpu_torch.faults",
+       "dllama_tpu_torch.runtime.train", "dllama_tpu_torch.runtime.checkpoint",
+       "dllama_tpu_torch.ops.ring_attention", "dllama_tpu_torch.parallel.pipeline",
+       "dllama_tpu_torch.parallel.grad_collectives", "dllama_tpu_torch.train_tiny_e2e"}
+bad += sorted(m for m in sys.modules if m.split(".")[0] in ("optax", "orbax"))
 sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)
 """
 
