@@ -574,6 +574,9 @@ def build_parser() -> argparse.ArgumentParser:
             "--device", default=None,
             help="torch device to run on (default: cuda; 'cpu' runs the kernels' "
             "plain PyTorch versions)")
+        # the reference's CPU thread count: accepted so its command lines run,
+        # and ignored (the card sets the parallelism)
+        sp.add_argument("--nthreads", type=int, default=None, help=argparse.SUPPRESS)
         sp.add_argument(
             "--tp", type=int, default=1,
             help="tensor-parallel ranks: one process per rank, each on its own GPU "

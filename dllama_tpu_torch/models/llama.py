@@ -66,6 +66,10 @@ dim] rows (K1/K3's tile past 8 rows), rope and the cache write through the
 verify launch form of the rope + cache-write kernel, and attention in plain
 PyTorch (``gqa_attention_batched``), as the reference attends it.
 
+``forward_traced`` is the forward the native export traces
+(``export_native``): dense params, positions as device tensors, the plain
+attention path of the JAX package's default flags, no hand-written kernel.
+
 ``forward_train`` is the cache-free causal forward of the training step
 (``runtime.train``), on dense leaves under autograd: ``torch.matmul``
 products and f32 softmax attention, as the JAX package leaves them to XLA
@@ -950,6 +954,66 @@ def forward_decode(cfg: ModelConfig, params: dict, rope: dict, token: torch.Tens
     view = {"k": cache["k"][:, None], "v": cache["v"][:, None]}
     logits, _ = forward_batched(cfg, params, rope, token, view, pos, cfg.seq_len)
     return logits, cache
+
+
+def forward_traced(cfg: ModelConfig, params: dict, rope: dict, tokens: torch.Tensor,
+                   cache: dict, pos: torch.Tensor, last: torch.Tensor | None = None,
+                   in_place: bool = True) -> tuple:
+    """The forward ``torch.export`` traces: T tokens at the 0-d int tensor
+    ``pos`` -> (logits [T, vocab] f32, or [1, vocab] at row ``last`` (a 0-d
+    int tensor), cache). The JAX package's forward at its default flags, on
+    dense params: the rope rows and the K/V writes start where its
+    ``dynamic_slice`` and ``dynamic_update_slice`` clamp them,
+    ``min(max(pos, 0), S - T)``; attention is ``gqa_attention_batched`` over
+    the layer's whole cache, masked at ``pos``. Nothing reads ``pos`` back
+    and no hand-written kernel launches: this path takes the plain
+    operations by construction, on every device.
+
+    ``in_place``: the caches are written in place (the step and prefill
+    programs); otherwise the returned cache is new and the given one is left
+    as it was (a ``while_loop`` carry, which a loop body must not mutate)."""
+    if cfg.is_moe or has_quant_leaves(params):
+        raise ValueError("forward_traced takes a dense Llama model")
+    T, S = tokens.shape[0], cfg.seq_len
+    start = torch.clamp(pos.long(), 0, S - T)
+    rows = start + torch.arange(T, device=tokens.device)
+    cos = rope["cos"].index_select(0, rows)[:, None, :]
+    sin = rope["sin"].index_select(0, rows)[:, None, :]
+    x = embed(cfg, params, tokens.long())
+    eps, slabs = cfg.norm_eps, {"k": [], "v": []}
+    for i in range(cfg.n_layers):
+        # a plain loop, no layer generators: a while_loop body is traced by
+        # dynamo, which must capture it whole
+        lp = _layer_params(params["layers"], i)
+        q, k, v = (t.reshape(T, -1, cfg.head_size) for t in _qkv(cfg, lp, x))
+        q = apply_rope(q, cos, sin, cfg.rope_style)
+        k = apply_rope(k, cos, sin, cfg.rope_style)
+        layer = {}
+        for name, new in (("k", k), ("v", v)):
+            slab, new = cache[name][i], cast_cache(new, cache[name].dtype)
+            dst, src = slab, new
+            if new.element_size() == 1:
+                # float8 rows move as their bytes: index_copy has no float8
+                # kernel on the CPU
+                dst, src = slab.view(torch.uint8), new.view(torch.uint8)
+            if in_place:
+                dst.index_copy_(0, rows, src)
+            else:
+                slab = dst.index_copy(0, rows, src).view(slab.dtype)
+                slabs[name].append(slab)
+            layer[name] = slab
+        heads = gqa_attention_batched(q[None], layer["k"][None], layer["v"][None],
+                                      pos.reshape(1))
+        x = x + matmul_any(heads.reshape(T, -1), lp["wo"])
+        xn = rmsnorm(x, lp["rms_ffn"], eps)
+        h = ACTIVATIONS[cfg.hidden_act](matmul_any(xn, lp["w1"])) * matmul_any(xn, lp["w3"])
+        x = x + matmul_any(h, lp["w2"])
+    xn = rmsnorm(x, params["rms_final"], eps)
+    if last is not None:
+        xn = xn.index_select(0, last.reshape(1).long())
+    if not in_place:
+        cache = {name: torch.stack(slabs[name]) for name in ("k", "v")}
+    return _classify(cfg, params, xn), cache
 
 
 def _verify_steps(cfg, params, rope, x, cache, pos, B, row0, tp, tp_compress, red):

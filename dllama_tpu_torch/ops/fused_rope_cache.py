@@ -58,8 +58,9 @@ def cast_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype != torch.float8_e4m3fn:
         return x.to(dtype)
     xf = x.float()
-    nan = torch.tensor(float("nan"), dtype=torch.float32, device=x.device)
-    return torch.where(xf.abs() <= _F8_OVERFLOW, xf, nan).to(dtype)
+    # the NaN made by a fill on the device, not copied from the host: a traced
+    # program (the native export) holds no tensor constant
+    return torch.where(xf.abs() <= _F8_OVERFLOW, xf, torch.full_like(xf, float("nan"))).to(dtype)
 
 
 def _start(pos: int, S: int, T: int) -> int:

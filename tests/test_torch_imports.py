@@ -2,7 +2,8 @@
 
 * Importing every module of ``dllama_tpu_torch`` pulls in neither ``jax``
   nor any module of ``dllama_tpu`` (checked in a fresh interpreter), nor
-  ``optax`` or ``orbax``; the training modules are among them.
+  ``optax`` or ``orbax``; the training and native export modules are among
+  them.
 * Entry points run on the card unless the caller asks for the CPU: without a
   GPU, ``Engine`` and ``load_engine`` raise instead of quietly moving.
 * A kernel wrapper given CPU tensors runs its plain version and counts no
@@ -43,7 +44,8 @@ new = {"dllama_tpu_torch.qkernel_experiments", "dllama_tpu_torch.ops.qmatmul",
        "dllama_tpu_torch.serving.api_server", "dllama_tpu_torch.faults",
        "dllama_tpu_torch.runtime.train", "dllama_tpu_torch.runtime.checkpoint",
        "dllama_tpu_torch.ops.ring_attention", "dllama_tpu_torch.parallel.pipeline",
-       "dllama_tpu_torch.parallel.grad_collectives", "dllama_tpu_torch.train_tiny_e2e"}
+       "dllama_tpu_torch.parallel.grad_collectives", "dllama_tpu_torch.train_tiny_e2e",
+       "dllama_tpu_torch.export_native", "dllama_tpu_torch.native_launch"}
 bad += sorted(m for m in sys.modules if m.split(".")[0] in ("optax", "orbax"))
 sys.exit(1 if bad or len(names) < 20 or not new <= set(names) else 0)
 """
